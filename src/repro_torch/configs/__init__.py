@@ -1,0 +1,37 @@
+"""Architecture registry of the port: --arch <id> resolves here."""
+from __future__ import annotations
+
+from typing import Tuple
+
+from repro_torch.configs import smollm_135m
+from repro_torch.configs.base import (GradientFlowConfig, MeshConfig,
+                                      ModelConfig, OptimizerConfig,
+                                      ShapeConfig, TrainConfig)
+
+_MODULES = {"smollm-135m": smollm_135m}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch_id: str):
+    try:
+        return _MODULES[arch_id]
+    except KeyError:
+        raise KeyError(
+            f"architecture {arch_id!r} is not ported to repro_torch yet "
+            f"(ported: {sorted(_MODULES)}); see ROADMAP.md queue A") from None
+
+
+def get_arch(arch_id: str) -> Tuple[ModelConfig, None]:
+    """(full config, rules). The port has no tensor-parallel rule table,
+    so the second entry is None."""
+    return _module(arch_id).CONFIG, None
+
+
+def get_smoke(arch_id: str) -> Tuple[ModelConfig, None]:
+    return _module(arch_id).SMOKE, None
+
+
+__all__ = ["ARCH_IDS", "GradientFlowConfig", "MeshConfig", "ModelConfig",
+           "OptimizerConfig", "ShapeConfig", "TrainConfig", "get_arch",
+           "get_smoke"]

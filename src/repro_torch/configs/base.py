@@ -1,0 +1,143 @@
+"""Configuration dataclasses of the PyTorch port.
+
+Field for field the same as the JAX package's ``configs/base.py`` (same
+names, same defaults), so a config written for one package reads the same
+in the other. ``GradientFlowConfig.topology`` holds the port's own minimal
+``Topology`` (``repro_torch.parallel.topology``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+from repro_torch.parallel.topology import Topology
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture config. The port builds ``family='dense'`` only."""
+
+    name: str = "model"
+    family: str = "dense"
+    num_layers: int = 4
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0  # 0 => d_model // num_heads
+    d_ff: int = 1024
+    vocab_size: int = 32000
+    max_seq_len: int = 8192
+    norm: str = "rmsnorm"
+    qk_norm: bool = False
+    activation: str = "swiglu"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    hybrid_attn_every: int = 6
+    num_vision_tokens: int = 0
+    num_codebooks: int = 0
+    param_dtype: str = "float32"     # master storage dtype
+    compute_dtype: str = "bfloat16"  # fwd/bwd compute dtype
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientFlowConfig:
+    """The communication backend's settings (see the JAX package for the
+    meaning of each field). The port runs ``mode`` 'dense' and 'lazy',
+    ``wire_format='native'``, ``overlap='staged'`` and the flat collective;
+    the rest raise ``NotImplementedError`` where they would be used."""
+
+    mode: str = "lazy"
+    bucket_elems: int = 16 * 1024 * 1024
+    wire_dtype: str = "bfloat16"
+    chunk_elems: int = 32768
+    sparsity: float = 0.85
+    momentum: float = 0.9
+    warmup_steps: int = 0
+    warmup_stages: int = 4
+    reduce_axes: Tuple[str, ...] = ("data",)
+    collective_algo: str = "auto"
+    topology: Optional[Topology] = None
+    auto_bucket: bool = False
+    overlap: str = "staged"
+    wire_format: str = "native"
+    error_feedback: bool = True
+    pipeline_tail_buckets: int = 0
+    use_kernels: bool = False
+    guard: Optional[Any] = None
+
+    @property
+    def csc_enabled(self) -> bool:
+        return self.mode == "csc"
+
+    @property
+    def guarded(self) -> bool:
+        return self.guard is not None
+
+    @property
+    def quantized(self) -> bool:
+        return self.wire_format not in (None, "native")
+
+    @property
+    def feedback_enabled(self) -> bool:
+        return self.quantized and self.error_feedback
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "momentum_sgd"  # the port runs 'momentum_sgd' only
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    lars_eta: float = 0.001
+    lars_eps: float = 1e-9
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 200
+    total_steps: int = 10000
+    schedule: str = "warmup_cosine"
+    grad_clip_norm: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input-shape cell."""
+
+    name: str = "train_4k"
+    seq_len: int = 4096
+    global_batch: int = 256
+    kind: str = "train"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    gradientflow: GradientFlowConfig = dataclasses.field(
+        default_factory=GradientFlowConfig)
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=OptimizerConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    seq_len: int = 4096
+    global_batch: int = 256
+    microbatches: int = 1
+    remat: str = "layer"  # 'none' | 'layer'
+    scan_layers: bool = True
+    attn_chunk: int = 1024
+    causal_skip: bool = False
+    window_steps: int = 1
+    seed: int = 0
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,50 @@
+"""Deterministic synthetic token stream (numpy).
+
+Tokens follow an order-1 Markov chain over a fixed random successor table
+(each token has ``branching`` likely successors), so cross-entropy has
+headroom below log(V): a model that learns the successor table reaches
+log(branching). Learning it takes many batches at a large vocabulary;
+over a few steps on fresh batches the loss of a full-vocabulary model
+need not fall.
+Batch t is a pure function of (seed, step, row), so any shard count sees
+the same global sample set. The JAX package draws the same kind of stream
+from ``jax.random``; the bits differ, and tests hand both packages the
+same numpy batches instead.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+class SyntheticLM:
+    def __init__(self, vocab_size: int, seed: int = 0, branching: int = 4):
+        self.vocab = vocab_size
+        self.seed = seed
+        self.branching = branching
+        rng = np.random.RandomState(seed)
+        self.succ = rng.randint(0, vocab_size, size=(vocab_size, branching))
+
+    def batch_numpy(self, step: int, batch_size: int, seq_len: int,
+                    shard: int = 0) -> Dict[str, np.ndarray]:
+        """This shard's batch for global ``step`` as int64 numpy arrays."""
+        rows = shard * batch_size + np.arange(batch_size)
+        rngs = [np.random.default_rng([self.seed, step, int(r)])
+                for r in rows]
+        tok = np.array([g.integers(0, self.vocab) for g in rngs])
+        choices = np.stack([g.integers(0, self.branching, seq_len + 1)
+                            for g in rngs])
+        toks = np.empty((batch_size, seq_len + 1), dtype=np.int64)
+        for t in range(seq_len + 1):
+            tok = self.succ[tok, choices[:, t]]
+            toks[:, t] = tok
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def batch(self, step: int, batch_size: int, seq_len: int,
+              shard: int = 0) -> Dict[str, torch.Tensor]:
+        """The same batch as int64 CPU tensors."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in self.batch_numpy(step, batch_size, seq_len,
+                                             shard).items()}

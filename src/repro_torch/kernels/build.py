@@ -1,0 +1,94 @@
+"""Build the CUDA kernels at first use and load them with ``ctypes``.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface; all sources compile at once,
+one ``nvcc`` process each. Libraries are named by a hash of their source
+and flags, so an edited source rebuilds and an unchanged one loads from
+the build directory (``kernels/_build/``, listed in ``.gitignore``). The
+compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
+kept in ``<lib>.log`` beside each library.
+
+Nothing here runs at import time: the CPU tests import every module of
+the package on machines with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+SOURCES = {"pool_pack": "pool_pack.cu", "pool_unpack": "pool_unpack.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the repro_torch CUDA kernels are "
+                       "built at first use and need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile every source not built yet (in parallel), load every
+    library, and return them by name. Raises if a build fails."""
+    missing = [n for n in SOURCES if n not in _loaded]
+    if not missing:
+        return _loaded
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs: List = []
+    for name in missing:
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.parent / f"{lib.stem}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / SOURCES[name])]
+        log = open(lib.with_suffix(".log"), "w")
+        procs.append((name, lib, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{name} (nvcc exit {rc}; see "
+                          f"{lib.with_suffix('.log')})")
+            continue
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + ", ".join(failed))
+    for name in missing:
+        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _loaded
+
+
+def library(name: str) -> ctypes.CDLL:
+    return build_all()[name]
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for one library (empty if it was loaded from
+    an earlier build in this directory)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

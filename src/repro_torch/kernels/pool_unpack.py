@@ -1,0 +1,150 @@
+"""Pool unpack + momentum-SGD update: the CUDA kernel
+(``csrc/pool_unpack.cu``), its wrapper, and its plain PyTorch version.
+
+Replaces the Pallas kernel ``repro/kernels/pool_unpack.py::
+pool_unpack_update`` (body ``_kernel``; the math is
+``repro/kernels/fused_update.py::update_math``, carried here as
+``update_math``): the masked momentum-SGD step of Algorithm 1 over one
+pool span, with an optional per-element ``scale`` or per-tensor
+``ratios``, writing the new momentum and scattering the new master values
+straight into the per-tensor leaves.
+
+In place: the port writes the new momentum into ``out_momentum`` and the
+new master values into ``out_leaves``, which may be the momentum buffer
+and the parameter tensors themselves. That is safe because the master
+span was packed from the parameters before the update, and it saves the
+pool-sized output buffer the JAX kernel allocates.
+
+Bound on an H100: bytes — 21 B an element (reads of master, grads and
+momentum at 4 B and the mask at 1 B; writes of momentum and the leaf at
+4 B), 3.35 TB/s on the SXM card. The kernel's design for that bound is in
+the note at the top of the source.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.pool_pack import check_segments, segment_table
+
+update_math = ref.update_math
+
+
+def _lib():
+    fn = build.library("pool_unpack").pool_unpack_update_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                       p, p, p, p, p, p, ctypes.c_float, ctypes.c_float,
+                       p, p, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _outputs(master, momentum_buf, sizes, out_leaves, out_momentum):
+    if out_leaves is None:
+        out_leaves = [torch.empty((s,), dtype=master.dtype,
+                                  device=master.device) for s in sizes]
+    if out_momentum is None:
+        out_momentum = torch.empty_like(momentum_buf)
+    return list(out_leaves), out_momentum
+
+
+def launch(master: torch.Tensor, grads: torch.Tensor,
+           momentum_buf: torch.Tensor, mask: torch.Tensor,
+           offsets: Sequence[int], sizes: Sequence[int], *, lr,
+           momentum: float, weight_decay: float,
+           scale: Optional[torch.Tensor] = None,
+           ratios: Optional[torch.Tensor] = None,
+           out_leaves: Optional[Sequence[torch.Tensor]] = None,
+           out_momentum: Optional[torch.Tensor] = None,
+           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Launch the update kernel on the span's CUDA device and current
+    stream. ``lr`` is an f32 scalar (a float or a 0-dim tensor). Returns
+    (leaves in segment-table order, new momentum): ``out_leaves`` /
+    ``out_momentum`` when given (``out_momentum`` may be
+    ``momentum_buf``), else new tensors."""
+    device = master.device
+    if device.type != "cuda":
+        raise ValueError(f"the pool_unpack_update kernel runs on CUDA, got "
+                         f"{device}")
+    n = master.shape[0]
+    if scale is not None and ratios is not None:
+        raise ValueError("pass scale OR ratios, not both")
+    for name, t, dt in (("master", master, torch.float32),
+                        ("grads", grads, torch.float32),
+                        ("momentum", momentum_buf, torch.float32),
+                        ("mask", mask, torch.bool),
+                        ("scale", scale, torch.float32)):
+        if t is not None and (t.shape != (n,) or t.dtype != dt
+                              or t.device != device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dt}[{n}] on "
+                             f"{device}, got {t.dtype}{list(t.shape)} on "
+                             f"{t.device}")
+    if ratios is not None and (ratios.dtype != torch.float32
+                               or ratios.device != device
+                               or ratios.shape[0] not in (len(sizes),
+                                                          len(sizes) + 1)):
+        raise ValueError("ratios must be f32[num_tensors(+1)] on the device")
+    out_leaves, out_momentum = _outputs(master, momentum_buf, sizes,
+                                        out_leaves, out_momentum)
+    if any(x.dtype != torch.float32 for x in out_leaves):
+        raise TypeError("the pool_unpack_update kernel writes f32 leaves")
+    check_segments(out_leaves, offsets, sizes, n, device)
+    if (out_momentum.shape != (n,) or out_momentum.dtype != torch.float32
+            or out_momentum.device != device
+            or not out_momentum.is_contiguous()):
+        raise ValueError("out_momentum must be contiguous f32[n] on the "
+                         "device")
+    lr_t = torch.as_tensor(lr, dtype=torch.float32)
+    if lr_t.device != device:
+        lr_t = lr_t.pin_memory().to(device, non_blocking=True)
+    lr_t = lr_t.reshape(1)
+    ratios_c = ratios.contiguous() if ratios is not None else None
+    table = segment_table(out_leaves, offsets, sizes, device)
+    covered = offsets[-1] + sizes[-1] if sizes else 0
+    fn = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(table.data_ptr(), len(sizes), covered, n,
+                 master.data_ptr(), grads.data_ptr(), momentum_buf.data_ptr(),
+                 out_momentum.data_ptr(), mask.view(torch.uint8).data_ptr(),
+                 lr_t.data_ptr(), momentum, weight_decay,
+                 scale.data_ptr() if scale is not None else None,
+                 ratios_c.data_ptr() if ratios_c is not None else None,
+                 ratios_c.shape[0] if ratios_c is not None else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"pool_unpack_update kernel launch failed: CUDA "
+                           f"error {err}")
+    return out_leaves, out_momentum
+
+
+def plain(master: torch.Tensor, grads: torch.Tensor,
+          momentum_buf: torch.Tensor, mask: torch.Tensor,
+          offsets: Sequence[int], sizes: Sequence[int], *, lr,
+          momentum: float, weight_decay: float,
+          scale: Optional[torch.Tensor] = None,
+          ratios: Optional[torch.Tensor] = None,
+          out_leaves: Optional[Sequence[torch.Tensor]] = None,
+          out_momentum: Optional[torch.Tensor] = None,
+          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The kernel's function in PyTorch ops, on any device, with the same
+    outputs as ``launch`` (leaves copied into ``out_leaves`` and the
+    momentum into ``out_momentum`` when given; a leaf of another dtype is
+    cast, as the JAX optimizer casts leaves to their declared dtype)."""
+    leaves, new_mom = ref.pool_unpack_update(
+        master, grads, momentum_buf, mask, offsets, sizes, lr=lr,
+        momentum=momentum, weight_decay=weight_decay, scale=scale,
+        ratios=ratios)
+    if out_leaves is not None:
+        for dst, src in zip(out_leaves, leaves):
+            dst.copy_(src)
+        leaves = list(out_leaves)
+    if out_momentum is not None:
+        out_momentum.copy_(new_mom)
+        new_mom = out_momentum
+    return leaves, new_mom

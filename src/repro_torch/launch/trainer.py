@@ -1,0 +1,135 @@
+"""The training step: model + GradientFlow + optimizer, in PyTorch.
+
+One step, as ``repro/launch/trainer.py`` runs it under the default
+``GradientFlowConfig`` (lazy, bf16 wire, staged overlap, flat collective)
+with momentum SGD:
+
+1. forward and backward on the f32 masters cast to ``compute_dtype``
+   (explicit ``.to``, not autocast), so the gradients come back in f32;
+2. ``GradientPool.pack_into`` writes them into the bf16 wire pool, in the
+   staging buffer the previous step handed back (``TrainState.staging``);
+3. ``OverlapEngine.run`` packs the parameters into the f32 master pool,
+   then per bucket: issue the all-reduce, update the previous bucket.
+
+With ``use_kernels`` the two packs and the per-bucket updates go through
+``kernels.ops``: the CUDA kernels for CUDA tensors, their plain versions
+for CPU tensors. The data-parallel group is the default
+``torch.distributed`` group when one is initialised (each rank passes its
+own batch shard to ``step``); with none, the step is one shard's.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Union
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.engine import OverlapEngine
+from repro_torch.core.gradientflow import GFState, GradientFlow, wire_dtype_of
+from repro_torch.core.pool import GradientPool
+from repro_torch.models import build_model
+from repro_torch.optim import init_state as opt_init_state
+from repro_torch.optim import lr_at
+from repro_torch.parallel import collectives
+
+_ROADMAP = "is not ported to repro_torch yet; see ROADMAP.md queue A"
+
+
+class TrainState(NamedTuple):
+    params: Any          # nested dict of f32 master tensors
+    opt: Any             # SGDState, pool-shaped momentum
+    gf: GFState
+    step: int
+    staging: Any = None  # the wire-pool buffer the next pack writes into
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig,
+                 device: Optional[Union[str, torch.device]] = None):
+        gf_cfg = cfg.gradientflow
+        if gf_cfg.guarded:
+            raise NotImplementedError("the numeric guard " + _ROADMAP)
+        if gf_cfg.overlap != "staged":
+            raise NotImplementedError(f"overlap={gf_cfg.overlap!r} "
+                                      + _ROADMAP)
+        if cfg.microbatches != 1:
+            raise NotImplementedError("gradient accumulation " + _ROADMAP)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg.model)
+        self.num_data = collectives.data_world_size()
+        self.pool = GradientPool(self.model.param_shapes(), pad_to=1)
+        self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
+        self.gf_cfg = gf_cfg
+        self.opt_name = cfg.optimizer.name
+        self.engine = OverlapEngine(self.gf, self.opt_name, cfg.optimizer)
+        self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
+
+    @property
+    def _pack_dtype(self) -> torch.dtype:
+        """Dense/lazy pack the gradients straight to the wire dtype."""
+        return wire_dtype_of(self.gf_cfg)
+
+    def init_state(self, seed: int = 0,
+                   params: Optional[Dict[str, Any]] = None) -> TrainState:
+        """Fresh state: parameters from ``seed`` (or the given f32 tree,
+        e.g. from ``convert.params_from_numpy``), zero momentum, zero
+        staging buffer."""
+        if params is None:
+            params = self.model.init_params(seed, self.device)
+        else:
+            self.pool.flat_leaves(params)  # shape check
+        return TrainState(
+            params=params,
+            opt=opt_init_state(self.opt_name, self.pool.size, self.device),
+            gf=self.gf.init_state(self.device), step=0,
+            staging=torch.zeros((self.pool.size,), dtype=self._pack_dtype,
+                                device=self.device))
+
+    def build_train_step(self):
+        """``step(state, batch) -> (state, metrics)``. ``batch`` is this
+        rank's {'tokens', 'labels'} (any device; moved to the trainer's).
+        The returned state shares the parameter, momentum and staging
+        tensors of the one passed in, which are updated in place."""
+        cfg = self.cfg
+        plan = self.engine.plan_for()
+        use_k = self.gf_cfg.use_kernels
+
+        def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            batch = {k: v.to(self.device, non_blocking=True)
+                     for k, v in batch.items()}
+            leaves = [p.detach().requires_grad_(True)
+                      for p in self.pool.flat_leaves(state.params)]
+            tracked = self.pool.unflatten(leaves)
+            cp = _tree_map(lambda p: p.to(self.compute_dtype), tracked)
+            loss, metrics = self.model.loss_fn(
+                cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
+                compute_dtype=self.compute_dtype)
+            grads = torch.autograd.grad(loss, leaves)
+            del cp, tracked, leaves, loss
+            gpool, _, staging = self.pool.pack_into(
+                state.staging, self.pool.unflatten(list(grads)),
+                dtype=self._pack_dtype, use_kernels=use_k)
+            del grads
+            lr = lr_at(cfg.optimizer, state.step)
+            if self.device.type == "cuda":
+                lr = lr.pin_memory().to(self.device, non_blocking=True)
+            with torch.no_grad():
+                params, opt, gf = self.engine.run(
+                    plan, gpool, state.params, state.opt, state.gf, lr)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if self.num_data > 1:
+                for v in metrics.values():
+                    collectives.all_reduce_sum(v)
+                    v.div_(self.num_data)
+            return TrainState(params=params, opt=opt, gf=gf,
+                              step=state.step + 1,
+                              staging=staging), metrics
+
+        return step
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}

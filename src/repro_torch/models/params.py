@@ -1,0 +1,73 @@
+"""Parameter declarations and initialisers.
+
+Every parameter is declared as a ``ParamSpec`` (shape + initialiser), as
+in the JAX package; ``init_params`` materialises a nested dict of f32
+tensors from a seeded ``torch.Generator`` on the CPU and moves them to the
+device, so the same seed gives the same weights on every device. The
+generator's bits are not ``jax.random``'s: tests that compare the two
+packages carry weights across with ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+Init = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
+
+
+def normal_init(stddev: float) -> Init:
+    def f(gen, shape):
+        return torch.randn(shape, generator=gen) * stddev
+    return f
+
+
+def ones_init(gen, shape):
+    return torch.ones(shape)
+
+
+def fan_in_init(fan_axis: int = 0) -> Init:
+    def f(gen, shape):
+        fan_in = shape[fan_axis] if shape else 1
+        return torch.randn(shape, generator=gen) / math.sqrt(max(fan_in, 1))
+    return f
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    init: Init = fan_in_init(0)
+
+
+def map_specs(fn: Callable[[ParamSpec], Any], tree: Dict[str, Any]
+              ) -> Dict[str, Any]:
+    return {k: map_specs(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def stack_spec(tree: Dict[str, Any], n: int) -> Dict[str, Any]:
+    """Add a leading (n,) layers axis; each layer is initialised as its
+    own unstacked tensor."""
+    def wrap(s: ParamSpec) -> ParamSpec:
+        def stacked(gen, shape, base=s.init):
+            return torch.stack([base(gen, shape[1:]) for _ in range(shape[0])])
+        return ParamSpec((n,) + s.shape, stacked)
+    return map_specs(wrap, tree)
+
+
+def init_params(specs: Dict[str, Any], seed: int,
+                device: torch.device) -> Dict[str, Any]:
+    """Materialise f32 parameters, leaves drawn in sorted-key order."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(tree):
+        return {k: walk(tree[k]) if isinstance(tree[k], dict)
+                else tree[k].init(gen, tree[k].shape).to(torch.float32)
+                .to(device) for k in sorted(tree)}
+    return walk(specs)
+
+
+def param_shapes(specs: Dict[str, Any]) -> Dict[str, Any]:
+    return map_specs(lambda s: s.shape, specs)

@@ -1,0 +1,121 @@
+"""Decoder-only transformer LM, dense family.
+
+Parameters are a nested dict in the JAX package's layout: layer weights
+stacked along a leading L axis (one tensor per leaf, so the gradient
+pool has the JAX package's 11-leaf table for smollm-135m), matrices
+stored (in, out) and used as ``x @ W``, the tied head ``embed.T``. The
+layer loop indexes the stacks (``unbind``) and wraps each layer in
+``torch.utils.checkpoint`` when ``remat='layer'``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import params as params_mod
+from repro_torch.models.layers import attention, embedding, mlp, norms
+
+
+def block_spec(cfg) -> Dict[str, Any]:
+    return {"attn_norm": norms.spec(cfg), "attn": attention.spec(cfg),
+            "mlp_norm": norms.spec(cfg), "ffn": mlp.spec(cfg)}
+
+
+def param_specs(cfg) -> Dict[str, Any]:
+    p: Dict[str, Any] = {
+        "embed": embedding.spec(cfg),
+        "layers": params_mod.stack_spec(block_spec(cfg), cfg.num_layers),
+        "final_norm": norms.spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = embedding.head_spec(cfg)
+    return p
+
+
+def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
+                attn_chunk: int = 0) -> torch.Tensor:
+    h = norms.apply(layer_params["attn_norm"], x)
+    x = x + attention.apply_train(layer_params["attn"], h, cfg,
+                                  attn_chunk=attn_chunk)
+    h = norms.apply(layer_params["mlp_norm"], x)
+    return x + mlp.apply(layer_params["ffn"], h)
+
+
+def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _unbind(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+
+
+def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
+             remat: str = "layer", attn_chunk: int = 0) -> torch.Tensor:
+    """Run all layers. ``unbind`` splits each stack once, so the backward
+    pass stacks the per-layer gradients once instead of scattering each
+    layer into a zeroed full-size stack."""
+    per_layer = _unbind(params["layers"])
+    for i in range(cfg.num_layers):
+        lp = _layer(per_layer, i)
+        if remat == "layer":
+            x = checkpoint(lambda h, lp=lp: block_apply(
+                lp, h, cfg, attn_chunk=attn_chunk), x, use_reentrant=False)
+        else:
+            x = block_apply(lp, x, cfg, attn_chunk=attn_chunk)
+    return x
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor,
+         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy with f32 accumulation."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+class TransformerLM:
+    """The dense family. Functional: parameters are passed in, not held."""
+
+    def __init__(self, cfg):
+        if cfg.family != "dense" or cfg.moe is not None:
+            raise NotImplementedError(
+                f"model family {cfg.family!r} is not ported to repro_torch "
+                "yet; see ROADMAP.md queue A")
+        self.cfg = cfg
+
+    def param_specs(self) -> Dict[str, Any]:
+        return param_specs(self.cfg)
+
+    def param_shapes(self) -> Dict[str, Any]:
+        return params_mod.param_shapes(self.param_specs())
+
+    def init_params(self, seed: int, device: torch.device) -> Dict[str, Any]:
+        return params_mod.init_params(self.param_specs(), seed, device)
+
+    def _head_params(self, params):
+        if self.cfg.tie_embeddings:
+            return {"w": params["embed"]["tokens"].T}
+        return params["head"]
+
+    def loss_fn(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                *, remat: str = "layer", attn_chunk: int = 0,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {'tokens': (B, S) int, 'labels': (B, S) int}. ``params``
+        are already in the compute dtype (the trainer casts the f32
+        masters). Returns (loss, metrics)."""
+        x = embedding.embed(params["embed"], batch["tokens"], compute_dtype)
+        x = backbone(params, x, self.cfg, remat=remat, attn_chunk=attn_chunk)
+        x = norms.apply(params["final_norm"], x)
+        lg = embedding.logits(self._head_params(params), x)
+        loss = xent(lg, batch["labels"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss + aux, {"loss": loss, "aux_loss": aux}

@@ -1,0 +1,77 @@
+"""Pool-space momentum SGD with CSC masking (paper Algorithm 1, update
+step), in PyTorch:
+
+  important  : u_t = m·u_{t-1} + lr·(g_t + wd·w);  w -= u_t
+  unimportant: u_t = u_{t-1};                      w unchanged
+
+``use_kernels=True`` routes through ``kernels.ops.pool_unpack_update``
+(the CUDA kernel for CUDA tensors, its plain version on the CPU). The
+momentum segment and, when given, the parameter leaves are updated in
+place.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import OptimizerConfig
+
+
+class SGDState(NamedTuple):
+    momentum: torch.Tensor  # f32[pool]
+
+
+def init(pool_size: int, device=None) -> SGDState:
+    return SGDState(momentum=torch.zeros((pool_size,), dtype=torch.float32,
+                                         device=device))
+
+
+def _update(offsets, sizes, specs, master, grads, state, mask, cfg, lr, *,
+            scale, ratios, use_kernels, out_leaves):
+    if use_kernels:
+        from repro_torch.kernels import ops
+        fn = ops.pool_unpack_update
+    else:
+        from repro_torch.kernels import pool_unpack
+        fn = pool_unpack.plain
+    leaves, new_mom = fn(master, grads, state.momentum, mask, offsets, sizes,
+                         lr=lr, momentum=cfg.momentum,
+                         weight_decay=cfg.weight_decay, scale=scale,
+                         ratios=ratios, out_leaves=out_leaves,
+                         out_momentum=state.momentum)
+    # Leaves take their declared dtype (what the JAX optimizer does).
+    leaves = [x if x.dtype == spec.dtype else x.to(spec.dtype)
+              for x, spec in zip(leaves, specs)]
+    return leaves, SGDState(momentum=new_mom)
+
+
+def update_unpack(pool, master: torch.Tensor, grads: torch.Tensor,
+                  state: SGDState, mask: torch.Tensor, cfg: OptimizerConfig,
+                  lr, *, scale: Optional[torch.Tensor] = None,
+                  ratios: Optional[torch.Tensor] = None,
+                  use_kernels: bool = False,
+                  out_leaves: Optional[Sequence[torch.Tensor]] = None,
+                  ) -> Tuple[dict, SGDState]:
+    """Fused update + unravel over the whole pool. Returns (new params
+    tree, new state)."""
+    leaves, st = _update(pool.offsets, pool.sizes, pool.specs, master,
+                         grads, state, mask, cfg, lr, scale=scale,
+                         ratios=ratios, use_kernels=use_kernels,
+                         out_leaves=out_leaves)
+    return pool.unflatten(leaves), st
+
+
+def update_view(view, master: torch.Tensor, grads: torch.Tensor,
+                state: SGDState, mask: torch.Tensor, cfg: OptimizerConfig,
+                lr, *, scale: Optional[torch.Tensor] = None,
+                ratios: Optional[torch.Tensor] = None,
+                use_kernels: bool = False,
+                out_leaves: Optional[Sequence[torch.Tensor]] = None,
+                ) -> Tuple[List[torch.Tensor], SGDState]:
+    """``update_unpack`` on one bucket-aligned span: every array is a
+    span-relative segment, driven by the view's rebased segment table.
+    Returns (1-D leaves of the view's tensors, new momentum segment)."""
+    return _update(view.offsets, view.sizes, view.specs, master, grads,
+                   state, mask, cfg, lr, scale=scale, ratios=ratios,
+                   use_kernels=use_kernels, out_leaves=out_leaves)
