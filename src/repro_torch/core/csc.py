@@ -1,0 +1,153 @@
+"""Coarse-grained sparse communication (paper §3.2, Figs 17–18,
+Algorithm 1), in PyTorch.
+
+The gradient pool is cut into fixed-size chunks (paper: 32K gradients).
+Each iteration only the top-(1−ρ) fraction of chunks by globally agreed L1
+norm is exchanged, packed into a dense buffer so the all-reduce runs at
+full bandwidth.
+
+* **Cross-iteration selection** (Fig 18): the per-chunk L1 norms of the
+  post-reduce pool are summed over the data-parallel group at the end of
+  iteration t; iteration t+1 transmits the top-k chunks by those norms, so
+  every rank selects the same chunks.
+* **Momentum correction** (Algorithm 1): unselected gradients accumulate
+  into the historical buffer ``hg``, scaled by the SGD momentum, and are
+  re-injected before the next reduction. The update skips them
+  (``optim.sgd``'s mask).
+* **Warm-up**: ``core.schedule`` — k is static per stage.
+
+``csc_reduce`` is the monolithic twin of the overlap engine's staged CSC
+path (``core.engine``), kept for the tests. Only the native wire is
+ported: the quantized formats and error feedback raise in
+``GradientFlow``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs.base import GradientFlowConfig
+from repro_torch.core import lazy_allreduce as lazy_mod
+from repro_torch.kernels import ref
+from repro_torch.parallel.collectives import reduce_pool
+
+
+class CSCState(NamedTuple):
+    """hg: f32[pool], this rank's unsent (historical) gradients;
+    chunk_norms: f32[chunks], the previous iteration's summed L1 norms,
+    the same on every rank."""
+
+    hg: torch.Tensor
+    chunk_norms: torch.Tensor
+
+
+def init_state(pool_size: int, chunk_elems: int, device=None) -> CSCState:
+    num_chunks = pool_size // chunk_elems
+    assert num_chunks * chunk_elems == pool_size, (
+        "pool must be padded to a chunk multiple")
+    # Descending norms: a dense warm-up selects every chunk, and the first
+    # sparse iteration uses norms of real gradients.
+    return CSCState(
+        hg=torch.zeros((pool_size,), dtype=torch.float32, device=device),
+        chunk_norms=torch.arange(num_chunks, 0, -1, dtype=torch.float32,
+                                 device=device))
+
+
+def select_chunks(chunk_norms: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k chunk ids, sorted ascending, and the bool[chunks] mask.
+
+    Among equal norms the lower chunk id wins, as in ``jax.lax.top_k``: a
+    stable descending sort, then its first k (``torch.topk`` orders ties
+    otherwise, and zero-norm chunks make ties real). No host sync."""
+    order = torch.sort(chunk_norms, descending=True, stable=True).indices
+    idx = torch.sort(order[:k]).values
+    mask = torch.zeros(chunk_norms.shape, dtype=torch.bool,
+                       device=chunk_norms.device).index_fill_(0, idx, True)
+    return idx, mask
+
+
+def element_mask(chunk_mask: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """bool[chunks] -> bool[pool], each chunk's flag repeated over it."""
+    return chunk_mask[:, None].expand(-1, chunk_elems).reshape(-1)
+
+
+def compact_chunks(pool: torch.Tensor, idx: torch.Tensor,
+                   chunk_elems: int) -> torch.Tensor:
+    """Gather the selected chunks into the dense wire buffer (k*chunk,)."""
+    return ref.csc_compact(pool, idx, chunk_elems)
+
+
+def scatter_chunks(pool: torch.Tensor, idx: torch.Tensor,
+                   values: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """A copy of ``pool`` with the chunks ``idx`` replaced by ``values``."""
+    out = pool.clone()
+    out.view(-1, chunk_elems).index_copy_(0, idx,
+                                          values.view(-1, chunk_elems))
+    return out
+
+
+def chunk_l1_norms(pool: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """Per-chunk L1 norm, accumulated in f32 whatever the pool's dtype."""
+    return ref.chunk_l1norm(pool, chunk_elems)
+
+
+class CSCReduceResult(NamedTuple):
+    grads: torch.Tensor      # mean at the selected chunks, zero elsewhere
+    elem_mask: torch.Tensor  # bool[pool]: where the update applies
+    state: CSCState          # hg differs per rank by design
+
+
+def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
+               cfg: GradientFlowConfig, *, num_selected: int,
+               bucket_boundaries: Sequence[Tuple[int, int]],
+               num_data_shards: int, algo=None) -> CSCReduceResult:
+    """One CSC reduction (Fig 17 + Algorithm 1's preprocess step) over the
+    native wire: re-inject hg, select from the previous norms, all-reduce
+    the compacted selection in θ buckets over the wire buffer, then the new
+    hg and the summed census of the post-reduce pool."""
+    chunk = cfg.chunk_elems
+    g = pool_grads.to(torch.float32) + state.hg
+    idx, chunk_mask = select_chunks(state.chunk_norms, num_selected)
+    elem_mask = element_mask(chunk_mask, chunk)
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops
+        wire = ops.csc_compact(g, idx, chunk)
+    else:
+        wire = compact_chunks(g, idx, chunk)
+    parts = lazy_mod.bucketed_reduce_parts(
+        wire, bucket_boundaries, getattr(torch, cfg.wire_dtype), algo=algo)
+    reduced = torch.cat(parts) / num_data_shards
+    # Post-reduce view: the mean at the selected chunks, the local g
+    # elsewhere (it feeds this rank's hg and census).
+    g_out = scatter_chunks(g, idx, reduced, chunk)
+    # Update-ready view: the mean at the selected chunks, zero elsewhere.
+    g_update = scatter_chunks(torch.zeros_like(g), idx, reduced, chunk)
+    hg_new = torch.where(elem_mask, 0.0, cfg.momentum * g_out)
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops
+        l1 = ops.chunk_l1norm(g_out, chunk)
+    else:
+        l1 = chunk_l1_norms(g_out, chunk)
+    norms_new = reduce_pool(l1)
+    return CSCReduceResult(grads=g_update, elem_mask=elem_mask,
+                           state=CSCState(hg=hg_new, chunk_norms=norms_new))
+
+
+def wire_bucket_boundaries(num_selected: int, chunk_elems: int,
+                           bucket_elems: int) -> Tuple[Tuple[int, int], ...]:
+    """θ buckets over the packed (k * chunk_elems) wire buffer, aligned to
+    chunk boundaries."""
+    total = num_selected * chunk_elems
+    if bucket_elems <= 0 or bucket_elems >= total:
+        return ((0, total),)
+    chunks_per_bucket = max(bucket_elems // chunk_elems, 1)
+    step = chunks_per_bucket * chunk_elems
+    bounds = []
+    start = 0
+    while start < total:
+        end = min(start + step, total)
+        bounds.append((start, end))
+        start = end
+    return tuple(bounds)

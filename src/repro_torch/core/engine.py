@@ -1,5 +1,5 @@
 """Overlap engine: the per-bucket staged pipeline (paper §3.1's
-computation/communication overlap), native dense and lazy paths.
+computation/communication overlap), native dense, lazy and CSC paths.
 
 * ``StepPlan`` — one ``BucketTask`` per collective plus the
   tensor-aligned update spans, compiled from GradientFlow's layout.
@@ -7,12 +7,15 @@ computation/communication overlap), native dense and lazy paths.
   (asynchronously) before bucket *i-1*'s fused optimizer update is
   launched, and each bucket's handle is waited on just before its own
   update, so the update of one bucket runs while the next one's
-  collective is in flight.
+  collective is in flight. CSC's sparse stages pipeline the all-reduce of
+  wire bucket *i* against the scatter of bucket *i-1* instead, then run
+  the masked update per span; its dense warm-up is the lazy pipeline on
+  the hg-corrected pool plus the norm census.
 
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
-fence. CSC, the guard, the quantized wires and the cross-step lane are
-not ported yet (ROADMAP.md).
+fence. The guard, the quantized wires and the cross-step lane are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from typing import Any, List, Tuple
 
 import torch
 
+from repro_torch.core import csc as csc_mod
 from repro_torch.core import lazy_allreduce as lazy_mod
+from repro_torch.parallel.collectives import reduce_pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +46,9 @@ class BucketTask:
 
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
-    """The compiled pipeline of one train step."""
+    """The compiled pipeline of one train step. For CSC, ``warmup`` marks
+    the dense warm-up stage (pool-space tasks) and ``num_selected`` is the
+    stage's k; a sparse stage's tasks tile the k-chunk wire buffer."""
 
     mode: str
     pool_size: int
@@ -50,6 +57,9 @@ class StepPlan:
     num_data_shards: int
     tasks: Tuple[BucketTask, ...]
     update_spans: Tuple[Tuple[int, int], ...]
+    warmup: bool = False
+    num_selected: int = 0
+    chunk_elems: int = 0
 
     @property
     def num_collectives(self) -> int:
@@ -78,19 +88,38 @@ def compile_step_plan(gf, stage=None) -> StepPlan:
         raise NotImplementedError(
             "pipeline_tail_buckets (the cross-step lane) is not ported to "
             "repro_torch yet; see ROADMAP.md queue A")
-    common = dict(pool_size=pool.size, payload_elems=pool.size,
-                  wire_dtype=str(cfg.wire_dtype),
+    common = dict(pool_size=pool.size, wire_dtype=str(cfg.wire_dtype),
                   num_data_shards=gf.num_data_shards)
-    if cfg.mode == "dense":
-        bounds = list(gf._dense_bounds) or [(0, pool.size)]
-        algos = gf._algos_for(tuple(bounds))
-    else:
-        assert cfg.mode == "lazy", cfg.mode
-        bounds, algos = list(gf._lazy_bounds), gf._lazy_algos
-    tasks = tuple(BucketTask(index=i, start=s, end=e, algo=a)
-                  for i, ((s, e), a) in enumerate(zip(bounds, algos)))
-    return StepPlan(mode=cfg.mode, tasks=tasks, update_spans=tuple(bounds),
-                    **common)
+
+    def make_tasks(bounds, algos):
+        return tuple(BucketTask(index=i, start=s, end=e, algo=a)
+                     for i, ((s, e), a) in enumerate(zip(bounds, algos)))
+
+    if cfg.mode in ("dense", "lazy"):
+        if cfg.mode == "dense":
+            bounds = list(gf._dense_bounds) or [(0, pool.size)]
+            algos = gf._algos_for(tuple(bounds))
+        else:
+            bounds, algos = list(gf._lazy_bounds), gf._lazy_algos
+        return StepPlan(mode=cfg.mode, payload_elems=pool.size,
+                        tasks=make_tasks(bounds, algos),
+                        update_spans=tuple(bounds), **common)
+    assert cfg.mode == "csc", cfg.mode
+    stage = stage or gf.stages[-1]
+    k = stage.num_selected
+    csc = dict(num_selected=k, chunk_elems=cfg.chunk_elems)
+    if k >= gf.num_chunks:
+        # Dense warm-up: the full pool in lazy buckets, plus the census.
+        return StepPlan(mode="csc", payload_elems=pool.size,
+                        tasks=make_tasks(gf._lazy_bounds, gf._lazy_algos),
+                        update_spans=tuple(gf._lazy_bounds), warmup=True,
+                        **csc, **common)
+    wire_bounds = csc_mod.wire_bucket_boundaries(k, cfg.chunk_elems,
+                                                 gf.bucket_elems)
+    return StepPlan(mode="csc", payload_elems=k * cfg.chunk_elems,
+                    tasks=make_tasks(wire_bounds, gf._algos_for(wire_bounds)),
+                    update_spans=tuple(pool.bucket_boundaries(
+                        gf.bucket_elems)), **csc, **common)
 
 
 class OverlapEngine:
@@ -113,47 +142,140 @@ class OverlapEngine:
     def run(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
             opt_state, gfstate, lr: torch.Tensor):
         """One pipelined reduce+update phase. ``gpool`` is the local
-        gradient pool, already packed in the wire dtype. The parameters
-        and the momentum are updated in place (see ``kernels.pool_unpack``).
-        Returns (params_tree, opt_state, gfstate)."""
+        gradient pool, already packed: in the wire dtype for dense and
+        lazy, in f32 for CSC (hg is added before the wire cast). The
+        parameters and the momentum are updated in place (see
+        ``kernels.pool_unpack``); CSC also works in place on ``gpool`` and
+        on ``gfstate.hg``. Returns (params_tree, opt_state, gfstate)."""
         use_k = self.gf.cfg.use_kernels
         master, _ = self.pool.pack(params_tree, dtype=torch.float32,
                                    use_kernels=use_k)
         leaves = self.pool.flat_leaves(params_tree)
-        outs = self._run_pool_pipeline(plan, gpool, master, leaves,
-                                       opt_state, lr)
+        if plan.mode == "csc":
+            run = self._run_csc_warmup if plan.warmup else self._run_csc
+            outs, gfstate = run(plan, gpool, master, leaves, opt_state,
+                                gfstate, lr)
+        else:
+            outs = self._run_pool_pipeline(plan, gpool, master, leaves,
+                                           opt_state, lr)
         return self._assemble(outs), opt_state, gfstate
 
-    def _run_pool_pipeline(self, plan, gpool, master, leaves, opt_state,
-                           lr) -> List[Any]:
+    def _run_pool_pipeline(self, plan, gpool, master, leaves, opt_state, lr,
+                           wire_dtype=None, mean_out=None) -> List[Any]:
         """Issue reduce_i, then launch update_{i-1} while it is in flight;
-        wait on each bucket just before its own update."""
+        wait on each bucket just before its own update. ``wire_dtype``
+        casts each bucket before its all-reduce (None: ``gpool`` is
+        already in the wire dtype); ``mean_out`` (a pool-sized f32 tensor,
+        may be ``gpool``) receives each bucket's mean."""
         outs: List[Any] = [None] * len(plan.tasks)
+
+        def retire(task, issued):
+            mean = issued.wait() / plan.num_data_shards
+            if mean_out is not None:
+                mean = mean_out[task.start:task.end].copy_(mean)
+            outs[task.index] = self._update_span(
+                (task.start, task.end), mean, master, leaves, opt_state, lr)
+
         pending = None
         for task in plan.tasks:
-            issued = lazy_mod.issue_bucket(gpool, task.start, task.end, None,
-                                           algo=task.algo)
+            issued = lazy_mod.issue_bucket(gpool, task.start, task.end,
+                                           wire_dtype, algo=task.algo)
             if pending is not None:
-                pt, pb = pending
-                outs[pt.index] = self._update_span(
-                    (pt.start, pt.end), pb.wait() / plan.num_data_shards,
-                    master, leaves, opt_state, lr)
+                retire(*pending)
             pending = (task, issued)
-        pt, pb = pending
-        outs[pt.index] = self._update_span(
-            (pt.start, pt.end), pb.wait() / plan.num_data_shards, master, leaves,
-            opt_state, lr)
+        retire(*pending)
         return outs
 
-    def _update_span(self, span, red_seg, master, leaves, opt_state, lr):
+    def _run_csc(self, plan, g, master, leaves, opt_state, gfstate, lr):
+        """Sparse CSC stage (Algorithm 1 with the collectives pipelined):
+        re-inject hg, select k chunks from the previous norms, gather them
+        into the wire buffer, all-reduce it in θ buckets with bucket i in
+        flight while bucket i-1 is scattered back, then the new hg, the
+        summed census, and the masked update per span.
+
+        ``g`` is the f32 staging pool, which the next step's pack
+        overwrites, so it becomes the post-reduce pool in place, and
+        ``gfstate.hg`` is overwritten with the new hg. The update reads
+        its gradients from the post-reduce pool too: where the mask is
+        false the update keeps master and momentum whatever the gradient,
+        so the JAX package's separate zero-filled update pool (one more
+        pool-sized buffer and scatter) would give the same bits."""
+        cfg = self.gf.cfg
+        chunk = plan.chunk_elems
+        g.add_(gfstate.hg)
+        idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
+                                                plan.num_selected)
+        elem_mask = csc_mod.element_mask(chunk_mask, chunk)
+        if cfg.use_kernels:
+            from repro_torch.kernels import ops
+            wire = ops.csc_compact(g, idx, chunk)
+        else:
+            wire = csc_mod.compact_chunks(g, idx, chunk)
+        wire_dtype = getattr(torch, cfg.wire_dtype)
+        rows = g.view(-1, chunk)
+
+        def scatter(task, issued):
+            mean = issued.wait() / plan.num_data_shards
+            ids = idx[task.start // chunk:task.end // chunk]
+            rows.index_copy_(0, ids, mean.view(-1, chunk))
+
+        pending = None
+        for task in plan.tasks:
+            issued = lazy_mod.issue_bucket(wire, task.start, task.end,
+                                           wire_dtype, algo=task.algo)
+            if pending is not None:
+                scatter(*pending)
+            pending = (task, issued)
+        scatter(*pending)
+        del wire
+        hg = torch.mul(g, cfg.momentum, out=gfstate.hg)
+        hg.masked_fill_(elem_mask, 0.0)
+        norms = self._census(g, chunk)
+        outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
+                                  opt_state, lr, elem_mask[span[0]:span[1]])
+                for span in plan.update_spans]
+        return outs, gfstate._replace(hg=hg, chunk_norms=norms)
+
+    def _run_csc_warmup(self, plan, g, master, leaves, opt_state, gfstate,
+                        lr):
+        """CSC's dense warm-up stage: the hg-corrected f32 pool reduced in
+        lazy buckets (each cast to the wire dtype) pipelined against the
+        update, then the census of the mean pool, which keeps the norms
+        tracking for the sparse handoff. Each bucket's mean is written
+        back into ``g`` (the staging pool) so the census needs no
+        pool-sized copy; hg is zeroed in place."""
+        cfg = self.gf.cfg
+        g.add_(gfstate.hg)
+        outs = self._run_pool_pipeline(plan, g, master, leaves, opt_state,
+                                       lr, wire_dtype=getattr(
+                                           torch, cfg.wire_dtype),
+                                       mean_out=g)
+        norms = self._census(g, plan.chunk_elems)
+        return outs, gfstate._replace(hg=gfstate.hg.zero_(),
+                                      chunk_norms=norms)
+
+    def _census(self, pool, chunk):
+        """The per-chunk L1 norms of this rank's post-reduce pool, summed
+        over the data-parallel group (Fig 18)."""
+        if self.gf.cfg.use_kernels:
+            from repro_torch.kernels import ops
+            l1 = ops.chunk_l1norm(pool, chunk)
+        else:
+            l1 = csc_mod.chunk_l1_norms(pool, chunk)
+        return reduce_pool(l1)
+
+    def _update_span(self, span, red_seg, master, leaves, opt_state, lr,
+                     mask=None):
         """One update span's fused optimizer step on the span's segments;
         the new values land in the span's parameter leaves and in the
-        momentum buffer's slice. In lazy and dense modes every element is
-        updated (an all-true mask). Returns the span's leaves."""
+        momentum buffer's slice. ``mask`` is the span's bool segment (CSC's
+        selected chunks); None updates every element. Returns the span's
+        leaves."""
         start, end = span
         view = self.pool.bucket_view(start, end)
-        mask = torch.ones((view.size,), dtype=torch.bool,
-                          device=master.device)
+        if mask is None:
+            mask = torch.ones((view.size,), dtype=torch.bool,
+                              device=master.device)
         return self._update_view_seg(view, master[start:end], red_seg,
                                      opt_state, lr, mask,
                                      leaves[view.leaf_lo:view.leaf_hi])

@@ -1,10 +1,13 @@
-"""GradientFlow — the paper's communication backend, dense and lazy modes.
+"""GradientFlow — the paper's communication backend.
 
 Modes (``GradientFlowConfig.mode``):
   'dense' — one all-reduce per tensor (§2.3 baseline)
   'lazy'  — θ-bucketed all-reduces over the contiguous pool (§3.1)
-Both move gradients in the wire dtype and hand the update an f32 mean.
-CSC, the low-bit wire formats, θ auto-tuning and the other collective
+  'csc'   — lazy + coarse-grained sparse communication (§3.2): the pool
+            must be padded to a chunk multiple
+              (``GradientPool(..., pad_to=chunk_elems)``)
+All modes move gradients in the wire dtype and hand the update an f32
+mean. The low-bit wire formats, θ auto-tuning and the other collective
 algorithms are not ported yet and raise (see ROADMAP.md).
 """
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import GradientFlowConfig
+from repro_torch.core import csc as csc_mod
+from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.pool import GradientPool
 from repro_torch.parallel import topology as topo_mod
 
@@ -21,8 +26,10 @@ _NOT_PORTED = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 
 
 class GFState(NamedTuple):
-    """GradientFlow's cross-iteration state. Dense and lazy modes carry
-    none: every field is an empty tensor (the JAX package's placeholders)."""
+    """GradientFlow's cross-iteration state. CSC carries this rank's
+    historical gradients ``hg`` (f32[pool]) and the summed chunk norms
+    (f32[chunks]); every other field, and every field in dense and lazy
+    modes, is an empty tensor (the JAX package's placeholders)."""
 
     hg: torch.Tensor
     chunk_norms: torch.Tensor
@@ -36,7 +43,7 @@ def wire_dtype_of(cfg: GradientFlowConfig) -> torch.dtype:
 class GradientFlow:
     def __init__(self, cfg: GradientFlowConfig, pool: GradientPool,
                  num_data_shards: int):
-        if cfg.mode not in ("dense", "lazy"):
+        if cfg.mode not in ("dense", "lazy", "csc"):
             raise NotImplementedError(f"GradientFlow mode {cfg.mode!r} "
                                       + _NOT_PORTED)
         if cfg.quantized:
@@ -48,7 +55,15 @@ class GradientFlow:
         self.cfg = cfg
         self.pool = pool
         self.num_data_shards = int(num_data_shards)
-        self.num_chunks = 0
+        if cfg.csc_enabled:
+            assert pool.size % cfg.chunk_elems == 0, (
+                "GradientPool must be constructed with pad_to=chunk_elems "
+                "(CSC chunking keys off whole chunks)")
+            self.num_chunks = pool.size // cfg.chunk_elems
+        else:
+            self.num_chunks = 0
+        self.stages = schedule_mod.build_stages(cfg, max(self.num_chunks, 1))
+        self._stage_firsts = schedule_mod.stage_first_steps(self.stages)
         self._resolve_layout()
 
     def _resolve_layout(self) -> None:
@@ -81,11 +96,21 @@ class GradientFlow:
 
     def init_state(self, device=None) -> GFState:
         empty = torch.zeros((0,), dtype=torch.float32, device=device)
+        if self.cfg.csc_enabled:
+            st = csc_mod.init_state(self.pool.size, self.cfg.chunk_elems,
+                                    device)
+            return GFState(hg=st.hg, chunk_norms=st.chunk_norms,
+                           residual=empty)
         return GFState(hg=empty, chunk_norms=empty, residual=empty)
+
+    def stage_for_step(self, step: int) -> schedule_mod.SparsityStage:
+        return schedule_mod.stage_at(self.stages, step,
+                                     first_steps=self._stage_firsts)
 
     def plan(self, stage=None):
         """The bucket layout compiled into the overlap engine's
-        ``StepPlan``, cached per layout key."""
+        ``StepPlan``, cached per (layout key, stage). CSC's default stage
+        is the last (steady) one."""
         key = (self.plan_cache_key(), stage)
         plan = self._plan_cache.get(key)
         if plan is None:
@@ -98,11 +123,25 @@ class GradientFlow:
 
     def wire_bytes_per_step(self, stage=None) -> int:
         """Bytes entering the all-reduce on each device (model, not
-        measured)."""
+        measured). A sparse CSC stage sends its k chunks plus the norm
+        census, counted at the wire width as the JAX package counts it."""
         elt = torch.empty((), dtype=wire_dtype_of(self.cfg)).element_size()
+        if self.cfg.mode == "csc":
+            stage = stage or self.stages[-1]
+            if stage.num_selected < self.num_chunks:
+                return (stage.num_selected * self.cfg.chunk_elems * elt
+                        + self.num_chunks * elt)
+            return self.pool.size * elt + self.num_chunks * 4
         return self.pool.size * elt
 
     def num_collectives(self, stage=None) -> int:
+        """Collectives a step issues; CSC adds the norm census."""
         if self.cfg.mode == "dense":
             return len(self._dense_bounds)
-        return len(self._lazy_bounds)
+        if self.cfg.mode == "lazy":
+            return len(self._lazy_bounds)
+        stage = stage or self.stages[-1]
+        if stage.num_selected >= self.num_chunks:
+            return len(self._lazy_bounds) + 1
+        return len(csc_mod.wire_bucket_boundaries(
+            stage.num_selected, self.cfg.chunk_elems, self.bucket_elems)) + 1

@@ -5,8 +5,8 @@ kernel, which raises if it cannot build or launch — there is no fallback.
 ``dispatch_counts`` tallies each decision under ``"<kernel>.kernel"`` or
 ``"<kernel>.plain"`` (as ``repro/kernels/ops.py`` does), adding one to
 ``.kernel`` exactly where a kernel is launched, so a run can prove which
-path it took. Calling ``pool_pack.launch`` / ``pool_unpack.launch``
-directly (as a comparison does) is not counted.
+path it took. Calling a kernel module's ``launch`` directly (as a
+comparison does) is not counted.
 """
 from __future__ import annotations
 
@@ -14,6 +14,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import chunk_l1norm as _cl
+from repro_torch.kernels import csc_compact as _cc
 from repro_torch.kernels import pool_pack as _pp
 from repro_torch.kernels import pool_unpack as _pu
 from repro_torch.kernels import ref
@@ -39,6 +41,26 @@ def _on_cuda(tensors) -> bool:
     if kinds == {"cuda"}:
         return True
     raise ValueError(f"tensors on mixed devices {sorted(kinds)}")
+
+
+def chunk_l1norm(pool: torch.Tensor, chunk_elems: int) -> torch.Tensor:
+    """Per-chunk f32 L1 norms of the pool: (C*chunk,) -> f32[C]."""
+    if not _on_cuda([pool]):
+        _count("chunk_l1norm", "plain")
+        return _cl.plain(pool, chunk_elems)
+    _count("chunk_l1norm", "kernel")
+    return _cl.launch(pool, chunk_elems)
+
+
+def csc_compact(pool: torch.Tensor, idx: torch.Tensor,
+                chunk_elems: int) -> torch.Tensor:
+    """The selected chunks gathered into the dense wire buffer:
+    (C*chunk,), idx (k,) -> (k*chunk,)."""
+    if not _on_cuda([pool, idx]):
+        _count("csc_compact", "plain")
+        return _cc.plain(pool, idx, chunk_elems)
+    _count("csc_compact", "kernel")
+    return _cc.launch(pool, idx, chunk_elems)
 
 
 def pool_pack(leaves: Sequence[torch.Tensor], offsets: Tuple[int, ...],

@@ -26,6 +26,14 @@ def chunk_l1norm(pool: torch.Tensor, chunk_elems: int) -> torch.Tensor:
                                                    dtype=torch.float32)
 
 
+def csc_compact(pool: torch.Tensor, idx: torch.Tensor,
+                chunk_elems: int) -> torch.Tensor:
+    """Gather the selected chunks into the dense wire buffer:
+    (C*chunk,), idx (k,) -> (k*chunk,)."""
+    return torch.index_select(pool.reshape(-1, chunk_elems), 0,
+                              idx).reshape(-1)
+
+
 def pool_pack(
     leaves: Sequence[torch.Tensor],  # 1-D leaves, pool order
     offsets: Sequence[int],

@@ -5,17 +5,19 @@ port supports.
       --steps 20 --batch 8 --seq-len 256 --use-kernels
 
 Runs on the first CUDA card unless ``--device cpu``. ``--gf-mode``
-defaults to ``lazy`` (the JAX CLI defaults to ``csc``, which the port has
-not ported yet). Flags and values the port does not support yet — CSC,
-LARS/AdamW, low-bit wires, compiled windows, checkpoints — raise with a
-pointer to ROADMAP.md. Inside an initialised ``torch.distributed`` group
-each rank trains on its own shard of the global batch.
+defaults to ``csc``, as in the JAX CLI: each step runs under the CSC
+warm-up stage ``gf.stage_for_step`` picks, with one step function per
+stage, and the log shows the stage and its sparsity. Flags and values the
+port does not support yet — LARS/AdamW, low-bit wires, compiled windows,
+checkpoints — raise with a pointer to ROADMAP.md. Inside an initialised
+``torch.distributed`` group each rank trains on its own shard of the
+global batch.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,9 +40,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-len", type=int, default=128)
     p.add_argument("--batch", type=int, default=8,
                    help="global batch; split evenly over the ranks")
-    p.add_argument("--gf-mode", default="lazy",
+    p.add_argument("--gf-mode", default="csc",
                    choices=["dense", "lazy", "csc"])
+    p.add_argument("--sparsity", type=float, default=0.85)
+    p.add_argument("--chunk-elems", type=int, default=2048)
     p.add_argument("--bucket-elems", type=int, default=1 << 22)
+    p.add_argument("--csc-warmup", type=int, default=20)
     p.add_argument("--optimizer", default="momentum_sgd",
                    choices=["momentum_sgd", "lars", "adamw"])
     p.add_argument("--lr", type=float, default=0.2)
@@ -59,8 +64,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
-    if args.gf_mode == "csc":
-        raise NotImplementedError("--gf-mode csc " + _ROADMAP)
     if args.optimizer != "momentum_sgd":
         raise NotImplementedError(f"--optimizer {args.optimizer} " + _ROADMAP)
     if args.wire_format != "native":
@@ -76,9 +79,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
     model_cfg, _ = (get_smoke if args.reduced else get_arch)(args.arch)
-    gf = GradientFlowConfig(mode=args.gf_mode, bucket_elems=args.bucket_elems,
-                            momentum=args.momentum,
-                            use_kernels=args.use_kernels)
+    gf = GradientFlowConfig(
+        mode=args.gf_mode, bucket_elems=args.bucket_elems,
+        chunk_elems=args.chunk_elems, sparsity=args.sparsity,
+        momentum=args.momentum, warmup_steps=args.csc_warmup,
+        warmup_stages=4, use_kernels=args.use_kernels)
     opt = OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, momentum=args.momentum,
         warmup_steps=max(args.steps // 20, 1), total_steps=args.steps,
@@ -102,22 +107,26 @@ def train(args: argparse.Namespace
     local_batch = cfg.global_batch // n
     data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
     state = trainer.init_state(args.seed)
-    step_fn = trainer.build_train_step()
+    step_fns: Dict[int, Callable] = {}
     sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
             else (lambda: None))
     losses: List[float] = []
     seconds: List[float] = []
     for s in range(args.steps):
         batch = data.batch(s, local_batch, cfg.seq_len, shard=rank)
+        stage = trainer.gf.stage_for_step(s)
+        if stage.index not in step_fns:
+            step_fns[stage.index] = trainer.build_train_step(stage)
         sync()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fns[stage.index](state, batch)
         loss = float(metrics["loss"])  # waits for the step
         sync()
         seconds.append(time.perf_counter() - t0)
         losses.append(loss)
         if s % args.log_every == 0 or s == args.steps - 1:
-            print(f"step {s:5d} loss {loss:.4f} "
+            print(f"step {s:5d} stage {stage.index} "
+                  f"sparsity {stage.sparsity:.2f} loss {loss:.4f} "
                   f"({seconds[-1] * 1e3:.1f} ms)", flush=True)
     return trainer, losses, seconds
 

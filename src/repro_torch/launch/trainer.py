@@ -1,17 +1,23 @@
 """The training step: model + GradientFlow + optimizer, in PyTorch.
 
-One step, as ``repro/launch/trainer.py`` runs it under the default
-``GradientFlowConfig`` (lazy, bf16 wire, staged overlap, flat collective)
-with momentum SGD:
+One step, as ``repro/launch/trainer.py`` runs it with momentum SGD, staged
+overlap and the flat collective:
 
 1. forward and backward on the f32 masters cast to ``compute_dtype``
    (explicit ``.to``, not autocast), so the gradients come back in f32;
-2. ``GradientPool.pack_into`` writes them into the bf16 wire pool, in the
-   staging buffer the previous step handed back (``TrainState.staging``);
+2. ``GradientPool.pack_into`` writes them into the pool, in the staging
+   buffer the previous step handed back (``TrainState.staging``): in the
+   wire dtype for dense and lazy, in f32 for CSC, whose pool is padded to
+   a chunk multiple;
 3. ``OverlapEngine.run`` packs the parameters into the f32 master pool,
-   then per bucket: issue the all-reduce, update the previous bucket.
+   then per bucket: issue the all-reduce, update the previous bucket (for
+   CSC: select, gather, reduce and scatter the chunks, then the census and
+   the masked update; see ``core.engine``).
 
-With ``use_kernels`` the two packs and the per-bucket updates go through
+CSC's step depends on its warm-up stage: ``build_train_step(stage)``
+builds one step function per stage, and the caller picks the stage of
+each step with ``gf.stage_for_step``. With ``use_kernels`` the packs, the
+per-bucket updates and CSC's gather and census go through
 ``kernels.ops``: the CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors. The data-parallel group is the default
 ``torch.distributed`` group when one is initialised (each rank passes its
@@ -28,6 +34,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.engine import OverlapEngine
 from repro_torch.core.gradientflow import GFState, GradientFlow, wire_dtype_of
 from repro_torch.core.pool import GradientPool
+from repro_torch.core.schedule import SparsityStage
 from repro_torch.models import build_model
 from repro_torch.optim import init_state as opt_init_state
 from repro_torch.optim import lr_at
@@ -39,9 +46,9 @@ _ROADMAP = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 class TrainState(NamedTuple):
     params: Any          # nested dict of f32 master tensors
     opt: Any             # SGDState, pool-shaped momentum
-    gf: GFState
+    gf: GFState          # CSC: this rank's hg row and the chunk norms
     step: int
-    staging: Any = None  # the wire-pool buffer the next pack writes into
+    staging: Any = None  # the pool buffer the next pack writes into
 
 
 class Trainer:
@@ -59,7 +66,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
         self.num_data = collectives.data_world_size()
-        self.pool = GradientPool(self.model.param_shapes(), pad_to=1)
+        # CSC chunks the pool: pad it to a chunk multiple.
+        pad = gf_cfg.chunk_elems if gf_cfg.csc_enabled else 1
+        self.pool = GradientPool(self.model.param_shapes(), pad_to=pad)
         self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
         self.gf_cfg = gf_cfg
         self.opt_name = cfg.optimizer.name
@@ -68,7 +77,10 @@ class Trainer:
 
     @property
     def _pack_dtype(self) -> torch.dtype:
-        """Dense/lazy pack the gradients straight to the wire dtype."""
+        """Dense/lazy pack the gradients straight to the wire dtype; CSC
+        packs to f32, because hg is added before the wire cast."""
+        if self.gf_cfg.csc_enabled:
+            return torch.float32
         return wire_dtype_of(self.gf_cfg)
 
     def init_state(self, seed: int = 0,
@@ -87,13 +99,15 @@ class Trainer:
             staging=torch.zeros((self.pool.size,), dtype=self._pack_dtype,
                                 device=self.device))
 
-    def build_train_step(self):
-        """``step(state, batch) -> (state, metrics)``. ``batch`` is this
-        rank's {'tokens', 'labels'} (any device; moved to the trainer's).
-        The returned state shares the parameter, momentum and staging
-        tensors of the one passed in, which are updated in place."""
+    def build_train_step(self, stage: Optional[SparsityStage] = None):
+        """``step(state, batch) -> (state, metrics)`` under CSC stage
+        ``stage`` (default: the steady one; dense and lazy have one).
+        ``batch`` is this rank's {'tokens', 'labels'} (any device; moved to
+        the trainer's). The returned state shares the parameter, momentum,
+        staging and hg tensors of the one passed in, which are updated in
+        place."""
         cfg = self.cfg
-        plan = self.engine.plan_for()
+        plan = self.engine.plan_for(stage)
         use_k = self.gf_cfg.use_kernels
 
         def step(state: TrainState, batch: Dict[str, torch.Tensor]):

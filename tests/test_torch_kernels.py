@@ -1,8 +1,7 @@
 """The port's pool kernels (plain versions, on the CPU) against the JAX
 package's Pallas kernels in interpret mode and its jnp references, on the
 same numpy-seeded inputs. The CUDA kernels themselves run only on the
-card: the ``cuda`` test at the bottom holds them against the plain
-versions there and skips here."""
+card: ``test_torch_cuda.py`` holds them against the plain versions there."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,43 +229,6 @@ def test_tile_schedule_matches_jax(sizes, tile):
             [tuple(vars(c).values()) for c in want.copies]
         assert [tuple(vars(c).values()) for c in got.fills] == \
             [tuple(vars(c).values()) for c in want.fills]
-
-
-@pytest.mark.cuda
-def test_cuda_kernels_match_plain():
-    """On the card: both CUDA kernels against their plain versions on
-    ragged leaves with padding, a census, and mixed dtypes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda")
-    offsets, covered = _table(SIZES)
-    pool_size = -(-covered // 64) * 64 + 64
-    _, tl = _leaves(6, SIZES, ["float32", "bfloat16"] * 4)
-    tl = [x.to(dev) for x in tl[:len(SIZES)]]
-    for wire in (torch.bfloat16, torch.float32):
-        for chunk in (0, 64):
-            got, norms = t_pack.launch(tl, offsets, SIZES, pool_size, chunk,
-                                       wire)
-            want, want_n = t_pack.plain(tl, offsets, SIZES, pool_size, chunk,
-                                        wire)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want)
-            if chunk:
-                torch.testing.assert_close(norms, want_n, rtol=1e-6, atol=0)
-    sizes = (37, 128, 5, 300, 77)
-    offsets, covered = _table(sizes)
-    n = covered + 11
-    master, grads, mom, mask = (torch.from_numpy(a).to(dev) for a in
-                                _update_inputs(7, n, True))
-    kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
-              weight_decay=1e-4)
-    got_l, got_m = t_unpack.launch(master, grads, mom, mask, offsets, sizes,
-                                   **kw)
-    want_l, want_m = t_unpack.plain(master, grads, mom, mask, offsets, sizes,
-                                    **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(got_m, want_m)
-    assert all(torch.equal(a, b) for a, b in zip(got_l, want_l))
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])

@@ -129,30 +129,46 @@ def test_trainer_matches_jax(mode, wire, use_kernels):
 
 
 @pytest.mark.parametrize("full", [False, True])
-@pytest.mark.parametrize("mode", ["dense", "lazy"])
+@pytest.mark.parametrize("mode", ["dense", "lazy", "csc"])
 @pytest.mark.parametrize("wire,theta", [("bfloat16", 4_194_304),
                                         ("float32", 8192), ("bfloat16", 0)])
 def test_analytics_match_jax(full, mode, wire, theta):
+    """Collectives, wire bytes and the step plan (tasks, update spans,
+    warm-up flag) of every stage: CSC at the JAX CLI's 0.85 sparsity with
+    4 warm-up stages, its pool padded to 32,768-element chunks."""
     j_model = (j_get_arch if full else j_get_smoke)("smollm-135m")[0]
     t_model = (get_arch if full else get_smoke)("smollm-135m")[0]
-    jgf = JGradientFlow(j_base.GradientFlowConfig(
-        mode=mode, bucket_elems=theta, wire_dtype=wire),
-        JPool(abstract_params(j_build_model(j_model).param_specs())), 1)
-    tgf = GradientFlow(t_base.GradientFlowConfig(
-        mode=mode, bucket_elems=theta, wire_dtype=wire),
-        GradientPool(build_model(t_model).param_shapes()), 1)
-    assert tgf.num_collectives() == jgf.num_collectives()
-    assert tgf.wire_bytes_per_step() == jgf.wire_bytes_per_step()
-    tp, jp = tgf.plan(), jgf.plan()
-    tp.validate()
-    assert [(t.start, t.end) for t in tp.tasks] == \
-        [(t.start, t.end) for t in jp.tasks]
-    assert tp.update_spans == jp.update_spans
+    kw = dict(mode=mode, bucket_elems=theta, wire_dtype=wire,
+              warmup_steps=4, warmup_stages=4)
+    pad = 32768 if mode == "csc" else 1
+    jgf = JGradientFlow(j_base.GradientFlowConfig(**kw), JPool(abstract_params(
+        j_build_model(j_model).param_specs()), pad_to=pad), 1)
+    tgf = GradientFlow(t_base.GradientFlowConfig(**kw), GradientPool(
+        build_model(t_model).param_shapes(), pad_to=pad), 1)
+    assert tgf.num_chunks == jgf.num_chunks
+    assert len(tgf.stages) == len(jgf.stages) == (5 if mode == "csc" else 1)
+    for ts, js in zip(tgf.stages + [None], jgf.stages + [None]):
+        assert tgf.num_collectives(ts) == jgf.num_collectives(js)
+        assert tgf.wire_bytes_per_step(ts) == jgf.wire_bytes_per_step(js)
+        tp, jp = tgf.plan(ts), jgf.plan(js)
+        tp.validate()
+        assert [(t.start, t.end) for t in tp.tasks] == \
+            [(t.start, t.end) for t in jp.tasks]
+        assert tp.update_spans == jp.update_spans
+        assert (tp.warmup, tp.num_selected) == (jp.warmup, jp.num_selected)
+    if mode == "csc" and full and theta == 4_194_304:
+        # The chip check's CSC step: 4106 chunks; 7 update spans, the
+        # last one padding only; 26/19/12/5 wire buckets after warm-up.
+        assert tgf.pool.size == 134_545_408 and tgf.num_chunks == 4106
+        assert len(tgf.plan().update_spans) == 7
+        assert tgf.plan().update_spans[-1] == (134_515_008, 134_545_408)
+        assert [tgf.num_collectives(s) - 1 for s in tgf.stages] == \
+            [7, 26, 19, 12, 5]
 
 
 def test_unported_settings_raise():
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
-    for gf in (dict(mode="csc"), dict(wire_format="int8"),
+    for gf in (dict(wire_format="int8"),
                dict(collective_algo="pallas_ring"),
                dict(pipeline_tail_buckets=1), dict(overlap="monolithic")):
         cfg = base.replace(gradientflow=dataclasses.replace(
