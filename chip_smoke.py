@@ -25,6 +25,15 @@
      torch.linalg.vector_norm, the same bits on two launches.
    - csc_compact: the gather of k = 616 and k = 3233 sorted chunk ids,
      bit for bit against the plain version and torch.index_select.
+   - ring_allreduce: N = 2, 4, 8 ranks in this process, each on its own
+     stream (the in-process workspace), on the 6 lazy buckets, the whole
+     lazy pool and the CSC steady wire buffer (616 x 32,768) in bf16, and
+     the first bucket in f32, int8 and fp8-e4m3 (sums past 448); bit for
+     bit against the plain ring with the kernel's segment, every rank the
+     same bits; library_ms is torch.stack(xs).float().sum(0).
+   - fused_update: the whole f32 pool, all-true and random mask, with and
+     without the scale, bit for bit; then optim.update_pool, the entry
+     point that reaches it, for 3 steps with its launches counted.
 3. Train: smollm-135m at full width and depth (batch 16, sequence 1024,
    bf16 wire, momentum SGD, kernels on) inside a world-size-1 NCCL group,
    through the CLI's loop (``repro_torch.launch.train``) on the synthetic
@@ -32,7 +41,17 @@
    (a) lazy, theta = 4 Mi elements: 6 + 6 steps;
    (b) CSC, chunks of 32,768, sparsity 0.85 reached after 4 warm-up
        steps: step 0 dense (7 buckets), steps 1-3 at k = 3233, 2361,
-       1488, steps 4-7 at k = 616 (5 wire buckets); 8 + 8 steps.
+       1488, steps 4-7 at k = 616 (5 wire buckets); 8 + 8 steps;
+   (c) collective_algo="pallas_ring", world size 2 as two processes on
+       this card (this script with --ring-rank), a gloo group for the
+       set-up and the cross-process (CUDA IPC) ring workspace, one per
+       level group, shared by every bucket: lazy, 3 steps on the stream,
+       then 3 on one repeated batch, the first step's post-reduce pool
+       equal to the plain ring of the two ranks' packed pools (on rank
+       0's CPU); then CSC, 5 steps (the dense step, the ramp, one steady
+       step at k = 616: the ring reduces the compacted wire buffer).
+       Every bucket through the ring kernel, both ranks the same
+       parameters after every step.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -378,6 +397,164 @@ def compact_phase(torch, kcc, num_chunks, dev, rate):
                  (f"k={CSC_KS[0]}",), COMPACT_LIBRARY_NOTE)
 
 
+RING_NS = (2, 4, 8)
+RING_LIBRARY_NOTE = ("torch.stack(xs).float().sum(0): the same sum in one "
+                     "call, without the ring's wire rounding (so not the "
+                     "same bits); timed only, the port never calls it")
+FUSED_LIBRARY_NOTE = ("no single PyTorch call computes this function (e.g. "
+                      "torch._fused_sgd_ applies lr after the momentum, not "
+                      "inside it)")
+
+
+def bits_equal(torch, a, b) -> bool:
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+def abs_err(a, b) -> float:
+    """Largest |a - b| over elements where both are numbers."""
+    return (a.float() - b.float()).abs().nan_to_num(0.0).max().item()
+
+
+def ring_inputs(torch, n, size, dtype, gen, dev):
+    """N ranks' inputs: f32/bf16 normal; int8 words within 127 // N (on
+    the grid); fp8 words anywhere in ±448, so the sums overflow the
+    format and its overflow rule is exercised."""
+    if dtype == torch.int8:
+        q = 127 // n
+        return [torch.randint(-q, q + 1, (size,), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(n)]
+    if dtype == torch.float8_e4m3fn:
+        return [((torch.rand(size, generator=gen, device=dev) - 0.5) * 896
+                 ).to(dtype) for _ in range(n)]
+    return [torch.randn(size, generator=gen, device=dev).to(dtype)
+            for _ in range(n)]
+
+
+def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
+    """ring_allreduce with N = 2, 4, 8 ranks in this process, each rank on
+    its own stream (the in-process workspace): smollm-135m's 6 lazy
+    buckets, the whole lazy pool and the CSC steady wire buffer in bf16,
+    and the first bucket in f32, int8 and fp8-e4m3; bit for bit against
+    the plain ring with the kernel's segment, every rank the same bits."""
+    pool = pool_mod.GradientPool(shapes)
+    buckets = pool.bucket_boundaries(BUCKET_ELEMS)
+    check(len(buckets) == 6, f"{len(buckets)} lazy buckets, expected 6")
+    first = buckets[0][1] - buckets[0][0]
+    cases = ([(f"lazy_bucket_{i}", e - s, torch.bfloat16)
+              for i, (s, e) in enumerate(buckets)]
+             + [("lazy_pool", pool.size, torch.bfloat16),
+                (f"csc_wire_k{CSC_KS[0]}", CSC_KS[0] * CHUNK, torch.bfloat16),
+                ("lazy_bucket_0_f32", first, torch.float32),
+                ("lazy_bucket_0_int8", first, torch.int8),
+                ("lazy_bucket_0_fp8", first, torch.float8_e4m3fn)])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    parts = {}
+    for n in RING_NS:
+        ws = kring.RingWorkspace.in_process(n, dev)
+        streams = [torch.cuda.Stream(dev) for _ in range(n)]
+        for label, size, dt in cases:
+            xs = ring_inputs(torch, n, size, dt, gen, dev)
+            p = kring.plan(size, n, dt, sms=sms)
+            got = kring.launch_ranks(xs, ws, streams=streams)
+            want = kring.plain(xs, None, p["seg_elems"])
+            torch.cuda.synchronize()
+            for r in range(n):
+                check(bits_equal(torch, got[r], want[r]),
+                      f"ring_allreduce N={n} {label} rank {r}: kernel != "
+                      f"plain (max abs diff {abs_err(got[r], want[r])})")
+                check(bits_equal(torch, got[r], got[0]),
+                      f"ring_allreduce N={n} {label}: ranks differ")
+            err = max(abs_err(g, w) for g, w in zip(got, want))
+            del want
+            ms = time_ms(torch, lambda: kring.launch_ranks(
+                xs, ws, outs=got, streams=streams))
+            plain_ms = time_ms(torch, lambda: kring.plain(
+                xs, None, p["seg_elems"]))
+            library_ms = time_ms(torch, lambda: torch.stack(xs).float()
+                                 .sum(0))
+            # All N ranks share one device memory: count every rank.
+            nbytes = n * kring.bound_bytes(size, n, dt, dt)
+            b_ms, b_by = bound_ms(nbytes, n * (n - 1) * -(-size // n), rate)
+            parts[f"N={n} {label}"] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
+                elems=size, ranks=n, lanes=p["lanes"],
+                seg_elems=p["seg_elems"], dtype=str(dt).split(".")[-1])
+            del xs, got
+            torch.cuda.empty_cache()
+        del ws
+        torch.cuda.empty_cache()
+    return entry("ring_allreduce",
+                 "src/repro_torch/kernels/csrc/ring_reduce.cu",
+                 "src/repro/kernels/ring_reduce.py:302", parts,
+                 tuple(f"N=2 lazy_bucket_{i}" for i in range(6)),
+                 RING_LIBRARY_NOTE, fp8_saturates=kring.fp8_saturates(),
+                 note=("ms is the N ranks' launches together on one card: "
+                       "the ring runs through this card's memory, not "
+                       "over NVLink"))
+
+
+def fused_update_phase(torch, kfu, optim, ops, base, dev, rate):
+    """fused_update on the whole 134,515,008-element f32 pool, all-true
+    and random mask, each with and without the scale, bit for bit against
+    the plain version; then ``optim.update_pool`` (the entry point that
+    reaches it) driven for 3 steps with the counts set to 0 just before."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 134_515_008
+    master = torch.randn(n, generator=gen, device=dev)
+    grads = torch.randn(n, generator=gen, device=dev) * 1e-2
+    mom = torch.randn(n, generator=gen, device=dev) * 1e-2
+    scale = torch.rand(n, generator=gen, device=dev) + 0.5
+    masks = {"all-true mask": torch.ones(n, dtype=torch.bool, device=dev),
+             "random mask": torch.rand(n, generator=gen, device=dev) < 0.7}
+    kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
+              weight_decay=1e-4)
+    parts = {}
+    for mlabel, mask in masks.items():
+        for slabel, s in (("no scale", None), ("scale", scale)):
+            args = (master, grads, mom, mask)
+            got = kfu.launch(*args, scale=s, **kw)
+            want = kfu.plain(*args, scale=s, **kw)
+            torch.cuda.synchronize()
+            err = max(abs_err(a, b) for a, b in zip(got, want))
+            check(all(bits_equal(torch, a, b) for a, b in zip(got, want)),
+                  f"fused_update ({mlabel}, {slabel}): kernel != plain "
+                  f"(max abs diff {err})")
+            del got, want
+            nbytes = n * (25 if s is not None else 21)
+            b_ms, b_by = bound_ms(nbytes, n * 7, rate)
+            parts[f"{mlabel}, {slabel}"] = dict(
+                ms=time_ms(torch, lambda: kfu.launch(*args, scale=s, **kw)),
+                plain_ms=time_ms(torch, lambda: kfu.plain(*args, scale=s,
+                                                          **kw)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                max_abs_err=err)
+            torch.cuda.empty_cache()
+    cfg = base.OptimizerConfig(learning_rate=0.05, momentum=0.9,
+                               weight_decay=1e-4)
+    state = optim.SGDState(momentum=mom)
+    w = master
+    ops.reset_counts()
+    for _ in range(3):
+        w, state = optim.update_pool("momentum_sgd", w, grads, state,
+                                     masks["random mask"], cfg, kw["lr"],
+                                     use_kernels=True)
+    torch.cuda.synchronize()
+    counts = dict(ops.dispatch_counts)
+    check(counts == {"fused_update.kernel": 3},
+          f"optim.update_pool: dispatch counts {counts}")
+    check(bool(torch.isfinite(w).all()), "optim.update_pool: non-finite")
+    del master, grads, mom, scale, masks, w, state
+    torch.cuda.empty_cache()
+    return entry("fused_update",
+                 "src/repro_torch/kernels/csrc/fused_update.cu",
+                 "src/repro/kernels/fused_update.py:73", parts,
+                 ("all-true mask, no scale",), FUSED_LIBRARY_NOTE,
+                 launches_update_pool=counts["fused_update.kernel"])
+
+
 def expected_counts(trainer, steps):
     """The kernel launches ``steps`` steps of this trainer's paths need,
     from its step plans."""
@@ -476,16 +653,229 @@ def train_phase(torch, dist, ops, train_mod, synthetic):
     return lazy, csc
 
 
-NOT_PORTED = [
-    dict(name="fused_update", replaces="src/repro/kernels/fused_update.py:73",
-         ported=False),
-    dict(name="ring_allreduce", replaces="src/repro/kernels/ring_reduce.py:302",
-         ported=False),
-]
+RING_STEPS = 3  # on the stream, then as many on one repeated batch
+RING_CSC_STEPS = CSC_WARMUP + 1  # the dense step, the ramp, one steady step
+
+
+def ring_train_worker(rank: int, port: int, out: str) -> None:
+    """One rank of the ring runs (a process of its own): smollm-135m at
+    full width and depth, bf16 wire, momentum SGD, kernels on,
+    ``collective_algo="pallas_ring"``, world size 2 over gloo (NCCL
+    refuses two ranks on one card), this rank's half of each global
+    batch. First lazy mode, then CSC through its dense step, its ramp and
+    one steady step (the ring then reduces the compacted wire buffer).
+    Writes its findings to ``out`` as JSON."""
+    import dataclasses
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ring_reduce as kring
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
+              str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len", str(SEQ)]
+
+    def ring_trainer(extra):
+        args = train_mod.parse_args(common + extra)
+        _, cfg = train_mod.build(args)
+        cfg = cfg.replace(gradientflow=dataclasses.replace(
+            cfg.gradientflow, collective_algo="pallas_ring"))
+        return args, cfg, Trainer(cfg)
+
+    def drive(trainer, args, cfg, steps, batch_of):
+        """``steps`` steps on the batches ``batch_of(step)``, each under
+        its stage; the counts, the losses, the step times and whether the
+        ranks held the same parameters after every step."""
+        data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+        state = trainer.init_state(args.seed)
+        fns, losses, step_ms, digests = {}, [], [], []
+        stages = [trainer.gf.stage_for_step(s) for s in range(steps)]
+        ops.reset_counts()
+        for s, stage in enumerate(stages):
+            if stage.index not in fns:
+                fns[stage.index] = trainer.build_train_step(stage)
+            batch = data.batch(batch_of(s), BATCH // 2, SEQ, shard=rank)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fns[stage.index](state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            flat = torch.cat([p.reshape(-1) for p in
+                              trainer.pool.flat_leaves(state.params)])
+            digests.append(hashlib.sha256(
+                flat.cpu().numpy().tobytes()).hexdigest())
+            del flat
+        counts = dict(ops.dispatch_counts)
+        both = [None, None]
+        dist.all_gather_object(both, digests)
+        plans = [trainer.gf.plan(st) for st in stages]
+        want = expected_counts(trainer, steps)
+        want["ring_allreduce.kernel"] = sum(len(p.tasks) for p in plans)
+        return dict(losses=losses, step_ms=step_ms, counts=counts,
+                    expected_counts=want,
+                    buckets=[len(p.tasks) for p in plans],
+                    num_selected=[st.num_selected for st in stages],
+                    same_params_every_step=both[0] == both[1])
+
+    result = {"rank": rank}
+    try:
+        args, cfg, trainer = ring_trainer(["--gf-mode", "lazy"])
+        plan = trainer.engine.plan_for(None)
+        check(all(t.algo.name == "pallas_ring" for t in plan.tasks),
+              f"buckets' algorithms {[t.algo for t in plan.tasks]}")
+        # Capture the first step's packed pool and its post-reduce pool
+        # (the ring sums each bucket in place in the wire pool).
+        captured = {}
+        run = trainer.engine.run
+
+        def capture(plan_, gpool, *a, **k):
+            if captured:
+                return run(plan_, gpool, *a, **k)
+            captured["pre"] = gpool.detach().cpu().clone()
+            outs = run(plan_, gpool, *a, **k)
+            torch.cuda.synchronize()
+            captured["post"] = gpool.detach().cpu().clone()
+            return outs
+
+        trainer.engine.run = capture
+        result["lazy"] = drive(trainer, args, cfg, 2 * RING_STEPS,
+                               lambda s: min(s, RING_STEPS))
+        # The first step's post-reduce pool against the plain ring of the
+        # two ranks' packed pools, on rank 0's CPU.
+        pre = captured["pre"].view(torch.int16)
+        post = captured["post"].view(torch.int16)
+        if rank == 1:
+            dist.send(pre, 0)
+            dist.send(post, 0)
+        else:
+            pre1, post1 = torch.empty_like(pre), torch.empty_like(post)
+            dist.recv(pre1, 1)
+            dist.recv(post1, 1)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            ok = True
+            for t in plan.tasks:
+                xs = [x[t.start:t.end].view(torch.bfloat16)
+                      for x in (pre, pre1)]
+                seg = kring.plan(t.size, 2, torch.bfloat16,
+                                 sms=sms)["seg_elems"]
+                want = ref.ring_allreduce_ranks(xs, seg_elems=seg)[0]
+                ok &= torch.equal(want.view(torch.int16),
+                                  post[t.start:t.end])
+                ok &= torch.equal(want.view(torch.int16),
+                                  post1[t.start:t.end])
+            result["first_step_matches_plain_ring"] = bool(ok)
+        del trainer, captured, pre, post
+        torch.cuda.empty_cache()
+
+        args, cfg, trainer = ring_trainer(
+            ["--gf-mode", "csc", "--chunk-elems", str(CHUNK), "--sparsity",
+             str(CSC_SPARSITY), "--csc-warmup", str(CSC_WARMUP)])
+        result["csc"] = drive(trainer, args, cfg, RING_CSC_STEPS,
+                              lambda s: s)
+        del trainer
+        kring.release_workspaces()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def ring_train_phase(torch, dev):
+    """(c) the ring in the trainer: two processes on the one card, one
+    rank each, over the cross-process (IPC) ring workspace; lazy, then
+    CSC."""
+    mode = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu="
+                           "compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    print(f"compute mode: {mode.stdout.strip()}", flush=True)
+    port = free_port()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"ring_train_rank{r}.json")
+            for r in range(2)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ring-rank", str(r), "--port", str(port),
+                               "--out", outs[r]]) for r in range(2)]
+    try:
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        fail("ring train run: ranks did not finish within 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"ring train run: rank exit codes {[p.returncode for p in procs]}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    runs = {}
+    for label in ("lazy", "csc"):
+        for r in ranks:
+            got = r[label]
+            check(got["counts"] == got["expected_counts"],
+                  f"ring train {label} rank {r['rank']}: dispatch counts "
+                  f"{got['counts']}, expected {got['expected_counts']}")
+            check(got["same_params_every_step"],
+                  f"ring train {label}: the ranks' parameters differ")
+            check(all(math.isfinite(x) for x in got["losses"]),
+                  f"ring train {label}: non-finite loss {got['losses']}")
+        check(ranks[0][label]["losses"] == ranks[1][label]["losses"],
+              f"ring train {label}: the ranks logged different losses")
+        runs[label] = ranks[0][label]
+    rep = runs["lazy"]["losses"][RING_STEPS:]
+    check(rep[-1] < rep[0], f"ring train: loss did not fall on one batch: "
+          f"{rep}")
+    check(ranks[0]["first_step_matches_plain_ring"],
+          "ring train: the first step's post-reduce pool != the plain ring "
+          "of the two ranks' packed pools")
+    check(runs["csc"]["num_selected"][-1] < runs["csc"]["num_selected"][0],
+          f"ring train csc: no sparse step ({runs['csc']['num_selected']})")
+    note = ("world size 2 as two processes on one card: the ranks take "
+            "turns on the device, so a step time is no wire's; the ring "
+            "runs through this card's memory, not NVLink")
+    lazy, csc_run = runs["lazy"], runs["csc"]
+    return (dict(losses=lazy["losses"][:RING_STEPS],
+                 repeated_batch_losses=lazy["losses"][RING_STEPS:],
+                 step_ms=[r["lazy"]["step_ms"] for r in ranks],
+                 steady_step_ms=statistics.median(
+                     lazy["step_ms"][1:RING_STEPS]),
+                 dispatch_counts=lazy["counts"],
+                 compute_mode=mode.stdout.strip(), note=note),
+            dict(losses=csc_run["losses"],
+                 step_ms=[r["csc"]["step_ms"] for r in ranks],
+                 num_selected=csc_run["num_selected"],
+                 ring_buckets=csc_run["buckets"],
+                 dispatch_counts=csc_run["counts"],
+                 compute_mode=mode.stdout.strip(), note=note))
 
 
 def main() -> None:
     import torch
+    if "--ring-rank" in sys.argv:
+        argv = sys.argv[1:]
+        ring_train_worker(int(argv[argv.index("--ring-rank") + 1]),
+                          int(argv[argv.index("--port") + 1]),
+                          argv[argv.index("--out") + 1])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
@@ -504,9 +894,13 @@ def main() -> None:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import chunk_l1norm as kcl
     from repro_torch.kernels import csc_compact as kcc
+    from repro_torch.kernels import fused_update as kfu
+    from repro_torch.kernels import ring_reduce as kring
     from repro_torch.kernels import pool_pack as kpack
     from repro_torch.kernels import pool_unpack as kunpack
     from repro_torch.launch import train as train_mod
+    from repro_torch import optim
+    from repro_torch.configs import base
     from repro_torch.models import build_model
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
@@ -539,22 +933,36 @@ def main() -> None:
         pack_phase(torch, pool_mod, kpack, shapes, dev, rate),
         update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate),
         census_phase(torch, kcl, num_chunks, dev, rate),
-        compact_phase(torch, kcc, num_chunks, dev, rate)]
+        compact_phase(torch, kcc, num_chunks, dev, rate),
+        ring_phase(torch, kring, pool_mod, shapes, dev, rate),
+        fused_update_phase(torch, kfu, optim, ops, base, dev, rate)]
     for e in entries:
         print(json.dumps(dict(kernel=e["name"], gpu=name, power_limit=power,
                               parts=e["parts"])), flush=True)
 
     lazy, csc_run = train_phase(torch, dist, ops, train_mod, synthetic)
-    for label, run in (("lazy", lazy), ("csc", csc_run)):
+    ring, ring_csc = ring_train_phase(torch, dev)
+    for label, run in (("lazy", lazy), ("csc", csc_run),
+                       ("lazy_pallas_ring_2_processes", ring),
+                       ("csc_pallas_ring_2_processes", ring_csc)):
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,
                               **run)), flush=True)
     for e in entries:
         key = f"{e['name']}.kernel"
-        e["launches"] = csc_run["dispatch_counts"][key]
-        e["launches_lazy"] = lazy["dispatch_counts"].get(key, 0)
+        if e["name"] == "ring_allreduce":
+            # Rank 0's launches in the two-process ring runs.
+            e["launches"] = ring["dispatch_counts"][key]
+            e["launches_csc"] = ring_csc["dispatch_counts"][key]
+        elif e["name"] == "fused_update":
+            e["launches"] = e.pop("launches_update_pool")
+        else:
+            e["launches"] = csc_run["dispatch_counts"][key]
+            e["launches_lazy"] = lazy["dispatch_counts"].get(key, 0)
+    check(all(e["launches"] > 0 for e in entries),
+          f"launches {[(e['name'], e['launches']) for e in entries]}")
     print(smi_line)
-    print(json.dumps({"kernels": entries, "not_ported": NOT_PORTED,
+    print(json.dumps({"kernels": entries, "not_ported": [],
                       "gpu": name, "nvidia_smi": smi_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 Field for field the same as the JAX package's ``configs/base.py`` (same
 names, same defaults), so a config written for one package reads the same
-in the other. ``GradientFlowConfig.topology`` holds the port's own minimal
+in the other. ``GradientFlowConfig.topology`` holds the port's own
 ``Topology`` (``repro_torch.parallel.topology``).
 """
 from __future__ import annotations
@@ -48,9 +48,10 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class GradientFlowConfig:
     """The communication backend's settings (see the JAX package for the
-    meaning of each field). The port runs ``mode`` 'dense' and 'lazy',
-    ``wire_format='native'``, ``overlap='staged'`` and the flat collective;
-    the rest raise ``NotImplementedError`` where they would be used."""
+    meaning of each field). The port runs ``mode`` 'dense', 'lazy' and
+    'csc', ``wire_format='native'``, ``overlap='staged'``, every
+    ``collective_algo`` and ``auto_bucket``; the rest raise
+    ``NotImplementedError`` where they would be used."""
 
     mode: str = "lazy"
     bucket_elems: int = 16 * 1024 * 1024

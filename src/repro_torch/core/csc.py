@@ -117,7 +117,8 @@ def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
     else:
         wire = compact_chunks(g, idx, chunk)
     parts = lazy_mod.bucketed_reduce_parts(
-        wire, bucket_boundaries, getattr(torch, cfg.wire_dtype), algo=algo)
+        wire, bucket_boundaries, getattr(torch, cfg.wire_dtype), algo=algo,
+        topo=cfg.topology)
     reduced = torch.cat(parts) / num_data_shards
     # Post-reduce view: the mean at the selected chunks, the local g
     # elsewhere (it feeds this rank's hg and census).

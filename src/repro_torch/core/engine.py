@@ -179,7 +179,8 @@ class OverlapEngine:
         pending = None
         for task in plan.tasks:
             issued = lazy_mod.issue_bucket(gpool, task.start, task.end,
-                                           wire_dtype, algo=task.algo)
+                                           wire_dtype, algo=task.algo,
+                                           topo=self.gf.cfg.topology)
             if pending is not None:
                 retire(*pending)
             pending = (task, issued)
@@ -222,7 +223,8 @@ class OverlapEngine:
         pending = None
         for task in plan.tasks:
             issued = lazy_mod.issue_bucket(wire, task.start, task.end,
-                                           wire_dtype, algo=task.algo)
+                                           wire_dtype, algo=task.algo,
+                                           topo=cfg.topology)
             if pending is not None:
                 scatter(*pending)
             pending = (task, issued)

@@ -7,8 +7,10 @@ Modes (``GradientFlowConfig.mode``):
             must be padded to a chunk multiple
               (``GradientPool(..., pad_to=chunk_elems)``)
 All modes move gradients in the wire dtype and hand the update an f32
-mean. The low-bit wire formats, θ auto-tuning and the other collective
-algorithms are not ported yet and raise (see ROADMAP.md).
+mean. Each bucket's collective comes from the topology layer
+(``parallel.topology``: flat, two_level, tree, pallas_ring or auto), and
+``auto_bucket`` with a topology tunes θ on the cost model. The low-bit
+wire formats and ``replan`` are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.configs.base import GradientFlowConfig
 from repro_torch.core import csc as csc_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.pool import GradientPool
+from repro_torch.parallel import cost_model
 from repro_torch.parallel import topology as topo_mod
 
 _NOT_PORTED = "is not ported to repro_torch yet; see ROADMAP.md queue A"
@@ -49,9 +52,6 @@ class GradientFlow:
         if cfg.quantized:
             raise NotImplementedError(f"wire_format {cfg.wire_format!r} "
                                       + _NOT_PORTED)
-        if cfg.auto_bucket and cfg.topology is not None:
-            raise NotImplementedError("auto_bucket (θ auto-tuning) "
-                                      + _NOT_PORTED)
         self.cfg = cfg
         self.pool = pool
         self.num_data_shards = int(num_data_shards)
@@ -74,7 +74,17 @@ class GradientFlow:
         if self._dense_bounds and pool.size > self._dense_bounds[-1][1]:
             self._dense_bounds += ((self._dense_bounds[-1][1], pool.size),)
         self.bucket_elems = cfg.bucket_elems
-        self._lazy_bounds = tuple(pool.bucket_boundaries(self.bucket_elems))
+        if cfg.auto_bucket and cfg.topology is not None:
+            # The staged pipeline (the port's only overlap) prices θ
+            # against the per-bucket updates too.
+            self.bucket_elems, bounds = topo_mod.auto_bucket_boundaries(
+                pool, cfg.wire_dtype, cfg.topology,
+                collective_algo=cfg.collective_algo,
+                update_bw=cost_model.HBM_BW)
+            self._lazy_bounds = tuple(bounds)
+        else:
+            self._lazy_bounds = tuple(
+                pool.bucket_boundaries(self.bucket_elems))
         self._dense_algos = self._algos_for(self._dense_bounds)
         self._lazy_algos = self._algos_for(self._lazy_bounds)
         self._plan_cache: dict = {}

@@ -7,7 +7,9 @@ returns a handle whose ``wait()`` gives the summed segment in f32; the
 overlap engine issues bucket *i* before it emits bucket *i-1*'s update.
 
 The all-reduce runs in place on the pool's slice: the wire pool is dead
-after its reduce (the next step packs it anew), so no copy is made.
+after its reduce (the next step packs it anew), so no copy is made. The
+algorithm of a bucket comes from the topology layer; ``topo`` is the
+topology its groups are drawn from (None: the default group).
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ class PendingBucket:
 
 
 def issue_bucket(pool: torch.Tensor, start: int, end: int,
-                 wire_dtype: Optional[torch.dtype], *, algo=None,
+                 wire_dtype: Optional[torch.dtype], *, algo=None, topo=None,
                  accum_dtype: torch.dtype = torch.float32) -> PendingBucket:
     """Start ONE bucket's collective: slice [start, end) off the pool,
     cast to the wire dtype (None = the pool is already wire-packed), and
@@ -52,27 +54,27 @@ def issue_bucket(pool: torch.Tensor, start: int, end: int,
     seg = pool[start:end]
     if wire_dtype is not None and seg.dtype != wire_dtype:
         seg = seg.to(wire_dtype)
-    seg, work = (algo or FLAT).reduce(seg, async_op=True)
+    seg, work = (algo or FLAT).reduce(seg, topo, async_op=True)
     return PendingBucket(seg, work, accum_dtype)
 
 
 def reduce_bucket(pool: torch.Tensor, start: int, end: int,
-                  wire_dtype: Optional[torch.dtype], *, algo=None,
+                  wire_dtype: Optional[torch.dtype], *, algo=None, topo=None,
                   accum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One bucket's summed segment in ``accum_dtype`` (synchronous)."""
-    return issue_bucket(pool, start, end, wire_dtype, algo=algo,
+    return issue_bucket(pool, start, end, wire_dtype, algo=algo, topo=topo,
                         accum_dtype=accum_dtype).wait()
 
 
 def bucketed_reduce_parts(pool: torch.Tensor,
                           boundaries: Sequence[Tuple[int, int]],
                           wire_dtype: Optional[torch.dtype], *,
-                          algo: AlgoSpec = None,
+                          algo: AlgoSpec = None, topo=None,
                           accum_dtype: torch.dtype = torch.float32,
                           ) -> List[torch.Tensor]:
     """One summed segment per boundary. Every bucket is issued before the
     first is waited on, so the collectives queue back to back."""
     pending = [issue_bucket(pool, s, e, wire_dtype, algo=_algo_for(algo, i),
-                            accum_dtype=accum_dtype)
+                            topo=topo, accum_dtype=accum_dtype)
                for i, (s, e) in enumerate(boundaries)]
     return [p.wait() for p in pending]

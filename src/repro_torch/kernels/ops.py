@@ -16,9 +16,11 @@ import torch
 
 from repro_torch.kernels import chunk_l1norm as _cl
 from repro_torch.kernels import csc_compact as _cc
+from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import pool_pack as _pp
 from repro_torch.kernels import pool_unpack as _pu
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring_reduce as _rr
 
 dispatch_counts: Dict[str, int] = {}
 
@@ -102,3 +104,89 @@ def pool_unpack_update(master, grads, momentum_buf, mask,
               momentum=momentum, weight_decay=weight_decay, scale=scale,
               ratios=ratios, out_leaves=out_leaves,
               out_momentum=out_momentum)
+
+
+def fused_update(master, grads, momentum_buf, mask, *, lr, momentum: float,
+                 weight_decay: float, scale: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked momentum-SGD step over a whole pool: (new master, new
+    momentum)."""
+    if not _on_cuda([master, grads, momentum_buf, mask, scale]):
+        _count("fused_update", "plain")
+        fn = _fu.plain
+    else:
+        _count("fused_update", "kernel")
+        fn = _fu.launch
+    return fn(master, grads, momentum_buf, mask, lr=lr, momentum=momentum,
+              weight_decay=weight_decay, scale=scale)
+
+
+class StreamWork:
+    """An issued ring: ``wait()`` makes the current stream wait for it."""
+
+    def __init__(self, event):
+        self._event = event
+
+    def wait(self) -> None:
+        torch.cuda.current_stream(self._event.device).wait_event(self._event)
+
+
+_COMM_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def comm_stream(device: torch.device):
+    """The stream the rings of ``device`` run on (one per device, so
+    rings run in issue order, as every rank issues them)."""
+    s = _COMM_STREAMS.get(device.index)
+    if s is None:
+        s = _COMM_STREAMS[device.index] = torch.cuda.Stream(device)
+    return s
+
+
+def ring_prepare(levels, device) -> None:
+    """Set up the ring workspace of every level with more than one rank,
+    once per level group (collectively); nothing for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        for lg in levels:
+            if lg.size > 1:
+                _rr.prepare(lg, device)
+
+
+def ring_allreduce(x: torch.Tensor, levels, wire_dtype=None,
+                   async_op: bool = False):
+    """Sum ``x`` with one ring per level (``levels``: the
+    ``collectives.LevelGroup`` of each level, innermost first), in place.
+    Returns ``(x, work)`` like the flat all-reduce.
+
+    A CPU tensor runs the plain twin over each level's process group. A
+    CUDA tensor launches the kernel once per level on the device's
+    communication stream, after the current stream's work, over the
+    level's workspace (``ring_prepare``); with ``async_op`` the returned
+    work's ``wait()`` makes the current stream wait for it, else the
+    current stream waits at once."""
+    levels = [lg for lg in levels if lg.size > 1]
+    if not levels:
+        return x, None
+    if not _on_cuda([x]):
+        for lg in levels:
+            _count("ring_allreduce", "plain")
+            x.copy_(ref.ring_allreduce(x, lg, wire_dtype))
+        return x, None
+    device = x.device
+    cur = torch.cuda.current_stream(device)
+    comm = comm_stream(device)
+    comm.wait_stream(cur)
+    with torch.cuda.stream(comm):
+        for lg in levels:
+            ws = _rr.workspace(lg, device)
+            _count("ring_allreduce", "kernel")
+            _rr.launch(x, ws, wire_dtype, out=x)
+    x.record_stream(comm)
+    event = torch.cuda.Event()
+    event.record(comm)
+    work = StreamWork(event)
+    if async_op:
+        return x, work
+    work.wait()
+    return x, None

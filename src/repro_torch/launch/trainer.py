@@ -14,6 +14,11 @@ overlap and the flat collective:
    CSC: select, gather, reduce and scatter the chunks, then the census and
    the masked update; see ``core.engine``).
 
+The data-parallel topology comes from the world size (one ``('data', N)``
+level) unless the config names one covering the same ranks; its level
+groups, and on the card the ring workspace of each level group that a
+``pallas_ring`` bucket may run over, are created when the trainer is.
+
 CSC's step depends on its warm-up stage: ``build_train_step(stage)``
 builds one step function per stage, and the caller picks the stage of
 each step with ``gf.stage_for_step``. With ``use_kernels`` the packs, the
@@ -27,6 +32,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Union
 
+import dataclasses
+
 import torch
 
 from repro_torch import resolve_device
@@ -35,10 +42,12 @@ from repro_torch.core.engine import OverlapEngine
 from repro_torch.core.gradientflow import GFState, GradientFlow, wire_dtype_of
 from repro_torch.core.pool import GradientPool
 from repro_torch.core.schedule import SparsityStage
+from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
 from repro_torch.optim import init_state as opt_init_state
 from repro_torch.optim import lr_at
 from repro_torch.parallel import collectives
+from repro_torch.parallel.topology import mesh_topology
 
 _ROADMAP = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 
@@ -66,11 +75,20 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
         self.num_data = collectives.data_world_size()
+        gf_cfg = dataclasses.replace(gf_cfg, topology=mesh_topology(
+            self.num_data, gf_cfg.topology))
+        collectives.level_groups(gf_cfg.topology)
         # CSC chunks the pool: pad it to a chunk multiple.
         pad = gf_cfg.chunk_elems if gf_cfg.csc_enabled else 1
         self.pool = GradientPool(self.model.param_shapes(), pad_to=pad)
         self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
         self.gf_cfg = gf_cfg
+        # 'auto' resolves to the flat ring on one level (resolve_algorithm).
+        if gf_cfg.collective_algo == "pallas_ring" or (
+                gf_cfg.collective_algo == "auto"
+                and len(gf_cfg.topology.levels) > 1):
+            kops.ring_prepare(collectives.ring_levels(gf_cfg.topology),
+                              self.device)
         self.opt_name = cfg.optimizer.name
         self.engine = OverlapEngine(self.gf, self.opt_name, cfg.optimizer)
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)

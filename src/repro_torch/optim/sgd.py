@@ -7,7 +7,8 @@ step), in PyTorch:
 ``use_kernels=True`` routes through ``kernels.ops.pool_unpack_update``
 (the CUDA kernel for CUDA tensors, its plain version on the CPU). The
 momentum segment and, when given, the parameter leaves are updated in
-place.
+place. ``update_pool`` is the whole-pool two-pass form (new master pool,
+no unpack), through ``kernels.ops.fused_update`` with ``use_kernels``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,25 @@ class SGDState(NamedTuple):
 def init(pool_size: int, device=None) -> SGDState:
     return SGDState(momentum=torch.zeros((pool_size,), dtype=torch.float32,
                                          device=device))
+
+
+def update_pool(master: torch.Tensor, grads: torch.Tensor, state: SGDState,
+                mask: torch.Tensor, cfg: OptimizerConfig, lr, *,
+                scale: Optional[torch.Tensor] = None,
+                use_kernels: bool = False) -> Tuple[torch.Tensor, SGDState]:
+    """The masked momentum-SGD step over the whole pool (per-element
+    ``scale`` for LARS). Returns (new master pool, new state); the inputs
+    are left as they were."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        fn = ops.fused_update
+    else:
+        from repro_torch.kernels import ref
+        fn = ref.fused_update
+    new_master, new_mom = fn(master, grads, state.momentum, mask, lr=lr,
+                             momentum=cfg.momentum,
+                             weight_decay=cfg.weight_decay, scale=scale)
+    return new_master, SGDState(momentum=new_mom)
 
 
 def _update(offsets, sizes, specs, master, grads, state, mask, cfg, lr, *,

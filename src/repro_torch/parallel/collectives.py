@@ -1,37 +1,49 @@
 """Data-parallel reductions over ``torch.distributed``.
 
 The JAX package sums over named mesh axes inside ``shard_map``. The port
-sums over the default process group: an all-reduce when one is
-initialised, the identity when none is — exactly what a psum over a
-size-1 axis gives. The group is the caller's to create
-(``torch.distributed.init_process_group`` with an explicit address, world
-size and rank).
+sums over process groups: the default group for the flat all-reduce, and
+one subgroup per topology level (``level_groups``) for the two-level, tree
+and ring algorithms. With no process group initialised every reduction is
+the identity — exactly what a psum over a size-1 axis gives. The default
+group is the caller's to create (``torch.distributed.init_process_group``
+with an explicit address, world size and rank).
+
+Ranks map onto a topology's levels (slowest first) in row-major order:
+``rank = Σ coord_l · stride_l``. ``level_groups`` creates, once per
+topology shape and on every rank in one order, a group per level and per
+coordinate of the other levels, and a group per innermost coordinate over
+all outer levels (the two-level algorithm's middle phase).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
 def data_world_size() -> int:
     """Number of data-parallel shards: the default group's size, or 1."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    return dist.get_world_size() if _initialized() else 1
 
 
-def all_reduce_sum(x: torch.Tensor, *, async_op: bool = False
+def all_reduce_sum(x: torch.Tensor, *, async_op: bool = False, group=None
                    ) -> Tuple[torch.Tensor, Optional[object]]:
-    """Sum ``x`` in place across the default group.
+    """Sum ``x`` in place across ``group`` (default: the default group).
 
     Returns ``(x, work)``: ``work`` is the async handle to ``wait()`` on
     when ``async_op`` is set and a group exists, else None (the sum is
     complete on return, or there was nothing to sum)."""
-    if not (dist.is_available() and dist.is_initialized()):
+    if not _initialized():
         return x, None
-    work = dist.all_reduce(x, op=dist.ReduceOp.SUM, async_op=async_op)
+    work = dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
+                           async_op=async_op)
     return x, (work if async_op else None)
 
 
@@ -42,3 +54,197 @@ def reduce_pool(x: torch.Tensor, algo=None) -> torch.Tensor:
         return all_reduce_sum(x)[0]
     out, work = algo.reduce(x)
     return out
+
+
+def ring_perm(n: int) -> list:
+    """The unidirectional ring: rank d sends to (d + 1) % n. One such
+    exchange is one ring *step*; a ring all-reduce is 2(n-1) of them."""
+    return [(d, (d + 1) % n) for d in range(n)]
+
+
+# -- level groups --------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelGroup:
+    """This rank's group along one level (or a set of levels): the
+    process group (None when it holds one rank, or without a default
+    group), the global ranks in group order, and this rank's position."""
+
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def nccl(self) -> bool:
+        return self.group is not None and dist.get_backend(self.group) == "nccl"
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelGroups:
+    """Every group of one topology shape that holds this rank."""
+
+    levels: Tuple[LevelGroup, ...]   # per level, slowest first
+    outer: Optional[LevelGroup]      # all levels but the innermost
+
+
+_GROUPS: Dict[Tuple[int, ...], LevelGroups] = {}
+_SOLO = LevelGroup(group=None, ranks=(0,), index=0)
+
+
+def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    r = 0
+    for c, s in zip(coords, sizes):
+        r = r * s + c
+    return r
+
+
+def _groups_over(keep: Sequence[int], sizes: Sequence[int], me: int
+                 ) -> LevelGroup:
+    """Create one group per coordinate of the levels outside ``keep``
+    (row-major order), spanning the levels in ``keep``; return the one
+    that holds ``me``. Every rank calls this in the same order."""
+    others = [l for l in range(len(sizes)) if l not in keep]
+    mine = None
+    for fixed in itertools.product(*[range(sizes[l]) for l in others]):
+        ranks = []
+        for var in itertools.product(*[range(sizes[l]) for l in keep]):
+            coords = [0] * len(sizes)
+            for l, c in zip(others, fixed):
+                coords[l] = c
+            for l, c in zip(keep, var):
+                coords[l] = c
+            ranks.append(_rank_of(coords, sizes))
+        group = dist.new_group(ranks) if len(ranks) > 1 else None
+        if me in ranks:
+            mine = LevelGroup(group=group, ranks=tuple(ranks),
+                              index=ranks.index(me))
+    return mine
+
+
+def level_groups(topo) -> LevelGroups:
+    """The groups of ``topo``'s shape that hold this rank, created on
+    first use (collectively: every rank must call this for the same
+    shapes in the same order). ``topo=None`` is one level over the
+    default group. Without a default group every group is this rank
+    alone."""
+    sizes = tuple(lv.size for lv in topo.levels) if topo is not None \
+        else (data_world_size(),)
+    if not _initialized():
+        assert all(s == 1 for s in sizes), (
+            f"a topology of {sizes} ranks needs a process group")
+        return LevelGroups(levels=(_SOLO,) * len(sizes),
+                           outer=_SOLO if len(sizes) > 1 else None)
+    world = dist.get_world_size()
+    n = 1
+    for s in sizes:
+        n *= s
+    if n != world:
+        raise ValueError(f"topology of {sizes} ranks on a world of {world}")
+    found = _GROUPS.get(sizes)
+    if found is None:
+        me = dist.get_rank()
+        if len(sizes) == 1:
+            levels = (LevelGroup(group=dist.group.WORLD,
+                                 ranks=tuple(range(world)), index=me),)
+            outer = None
+        else:
+            levels = tuple(_groups_over([l], sizes, me)
+                           for l in range(len(sizes)))
+            outer = _groups_over(list(range(len(sizes) - 1)), sizes, me)
+        found = _GROUPS[sizes] = LevelGroups(levels=levels, outer=outer)
+    return found
+
+
+def ring_levels(topo) -> List[LevelGroup]:
+    """The groups one ring runs over per level, innermost first."""
+    return list(reversed(level_groups(topo).levels))
+
+
+# -- two-level and tree --------------------------------------------------------
+
+
+def _sum_over(x: torch.Tensor, lg: LevelGroup) -> torch.Tensor:
+    """Sum ``x`` in place across one level group (nothing on one rank)."""
+    if lg.size > 1:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=lg.group)
+    return x
+
+
+def _pad_to_multiple(x: torch.Tensor, m: int) -> torch.Tensor:
+    pad = (-x.shape[0]) % m
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,))])
+    return x
+
+
+def _reduce_scatter(x: torch.Tensor, lg: LevelGroup
+                    ) -> Tuple[torch.Tensor, int]:
+    """Sum the (lg.size * seg,) buffer across the group; returns this
+    rank's summed segment and its index. NCCL runs
+    ``reduce_scatter_tensor`` (segment = the group index); gloo has no
+    reduce-scatter, so the plain ring twin's reduce-scatter half runs
+    instead (segment = index + 1 mod n, as the ring leaves it)."""
+    n = lg.size
+    seg = x.shape[0] // n
+    if lg.nccl:
+        out = x.new_empty((seg,))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=lg.group)
+        return out, lg.index
+    from repro_torch.kernels import ref
+    acc, own = ref.ring_reduce_scatter(x, lg, seg, x.dtype)
+    return acc[own * seg:(own + 1) * seg].to(x.dtype), own
+
+
+def _all_gather(shard: torch.Tensor, own: int, lg: LevelGroup
+                ) -> torch.Tensor:
+    """Every rank's summed segment back in segment order."""
+    n = lg.size
+    parts = [torch.empty_like(shard) for _ in range(n)]
+    dist.all_gather(parts, shard.contiguous(), group=lg.group)
+    owners = [j if lg.nccl else (j + 1) % n for j in range(n)]
+    out = [None] * n
+    for j, seg in zip(owners, parts):
+        out[j] = seg
+    return torch.cat(out)
+
+
+def hierarchical_psum(x: torch.Tensor, topo) -> torch.Tensor:
+    """Two-level all-reduce: reduce-scatter over the innermost level,
+    all-reduce the shard over all outer levels, all-gather back over the
+    innermost level. Outer-level traffic per rank drops from |x| to
+    |x| / inner size (the paper's NCCL-H, Fig 7b)."""
+    groups = level_groups(topo)
+    inner = groups.levels[-1]
+    if groups.outer is None:
+        return _sum_over(x, inner)
+    if inner.size == 1:
+        return _sum_over(x, groups.outer)
+    xp = _pad_to_multiple(x, inner.size)
+    shard, own = _reduce_scatter(xp, inner)
+    _sum_over(shard, groups.outer)
+    return _all_gather(shard, own, inner)[:x.shape[0]]
+
+
+def tree_psum(x: torch.Tensor, topo) -> torch.Tensor:
+    """k-level tree all-reduce: reduce-scatter from the innermost level
+    outward, all-reduce over the outermost level on a shard shrunk by all
+    inner sizes, then all-gather back down. Equals ``hierarchical_psum``
+    on two levels."""
+    return _tree(x, list(level_groups(topo).levels))
+
+
+def _tree(x: torch.Tensor, levels: List[LevelGroup]) -> torch.Tensor:
+    inner = levels[-1]
+    if len(levels) == 1:
+        return _sum_over(x, inner)
+    if inner.size == 1:
+        return _tree(x, levels[:-1])
+    xp = _pad_to_multiple(x, inner.size)
+    shard, own = _reduce_scatter(xp, inner)
+    shard = _tree(shard, levels[:-1])
+    return _all_gather(shard, own, inner)[:x.shape[0]]

@@ -180,3 +180,137 @@ def test_cuda_csc_trainer_kernels_match_plain(dev):
     for a, b in zip(k_params, p_params):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+# -- the ring and the whole-pool update ------------------------------------------
+
+RING_WIRES = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16), (torch.int8, torch.int8),
+              (torch.float8_e4m3fn, torch.float8_e4m3fn))
+
+
+def ring_case(n, size, x_dtype, seed):
+    """N ranks' inputs. int8 words within 127 // N (on the grid); fp8
+    words anywhere in the format's range, so sums pass ±448 and the
+    overflow rule is exercised."""
+    rng = np.random.default_rng(seed)
+    if x_dtype == torch.int8:
+        q = 127 // n
+        return [torch.from_numpy(rng.integers(-q, q + 1, size)
+                                 .astype(np.int8)) for _ in range(n)]
+    if x_dtype == torch.float8_e4m3fn:
+        return [torch.from_numpy(rng.uniform(-448, 448, size)
+                                 .astype(np.float32)).to(x_dtype)
+                for _ in range(n)]
+    return [torch.from_numpy(rng.standard_normal(size).astype(np.float32))
+            .to(x_dtype) for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_ring_matches_plain(dev, n):
+    """N ranks in one process, each on its own stream: every wire, sizes
+    from one element to several sub-tiles, the same bits as the plain
+    ring with the kernel's segment, on every rank; the workspaces are
+    reused across launches of different widths."""
+    from repro_torch.kernels import ring_reduce as t_ring
+
+    ws = t_ring.RingWorkspace.in_process(n, dev)
+    for size in (1, n * 5 + 3, 70_001,
+                 2 * t_ring.LANE_ELEMS * t_ring.max_lanes(n) * n + 9):
+        for k, (x_dtype, wire) in enumerate(RING_WIRES):
+            xs = [x.to(dev) for x in ring_case(n, size, x_dtype, size + k)]
+            seg = t_ring.plan(size, n, wire,
+                              sms=t_ring._sms(dev))["seg_elems"]
+            got = t_ring.launch_ranks(xs, ws, wire)
+            want = t_ring.plain(xs, wire, seg)
+            torch.cuda.synchronize()
+            for r in range(n):
+                assert torch.equal(got[r].view(torch.uint8),
+                                   want[r].view(torch.uint8)), (size, x_dtype,
+                                                                wire, r)
+                assert torch.equal(got[r].view(torch.uint8),
+                                   got[0].view(torch.uint8))
+
+
+_RING_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np, torch, torch.distributed as dist
+    sys.path[:0] = [{tests!r}, {src!r}]
+    rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{{port}}",
+                            world_size=2, rank=rank)
+    from test_torch_cuda import ring_case
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_reduce
+    from repro_torch.parallel import topology
+    from repro_torch.parallel import collectives
+    dev = torch.device("cuda", 0)
+    ops.ring_prepare(collectives.ring_levels(None), dev)
+    saved = {{}}
+    for size in (5, 70_001, 1_000_003):
+        for k, dt in enumerate((torch.bfloat16, torch.float32)):
+            x = ring_case(2, size, dt, size + k)[rank].to(dev)
+            ops.reset_counts()
+            y, work = topology.PALLAS_RING.reduce(x, None, async_op=True)
+            work.wait()
+            torch.cuda.synchronize()
+            assert ops.dispatch_counts == {{"ring_allreduce.kernel": 1}}
+            saved[f"{{size}}|{{k}}"] = y.view(torch.uint8).cpu().numpy()
+    ring_reduce.release_workspaces()
+    np.savez(out, **saved)
+    dist.destroy_process_group()
+""")
+
+
+@pytest.mark.cuda
+def test_cuda_ring_across_two_processes(dev, tmp_path):
+    """Two processes on one card, one rank each, over the cross-process
+    (CUDA IPC) workspace with a gloo group for the set-up: both ranks end
+    with the plain ring's bits."""
+    import socket
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    script = tmp_path / "ring_worker.py"
+    script.write_text(_RING_WORKER.format(
+        tests=tests, src=os.path.join(tests, "..", "src")))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
+                               str(tmp_path / f"r{r}.npz")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-3000:]
+    r0, r1 = (np.load(tmp_path / f"r{r}.npz") for r in range(2))
+    from repro_torch.kernels import ring_reduce as t_ring
+    for size in (5, 70_001, 1_000_003):
+        for k, dt in enumerate((torch.bfloat16, torch.float32)):
+            xs = ring_case(2, size, dt, size + k)
+            want = t_ring.plain(xs)[0].view(torch.uint8).numpy()
+            np.testing.assert_array_equal(r0[f"{size}|{k}"], want)
+            np.testing.assert_array_equal(r1[f"{size}|{k}"], want)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_matches_plain(dev):
+    """With and without the scale, on 16-byte aligned pools and on views
+    one element in (the element-wise path), bit for bit."""
+    from repro_torch.kernels import fused_update as t_fu
+
+    n = 100_003
+    master, grads, mom, scale = (_randn(20 + i, n + 1).to(dev)
+                                 for i in range(4))
+    mask = _randn(30, n + 1).to(dev) > 0.3
+    kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
+              weight_decay=1e-4)
+    for off in (0, 1):
+        args = [t[off:off + n] for t in (master, grads, mom, mask)]
+        for s in (None, scale[off:off + n]):
+            got = t_fu.launch(*args, scale=s, **kw)
+            want = t_fu.plain(*args, scale=s, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])

@@ -20,6 +20,10 @@ _SCRIPT = textwrap.dedent("""
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     assert not bad, bad
+    for needed in ("repro_torch.parallel.cost_model",
+                   "repro_torch.kernels.ring_reduce",
+                   "repro_torch.kernels.fused_update"):
+        assert needed in names, needed
     print(len(names))
 """)
 
@@ -31,4 +35,4 @@ def test_port_imports_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 25  # every module was imported
+    assert int(proc.stdout.strip()) >= 28  # every module was imported

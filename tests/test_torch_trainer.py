@@ -169,7 +169,6 @@ def test_analytics_match_jax(full, mode, wire, theta):
 def test_unported_settings_raise():
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     for gf in (dict(wire_format="int8"),
-               dict(collective_algo="pallas_ring"),
                dict(pipeline_tail_buckets=1), dict(overlap="monolithic")):
         cfg = base.replace(gradientflow=dataclasses.replace(
             base.gradientflow, **gf))
@@ -180,16 +179,22 @@ def test_unported_settings_raise():
 
 
 def test_resolve_algorithm():
+    from repro_torch.parallel import cost_model
     from repro_torch.parallel import topology as topo
 
     one = topo.Topology.flat("data", 8)
-    two = topo.Topology((topo.Level("pod", 2), topo.Level("data", 4)))
+    two = topo.Topology((topo.Level("pod", 2, cost_model.NCCL_56G),
+                         topo.Level("data", 4, cost_model.INTRA_NODE)))
     assert topo.resolve_algorithm("flat", two) is topo.FLAT
     assert topo.resolve_algorithm("auto", None) is topo.FLAT
     assert topo.resolve_algorithm("auto", one) is topo.FLAT
-    for name, t in (("auto", two), ("two_level", one), ("tree", one)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            topo.resolve_algorithm(name, t)
+    # Since the topology layer was ported, every registered name resolves
+    # and 'auto' prices the candidates on a multi-level topology.
+    assert topo.resolve_algorithm("two_level", one) is topo.TWO_LEVEL
+    assert topo.resolve_algorithm("tree", one) is topo.TREE
+    assert topo.resolve_algorithm("pallas_ring", one) is topo.PALLAS_RING
+    assert topo.resolve_algorithm("auto", two, 64e6) is \
+        topo.select_algorithm(64e6, two)[0]
     with pytest.raises(ValueError, match="unknown"):
         topo.resolve_algorithm("ringg", one)
 
