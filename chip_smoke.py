@@ -30,7 +30,10 @@
      lazy pool and the CSC steady wire buffer (616 x 32,768) in bf16, and
      the first bucket in f32, int8 and fp8-e4m3 (sums past 448); bit for
      bit against the plain ring with the kernel's segment, every rank the
-     same bits; library_ms is torch.stack(xs).float().sum(0).
+     same bits, the first bucket also in place (out = x);
+     library_ms is torch.stack(xs).float().sum(0); enqueue_ms the host
+     time to enqueue the N launches; the 6 lazy buckets at N = 2 are also
+     timed back to back in one region.
    - fused_update: the whole f32 pool, all-true and random mask, with and
      without the scale, bit for bit; then optim.update_pool, the entry
      point that reaches it, for 3 steps with its launches counted.
@@ -51,7 +54,7 @@
        0's CPU); then CSC, 5 steps (the dense step, the ramp, one steady
        step at k = 616: the ring reduces the compacted wire buffer).
        Every bucket through the ring kernel, both ranks the same
-       parameters after every step.
+       parameters after every step; each rank's peak device memory.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -467,9 +470,27 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
                 check(bits_equal(torch, got[r], got[0]),
                       f"ring_allreduce N={n} {label}: ranks differ")
             err = max(abs_err(g, w) for g, w in zip(got, want))
+            if label == "lazy_bucket_0":
+                # In place (out = x), as the trainer calls it.
+                same = [x.clone() for x in xs]
+                kring.launch_ranks(same, ws, outs=same, streams=streams)
+                torch.cuda.synchronize()
+                check(all(bits_equal(torch, a, w) for a, w in zip(same, want)),
+                      f"ring_allreduce N={n} {label} in place: kernel != "
+                      f"plain")
+                del same
             del want
             ms = time_ms(torch, lambda: kring.launch_ranks(
                 xs, ws, outs=got, streams=streams))
+            # Host time to enqueue the N launches (streams, events, ctypes):
+            # above the kernels' time, it sets ms.
+            enqueue = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kring.launch_ranks(xs, ws, outs=got, streams=streams)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
             plain_ms = time_ms(torch, lambda: kring.plain(
                 xs, None, p["seg_elems"]))
             library_ms = time_ms(torch, lambda: torch.stack(xs).float()
@@ -480,10 +501,25 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
             parts[f"N={n} {label}"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
+                enqueue_ms=statistics.median(enqueue),
                 elems=size, ranks=n, lanes=p["lanes"],
-                seg_elems=p["seg_elems"], dtype=str(dt).split(".")[-1])
+                seg_elems=p["seg_elems"], rounds=p["rounds"],
+                dtype=str(dt).split(".")[-1])
             del xs, got
             torch.cuda.empty_cache()
+        if n == 2:
+            # The 6 lazy buckets launched back to back, as a training step
+            # launches them: the host's enqueue of a bucket overlaps the
+            # ring before it.
+            bufs = [ring_inputs(torch, n, e - s, torch.bfloat16, gen, dev)
+                    for s, e in buckets]
+            outs = [[torch.empty_like(x) for x in b] for b in bufs]
+
+            def six():
+                for b, o in zip(bufs, outs):
+                    kring.launch_ranks(b, ws, outs=o, streams=streams)
+            back_to_back_ms = time_ms(torch, six)
+            del bufs, outs
         del ws
         torch.cuda.empty_cache()
     return entry("ring_allreduce",
@@ -491,6 +527,7 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
                  "src/repro/kernels/ring_reduce.py:302", parts,
                  tuple(f"N=2 lazy_bucket_{i}" for i in range(6)),
                  RING_LIBRARY_NOTE, fp8_saturates=kring.fp8_saturates(),
+                 lazy_buckets_back_to_back_ms=back_to_back_ms,
                  note=("ms is the N ranks' launches together on one card: "
                        "the ring runs through this card's memory, not "
                        "over NVLink"))
@@ -701,6 +738,7 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
         fns, losses, step_ms, digests = {}, [], [], []
         stages = [trainer.gf.stage_for_step(s) for s in range(steps)]
         ops.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         for s, stage in enumerate(stages):
             if stage.index not in fns:
                 fns[stage.index] = trainer.build_train_step(stage)
@@ -717,6 +755,7 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                 flat.cpu().numpy().tobytes()).hexdigest())
             del flat
         counts = dict(ops.dispatch_counts)
+        peak = torch.cuda.max_memory_allocated()
         both = [None, None]
         dist.all_gather_object(both, digests)
         plans = [trainer.gf.plan(st) for st in stages]
@@ -726,6 +765,7 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                     expected_counts=want,
                     buckets=[len(p.tasks) for p in plans],
                     num_selected=[st.num_selected for st in stages],
+                    peak_mem_gib=peak / 2 ** 30,
                     same_params_every_step=both[0] == both[1])
 
     result = {"rank": rank}
@@ -859,12 +899,14 @@ def ring_train_phase(torch, dev):
                  steady_step_ms=statistics.median(
                      lazy["step_ms"][1:RING_STEPS]),
                  dispatch_counts=lazy["counts"],
+                 peak_mem_gib=[r["lazy"]["peak_mem_gib"] for r in ranks],
                  compute_mode=mode.stdout.strip(), note=note),
             dict(losses=csc_run["losses"],
                  step_ms=[r["csc"]["step_ms"] for r in ranks],
                  num_selected=csc_run["num_selected"],
                  ring_buckets=csc_run["buckets"],
                  dispatch_counts=csc_run["counts"],
+                 peak_mem_gib=[r["csc"]["peak_mem_gib"] for r in ranks],
                  compute_mode=mode.stdout.strip(), note=note))
 
 

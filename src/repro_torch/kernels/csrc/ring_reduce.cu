@@ -4,52 +4,77 @@
 // on its own stream) or in N processes (peer memory through CUDA IPC).
 //
 // Rank d of N over a zero-padded buffer of N segments of `seg` elements:
-//   seed     acc = float(x) (x in its own dtype; padding 0)
-//   RS t     send segment (d-t)%N, receive (d-t-1)%N, acc += received
-//   round    segment (d+1)%N through the wire dtype once (non-f32 wires)
-//   AG t     send segment (d+1-t)%N, receive (d-t)%N, acc = received
-//   out      x's dtype of acc
-// Segments move in the wire dtype (f32, bf16, int8 words, fp8-e4m3 words);
-// the accumulator is f32 in device memory.
+//   RS t     send segment (d-t)%N, receive (d-t-1)%N, add in f32
+//            (x first); the next step sends requant(sum)
+//   owned    segment (d+1)%N, rounded through the wire dtype once
+//   AG t     send segment (d+1-t)%N, receive (d-t)%N, keep it
+//   out      x's dtype of each segment's final value
+// Segments move in the wire dtype (f32, bf16, int8 words, fp8-e4m3 words).
 //
-// Design. A segment is cut into sub-tiles of gridDim.x lanes of kLane
+// Bound: bytes. The function reads x once, writes the output once and, on
+// each of the 2(N-1) steps, writes one wire segment into the neighbour's
+// slots and reads one out of its own (ring_reduce.bound_bytes). Every
+// segment gets exactly one add a rank, so its f32 value lives only between
+// a receive and the next send: this kernel keeps it in registers and has
+// no accumulator in device memory. What bounds it in practice is the
+// latency of the handshakes, above all the system-scope fence of each
+// release, so the design spends one pass, two CTA barriers and one fence
+// a step of a round (G sub-tiles of the lane), not a sub-tile.
+//
+// Lanes. A segment is cut into sub-tiles of gridDim.x lanes of kLane
 // elements; CTA b owns lane b of every sub-tile of every segment and runs
-// its own ring of kSlots slots with CTA b of its neighbours, so no CTA ever
-// waits for another CTA of its own rank and no grid-wide barrier is needed.
-// Each lane has, in every rank's workspace, kSlots receive slots, a "full" word
-// (written by the left neighbour), a "credit" word (written by the right
-// neighbour) and a sequence word (this lane's count of sub-tiles, kept
-// across launches). Sub-tiles are numbered by a global sequence g that
-// grows across launches from the lane's sequence word, so no flag is ever
-// cleared:
-//   send g: if g >= S, wait until own credit >= g-S+1 (the right neighbour
-//           drained g-S from slot g%S); store the requantized lane into the
-//           right neighbour's slot g%S; release-store g+1 to its full word.
-//   recv g: acquire-wait own full >= g+1; drain slot g%S (add in RS,
-//           overwrite in AG; the last RS step also rounds the rank's own
-//           segment through the wire); release-store g+1 to the left's
-//           credit word.
-// The Pallas kernel has two slots (S = 2); here S = 4, and a lane sends up
-// to S-1 sub-tiles ahead of the one it waits for, unless a sub-tile needs
-// what its previous step is still receiving, so the sender seldom waits
-// for a credit and the receiver seldom for data. Slots and the accumulator
-// move 8 elements a thread as one vector; one thread writes each flag
-// (st.release.sys) after the CTA's barrier, which orders the other
-// threads' stores before it.
-// This is the Pallas kernel's credit rule plus the "data landed" signal
-// that the TPU's DMA semaphores gave. Flags use system-scope release /
-// acquire, because a peer may be another process. Every wait is bounded by
-// %globaltimer and traps after timeout_ns, so a deadlock becomes a CUDA
-// error. A rank's grid has at most floor(4 * SMs / N) CTAs (an SM holds
-// four at once), so all N ranks' CTAs are resident on one card together.
+// its own ring with CTA b of its neighbours, so no CTA waits for another
+// CTA of its own rank. Each lane has, in every rank's workspace, kSlots
+// receive slots, a "full" word (written by the left neighbour), a "credit"
+// word (written by the right one) and a sequence word (this lane's count
+// of sub-tiles, kept across launches, so no flag is ever cleared).
 //
-// Bound: bytes. Per rank: read x, write the output, and on each exchange
-// step write a segment into the neighbour's slots and read one from its
-// own. The f32 accumulator in device memory (the seed pass, its reads and
-// writes on every step, the output cast) is this kernel's own cost, not
-// the function's: a received segment could be added, requantized and sent
-// on in registers. Every rank shares one HBM when the ring runs on one
-// card.
+// Rounds (NCCL's ring primitives). A round is G = kRound sub-tiles of the
+// lane; it runs all 2(N-1) steps of those sub-tiles before the next round.
+// Sends and receives each follow one monotone sequence, in (round, step,
+// sub-tile) order, numbered from the lane's sequence word; sub-tile p uses
+// slot p % S. A step of a round moves g <= G sub-tiles, p0..p0+g-1 in and
+// q0 = p0+g.. out.
+//   step 0   one pass: x of segment d for the round's g sub-tiles,
+//            requantized, into the right neighbour's slots.
+//   later    one fused pass: the x loads (reduce-scatter only) start
+//            first, as x depends on no peer; thread 0 waits for the data
+//            (own full >= p0+g) and for the outgoing credit (own credit >=
+//            q0+g-S); one barrier; the g slots are read (ld.global.cg) and
+//            - RS t < N-2: sum = x + recv, requantized, sent on;
+//            - RS t = N-2 (the owned segment): the same sum, requantized
+//              once; out is written from that word and the word is sent
+//              as all-gather step 0;
+//            - AG: out is written from the received word, which is
+//              forwarded with its bits unchanged (not on the last step).
+//              Every word on the wire came out of requant, and requant
+//              maps to_f(w) back to w for each such word, so forwarding
+//              the bits is re-quantizing the value.
+//            Then one barrier and two flag stores behind one fence: full
+//            to the right (q0+g), credit to the left (p0+g). The `out`
+//            stores come after the release (they are this rank's own), so
+//            the fence does not wait for them.
+// Deadlock freedom: a step's sends reach g sub-tiles past its receives, so
+// it needs the right neighbour to have drained up to q0+g-S = p0+2g-S. A
+// rank that has finished step t-1 has drained p0, so the rank furthest
+// behind can always move when 2g <= S. So 2G <= S (static_assert below;
+// tests/test_torch_ring.py models the schedule and its deadlock past
+// that); G = S/2 as in NCCL.
+//
+// In place (out may be x): every element's x is read in its round's
+// reduce-scatter (step 0 or the receive of its segment), by the thread
+// that later in the same round writes its out; no element of another
+// round is touched.
+//
+// Flags use release/acquire at system scope, as a peer may be another
+// process (CUDA IPC); in-process rings run the same build. One thread
+// writes each flag after the CTA's barrier, which orders the other
+// threads' slot stores (and slot reads, for the credit) before it. Every
+// wait is bounded by %globaltimer and traps after timeout_ns, so a
+// deadlock becomes a CUDA error. A rank's grid has at most
+// floor(ctas_per_sm * SMs / N) CTAs, so the N ranks' CTAs are resident
+// together; the launcher refuses a launch when fewer than ctas_per_sm
+// CTAs of the kernel fit on an SM.
 //
 // Rounding: int8 requant rounds half to even (__float2int_rn, as
 // jnp.round); bf16 rounds to nearest even and fp8-e4m3fn follows PyTorch's
@@ -64,8 +89,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLane = 2048;  // elements of a lane of one sub-tile
-constexpr int kPerThread = kLane / kThreads;
-constexpr int kSlots = 4;    // receive slots per lane
+constexpr int kVecs = kLane / (kThreads * 8);  // 8-element vectors a thread
+constexpr int kSlots = 8;    // S: receive slots per lane
+constexpr int kRound = 4;    // G: sub-tiles of a lane per round
+constexpr int kMinCtas = 4;  // CTAs an SM must hold (ring_reduce.CTAS_PER_SM)
+static_assert(kLane % (kThreads * 8) == 0, "a lane is whole vectors");
+static_assert(kRound >= 1 && 2 * kRound <= kSlots,
+              "deadlock freedom needs 2G <= S");
 typedef unsigned long long u64;
 
 __device__ __forceinline__ u64 globaltimer() {
@@ -74,25 +104,27 @@ __device__ __forceinline__ u64 globaltimer() {
   return t;
 }
 
-__device__ __forceinline__ void st_release_sys(u64* p, u64 v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ u64 ld_acquire_sys(const u64* p) {
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
   u64 v;
   asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
+               : "=l"(v) : "l"(p) : "memory");
   return v;
+}
+
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
 __device__ void wait_geq(const u64* p, u64 want, u64 timeout_ns,
                          const char* what, int me, int lane) {
   const u64 t0 = globaltimer();
   u64 have;
-  for (int spin = 0; (have = ld_acquire_sys(p)) < want; ++spin) {
+  for (int spin = 0; (have = ld_acquire(p)) < want; ++spin) {
     if (spin < 256) continue;
     if (globaltimer() - t0 > timeout_ns) {
       printf("ring_allreduce: rank %d lane %d timed out waiting for %s "
@@ -142,13 +174,15 @@ struct I8 {
 
 struct F8 {  // float8_e4m3fn
   typedef unsigned char bits;
-  __device__ static float to_f(bits b) {
-    const float sign = (b & 0x80) ? -1.0f : 1.0f;
-    const int e = (b >> 3) & 0xF, m = b & 7;
+  __device__ static float to_f(bits b) {  // the f32 bits, built directly
+    const unsigned int sign = (b & 0x80u) << 24;
+    const unsigned int e = (b >> 3) & 0xFu, m = b & 7u;
     if (e == 15 && m == 7)  // NaN, with c10's payload and the sign
-      return __uint_as_float(0x7FF00000u | ((b & 0x80u) << 24));
-    if (e == 0) return sign * ldexpf(static_cast<float>(m), -9);
-    return sign * ldexpf(static_cast<float>(8 + m), e - 10);
+      return __uint_as_float(0x7FF00000u | sign);
+    if (e == 0)  // subnormal: m * 2^-9, exact
+      return __uint_as_float(
+          __float_as_uint(static_cast<float>(m) * 0.001953125f) | sign);
+    return __uint_as_float(sign | ((e + 120u) << 23) | (m << 20));
   }
   // c10::detail::fp8e4m3fn_from_fp32_value; `sat` picks the overflow rule.
   __device__ static bits requant(float f, int sat) {
@@ -179,10 +213,10 @@ struct F8 {  // float8_e4m3fn
 struct RingArgs {
   const void* x;
   void* out;               // may alias x
-  float* acc;              // nranks * seg floats
   long long n;             // elements of x
   long long seg;           // segment elements, a multiple of the sub-tile
   int nranks, me, tiles_per_seg, ws_lanes, fp8_saturate;
+  int vec_io;              // x and out 16-byte aligned: vector access
   u64 timeout_ns;
   u64* my_flags;           // [full | credit | seq] x ws_lanes
   unsigned char* my_slots;
@@ -191,7 +225,7 @@ struct RingArgs {
   u64* left_flags;
 };
 
-// Eight wire elements as one vector of 8, 16 or 32 bytes.
+// Eight elements as one vector of 8, 16 or 32 bytes.
 template <typename B>
 struct VecOf;
 template <>
@@ -227,168 +261,277 @@ __device__ __forceinline__ Vec8<B> load_cg(const B* p) {
   return d;
 }
 
+template <typename B>
+__device__ __forceinline__ void store(B* p, const Vec8<B>& d) {
+  typename VecOf<B>::type* q = reinterpret_cast<typename VecOf<B>::type*>(p);
+#pragma unroll
+  for (int i = 0; i < VecOf<B>::n; ++i) q[i] = d.v[i];
+}
+
+// x and out stream through once: __ldcs / __stcs. Elements at or past n
+// (the padding) read as zero bits and are not written.
+template <typename B>
+__device__ __forceinline__ Vec8<B> load_x(const B* x, long long e,
+                                          long long n, bool vec) {
+  Vec8<B> d;
+  if (vec && e + 8 <= n) {
+    const typename VecOf<B>::type* q =
+        reinterpret_cast<const typename VecOf<B>::type*>(x + e);
+#pragma unroll
+    for (int i = 0; i < VecOf<B>::n; ++i) d.v[i] = __ldcs(q + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d.w[i] = e + i < n ? x[e + i] : B(0);
+  }
+  return d;
+}
+
+template <typename B>
+__device__ __forceinline__ void store_out(B* out, long long e, long long n,
+                                          bool vec, const Vec8<B>& d) {
+  if (vec && e + 8 <= n) {
+    typename VecOf<B>::type* q =
+        reinterpret_cast<typename VecOf<B>::type*>(out + e);
+#pragma unroll
+    for (int i = 0; i < VecOf<B>::n; ++i) __stcs(q + i, d.v[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (e + i < n) out[e + i] = d.w[i];
+  }
+}
+
+__device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
+
 template <typename X, typename W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 ring_kernel(const RingArgs a) {
   typedef typename X::bits XB;
   typedef typename W::bits WB;
-  typedef Vec8<WB> V;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int N = a.nranks, me = a.me, T = a.tiles_per_seg;
-  const int K = 2 * (N - 1) * T;  // sub-tiles this lane sends and receives
+  const int steps = 2 * (N - 1);
+  const bool vec = a.vec_io != 0;
   const long long tile = static_cast<long long>(gridDim.x) * kLane;
   const long long lane0 = static_cast<long long>(b) * kLane;
   const int L = a.ws_lanes;
-  u64* my_full = a.my_flags + b;
-  u64* my_seq = a.my_flags + 2 * L + b;
+  const u64* my_full = a.my_flags + b;
   const u64* my_credit = a.my_flags + L + b;
+  u64* my_seq = a.my_flags + 2 * L + b;
   u64* right_full = a.right_flags + b;
   u64* left_credit = a.left_flags + L + b;
-  WB* my_slot = reinterpret_cast<WB*>(a.my_slots) +
-                static_cast<long long>(kSlots) * b * kLane;
+  const WB* my_slot = reinterpret_cast<const WB*>(a.my_slots) +
+                      static_cast<long long>(kSlots) * b * kLane;
   WB* right_slot = reinterpret_cast<WB*>(a.right_slots) +
                    static_cast<long long>(kSlots) * b * kLane;
   const XB* x = static_cast<const XB*>(a.x);
   XB* out = static_cast<XB*>(a.out);
-  float* acc = a.acc;
-  const u64 base = *my_seq;  // only this CTA writes it, in earlier launches
+  // This thread's element of vector v: (v * kThreads + tid) * 8 in the lane.
+  auto elem = [&](int s, int j, int v) {
+    return s * a.seg + j * tile + lane0 +
+           static_cast<long long>(v * kThreads + tid) * 8;
+  };
+  auto slot_at = [&](auto* base, u64 p, int v) {
+    return base + static_cast<long long>(p % kSlots) * kLane +
+           (v * kThreads + tid) * 8;
+  };
+  // Only this CTA writes its sequence word, in earlier launches.
+  u64 pos = *my_seq;  // the sequence number of this round's first sub-tile
 
-  // Seed this lane of every sub-tile of every segment.
-  for (int s = 0; s < N; ++s)
-    for (int j = 0; j < T; ++j) {
-      const long long e0 = s * a.seg + j * tile + lane0;
-#pragma unroll 4
-      for (int i = 0; i < kPerThread; ++i) {
-        const long long e = e0 + i * kThreads + tid;
-        acc[e] = e < a.n ? X::to_f(x[e]) : 0.0f;
+  for (int j0 = 0; j0 < T; j0 += kRound) {
+    const int g = min(kRound, T - j0);
+
+    // Step 0: x of segment `me` for the round's g sub-tiles goes out (x is
+    // loaded before the credit wait).
+    {
+      Vec8<XB> xv[kRound][kVecs];
+#pragma unroll
+      for (int i = 0; i < kRound; ++i)
+#pragma unroll
+        for (int v = 0; v < kVecs; ++v)
+          if (i < g) xv[i][v] = load_x(x, elem(me, j0 + i, v), a.n, vec);
+      const u64 last = pos + g - 1;
+      if (tid == 0 && last >= kSlots)
+        wait_geq(my_credit, last - kSlots + 1, a.timeout_ns, "credit", me, b);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kRound; ++i)
+#pragma unroll
+        for (int v = 0; v < kVecs; ++v)
+          if (i < g) {
+            Vec8<WB> w;
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              w.w[q] = W::requant(X::to_f(xv[i][v].w[q]), a.fp8_saturate);
+            store(slot_at(right_slot, pos + i, v), w);
+          }
+      __syncthreads();
+      if (tid == 0) {
+        fence_acq_rel();
+        st_relaxed(right_full, pos + g);
       }
     }
 
-  // Sub-tile k of this launch: step k / T, sub-tile k % T of the step's
-  // segment; its global sequence number is base + k.
-  auto lane_of = [&](int seg_idx, int k) {
-    return acc + seg_idx * a.seg + (k % T) * tile + lane0;
-  };
-  auto send = [&](int k) {
-    const u64 g = base + k;
-    const int step = k / T;
-    const int idx = step < N - 1 ? ((me - step) % N + N) % N
-                                 : ((me + 1 - (step - (N - 1))) % N + N) % N;
-    if (tid == 0 && g >= kSlots)
-      wait_geq(my_credit, g - kSlots + 1, a.timeout_ns, "credit", me, b);
-    __syncthreads();
-    const float* src = lane_of(idx, k);
-    WB* dst = right_slot + (g % kSlots) * kLane;
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int e = (i * kThreads + tid) * 8;
-      const float4 lo = *reinterpret_cast<const float4*>(src + e);
-      const float4 hi = *reinterpret_cast<const float4*>(src + e + 4);
-      const float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-      V v;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v.w[q] = W::requant(f[q], a.fp8_saturate);
-      *reinterpret_cast<V*>(dst + e) = v;
-    }
-    __syncthreads();
-    if (tid == 0) st_release_sys(right_full, g + 1);
-  };
-  auto recv = [&](int k) {
-    const u64 g = base + k;
-    const int step = k / T;
-    const bool rs = step < N - 1;
-    const int idx = rs ? ((me - step - 1) % N + N) % N
-                       : ((me - (step - (N - 1))) % N + N) % N;
-    // The last reduce-scatter step completes this rank's own segment:
-    // round it through the wire once (non-f32 wires).
-    const bool own_round = step == N - 2 && sizeof(WB) != 4;
-    if (tid == 0) wait_geq(my_full, g + 1, a.timeout_ns, "data", me, b);
-    __syncthreads();
-    float* dst = lane_of(idx, k);
-    const WB* src = my_slot + (g % kSlots) * kLane;
-#pragma unroll
-    for (int i = 0; i < kPerThread / 8; ++i) {
-      const int e = (i * kThreads + tid) * 8;
-      const V v = load_cg(src + e);
-      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    // Every later step of the round: one fused pass over its g sub-tiles,
+    // with one handshake for them all.
+    for (int t = 0; t < steps; ++t) {
+      const bool rs = t < N - 1;
+      const bool send = t < steps - 1;
+      const bool writes_out = t >= N - 2;
+      const int s = rs ? mod(me - t - 1, N) : mod(me - (t - (N - 1)), N);
+      const u64 p0 = pos + static_cast<u64>(t) * g;  // this step's receives
+      const u64 q0 = p0 + g;                         // the sends they feed
+      Vec8<XB> xv[kRound][kVecs];
       if (rs) {
-        lo = *reinterpret_cast<const float4*>(dst + e);
-        hi = *reinterpret_cast<const float4*>(dst + e + 4);
-      }
-      float f[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const float r = W::to_f(v.w[q]);
-        f[q] = rs ? __fadd_rn(f[q], r) : r;
-        if (own_round) f[q] = W::to_f(W::requant(f[q], a.fp8_saturate));
+        for (int i = 0; i < kRound; ++i)
+#pragma unroll
+          for (int v = 0; v < kVecs; ++v)
+            if (i < g) xv[i][v] = load_x(x, elem(s, j0 + i, v), a.n, vec);
       }
-      *reinterpret_cast<float4*>(dst + e) = make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(dst + e + 4) =
-          make_float4(f[4], f[5], f[6], f[7]);
+      if (tid == 0) {
+        wait_geq(my_full, p0 + g, a.timeout_ns, "data", me, b);
+        if (send && q0 + g > kSlots)
+          wait_geq(my_credit, q0 + g - kSlots, a.timeout_ns, "credit", me,
+                   b);
+      }
+      __syncthreads();
+      Vec8<WB> o[kRound][kVecs];  // out's words, cast after the release
+#pragma unroll
+      for (int i = 0; i < kRound; ++i)
+#pragma unroll
+        for (int v = 0; v < kVecs; ++v)
+          if (i < g) {
+            Vec8<WB> w = load_cg(slot_at(my_slot, p0 + i, v));
+            if (rs) {
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                w.w[k] = W::requant(
+                    __fadd_rn(X::to_f(xv[i][v].w[k]), W::to_f(w.w[k])),
+                    a.fp8_saturate);
+            }
+            if (send) store(slot_at(right_slot, q0 + i, v), w);
+            if (writes_out) o[i][v] = w;
+          }
+      __syncthreads();
+      if (tid == 0) {
+        fence_acq_rel();
+        if (send) st_relaxed(right_full, q0 + g);
+        st_relaxed(left_credit, p0 + g);
+      }
+      // out is this rank's own: its stores stay behind the release, off
+      // the fence's wait.
+      if (writes_out) {
+#pragma unroll
+        for (int i = 0; i < kRound; ++i)
+#pragma unroll
+          for (int v = 0; v < kVecs; ++v)
+            if (i < g) {
+              Vec8<XB> ov;
+#pragma unroll
+              for (int k = 0; k < 8; ++k)
+                ov.w[k] = X::cast(W::to_f(o[i][v].w[k]), a.fp8_saturate);
+              store_out(out, elem(s, j0 + i, v), a.n, vec, ov);
+            }
+      }
     }
-    __syncthreads();
-    if (tid == 0) st_release_sys(left_credit, g + 1);
-  };
-
-  // Send ahead: up to sub-tile k+S-1 goes out before sub-tile k is
-  // received, unless it needs a sub-tile still to be received (the same
-  // sub-tile of the previous step, next-T, must have arrived).
-  int next = 0;
-  for (int k = 0; k < K; ++k) {
-    while (next < K && next < k + kSlots && (next < T || next - T < k)) {
-      send(next);
-      ++next;
-    }
-    recv(k);
+    pos += static_cast<u64>(steps) * g;
   }
-  if (tid == 0) *my_seq = base + K;
-
-  for (int s = 0; s < N; ++s)
-    for (int j = 0; j < T; ++j) {
-      const long long e0 = s * a.seg + j * tile + lane0;
-#pragma unroll 4
-      for (int i = 0; i < kPerThread; ++i) {
-        const long long e = e0 + i * kThreads + tid;
-        if (e < a.n) out[e] = X::cast(acc[e], a.fp8_saturate);
-      }
-    }
+  if (tid == 0) *my_seq = pos;
 }
 
+typedef void (*KernelFn)(const RingArgs);
+
 template <typename X>
-void launch_x(const RingArgs& a, int w, int grid, cudaStream_t s) {
+KernelFn pick_wire(int w) {
   switch (w) {
-    case 0: ring_kernel<X, F32><<<grid, kThreads, 0, s>>>(a); break;
-    case 1: ring_kernel<X, BF16><<<grid, kThreads, 0, s>>>(a); break;
-    case 2: ring_kernel<X, I8><<<grid, kThreads, 0, s>>>(a); break;
-    default: ring_kernel<X, F8><<<grid, kThreads, 0, s>>>(a); break;
+    case 0: return ring_kernel<X, F32>;
+    case 1: return ring_kernel<X, BF16>;
+    case 2: return ring_kernel<X, I8>;
+    default: return ring_kernel<X, F8>;
   }
+}
+
+KernelFn pick(int x, int w) {
+  switch (x) {
+    case 0: return pick_wire<F32>(w);
+    case 1: return pick_wire<BF16>(w);
+    case 2: return pick_wire<I8>(w);
+    default: return pick_wire<F8>(w);
+  }
+}
+
+bool bad_codes(int x_code, int w_code) {
+  return x_code < 0 || x_code > 3 || w_code < 0 || w_code > 3;
+}
+
+// CTAs of an instance one SM of the current device holds, asked once per
+// device and instance (the launcher checks it on every launch).
+constexpr int kMaxDevices = 64;
+int occupancy_seen[kMaxDevices][4][4];  // 0: not asked yet
+
+cudaError_t occupancy(int x_code, int w_code, int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int* seen = dev < kMaxDevices ? &occupancy_seen[dev][x_code][w_code]
+                                : nullptr;
+  if (seen && *seen > 0) {
+    *blocks = *seen;
+    return cudaSuccess;
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, reinterpret_cast<const void*>(pick(x_code, w_code)),
+      kThreads, 0);
+  if (e == cudaSuccess && seen) *seen = *blocks;
+  return e;
 }
 
 }  // namespace
 
+// CTAs of the kernel instance (x_code, w_code) that one SM holds at once,
+// into *blocks.
+extern "C" int ring_allreduce_occupancy(int x_code, int w_code,
+                                        int* blocks) {
+  if (bad_codes(x_code, w_code) || !blocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(occupancy(x_code, w_code, blocks));
+}
+
 // Dtype codes: 0 f32, 1 bf16, 2 int8, 3 float8_e4m3fn. grid CTAs, each
 // owning one lane of lane_elems elements of every sub-tile; the sub-tile
-// is grid * lane_elems and seg a whole number of sub-tiles. A workspace
-// holds the three flag words of each of ws_lanes >= grid lanes (full,
-// credit, sequence; rounded up to 256 B), then kSlots slots of kLane
-// f32-sized elements per lane (ring_reduce.workspace_bytes in Python).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue.
+// is grid * lane_elems and seg a whole number of sub-tiles. lane_elems,
+// slots, round_tiles and ctas_per_sm must be this source's kLane, kSlots,
+// kRound and kMinCtas (ring_reduce.LANE_ELEMS, SLOTS, ROUND_TILES and
+// CTAS_PER_SM in Python). A workspace holds the three flag words of each
+// of ws_lanes >= grid lanes (full, credit, sequence; rounded up to
+// 256 B), then kSlots slots of kLane f32-sized elements per lane
+// (ring_reduce.workspace_bytes). Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for bad
+// arguments, or cudaErrorLaunchOutOfResources when fewer than ctas_per_sm
+// CTAs fit on an SM (the N ranks' CTAs would not all be resident).
 extern "C" int ring_allreduce_launch(
-    const void* x, void* out, void* acc, long long n, long long seg,
-    int nranks, int me, int grid, int lane_elems, int x_code, int w_code,
-    void* my_ws, void* right_ws, void* left_ws, int ws_lanes,
-    long long timeout_ns, int fp8_saturate, void* stream) {
-  if (lane_elems != kLane || nranks < 2 || me < 0 || me >= nranks ||
+    const void* x, void* out, long long n, long long seg, int nranks,
+    int me, int grid, int lane_elems, int slots, int round_tiles,
+    int ctas_per_sm, int x_code, int w_code, void* my_ws, void* right_ws,
+    void* left_ws, int ws_lanes, long long timeout_ns,
+    int fp8_saturate, void* stream) {
+  if (lane_elems != kLane || slots != kSlots || round_tiles != kRound ||
+      ctas_per_sm != kMinCtas || nranks < 2 || me < 0 || me >= nranks ||
       grid < 1 || grid > ws_lanes || seg <= 0 ||
       seg % (static_cast<long long>(grid) * kLane) != 0 ||
-      seg * nranks < n || x_code < 0 || x_code > 3 || w_code < 0 ||
-      w_code > 3 || !x || !out || !acc || !my_ws || !right_ws || !left_ws)
+      seg * nranks < n || bad_codes(x_code, w_code) || !x || !out ||
+      !my_ws || !right_ws || !left_ws)
     return static_cast<int>(cudaErrorInvalidValue);
+  int fit = 0;
+  cudaError_t e = occupancy(x_code, w_code, &fit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fit < ctas_per_sm)
+    return static_cast<int>(cudaErrorLaunchOutOfResources);
   const long long flag_bytes = (3LL * ws_lanes * 8 + 255) / 256 * 256;
   RingArgs a;
   a.x = x;
   a.out = out;
-  a.acc = static_cast<float*>(acc);
   a.n = n;
   a.seg = seg;
   a.nranks = nranks;
@@ -397,19 +540,19 @@ extern "C" int ring_allreduce_launch(
                                             kLane));
   a.ws_lanes = ws_lanes;
   a.fp8_saturate = fp8_saturate;
+  a.vec_io = (reinterpret_cast<unsigned long long>(x) % 16 == 0 &&
+              reinterpret_cast<unsigned long long>(out) % 16 == 0);
   a.timeout_ns = static_cast<u64>(timeout_ns);
   a.my_flags = static_cast<u64*>(my_ws);
   a.my_slots = static_cast<unsigned char*>(my_ws) + flag_bytes;
   a.right_flags = static_cast<u64*>(right_ws);
   a.right_slots = static_cast<unsigned char*>(right_ws) + flag_bytes;
   a.left_flags = static_cast<u64*>(left_ws);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (x_code) {
-    case 0: launch_x<F32>(a, w_code, grid, s); break;
-    case 1: launch_x<BF16>(a, w_code, grid, s); break;
-    case 2: launch_x<I8>(a, w_code, grid, s); break;
-    default: launch_x<F8>(a, w_code, grid, s); break;
-  }
+  void* args[] = {&a};
+  const void* fn = reinterpret_cast<const void*>(pick(x_code, w_code));
+  e = cudaLaunchKernel(fn, dim3(grid), dim3(kThreads), args, 0,
+                       static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,27 +4,30 @@ its plain PyTorch version.
 
 Replaces the Pallas kernel ``repro/kernels/ring_reduce.py::ring_allreduce``
 (body ``_kernel``): the 2(N-1)-step reduce-scatter + all-gather over one
-level's N ranks, segments in the wire dtype, an f32 accumulator seeded
-from the unrounded input, the owned segment rounded through the wire once
-(so every rank ends with the same bits), credit flow control over the
+level's N ranks, segments in the wire dtype, each received segment added
+in f32 to the unrounded input, the owned segment rounded through the wire
+once (so every rank ends with the same bits), credit flow control over the
 receive slots (two in the Pallas kernel, ``SLOTS`` here). The Pallas
-kernel streams ~512 KiB tiles through VMEM and moves them with remote
-DMA; here each of the kernel's CTAs owns one lane of ``LANE_ELEMS``
-elements of every sub-tile and runs its own ring with the same CTA of its
-neighbours, through peer-visible device memory (the design note is at the
-top of the source).
+kernel keeps an f32 accumulator of the whole buffer and streams ~512 KiB
+tiles through VMEM with remote DMA; here each of the kernel's CTAs owns
+one lane of ``LANE_ELEMS`` elements of every sub-tile and runs its own
+ring with the same CTA of its neighbours, through peer-visible device
+memory, in rounds of ``ROUND_TILES`` sub-tiles: each step of a round
+receives the round's sub-tiles, adds, requantizes, writes out and sends on
+in one pass with one handshake, so the f32 value never leaves registers
+(the design note is at the top of the source).
 
 Peers. A ``RingWorkspace`` holds one rank's slots and flags and the
 pointers to its neighbours': ``in_process`` wires N workspaces allocated
 on one device (N ranks of one process, each launched on its own stream);
 ``across`` maps the neighbours' workspaces through CUDA IPC handles
 exchanged once over the level's process group (one rank per process).
-``prepare(group, device)`` sets up one per level group and device, and
-every ring over that group uses it: a workspace's size does not depend on
-the message, its sequence words carry over between launches, and a rank
-runs all its rings in issue order on one stream (``ops.comm_stream``), the
-same order on every rank, so consecutive rings of any buckets share the
-slots safely.
+Both run the same kernel, its flags at system scope. ``prepare(group, device)`` sets up
+one per level group and device, and every ring over that group uses it:
+a workspace's size does not depend on the message, its sequence words
+carry over between launches, and a rank runs all its rings in launch order
+on one stream (``ops.comm_stream``), the same order on every rank, so
+consecutive rings of any buckets share the slots safely.
 
 Bound on an H100: bytes (``bound_bytes``); the N ranks of an in-process
 ring share one device memory, so the bound counts every rank's bytes.
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -40,9 +44,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 LANE_ELEMS = 2048          # elements of one CTA's lane of a sub-tile
-SLOTS = 4                  # receive slots of a lane (the Pallas kernel: 2)
-CTAS_PER_SM = 4            # ring CTAs an SM holds at once (256 threads,
-                           # <= 48 registers each: 8 would fit)
+SLOTS = 8                  # S: receive slots of a lane (the Pallas kernel: 2)
+ROUND_TILES = 4            # G: sub-tiles of a lane per round; the schedule
+                           # is deadlock-free when 2G <= S
+CTAS_PER_SM = 4            # ring CTAs an SM must hold at once (256 threads;
+                           # the launcher checks the kernel's occupancy)
 DEFAULT_SMS = 132          # H100 SXM; the wrapper reads the card's count
 TIMEOUT_S = 20.0           # a wait longer than this traps the kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -93,8 +99,10 @@ def plan(n_elems: int, n_ranks: int, wire_dtype,
     ``wire_bytes_per_step`` and ``total_wire_bytes`` are the JAX
     package's ``plan`` fields for a tile of ``tile_elems``. Where the JAX
     plan reports VMEM, this one reports the device memory the kernel
-    uses: ``acc_bytes`` (the f32 accumulator of the padded buffer) and
-    ``workspace_bytes`` (slots and flags of one rank)."""
+    uses, ``workspace_bytes`` (slots and flags of one rank; the kernel
+    allocates nothing else), and the schedule's ``slots`` (S) and
+    ``round_tiles`` (G): each lane runs its sub-tiles in ``rounds`` =
+    ``ceil(tiles_per_segment / G)`` rounds."""
     wsize = _itemsize(wire_dtype)
     raw_seg = -(-n_elems // n_ranks) if (n_elems and n_ranks > 1) else \
         n_elems
@@ -104,19 +112,22 @@ def plan(n_elems: int, n_ranks: int, wire_dtype,
     seg = -(-raw_seg // tile) * tile if raw_seg else 0
     steps = 2 * (n_ranks - 1) if n_ranks > 1 else 0
     padded = seg * n_ranks if n_ranks > 1 else n_elems
+    tiles = seg // tile if seg else 0
     return {
         "segment_bounds": ring_segment_bounds(n_elems, n_ranks,
                                               seg if n_ranks > 1 else None),
         "seg_elems": seg,
         "padded_elems": padded,
         "exchange_steps": steps,
-        "tiles_per_segment": seg // tile if seg else 0,
+        "tiles_per_segment": tiles,
         "tile_elems": tile,
         "lanes": lanes,
         "wire_bytes_per_step": seg * wsize if n_ranks > 1 else 0,
         "total_wire_bytes": steps * seg * wsize,
-        "acc_bytes": padded * 4,
         "workspace_bytes": workspace_bytes(max_lanes(n_ranks, sms)),
+        "slots": SLOTS,
+        "round_tiles": ROUND_TILES,
+        "rounds": -(-tiles // ROUND_TILES),
     }
 
 
@@ -124,10 +135,9 @@ def bound_bytes(n_elems: int, n_ranks: int, wire_dtype, src_dtype) -> int:
     """Device-memory bytes one rank's ring must move, each read and write
     counted once: read x and write the output (x's dtype), and on each of
     the 2(N-1) exchange steps write one segment into the neighbour's wire
-    slots and read one out of its own (wire dtype). The f32 accumulator is
-    not part of the function (a received segment can be added, requantized
-    and sent on in registers), so the kernel's own accumulator traffic is
-    not counted. Counted on the unpadded ``ceil(n/N)`` segment."""
+    slots and read one out of its own (wire dtype). The f32 sums live in
+    registers between a receive and the next send, so nothing else is
+    counted. Counted on the unpadded ``ceil(n/N)`` segment."""
     if n_ranks < 2 or not n_elems:
         return 0
     w, x = _itemsize(wire_dtype), _itemsize(src_dtype)
@@ -143,9 +153,12 @@ def _lib():
     fn = lib.ring_allreduce_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, ll, ll, i, i, i, i, i, i, p, p, p, i, ll, i,
-                       p]
+        fn.argtypes = [p, p, ll, ll, i, i, i, i, i, i, i, i, i, p, p, p, i,
+                       ll, i, p]
         fn.restype = i
+        lib.ring_allreduce_occupancy.argtypes = [
+            i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.ring_allreduce_occupancy.restype = i
         pp = ctypes.POINTER(ctypes.c_void_p)
         lib.ring_ipc_alloc.argtypes = [i, ll, pp]
         lib.ring_ipc_handle.argtypes = [p, p]
@@ -185,8 +198,17 @@ def fp8_saturates() -> bool:
     return _FP8_SATURATES
 
 
+@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_shape(n_elems: int, n_ranks: int, wire, sms: int):
+    """(segment elements, lanes) of ``plan``, kept per message shape (a
+    trainer launches the same few bucket shapes every step)."""
+    p = plan(n_elems, n_ranks, wire, sms=sms)
+    return p["seg_elems"], p["lanes"]
 
 
 def _cuda_device(device) -> torch.device:
@@ -348,20 +370,30 @@ def launch(x: torch.Tensor, ws: RingWorkspace,
     n = x.shape[0]
     if n == 0:
         return out
-    p = plan(n, ws.n_ranks, wire, sms=_sms(device))
-    assert p["lanes"] <= ws.lanes, (p["lanes"], ws.lanes)
-    acc = torch.empty((p["padded_elems"],), dtype=torch.float32,
-                      device=device)
+    seg, lanes = _launch_shape(n, ws.n_ranks, wire, _sms(device))
+    assert lanes <= ws.lanes, (lanes, ws.lanes)
     fn = _lib().ring_allreduce_launch
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), acc.data_ptr(), n,
-                 p["seg_elems"], ws.n_ranks, ws.rank, p["lanes"], LANE_ELEMS,
-                 DTYPE_CODES[x.dtype], DTYPE_CODES[wire], ws.mine, ws.right,
-                 ws.left, ws.lanes, int(TIMEOUT_S * 1e9),
-                 int(fp8_saturates()), stream)
+        err = fn(x.data_ptr(), out.data_ptr(), n, seg,
+                 ws.n_ranks, ws.rank, lanes, LANE_ELEMS, SLOTS,
+                 ROUND_TILES, CTAS_PER_SM, DTYPE_CODES[x.dtype],
+                 DTYPE_CODES[wire], ws.mine, ws.right, ws.left, ws.lanes,
+                 int(TIMEOUT_S * 1e9), int(fp8_saturates()), stream)
     _check(err, "launch")
     return out
+
+
+def occupancy(x_dtype: torch.dtype, wire_dtype: torch.dtype,
+              device=None) -> int:
+    """CTAs of the kernel for (x, wire) that one SM of ``device`` holds at
+    once; ``launch`` refuses to run below ``CTAS_PER_SM``."""
+    blocks = ctypes.c_int()
+    with torch.cuda.device(_cuda_device(device or "cuda")):
+        _check(_lib().ring_allreduce_occupancy(
+            DTYPE_CODES[x_dtype], DTYPE_CODES[wire_dtype],
+            ctypes.byref(blocks)), "occupancy query")
+    return blocks.value
 
 
 def launch_ranks(xs: Sequence[torch.Tensor],
@@ -382,8 +414,9 @@ def launch_ranks(xs: Sequence[torch.Tensor],
         streams = [torch.cuda.Stream(device) for _ in range(n)]
     outs = list(outs) if outs is not None else [torch.empty_like(x)
                                                 for x in xs]
+    ready = cur.record_event()
     for r in range(n):
-        streams[r].wait_stream(cur)
+        streams[r].wait_event(ready)
     for r in range(n):
         with torch.cuda.stream(streams[r]):
             launch(xs[r], workspaces[r], wire_dtype, out=outs[r])

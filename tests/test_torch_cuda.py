@@ -113,6 +113,45 @@ def test_cuda_csc_kernels_match_plain(dev):
                                        atol=0)
 
 
+@pytest.mark.cuda
+def test_cuda_pack_vector_and_element_paths(dev):
+    """The pack's 16-byte path (a table of 8-aligned offsets, every tile
+    of a pool several grids long), its element path (a leaf that is a
+    view one element into its storage: a misaligned source; odd sizes),
+    a tile crossed by more segment runs than it stages, bf16 and f32
+    sources, both wires, with and without the census: bit for bit against
+    the plain pack, and the same census bits on two launches."""
+    tables = {
+        "aligned": (8, 1024, 64, 40_000, 4096, 24),
+        "odd": (37, 128, 5, 300, 1, 77),
+        "many runs": tuple(1 + i % 5 for i in range(700)),
+        "large": (3_000_000, 8, 1_500_016, 6_000_000),
+    }
+    for label, sizes in tables.items():
+        offsets, covered = _table(sizes)
+        chunk = 4096
+        pool_size = -(-covered // chunk) * chunk + chunk
+        for src in (torch.float32, torch.bfloat16):
+            base = [_randn(i, s + 1).to(dev, src)
+                    for i, s in enumerate(sizes)]
+            aligned = [b[:s] for b, s in zip(base, sizes)]
+            shifted = [b[1:] for b in base]  # one element in: misaligned
+            for leaves in (aligned, shifted):
+                for wire in (torch.bfloat16, torch.float32):
+                    for ch in (0, chunk):
+                        args = (leaves, offsets, sizes, pool_size, ch, wire)
+                        got, norms = t_pack.launch(*args)
+                        again, norms2 = t_pack.launch(*args)
+                        want, want_n = t_pack.plain(*args)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, want), (label, src, wire, ch)
+                        assert torch.equal(again, want)
+                        if ch:
+                            torch.testing.assert_close(norms, want_n,
+                                                       rtol=1e-6, atol=0)
+                            assert torch.equal(norms, norms2)
+
+
 _BAD_INDEX = textwrap.dedent("""
     import sys, torch
     sys.path.insert(0, {src!r})
@@ -206,31 +245,68 @@ def ring_case(n, size, x_dtype, seed):
             .to(x_dtype) for _ in range(n)]
 
 
+def _seq_words(ws):
+    """Each rank's sequence word of lane 0 (the workspace's flag layout:
+    full, credit, sequence words of every lane)."""
+    out = []
+    for w in ws:
+        buf = w.keep[w.rank]
+        at = 2 * w.lanes * 8
+        out.append(int(buf[at:at + 8].view(torch.int64).item()))
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("n", [2, 4, 8])
 def test_cuda_ring_matches_plain(dev, n):
     """N ranks in one process, each on its own stream: every wire, sizes
-    from one element to several sub-tiles, the same bits as the plain
-    ring with the kernel's segment, on every rank; the workspaces are
-    reused across launches of different widths."""
+    from one element to more than 2G sub-tiles a lane with a ragged last
+    round, the same bits as the plain ring with the kernel's segment, on
+    every rank; back to back over one workspace, whose sequence words
+    carry over (lane 0 counts every launch's 2(N-1) sub-tiles a tile); and
+    in place (out = x)."""
     from repro_torch.kernels import ring_reduce as t_ring
 
     ws = t_ring.RingWorkspace.in_process(n, dev)
-    for size in (1, n * 5 + 3, 70_001,
-                 2 * t_ring.LANE_ELEMS * t_ring.max_lanes(n) * n + 9):
+    sms = t_ring._sms(dev)
+    tile = t_ring.LANE_ELEMS * t_ring.max_lanes(n, sms)
+    many = (2 * t_ring.ROUND_TILES + 1) * tile * n + 9
+    seq = 0
+    for size in (1, n * 5 + 3, 70_001, many):
         for k, (x_dtype, wire) in enumerate(RING_WIRES):
             xs = [x.to(dev) for x in ring_case(n, size, x_dtype, size + k)]
-            seg = t_ring.plan(size, n, wire,
-                              sms=t_ring._sms(dev))["seg_elems"]
+            p = t_ring.plan(size, n, wire, sms=sms)
+            if size == many:
+                assert p["tiles_per_segment"] > 2 * t_ring.ROUND_TILES
+                assert p["tiles_per_segment"] % t_ring.ROUND_TILES
+            want = t_ring.plain(xs, wire, p["seg_elems"])
             got = t_ring.launch_ranks(xs, ws, wire)
-            want = t_ring.plain(xs, wire, seg)
+            seq += p["exchange_steps"] * p["tiles_per_segment"]
+            in_place = [x.clone() for x in xs]
+            t_ring.launch_ranks(in_place, ws, wire, outs=in_place)
+            seq += p["exchange_steps"] * p["tiles_per_segment"]
             torch.cuda.synchronize()
             for r in range(n):
-                assert torch.equal(got[r].view(torch.uint8),
-                                   want[r].view(torch.uint8)), (size, x_dtype,
-                                                                wire, r)
+                for res in (got[r], in_place[r]):
+                    assert torch.equal(res.view(torch.uint8),
+                                       want[r].view(torch.uint8)), (
+                        size, x_dtype, wire, r)
                 assert torch.equal(got[r].view(torch.uint8),
                                    got[0].view(torch.uint8))
+            assert _seq_words(ws) == [seq] * n, (size, x_dtype, wire)
+
+
+@pytest.mark.cuda
+def test_cuda_ring_occupancy(dev):
+    """Every instance of the ring kernel fits CTAS_PER_SM CTAs on an SM,
+    so the N ranks of a ring on one card are resident together (the
+    launcher refuses to launch below that)."""
+    from repro_torch.kernels import ring_reduce as t_ring
+
+    for x_dtype in t_ring.DTYPE_CODES:
+        for wire in t_ring.DTYPE_CODES:
+            assert t_ring.occupancy(x_dtype, wire, dev) >= \
+                t_ring.CTAS_PER_SM, (x_dtype, wire)
 
 
 _RING_WORKER = textwrap.dedent("""

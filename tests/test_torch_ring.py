@@ -7,6 +7,13 @@ JAX package, on the CPU.
   f32/bf16/int8/fp8-e4m3 wires, and aligned, ragged and smaller-than-N
   sizes: the two run the same schedule in the same order.
 * ``ring_segment_bounds`` and ``plan``'s analytic fields equal JAX's.
+* A pure-Python model of the kernel's per-lane schedule (rounds of G
+  sub-tiles, S slots, full and credit counters, with G and S read from
+  ``ring_reduce``) runs every rank to completion for N in {2, 4, 8} under
+  lock-step and random interleavings, in place, across launches, and
+  gives the plain ring's sums; with G = S it deadlocks.
+* Every word a wire can carry is a fixed point of ``requant . to_f``,
+  the premise of the kernel's forwarding raw bits in the all-gather.
 * Over 2 and 4 gloo ranks the process-group twin (``ref.ring_allreduce``,
   also reached through the registry and ``ops``) equals the in-process
   twin bit for bit.
@@ -157,6 +164,15 @@ def test_ring_plan_matches_jax(n, wire):
             assert tp[field] == jp[field], (field, size)
         assert tp["lanes"] <= t_ring.max_lanes(n)
         assert tp["seg_elems"] % (tp["lanes"] * t_ring.LANE_ELEMS) == 0
+        # The kernel keeps no accumulator in device memory: its footprint
+        # is the workspace, S slots of every lane, run in rounds of G.
+        assert "acc_bytes" not in tp
+        assert (tp["slots"], tp["round_tiles"]) == (t_ring.SLOTS,
+                                                    t_ring.ROUND_TILES)
+        assert tp["rounds"] == -(-tp["tiles_per_segment"] //
+                                 t_ring.ROUND_TILES)
+        assert tp["workspace_bytes"] >= (t_ring.SLOTS * t_ring.max_lanes(n)
+                                         * t_ring.LANE_ELEMS * 4)
     # The default segmentation of the twin is JAX's ceil(n/N).
     assert ref.ring_seg_elems(1000, 8) == 125
 
@@ -219,6 +235,191 @@ def test_world_size_one_ring_is_identity():
     assert work is None and torch.equal(out, x)
     assert ops.dispatch_counts == {}
     assert ref.ring_allreduce_ranks([x])[0] is x
+
+
+# -- the kernel's per-lane schedule, modelled ----------------------------------
+
+
+class _Blocked(Exception):
+    pass
+
+
+def _lane_program(d, n, tiles, g_max, slots, mem, pos0):
+    """Rank d's lane of ``ring_kernel`` (csrc/ring_reduce.cu) as a
+    generator: it yields a condition ``(flag list, rank, least value)`` it
+    must wait for, and otherwise reads and writes ``mem`` as the kernel
+    does. One value stands for a sub-tile; the wire is exact (small
+    integers), so ``requant`` is the identity. x and out are one buffer
+    (``mem["buf"][d][segment][sub-tile]``: the kernel run in place).
+    Returns the lane's sequence number after the launch."""
+    right, left = (d + 1) % n, (d - 1) % n
+    steps = 2 * (n - 1)
+    buf, slot, full, credit = (mem["buf"][d], mem["slots"], mem["full"],
+                               mem["credit"])
+
+    def put(q, value):
+        # The slot's previous sub-tile must have been drained.
+        prev = slot[right][q % slots]
+        assert prev is None or credit[d] >= prev[0] + 1, (d, q, prev)
+        slot[right][q % slots] = (q, value)
+
+    def get(p):
+        seq, value = slot[d][p % slots]
+        assert seq == p, (d, p, seq)
+        return value
+
+    pos = pos0
+    for j0 in range(0, tiles, g_max):
+        g = min(g_max, tiles - j0)
+        last = pos + g - 1
+        if last >= slots:
+            yield (credit, d, last - slots + 1)
+        for i in range(g):
+            put(pos + i, buf[d][j0 + i])
+        full[right] = pos + g
+        for t in range(steps):
+            rs, send = t < n - 1, t < steps - 1
+            s = (d - t - 1) % n if rs else (d - (t - (n - 1))) % n
+            p0 = pos + t * g          # this step's receives p0 .. p0+g-1
+            q0 = p0 + g               # the sends they feed
+            xv = [buf[s][j0 + i] if rs else None  # read before the wait
+                  for i in range(g)]
+            yield (full, d, p0 + g)
+            if send and q0 + g > slots:
+                yield (credit, d, q0 + g - slots)
+            for i in range(g):
+                w = get(p0 + i)
+                if rs:
+                    w = xv[i] + w
+                if send:
+                    put(q0 + i, w)
+                if t >= n - 2:
+                    buf[s][j0 + i] = w
+            if send:
+                full[right] = q0 + g
+            credit[left] = p0 + g
+        pos += steps * g
+    return pos
+
+
+def _run_lanes(n, tiles, g_max, slots, xs, order, seqs, rng=None):
+    """Runs the N lanes' programs of one launch, interleaved lock-step
+    ("lockstep": each rank one operation a turn) or at random ("random"),
+    over flags and slots that carry over between launches (``seqs``: the
+    lanes' sequence words, updated). Returns the buffers (the results);
+    raises _Blocked when no rank can move."""
+    mem = {"buf": [[list(row) for row in x] for x in xs],
+           "slots": seqs["slots"], "full": seqs["full"],
+           "credit": seqs["credit"]}
+    progs = [_lane_program(d, n, tiles, g_max, slots, mem, seqs["seq"][d])
+             for d in range(n)]
+    waiting = [None] * n
+    done = [False] * n
+
+    def step(d):
+        """One operation of rank d; False if it is blocked."""
+        cond = waiting[d]
+        if cond is not None:
+            flags, r, want = cond
+            if flags[r] < want:
+                return False
+        try:
+            waiting[d] = next(progs[d])
+        except StopIteration as stop:
+            done[d] = True
+            seqs["seq"][d] = stop.value
+        return True
+
+    while not all(done):
+        live = [d for d in range(n) if not done[d]]
+        if order == "random":
+            rng.shuffle(live)
+            moved = False
+            for d in live:
+                if step(d):
+                    moved = True
+                    break
+        else:
+            moved = False
+            for d in live:
+                moved |= step(d)
+        if not moved:
+            raise _Blocked(waiting)
+    return mem["buf"]
+
+
+def _fresh_lanes(n, slots):
+    return {"seq": [0] * n, "full": [0] * n, "credit": [0] * n,
+            "slots": [[None] * slots for _ in range(n)]}
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_lane_schedule_model(n):
+    """The kernel's lane schedule with the kernel's S and G: no deadlock
+    and the plain ring's sums on every rank, in place, for sub-tile
+    counts below, at and past one round and ragged, over several launches
+    that carry the flags and sequence words over."""
+    g, s = t_ring.ROUND_TILES, t_ring.SLOTS
+    assert 1 <= g and 2 * g <= s
+    rng = np.random.default_rng(n)
+    for order in ("lockstep", "random"):
+        seqs = _fresh_lanes(n, s)
+        for tiles in (1, g - 1 or 1, g, g + 1, 2 * g + 3, 3 * g):
+            xs = [rng.integers(-50, 50, (n, tiles)).tolist()
+                  for _ in range(n)]
+            got = _run_lanes(n, tiles, g, s, xs, order, seqs, rng)
+            want = np.sum(np.asarray(xs), axis=0)
+            plain = ref.ring_allreduce_ranks(
+                [torch.tensor(x, dtype=torch.float32).reshape(-1)
+                 for x in xs])
+            assert np.array_equal(plain[0].numpy().reshape(n, tiles), want)
+            for d in range(n):
+                assert np.array_equal(np.asarray(got[d]), want), (order,
+                                                                  tiles, d)
+            assert seqs["seq"] == [seqs["seq"][0]] * n
+
+
+def test_ring_lane_schedule_model_needs_round_below_slots():
+    """The model sees a deadlock: with 2G > S every rank's first fused
+    step waits for a credit its right neighbour can only give after its
+    own such step; with 2G = S, the kernel's ratio, it completes."""
+    s = t_ring.SLOTS
+    assert s % 2 == 0
+    xs = [[[1] * s, [2] * s] for _ in range(2)]
+    with pytest.raises(_Blocked):
+        _run_lanes(2, s, s // 2 + 1, s, xs, "lockstep", _fresh_lanes(2, s))
+    got = _run_lanes(2, s, s // 2, s, xs, "lockstep", _fresh_lanes(2, s))
+    assert got[0] == got[1] == [[2] * s, [4] * s]
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "int8", "float8_e4m3fn"])
+def test_requant_fixes_every_wire_word(wire):
+    """``requant(to_f(w)) == w`` for every word w the wire can carry, so
+    forwarding a received word's bits equals re-quantising its value. The
+    carried words are requant's image: every int8 and fp8-e4m3 word (the
+    fp8 NaNs 0x7f and 0xff keep their sign), and every bf16 word that is
+    not a NaN plus the one NaN word the conversion in use makes (c10's
+    scalar rounding and the kernel make 0x7FC0; a vectorised conversion
+    may make another)."""
+    dt = getattr(torch, wire)
+    n_bits = torch.empty((), dtype=dt).element_size() * 8
+    bits_dt = torch.int16 if n_bits == 16 else torch.int8
+    words = torch.arange(-2 ** (n_bits - 1), 2 ** (n_bits - 1),
+                         dtype=torch.int32).to(bits_dt)
+    vals = words.view(dt).to(torch.float32)
+    nans = torch.tensor([float("nan"), -float("nan")])
+    image = torch.unique(torch.cat([
+        ref.requant(vals, dt).view(bits_dt),
+        ref.requant(nans, dt).view(bits_dt)]))
+    finite = words[~torch.isnan(vals)]
+    made_nans = image[torch.isnan(image.view(dt).to(torch.float32))]
+    assert torch.equal(torch.unique(torch.cat([finite, made_nans])), image)
+    if wire == "bfloat16":
+        assert made_nans.numel() == 1
+    else:
+        assert image.numel() == 2 ** n_bits
+    back = ref.requant(image.view(dt).to(torch.float32), dt)
+    assert torch.equal(back.view(bits_dt), image)
 
 
 # -- gloo subprocesses -----------------------------------------------------------
