@@ -22,9 +22,17 @@
      for bit.
    - chunk_l1norm: the census of an f32 pool of 4106 x 32,768 (and of its
      bf16 cast) to 1e-6 relative against the plain version and
-     torch.linalg.vector_norm, the same bits on two launches.
+     torch.linalg.vector_norm, the same bits on two launches and, f32, at
+     a grid of 77 CTAs.
    - csc_compact: the gather of k = 616 and k = 3233 sorted chunk ids,
-     bit for bit against the plain version and torch.index_select.
+     bit for bit against the plain version and torch.index_select, also
+     at a grid of 77 CTAs.
+   These two short kernels also print back_to_back_ms and
+   library_back_to_back_ms (B2B launches in one event region, divided by
+   B2B: the device's time once the host runs ahead), enqueue_ms and
+   library_enqueue_ms (the host's time to enqueue one launch), and the
+   launch plan; ms and library_ms stay one launch an event region, host
+   time included, as in earlier runs.
    - ring_allreduce: N = 2, 4, 8 ranks in this process, each on its own
      stream (the in-process workspace), on the 6 lazy buckets, the whole
      lazy pool and the CSC steady wire buffer (616 x 32,768) in bf16, and
@@ -65,6 +73,13 @@ Prints one JSON line per kernel and per train run, the card's nvidia-smi
 line, the kernel summary line, then ``{"ok": true, "device": {...}}`` as
 the last line. Any failed check ends the run with a non-zero exit before
 that line. Exits non-zero without a result when no CUDA device is visible.
+
+    python3 chip_smoke.py --short-kernels [--src DIR]
+
+runs only the device line, the build and the chunk_l1norm and csc_compact
+phases, on the package under DIR/repro_torch (default: this tree's src):
+a parent's checkout timed the same way as this tree, in one call. It
+prints their JSON lines and the card's line, and no result line.
 """
 from __future__ import annotations
 
@@ -84,6 +99,7 @@ SEQ = 1024
 BUCKET_ELEMS = 4_194_304
 CHUNK = 32768
 REPS, WARMUP = 20, 3
+B2B = 20  # launches in one event region for the back-to-back times
 LAZY_STEPS = 6
 CSC_STEPS = 8
 CSC_SPARSITY, CSC_WARMUP = 0.85, 4
@@ -146,6 +162,51 @@ def time_ms(torch, fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(torch, fn) -> float:
+    """B2B launches in one event region, divided by B2B: the device's time
+    a launch once the host's enqueue runs ahead of it (median of REPS
+    regions after the warm-up)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(B2B):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / B2B)
+    return statistics.median(times)
+
+
+def enqueue_ms(torch, fn) -> float:
+    """Host time to enqueue one launch on an idle device (median of REPS):
+    above the kernel's time, it sets a launch timed alone."""
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def short_kernel_times(torch, kernel, library) -> dict:
+    """A short kernel and its library call: per launch (``ms``,
+    ``library_ms``, one launch an event region, comparable with earlier
+    runs), back to back (B2B launches a region) and the host's enqueue."""
+    return dict(ms=time_ms(torch, kernel),
+                back_to_back_ms=back_to_back_ms(torch, kernel),
+                enqueue_ms=enqueue_ms(torch, kernel),
+                library_ms=time_ms(torch, library),
+                library_back_to_back_ms=back_to_back_ms(torch, library),
+                library_enqueue_ms=enqueue_ms(torch, library))
 
 
 def max_rel(torch, got, want) -> float:
@@ -322,8 +383,9 @@ def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
                  ("csc_7_spans",), UPDATE_LIBRARY_NOTE)
 
 
-def census_phase(torch, kcl, num_chunks, dev, rate):
-    """chunk_l1norm on the CSC pool, f32 (the path's form) and bf16."""
+def census_phase(torch, kcl, num_chunks, dev, rate, grids=True):
+    """chunk_l1norm on the CSC pool, f32 (the path's form) and bf16; with
+    ``grids``, the f32 census also at a grid of 77 CTAs (the same bits)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     n = num_chunks * CHUNK
     pool = torch.randn(n, generator=gen, device=dev)
@@ -348,12 +410,20 @@ def census_phase(torch, kcl, num_chunks, dev, rate):
               f"chunk_l1norm {label}: two launches differ")
         part = dict(max_abs_err=(got - want).abs().max().item(),
                     max_rel_err=rel, max_rel_err_library=rel_lib)
+        if grids and label == "f32":
+            other = kcl.launch(x, CHUNK, grid=77)
+            torch.cuda.synchronize()
+            check(torch.equal(got, other),
+                  f"chunk_l1norm {label}: the norms differ at 77 CTAs")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            part["plan"] = kcl.plan(num_chunks, CHUNK, 4, 16, sms)
+            del other
         if label == "f32":
-            part.update(
-                ms=time_ms(torch, lambda: kcl.launch(x, CHUNK)),
-                plain_ms=time_ms(torch, lambda: kcl.plain(x, CHUNK)),
-                library_ms=time_ms(torch, lambda: torch.linalg.vector_norm(
-                    x.view(num_chunks, CHUNK), ord=1, dim=1)))
+            part.update(short_kernel_times(
+                torch, lambda: kcl.launch(x, CHUNK),
+                lambda: torch.linalg.vector_norm(x.view(num_chunks, CHUNK),
+                                                 ord=1, dim=1)))
+            part["plain_ms"] = time_ms(torch, lambda: kcl.plain(x, CHUNK))
             nbytes = n * 4 + num_chunks * 4
             part["bound_ms"], part["bound_by"] = bound_ms(nbytes, 2 * n,
                                                           rate)
@@ -368,8 +438,9 @@ def census_phase(torch, kcl, num_chunks, dev, rate):
                  CENSUS_LIBRARY_NOTE)
 
 
-def compact_phase(torch, kcc, num_chunks, dev, rate):
-    """csc_compact on the CSC pool at the steady and the first sparse k."""
+def compact_phase(torch, kcc, num_chunks, dev, rate, grids=True):
+    """csc_compact on the CSC pool at the steady and the first sparse k;
+    with ``grids``, also at a grid of 77 CTAs (the same bytes)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     pool = torch.randn(num_chunks * CHUNK, generator=gen, device=dev)
     parts = {}
@@ -383,15 +454,24 @@ def compact_phase(torch, kcc, num_chunks, dev, rate):
         check(torch.equal(got, want), f"csc_compact k={k}: kernel != plain")
         check(torch.equal(got, lib.reshape(-1)),
               f"csc_compact k={k}: kernel != torch.index_select")
+        part = dict(max_abs_err=(got - want).abs().max().item())
+        if grids:
+            other = kcc.launch(pool, idx, CHUNK, grid=77)
+            torch.cuda.synchronize()
+            check(torch.equal(got, other),
+                  f"csc_compact k={k}: kernel at 77 CTAs != plain")
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            part["plan"] = kcc.plan(k, num_chunks, CHUNK * 4, 4, 16, sms)
+            del other
         nbytes = 2 * k * CHUNK * 4 + k * 8
         b_ms, b_by = bound_ms(nbytes, 0, rate)
-        parts[f"k={k}"] = dict(
-            ms=time_ms(torch, lambda: kcc.launch(pool, idx, CHUNK)),
-            plain_ms=time_ms(torch, lambda: kcc.plain(pool, idx, CHUNK)),
-            library_ms=time_ms(torch, lambda: torch.index_select(
-                pool.view(num_chunks, CHUNK), 0, idx)),
-            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-            max_abs_err=(got - want).abs().max().item())
+        part.update(short_kernel_times(
+            torch, lambda: kcc.launch(pool, idx, CHUNK),
+            lambda: torch.index_select(pool.view(num_chunks, CHUNK), 0, idx)))
+        part.update(plain_ms=time_ms(torch, lambda: kcc.plain(pool, idx,
+                                                              CHUNK)),
+                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        parts[f"k={k}"] = part
         del got, want, lib
     del pool
     torch.cuda.empty_cache()
@@ -482,15 +562,9 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
             del want
             ms = time_ms(torch, lambda: kring.launch_ranks(
                 xs, ws, outs=got, streams=streams))
-            # Host time to enqueue the N launches (streams, events, ctypes):
-            # above the kernels' time, it sets ms.
-            enqueue = []
-            for _ in range(REPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                kring.launch_ranks(xs, ws, outs=got, streams=streams)
-                enqueue.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
+            # Host time to enqueue the N launches (streams, events, ctypes).
+            enqueue = enqueue_ms(torch, lambda: kring.launch_ranks(
+                xs, ws, outs=got, streams=streams))
             plain_ms = time_ms(torch, lambda: kring.plain(
                 xs, None, p["seg_elems"]))
             library_ms = time_ms(torch, lambda: torch.stack(xs).float()
@@ -501,7 +575,7 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
             parts[f"N={n} {label}"] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
-                enqueue_ms=statistics.median(enqueue),
+                enqueue_ms=enqueue,
                 elems=size, ranks=n, lanes=p["lanes"],
                 seg_elems=p["seg_elems"], rounds=p["rounds"],
                 dtype=str(dt).split(".")[-1])
@@ -922,7 +996,13 @@ def main() -> None:
         print("chip_smoke: no CUDA device visible; nothing was run",
               file=sys.stderr)
         sys.exit(2)
-    src = os.path.join(ROOT, "src")
+    argv = sys.argv[1:]
+    # --short-kernels [--src DIR]: only the census and the gather phases,
+    # on the kernels of the tree at DIR (e.g. a parent's checkout, to time
+    # both trees the same way in one call).
+    short_only = "--short-kernels" in argv
+    src = os.path.abspath(argv[argv.index("--src") + 1]) if "--src" in argv \
+        else os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print(f"chip_smoke: the repro_torch package is missing under {src}",
               file=sys.stderr)
@@ -971,6 +1051,16 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     shapes = build_model(get_arch("smollm-135m")[0]).param_shapes()
     num_chunks = pool_mod.GradientPool(shapes, pad_to=CHUNK).size // CHUNK
+    if short_only:
+        # The parent's wrappers may take no grid: time, do not vary it.
+        own = src == os.path.join(ROOT, "src")
+        for e in (census_phase(torch, kcl, num_chunks, dev, rate, own),
+                  compact_phase(torch, kcc, num_chunks, dev, rate, own)):
+            print(json.dumps(dict(kernel=e["name"], src=src, gpu=name,
+                                  power_limit=power, parts=e["parts"])),
+                  flush=True)
+        print(smi_line)
+        return
     entries = [
         pack_phase(torch, pool_mod, kpack, shapes, dev, rate),
         update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate),

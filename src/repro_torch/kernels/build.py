@@ -9,7 +9,10 @@ compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept in ``<lib>.log`` beside each library.
 
 Nothing here runs at import time: the CPU tests import every module of
-the package on machines with no ``nvcc``.
+the package on machines with no ``nvcc``. The few helpers at the end are
+what the wrappers share around a launch: the address alignment a plan
+reads, and the device and stream a launch goes to, at as little host
+cost as a Python wrapper can have.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -94,3 +99,41 @@ def build_log(name: str) -> str:
     an earlier build in this directory)."""
     log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+# -- around a launch -----------------------------------------------------------
+
+
+def base_align(*addresses: int) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    a = 16
+    for x in addresses:
+        while x % a:
+            a //= 2
+    return a
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(device: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``device``."""
+    if _raw_stream is not None:
+        return _raw_stream(device)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def call_on(device: int, fn, *args):
+    """``fn(*args, stream)`` with CUDA device ``device`` current and its
+    current stream last: the device is switched only when it is not the
+    current one already (the common case costs one query)."""
+    if device == torch.cuda.current_device():
+        return fn(*args, current_stream(device))
+    with torch.cuda.device(device):
+        return fn(*args, current_stream(device))
+
+
+def words(values) -> ctypes.Array:
+    """A launch plan as the C launchers read it: int64 words, kept alive
+    by the caller (the wrappers cache one per plan)."""
+    return (ctypes.c_longlong * len(values))(*values)

@@ -89,9 +89,14 @@ def test_cuda_kernels_match_plain(dev):
 @pytest.mark.cuda
 def test_cuda_csc_kernels_match_plain(dev):
     """The census (deterministic, 1e-6 relative) and the gather (bit for
-    bit), f32 and bf16, on vector-aligned and unaligned rows."""
+    bit), f32 and bf16: rows smaller than a stage (1024), rows of whole
+    stages (32768) and of a stage and a half and 16 bytes (12292), rows
+    that are not a multiple of 16 bytes (33), and views at an odd element
+    offset; the gather at k = 1 and k = 616 of 32768-element rows, and at
+    a grid far below its items."""
     for dtype in (torch.float32, torch.bfloat16):
-        for chunk, num_chunks in ((1024, 37), (33, 20)):
+        for chunk, num_chunks in ((1024, 37), (33, 20), (12292, 9),
+                                  (32768, 6)):
             x = _randn(7, chunk * num_chunks).to(dev, dtype)
             got = t_cl.launch(x, chunk)
             again = t_cl.launch(x, chunk)
@@ -102,6 +107,8 @@ def test_cuda_csc_kernels_match_plain(dev):
             idx = torch.tensor([0, 3, 4, num_chunks - 1], device=dev)
             assert torch.equal(t_cc.launch(x, idx, chunk),
                                t_cc.plain(x, idx, chunk))
+            assert torch.equal(t_cc.launch(x, idx, chunk, grid=1),
+                               t_cc.plain(x, idx, chunk))
             # A view at an odd element offset takes a narrower copy unit.
             view = x[1:1 + chunk * (num_chunks - 1)]
             assert torch.equal(t_cc.launch(view, idx[:3], chunk),
@@ -111,6 +118,38 @@ def test_cuda_csc_kernels_match_plain(dev):
             torch.testing.assert_close(t_cl.launch(view, chunk),
                                        t_cl.plain(view, chunk), rtol=1e-6,
                                        atol=0)
+    chunk, num_chunks = 32768, 700
+    pool = _randn(8, chunk * num_chunks).to(dev)
+    rng = np.random.default_rng(9)
+    for k in (1, 616):
+        idx = torch.from_numpy(np.sort(rng.choice(num_chunks, k,
+                                                  replace=False))).to(dev)
+        want = t_cc.plain(pool, idx, chunk)
+        for grid in (None, 3):
+            got = t_cc.launch(pool, idx, chunk, grid=grid)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (k, grid)
+        assert torch.equal(want, torch.index_select(
+            pool.view(num_chunks, chunk), 0, idx).reshape(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_census_same_bits_at_any_grid(dev):
+    """The census's bulk path sums each chunk in an order fixed by the
+    chunk's length alone: the same bits at 1, 7 and the plan's CTAs, and
+    the bits of its numpy model (``census_order``); the block path (bf16)
+    the same bits at two grids."""
+    for chunk, num_chunks in ((32768, 300), (1024, 37), (12292, 9)):
+        x = _randn(11, chunk * num_chunks).to(dev)
+        x[:chunk] = 0.0
+        norms = [t_cl.launch(x, chunk, grid=g) for g in (None, 1, 7)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(norms[0], n) for n in norms[1:])
+        model = t_cl.census_order(x.cpu().numpy(), chunk)
+        assert norms[0].cpu().numpy().tobytes() == model.tobytes()
+        b = x.to(torch.bfloat16)
+        assert torch.equal(t_cl.launch(b, chunk), t_cl.launch(b, chunk,
+                                                               grid=3))
 
 
 @pytest.mark.cuda
