@@ -17,9 +17,10 @@
      CSC packs (both f32->f32 into the padded pool), bit for bit, pool
      and staging buffer; the chunk census to 1e-6 relative.
    - pool_unpack_update: lazy's 6 spans with an all-true and a random
-     mask and with per-tensor ratios, and CSC's 7 spans of the padded
-     pool with a chunk-granular mask (the last span holds no leaf), bit
-     for bit.
+     mask and with per-tensor ratios, CSC's 7 spans of the padded pool
+     with a chunk-granular mask (the last span holds no leaf), and the
+     whole padded pool in one launch with f32[T+1] ratios (LARS
+     monolithic), bit for bit.
    - chunk_l1norm: the census of an f32 pool of 4106 x 32,768 (and of its
      bf16 cast) to 1e-6 relative against the plain version and
      torch.linalg.vector_norm, the same bits on two launches and, f32, at
@@ -45,14 +46,27 @@
    - fused_update: the whole f32 pool, all-true and random mask, with and
      without the scale, bit for bit; then optim.update_pool, the entry
      point that reaches it, for 3 steps with its launches counted.
+   Then the optimizer ops, which are PyTorch ops and no kernel (as in
+   the JAX package): one step's LARS trust ratios over the lazy spans and
+   over CSC's masked spans (equal to the whole-pool ratios), and one AdamW
+   update sweep over CSC's 7 spans, each timed beside its bytes bound.
 3. Train: smollm-135m at full width and depth (batch 16, sequence 1024,
-   bf16 wire, momentum SGD, kernels on) inside a world-size-1 NCCL group,
-   through the CLI's loop (``repro_torch.launch.train``) on the synthetic
-   stream, then through the Trainer it builds on one repeated batch:
-   (a) lazy, theta = 4 Mi elements: 6 + 6 steps;
-   (b) CSC, chunks of 32,768, sparsity 0.85 reached after 4 warm-up
-       steps: step 0 dense (7 buckets), steps 1-3 at k = 3233, 2361,
-       1488, steps 4-7 at k = 616 (5 wire buckets); 8 + 8 steps;
+   bf16 wire, kernels on) inside a world-size-1 NCCL group, through the
+   CLI's loop (``repro_torch.launch.train``) on the synthetic stream,
+   then through the Trainer it builds on one repeated batch:
+   (a) lazy, momentum SGD, theta = 4 Mi elements: 6 + 6 steps;
+   (b) CSC, momentum SGD, chunks of 32,768, sparsity 0.85 reached after
+       4 warm-up steps: step 0 dense (7 buckets), steps 1-3 at k = 3233,
+       2361, 1488, steps 4-7 at k = 616 (5 wire buckets); 8 + 8 steps;
+   (d) LARS (lr LARS_LR), (b)'s CSC settings, staged: 8 + 8 steps, every
+       update launch carrying the span's ratios;
+   (e) LARS, lazy, staged (the CLI) and then monolithic (a Trainer with
+       overlap='monolithic': one whole-pool update launch a step), 6 + 6
+       steps each from one seed; the repeated batch's losses of the two
+       modes equal to 1e-6 relative, the largest parameter difference
+       printed;
+   (f) AdamW (lr ADAMW_LR), (b)'s CSC settings, staged: 8 + 8 steps, no
+       update kernel (AdamW is PyTorch ops);
    (c) collective_algo="pallas_ring", world size 2 as two processes on
        this card (this script with --ring-rank), a gloo group for the
        set-up and the cross-process (CUDA IPC) ring workspace, one per
@@ -69,9 +83,9 @@
    run. Every loss must be finite and the repeated batch's last loss below
    its first.
 
-Prints one JSON line per kernel and per train run, the card's nvidia-smi
-line, the kernel summary line, then ``{"ok": true, "device": {...}}`` as
-the last line. Any failed check ends the run with a non-zero exit before
+Prints one JSON line per kernel, one for the optimizer ops, one per train
+run, the card's nvidia-smi line, the kernel summary line, then
+``{"ok": true, "device": {...}}`` as the last line. Any failed check ends the run with a non-zero exit before
 that line. Exits non-zero without a result when no CUDA device is visible.
 
     python3 chip_smoke.py --short-kernels [--src DIR]
@@ -108,6 +122,14 @@ CSC_KS = (616, 3233)  # the steady stage's k, and the first sparse stage's
 # spans a step, 1 census a step, 1 gather a sparse step.
 CSC_COUNTS = {"pool_pack.kernel": 16, "pool_unpack_update.kernel": 56,
               "chunk_l1norm.kernel": 8, "csc_compact.kernel": 7}
+# AdamW has no update kernel (plain PyTorch ops, as in the JAX package).
+ADAMW_CSC_COUNTS = {k: v for k, v in CSC_COUNTS.items()
+                    if k != "pool_unpack_update.kernel"}
+# LARS's trust ratio (eta = 0.001) sets each tensor's step to about
+# lr * 1e-3 of its norm: 0.5 % a step at 5.0, at which runs (d) and (e)
+# check that the repeated batch's loss falls.
+LARS_LR = 5.0
+ADAMW_LR = 1e-3
 
 # Device-memory bandwidth by card (NVIDIA data sheets), for the bounds.
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12,
@@ -301,7 +323,9 @@ def pack_phase(torch, pool_mod, kpack, shapes, dev, rate):
 
 
 def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
-    """pool_unpack_update over lazy's 6 spans and CSC's 7."""
+    """pool_unpack_update over lazy's 6 spans and CSC's 7 (with ratios on
+    one lazy span), and over the whole padded CSC pool in one launch with
+    per-tensor ratios (LARS monolithic)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     lr = torch.tensor(0.2, dtype=torch.float32, device=dev)
     kw = dict(lr=lr, momentum=0.9, weight_decay=1e-4)
@@ -354,7 +378,7 @@ def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
                 check(torch.equal(a, b), f"pool_unpack_update ({label}, "
                       f"{mlabel}): kernel != plain (max abs diff {d})")
         if label.startswith("lazy"):
-            # Per-tensor ratios on one span (off the paths; coverage only).
+            # Per-tensor ratios on one span (LARS staged, lazy).
             v = views[0]
             r = torch.rand(v.num_tensors, generator=gen, device=dev)
             args = (master[:v.size], grads[:v.size], mom[:v.size],
@@ -365,6 +389,33 @@ def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
             check(all(torch.equal(x, y)
                       for x, y in zip(a[0] + [a[1]], b[0] + [b[1]])),
                   "pool_unpack_update with ratios: kernel != plain")
+        else:
+            # LARS monolithic: the whole padded pool in one launch, with
+            # f32[T+1] ratios (the trailing entry is the padding's).
+            r = torch.rand(pool.num_tensors + 1, generator=gen, device=dev)
+            mask = masks["chunk mask"]
+
+            def whole(fn, out):
+                fn(master, grads, mom, mask, pool.offsets, pool.sizes,
+                   ratios=r, out_leaves=out[0], out_momentum=out[1], **kw)
+
+            whole(kunpack.launch, k_out)
+            whole(kunpack.plain, p_out)
+            torch.cuda.synchronize()
+            w_err = max((a - b).abs().max().item()
+                        for a, b in zip(k_out[0] + [k_out[1]],
+                                        p_out[0] + [p_out[1]]))
+            check(all(torch.equal(a, b) for a, b in
+                      zip(k_out[0] + [k_out[1]], p_out[0] + [p_out[1]])),
+                  f"pool_unpack_update, whole CSC pool with ratios: kernel "
+                  f"!= plain (max abs diff {w_err})")
+            nbytes = n * 17 + pool.unpadded_size * 4 + r.numel() * 4
+            b_ms, b_by = bound_ms(nbytes, n * 7, rate)
+            parts["csc_whole_pool_ratios"] = dict(
+                ms=time_ms(torch, lambda: whole(kunpack.launch, k_out)),
+                plain_ms=time_ms(torch, lambda: whole(kunpack.plain, p_out)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                max_abs_err=w_err, launches_per_step=1)
         ms = time_ms(torch, lambda: step(kunpack.launch, k_out, timed_mask))
         plain_ms = time_ms(torch, lambda: step(kunpack.plain, p_out,
                                                timed_mask))
@@ -666,31 +717,177 @@ def fused_update_phase(torch, kfu, optim, ops, base, dev, rate):
                  launches_update_pool=counts["fused_update.kernel"])
 
 
+def optimizer_phase(torch, pool_mod, csc, optim, lars_mod, base, shapes,
+                    dev, rate):
+    """LARS's trust ratios and AdamW's update are PyTorch ops in the port,
+    as they are jnp in the JAX package: no kernel, so no kernel entry.
+    Timed here beside their bytes bounds: one step's LARS ratios over the
+    lazy spans (no mask) and over CSC's spans (the chunk mask zeroes the
+    unselected gradients), each equal to the whole-pool ratios; one AdamW
+    update sweep over CSC's 7 spans (``optim.update_view``, as the staged
+    engine runs it)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    lars_cfg = base.OptimizerConfig(name="lars", learning_rate=LARS_LR)
+    out = {}
+    for label, pool in (("lazy_6_spans", pool_mod.GradientPool(shapes)),
+                        ("csc_7_spans",
+                         pool_mod.GradientPool(shapes, pad_to=CHUNK))):
+        n = pool.size
+        views = [pool.bucket_view(s, e)
+                 for s, e in pool.bucket_boundaries(BUCKET_ELEMS)]
+        master = torch.randn(n, generator=gen, device=dev)
+        grads = torch.randn(n, generator=gen, device=dev) * 1e-2
+        mask = None
+        if label.startswith("csc"):
+            norms = torch.rand(n // CHUNK, generator=gen, device=dev)
+            mask = csc.element_mask(csc.select_chunks(norms, CSC_KS[0])[1],
+                                    CHUNK)
+        lars = lars_mod.LARSScaler(pool)
+
+        def ratios():
+            return [lars.ratios_view(
+                v, master[v.start:v.end], grads[v.start:v.end], lars_cfg,
+                None if mask is None else mask[v.start:v.end])
+                for v in views]
+
+        spans = torch.cat(ratios())
+        whole = lars.ratios(master, grads, lars_cfg, mask)
+        torch.cuda.synchronize()
+        check(spans.shape == (pool.num_tensors,)
+              and bool(torch.isfinite(spans).all()),
+              f"LARS ratios {label}: {spans}")
+        rel = max_rel(torch, spans, whole[:pool.num_tensors])
+        check(rel <= 1e-6, f"LARS ratios {label}: per span != whole pool "
+              f"(rel err {rel})")
+        nbytes = n * 8 + (n if mask is not None else 0)
+        b_ms, b_by = bound_ms(nbytes, 4 * n, rate)
+        out[f"lars_ratios_{label}"] = dict(
+            ms=time_ms(torch, ratios), bound_ms=b_ms, bound_by=b_by,
+            bytes=nbytes, ratios=spans.tolist())
+        if label.startswith("csc"):
+            adamw_cfg = base.OptimizerConfig(name="adamw",
+                                              learning_rate=ADAMW_LR)
+            state = optim.init_state("adamw", n, dev)
+            leaves = [torch.empty(sz, device=dev) for sz in pool.sizes]
+            lr = torch.tensor(ADAMW_LR, device=dev)
+
+            def sweep():
+                for v in views:
+                    s, e = v.start, v.end
+                    optim.update_view(
+                        "adamw", v, master[s:e], grads[s:e],
+                        optim.AdamWState(*(x[s:e] for x in state)),
+                        mask[s:e], adamw_cfg, lr,
+                        out_leaves=leaves[v.leaf_lo:v.leaf_hi])
+
+            sweep()
+            torch.cuda.synchronize()
+            check(torch.equal(state.counts, mask.to(torch.int32))
+                  and all(bool(torch.isfinite(x).all()) for x in leaves),
+                  "AdamW sweep: counts or leaves wrong after one sweep")
+            # Reads master, grads, mu, nu, counts (4 B) and the mask (1 B);
+            # writes mu, nu, counts and, where a leaf owns the element, the
+            # leaf.
+            nbytes = n * 33 + pool.unpadded_size * 4
+            b_ms, b_by = bound_ms(nbytes, 20 * n, rate)
+            out["adamw_update_csc_7_spans"] = dict(
+                ms=time_ms(torch, sweep), bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes)
+            del state, leaves
+        del master, grads, mask
+        torch.cuda.empty_cache()
+    return out
+
+
 def expected_counts(trainer, steps):
     """The kernel launches ``steps`` steps of this trainer's paths need,
-    from its step plans."""
+    from its step plans: 2 packs a step; the SGD and LARS updates one a
+    span (staged) or one a step (monolithic), AdamW's none; CSC's census
+    one a step and its gather one a sparse step."""
     gf = trainer.gf
     plans = [gf.plan(gf.stage_for_step(s)) for s in range(steps)]
-    want = {"pool_pack.kernel": 2 * steps,
-            "pool_unpack_update.kernel": sum(len(p.update_spans)
-                                             for p in plans)}
+    want = {"pool_pack.kernel": 2 * steps}
+    if trainer.opt_name != "adamw":  # AdamW has no update kernel
+        want["pool_unpack_update.kernel"] = steps \
+            if gf.cfg.overlap == "monolithic" \
+            else sum(len(p.update_spans) for p in plans)
     if gf.cfg.csc_enabled:
         want["chunk_l1norm.kernel"] = steps
         want["csc_compact.kernel"] = sum(not p.warmup for p in plans)
     return want
 
 
-def train_run(torch, ops, train_mod, synthetic, label, argv, steps):
-    """(a) ``steps`` steps of the CLI's loop on the synthetic stream,
-    timed, and (b) ``steps`` steps of the Trainer it builds on ONE batch,
-    each step under the stage the CLI would pick. On a fresh batch each
-    step, a few SGD steps at the CLI's learning rate move the loss less
-    than the batch-to-batch spread, so (a) cannot show learning; a
-    repeated batch can."""
+def count_ratio_launches(kunpack):
+    """Wrap ``kunpack.launch`` (which ``ops.pool_unpack_update`` calls) to
+    tally its launches with and without ``ratios``. Returns (tally,
+    restore)."""
+    launch = kunpack.launch
+    tally = {"with_ratios": 0, "without_ratios": 0}
+
+    def counted(*args, ratios=None, **kwargs):
+        tally["with_ratios" if ratios is not None else "without_ratios"] += 1
+        return launch(*args, ratios=ratios, **kwargs)
+
+    def restore():
+        kunpack.launch = launch
+
+    kunpack.launch = counted
+    return tally, restore
+
+
+def stream_steps(torch, trainer, cfg, seed, steps):
+    """``steps`` steps on the synthetic stream, as the CLI's loop runs them
+    (``repro_torch.launch.train.train``), for a Trainer the CLI cannot
+    build (``overlap='monolithic'`` has no flag). Returns (losses, step
+    seconds)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    data = SyntheticLM(cfg.model.vocab_size, seed=seed)
+    state = trainer.init_state(seed)
+    fns, losses, seconds = {}, [], []
+    for s in range(steps):
+        stage = trainer.gf.stage_for_step(s)
+        if stage.index not in fns:
+            fns[stage.index] = trainer.build_train_step(stage)
+        batch = data.batch(s, cfg.global_batch, cfg.seq_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = fns[stage.index](state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds
+
+
+def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
+              overlap="staged", keep_params=False):
+    """(a) ``steps`` steps on the synthetic stream, timed: the CLI's loop,
+    or with ``overlap='monolithic'`` the same loop on a Trainer built with
+    it; and (b) ``steps`` steps of such a Trainer on ONE batch, each step
+    under the stage the CLI would pick. On a fresh batch each step, a few
+    steps at the CLI's learning rate move the loss less than the
+    batch-to-batch spread, so (a) cannot show learning; a repeated batch
+    can. ``keep_params``: also return (b)'s final parameters as one flat
+    tensor."""
+    import dataclasses
+    from repro_torch.launch.trainer import Trainer
+
     args = train_mod.parse_args(argv)
+
+    def build():
+        trainer, cfg = train_mod.build(args)
+        if overlap == "staged":
+            return trainer, cfg
+        cfg = cfg.replace(gradientflow=dataclasses.replace(
+            cfg.gradientflow, overlap=overlap))
+        return Trainer(cfg, device=args.device), cfg
+
     ops.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    trainer, losses, seconds = train_mod.train(args)
+    if overlap == "staged":
+        trainer, losses, seconds = train_mod.train(args)
+    else:
+        trainer, cfg = build()
+        losses, seconds = stream_steps(torch, trainer, cfg, args.seed, steps)
     counts = dict(ops.dispatch_counts)
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses),
@@ -702,7 +899,7 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps):
     del trainer
     torch.cuda.empty_cache()
 
-    trainer, cfg = train_mod.build(args)
+    trainer, cfg = build()
     state = trainer.init_state(args.seed)
     batch = synthetic.SyntheticLM(cfg.model.vocab_size,
                                   seed=args.seed).batch(0, BATCH, SEQ)
@@ -716,6 +913,9 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps):
         state, metrics = fns[stage.index](state, batch)
         fixed.append(float(metrics["loss"]))
     fixed_counts = dict(ops.dispatch_counts)
+    final = torch.cat([p.reshape(-1) for p in
+                       trainer.pool.flat_leaves(state.params)]) \
+        if keep_params else None
     del state, fns, trainer
     torch.cuda.empty_cache()
     print(f"{label}, one batch, repeated: losses {fixed}", flush=True)
@@ -725,43 +925,91 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps):
           f"{label}: non-finite loss {fixed}")
     check(fixed[-1] < fixed[0], f"{label}: loss did not fall on one batch: "
           f"{fixed}")
-    return dict(losses=losses, repeated_batch_losses=fixed,
-                step_ms=[t * 1e3 for t in seconds],
-                stage=[s.index for s in stages],
-                num_selected=[s.num_selected for s in stages],
-                peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts)
+    run = dict(losses=losses, repeated_batch_losses=fixed,
+               step_ms=[t * 1e3 for t in seconds],
+               stage=[s.index for s in stages],
+               num_selected=[s.num_selected for s in stages],
+               peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+               optimizer=args.optimizer, lr=args.lr, overlap=overlap)
+    return (run, final) if keep_params else run
 
 
-def train_phase(torch, dist, ops, train_mod, synthetic):
-    """The lazy and the CSC run of the full-width step, each with its own
-    dispatch counts, in one world-size-1 NCCL group."""
+def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
+    """The full-width step in one world-size-1 NCCL group, each run with
+    its own dispatch counts: (a) lazy and (b) CSC with momentum SGD;
+    (d) LARS, CSC, staged; (e) LARS, lazy, staged then monolithic; (f)
+    AdamW, CSC, staged."""
     common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
               str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len",
               str(SEQ), "--log-every", "1"]
+    lazy_args = common + ["--gf-mode", "lazy", "--steps", str(LAZY_STEPS)]
+    csc_args = common + ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
+                         "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
+                         str(CSC_WARMUP), "--steps", str(CSC_STEPS)]
+    lars = ["--optimizer", "lars", "--lr", str(LARS_LR)]
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0)
+    runs = {}
     try:
-        lazy = train_run(torch, ops, train_mod, synthetic, "lazy",
-                         common + ["--gf-mode", "lazy", "--steps",
-                                   str(LAZY_STEPS)], LAZY_STEPS)
-        csc = train_run(torch, ops, train_mod, synthetic, "csc",
-                        common + ["--gf-mode", "csc", "--chunk-elems",
-                                  str(CHUNK), "--sparsity", str(CSC_SPARSITY),
-                                  "--csc-warmup", str(CSC_WARMUP), "--steps",
-                                  str(CSC_STEPS)], CSC_STEPS)
+        runs["lazy"] = train_run(torch, ops, train_mod, synthetic, "lazy",
+                                 lazy_args, LAZY_STEPS)
+        runs["csc"] = train_run(torch, ops, train_mod, synthetic, "csc",
+                                csc_args, CSC_STEPS)
+        tally, restore = count_ratio_launches(kunpack)
+        try:
+            runs["lars_csc"] = train_run(torch, ops, train_mod, synthetic,
+                                         "(d) lars, csc, staged",
+                                         csc_args + lars, CSC_STEPS)
+        finally:
+            restore()
+        runs["lars_csc"]["update_launches"] = dict(tally)
+        lars_lazy = {}
+        for overlap in ("staged", "monolithic"):
+            lars_lazy[overlap] = train_run(
+                torch, ops, train_mod, synthetic,
+                f"(e) lars, lazy, {overlap}", lazy_args + lars, LAZY_STEPS,
+                overlap=overlap, keep_params=True)
+        runs["adamw_csc"] = train_run(
+            torch, ops, train_mod, synthetic, "(f) adamw, csc, staged",
+            csc_args + ["--optimizer", "adamw", "--lr", str(ADAMW_LR)],
+            CSC_STEPS)
     finally:
         dist.destroy_process_group()
-    check(csc["dispatch_counts"] == CSC_COUNTS,
-          f"csc: dispatch counts {csc['dispatch_counts']}, expected "
-          f"{CSC_COUNTS}")
-    check(csc["num_selected"] == [4106, 3233, 2361, 1488] + [616] * 4,
-          f"csc: stages select {csc['num_selected']}")
-    for run, steady in ((lazy, lazy["step_ms"][1:]),
-                        (csc, csc["step_ms"][CSC_WARMUP:])):
+    for label in ("csc", "lars_csc"):
+        got = runs[label]["dispatch_counts"]
+        check(got == CSC_COUNTS, f"{label}: dispatch counts {got}, "
+              f"expected {CSC_COUNTS}")
+    got = runs["adamw_csc"]["dispatch_counts"]
+    check(got == ADAMW_CSC_COUNTS, f"adamw_csc: dispatch counts {got}, "
+          f"expected {ADAMW_CSC_COUNTS}")
+    tally = runs["lars_csc"]["update_launches"]
+    check(tally == {"with_ratios": 2 * CSC_COUNTS[
+        "pool_unpack_update.kernel"], "without_ratios": 0},
+          f"lars_csc: update launches {tally}: each must carry ratios")
+    for label in ("csc", "lars_csc", "adamw_csc"):
+        check(runs[label]["num_selected"] == [4106, 3233, 2361, 1488]
+              + [616] * 4, f"{label}: stages select "
+              f"{runs[label]['num_selected']}")
+    # (e): staged and monolithic from one seed on one batch.
+    (staged, p_staged), (mono, p_mono) = (lars_lazy["staged"],
+                                          lars_lazy["monolithic"])
+    a, b = staged["repeated_batch_losses"], mono["repeated_batch_losses"]
+    check(all(abs(x - y) <= 1e-6 * abs(y) for x, y in zip(a, b)),
+          f"(e) lars lazy: staged losses {a} != monolithic {b} (rtol 1e-6)")
+    max_param_diff = (p_staged - p_mono).abs().max().item()
+    print(f"(e) lars lazy, staged vs monolithic on one batch: largest "
+          f"parameter difference {max_param_diff}", flush=True)
+    del p_staged, p_mono
+    torch.cuda.empty_cache()
+    mono["max_param_diff_vs_staged"] = max_param_diff
+    runs["lars_lazy"], runs["lars_lazy_monolithic"] = staged, mono
+    steady_from = {"lazy": 1, "lars_lazy": 1, "lars_lazy_monolithic": 1}
+    for label, run in runs.items():
+        steady = run["step_ms"][steady_from.get(label, CSC_WARMUP):]
         run["first_step_ms"] = run["step_ms"][0]
         run["steady_step_ms"] = statistics.median(steady)
         run["tokens_per_s"] = BATCH * SEQ / (run["steady_step_ms"] / 1e3)
-    return lazy, csc
+    return runs
 
 
 RING_STEPS = 3  # on the stream, then as many on one repeated batch
@@ -1024,6 +1272,7 @@ def main() -> None:
     from repro_torch import optim
     from repro_torch.configs import base
     from repro_torch.models import build_model
+    from repro_torch.optim import lars as lars_mod
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
                           "power.limit", "--format=csv,noheader"],
@@ -1071,12 +1320,15 @@ def main() -> None:
     for e in entries:
         print(json.dumps(dict(kernel=e["name"], gpu=name, power_limit=power,
                               parts=e["parts"])), flush=True)
+    print(json.dumps(dict(optimizer_ops=optimizer_phase(
+        torch, pool_mod, csc, optim, lars_mod, base, shapes, dev, rate),
+        gpu=name, power_limit=power)), flush=True)
 
-    lazy, csc_run = train_phase(torch, dist, ops, train_mod, synthetic)
+    runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack)
     ring, ring_csc = ring_train_phase(torch, dev)
-    for label, run in (("lazy", lazy), ("csc", csc_run),
-                       ("lazy_pallas_ring_2_processes", ring),
-                       ("csc_pallas_ring_2_processes", ring_csc)):
+    runs["lazy_pallas_ring_2_processes"] = ring
+    runs["csc_pallas_ring_2_processes"] = ring_csc
+    for label, run in runs.items():
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,
                               **run)), flush=True)
@@ -1089,8 +1341,10 @@ def main() -> None:
         elif e["name"] == "fused_update":
             e["launches"] = e.pop("launches_update_pool")
         else:
-            e["launches"] = csc_run["dispatch_counts"][key]
-            e["launches_lazy"] = lazy["dispatch_counts"].get(key, 0)
+            e["launches"] = runs["csc"]["dispatch_counts"][key]
+            e["launches_by_run"] = {
+                label: run["dispatch_counts"].get(key, 0)
+                for label, run in runs.items() if "pallas" not in label}
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     print(smi_line)

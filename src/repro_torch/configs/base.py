@@ -49,9 +49,9 @@ class ModelConfig:
 class GradientFlowConfig:
     """The communication backend's settings (see the JAX package for the
     meaning of each field). The port runs ``mode`` 'dense', 'lazy' and
-    'csc', ``wire_format='native'``, ``overlap='staged'``, every
-    ``collective_algo`` and ``auto_bucket``; the rest raise
-    ``NotImplementedError`` where they would be used."""
+    'csc', ``wire_format='native'``, ``overlap`` 'staged' and
+    'monolithic', every ``collective_algo`` and ``auto_bucket``; the rest
+    raise ``NotImplementedError`` where they would be used."""
 
     mode: str = "lazy"
     bucket_elems: int = 16 * 1024 * 1024
@@ -91,7 +91,7 @@ class GradientFlowConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "momentum_sgd"  # the port runs 'momentum_sgd' only
+    name: str = "momentum_sgd"  # 'momentum_sgd' | 'lars' | 'adamw'
     learning_rate: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 1e-4

@@ -1,7 +1,9 @@
-"""Carry parameter trees between the JAX package and the port.
+"""Carry parameter trees and optimizer states between the JAX package
+and the port.
 
 The port keeps the JAX package's layout (same nested keys, stacked layer
-weights, (in, out) matrices), so conversion is a key-for-key copy through
+weights, (in, out) matrices, pool-shaped optimizer state fields of the
+same names), so conversion is a key-for-key (field-for-field) copy through
 numpy with no transposes.
 """
 from __future__ import annotations
@@ -32,3 +34,23 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dict of torch tensors -> nested dict of numpy arrays."""
     return {k: params_to_numpy(v) if isinstance(v, dict)
             else v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def opt_state_from_numpy(name: str, state: Any,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> Any:
+    """The optimizer ``name``'s state (``SGDState`` or ``AdamWState``)
+    from any object with its fields as array-likes (the JAX package's
+    state, or ``opt_state_to_numpy``'s), field for field through numpy,
+    on ``device`` (CUDA unless given)."""
+    from repro_torch import optim, resolve_device
+    dev = resolve_device(device)
+    cls = optim.state_type(name)
+    return cls(*(torch.from_numpy(np.array(getattr(state, f), copy=True))
+                 .to(dev) for f in cls._fields))
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """An optimizer state of torch tensors -> the same NamedTuple of numpy
+    arrays."""
+    return type(state)(*(x.detach().cpu().numpy() for x in state))

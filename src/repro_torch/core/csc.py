@@ -93,6 +93,20 @@ def chunk_l1_norms(pool: torch.Tensor, chunk_elems: int) -> torch.Tensor:
     return ref.chunk_l1norm(pool, chunk_elems)
 
 
+def summed_census(pool: torch.Tensor, chunk_elems: int,
+                  use_kernels: bool) -> torch.Tensor:
+    """The per-chunk L1 norms of this rank's post-reduce pool, summed over
+    the data-parallel group (Fig 18): the next iteration's selection
+    basis, the same on every rank. ``use_kernels`` goes through
+    ``kernels.ops.chunk_l1norm``."""
+    if use_kernels:
+        from repro_torch.kernels import ops
+        l1 = ops.chunk_l1norm(pool, chunk_elems)
+    else:
+        l1 = chunk_l1_norms(pool, chunk_elems)
+    return reduce_pool(l1)
+
+
 class CSCReduceResult(NamedTuple):
     grads: torch.Tensor      # mean at the selected chunks, zero elsewhere
     elem_mask: torch.Tensor  # bool[pool]: where the update applies
@@ -126,12 +140,7 @@ def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
     # Update-ready view: the mean at the selected chunks, zero elsewhere.
     g_update = scatter_chunks(torch.zeros_like(g), idx, reduced, chunk)
     hg_new = torch.where(elem_mask, 0.0, cfg.momentum * g_out)
-    if cfg.use_kernels:
-        from repro_torch.kernels import ops
-        l1 = ops.chunk_l1norm(g_out, chunk)
-    else:
-        l1 = chunk_l1_norms(g_out, chunk)
-    norms_new = reduce_pool(l1)
+    norms_new = summed_census(g_out, chunk, cfg.use_kernels)
     return CSCReduceResult(grads=g_update, elem_mask=elem_mask,
                            state=CSCState(hg=hg_new, chunk_norms=norms_new))
 

@@ -12,6 +12,13 @@ computation/communication overlap), native dense, lazy and CSC paths.
   the masked update per span; its dense warm-up is the lazy pipeline on
   the hg-corrected pool plus the norm census.
 
+Each span's update is the optimizer's segment update (``optim.
+update_view``): momentum SGD or LARS through the update kernel, LARS with
+the trust ratios of the span's tensors (``optim.lars``, computed on the
+device from the span's master and masked gradient), AdamW as PyTorch ops
+writing its state in place. ``overlap='monolithic'`` does not come here:
+the Trainer runs ``GradientFlow.reduce`` and one whole-pool update.
+
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
 fence. The guard, the quantized wires and the cross-step lane are not
@@ -26,7 +33,6 @@ import torch
 
 from repro_torch.core import csc as csc_mod
 from repro_torch.core import lazy_allreduce as lazy_mod
-from repro_torch.parallel.collectives import reduce_pool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,15 +132,14 @@ class OverlapEngine:
     """Executes a StepPlan as a software pipeline of per-bucket
     all-reduces and fused optimizer updates."""
 
-    def __init__(self, gf, opt_name: str, opt_cfg):
-        if opt_name != "momentum_sgd":
-            raise NotImplementedError(
-                f"optimizer {opt_name!r} is not ported to repro_torch yet; "
-                "see ROADMAP.md queue A")
+    def __init__(self, gf, opt_name: str, opt_cfg, lars=None):
+        if opt_name not in ("momentum_sgd", "lars", "adamw"):
+            raise ValueError(f"unknown optimizer {opt_name}")
         self.gf = gf
         self.pool = gf.pool
         self.opt_name = opt_name
         self.opt_cfg = opt_cfg
+        self.lars = lars
 
     def plan_for(self, stage=None) -> StepPlan:
         return self.gf.plan(stage)
@@ -144,7 +149,7 @@ class OverlapEngine:
         """One pipelined reduce+update phase. ``gpool`` is the local
         gradient pool, already packed: in the wire dtype for dense and
         lazy, in f32 for CSC (hg is added before the wire cast). The
-        parameters and the momentum are updated in place (see
+        parameters and the optimizer state are updated in place (see
         ``kernels.pool_unpack``); CSC also works in place on ``gpool`` and
         on ``gfstate.hg``. Returns (params_tree, opt_state, gfstate)."""
         use_k = self.gf.cfg.use_kernels
@@ -197,9 +202,10 @@ class OverlapEngine:
         ``g`` is the f32 staging pool, which the next step's pack
         overwrites, so it becomes the post-reduce pool in place, and
         ``gfstate.hg`` is overwritten with the new hg. The update reads
-        its gradients from the post-reduce pool too: where the mask is
-        false the update keeps master and momentum whatever the gradient,
-        so the JAX package's separate zero-filled update pool (one more
+        its gradients from the post-reduce pool too, with the mask: where
+        it is false the update keeps the master and the state whatever
+        the gradient, and LARS's norms zero the gradient first, so the
+        JAX package's separate zero-filled update pool (one more
         pool-sized buffer and scatter) would give the same bits."""
         cfg = self.gf.cfg
         chunk = plan.chunk_elems
@@ -232,7 +238,7 @@ class OverlapEngine:
         del wire
         hg = torch.mul(g, cfg.momentum, out=gfstate.hg)
         hg.masked_fill_(elem_mask, 0.0)
-        norms = self._census(g, chunk)
+        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
         outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
                                   opt_state, lr, elem_mask[span[0]:span[1]])
                 for span in plan.update_spans]
@@ -252,44 +258,50 @@ class OverlapEngine:
                                        lr, wire_dtype=getattr(
                                            torch, cfg.wire_dtype),
                                        mean_out=g)
-        norms = self._census(g, plan.chunk_elems)
+        norms = csc_mod.summed_census(g, plan.chunk_elems,
+                                       cfg.use_kernels)
         return outs, gfstate._replace(hg=gfstate.hg.zero_(),
                                       chunk_norms=norms)
-
-    def _census(self, pool, chunk):
-        """The per-chunk L1 norms of this rank's post-reduce pool, summed
-        over the data-parallel group (Fig 18)."""
-        if self.gf.cfg.use_kernels:
-            from repro_torch.kernels import ops
-            l1 = ops.chunk_l1norm(pool, chunk)
-        else:
-            l1 = csc_mod.chunk_l1_norms(pool, chunk)
-        return reduce_pool(l1)
 
     def _update_span(self, span, red_seg, master, leaves, opt_state, lr,
                      mask=None):
         """One update span's fused optimizer step on the span's segments;
         the new values land in the span's parameter leaves and in the
-        momentum buffer's slice. ``mask`` is the span's bool segment (CSC's
-        selected chunks); None updates every element. Returns the span's
-        leaves."""
+        optimizer state's slices. ``mask`` is the span's bool segment
+        (CSC's selected chunks); None updates every element. Returns the
+        span's leaves."""
         start, end = span
         view = self.pool.bucket_view(start, end)
-        if mask is None:
-            mask = torch.ones((view.size,), dtype=torch.bool,
-                              device=master.device)
         return self._update_view_seg(view, master[start:end], red_seg,
                                      opt_state, lr, mask,
                                      leaves[view.leaf_lo:view.leaf_hi])
 
     def _update_view_seg(self, view, m_seg, red_seg, opt_state, lr, mask,
                          out_leaves):
+        """The update on one view: every pool-sized state leaf sliced to
+        the span, LARS's trust ratios of the view's tensors (the masked
+        gradient's norms) handed to the kernel as ``ratios`` with
+        ``use_kernels``, else expanded into the per-element ``scale``."""
         from repro_torch import optim
-        st_seg = opt_state.__class__(
-            momentum=opt_state.momentum[view.start:view.end])
+        from repro_torch.kernels import ref
+
+        use_k = self.gf.cfg.use_kernels
+        st_seg = opt_state.__class__(*(x[view.start:view.end]
+                                       for x in opt_state))
+        scale = ratios = None
+        if self.lars is not None:
+            ratios = self.lars.ratios_view(view, m_seg, red_seg,
+                                           self.opt_cfg, mask)
+            if not use_k:
+                scale = ref.expand_ratios(ratios, view.sizes, view.size)
+                ratios = None
+        if mask is None:
+            mask = torch.ones((view.size,), dtype=torch.bool,
+                              device=m_seg.device)
         new_leaves, _ = optim.update_view(
             self.opt_name, view, m_seg, red_seg, st_seg, mask, self.opt_cfg,
-            lr, use_kernels=self.gf.cfg.use_kernels, out_leaves=out_leaves)
+            lr, scale=scale, ratios=ratios, use_kernels=use_k,
+            out_leaves=out_leaves)
         return new_leaves
 
     def _assemble(self, outs):

@@ -9,8 +9,12 @@ Modes (``GradientFlowConfig.mode``):
 All modes move gradients in the wire dtype and hand the update an f32
 mean. Each bucket's collective comes from the topology layer
 (``parallel.topology``: flat, two_level, tree, pallas_ring or auto), and
-``auto_bucket`` with a topology tunes θ on the cost model. The low-bit
-wire formats and ``replan`` are not ported yet (see ROADMAP.md).
+``auto_bucket`` with a topology tunes θ on the cost model. ``plan``
+compiles the layout for the staged overlap engine (``core.engine``);
+``reduce`` runs it monolithically, every bucket before the update
+(``overlap='monolithic'``). The low-bit wire formats (and with them
+``reduce``'s ``census``, ``census_sum`` and ``loss_scale``) and
+``replan`` are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import GradientFlowConfig
 from repro_torch.core import csc as csc_mod
+from repro_torch.core import lazy_allreduce as lazy_mod
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.pool import GradientPool
 from repro_torch.parallel import cost_model
@@ -128,6 +133,69 @@ class GradientFlow:
             plan = engine.compile_step_plan(self, stage)
             self._plan_cache[key] = plan
         return plan
+
+    # -- the monolithic reduction ---------------------------------------------
+
+    def reduce(self, pool_grads: torch.Tensor, state: GFState, *,
+               stage=None, prepacked: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor, GFState]:
+        """Reduce the local gradient pool across the data-parallel group,
+        every bucket before any update (``overlap='monolithic'``).
+
+        Returns (mean f32[pool], element mask bool[pool], new state). The
+        mask is all true except at CSC's unselected chunks, where the mean
+        is zero and the update must not apply (Algorithm 1). With
+        ``prepacked`` the dense and lazy buckets are already in the wire
+        dtype and go on the wire without a cast (and are summed in place);
+        CSC takes the f32 pool, because hg is added before the selection.
+        """
+        cfg = self.cfg
+        if cfg.mode == "csc":
+            assert not prepacked, (
+                "CSC consumes the f32 pool: pack with dtype=float32")
+            stage = stage or self.stages[-1]
+            k = stage.num_selected
+            if k >= self.num_chunks:
+                return self._dense_or_lazy_with_norms(pool_grads, state)
+            bounds = csc_mod.wire_bucket_boundaries(k, cfg.chunk_elems,
+                                                    self.bucket_elems)
+            res = csc_mod.csc_reduce(
+                pool_grads, csc_mod.CSCState(hg=state.hg,
+                                             chunk_norms=state.chunk_norms),
+                cfg, num_selected=k, bucket_boundaries=bounds,
+                num_data_shards=self.num_data_shards,
+                algo=self._algos_for(bounds))
+            return res.grads, res.elem_mask, state._replace(
+                hg=res.state.hg, chunk_norms=res.state.chunk_norms)
+        dense = cfg.mode == "dense"
+        summed = lazy_mod.bucketed_reduce(
+            pool_grads, self._dense_bounds if dense else self._lazy_bounds,
+            None if prepacked else wire_dtype_of(cfg),
+            algo=self._dense_algos if dense else self._lazy_algos,
+            topo=cfg.topology)
+        mean = summed / self.num_data_shards
+        return mean, torch.ones(mean.shape, dtype=torch.bool,
+                                device=mean.device), state
+
+    def _dense_or_lazy_with_norms(self, pool_grads: torch.Tensor,
+                                  state: GFState
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             GFState]:
+        """CSC's dense warm-up: the hg-corrected pool reduced in lazy
+        buckets, then the summed census of the mean, which keeps the norms
+        tracking for the sparse handoff; hg is zeroed."""
+        cfg = self.cfg
+        g = pool_grads.to(torch.float32) + state.hg
+        summed = lazy_mod.bucketed_reduce(g, self._lazy_bounds,
+                                          wire_dtype_of(cfg),
+                                          algo=self._lazy_algos,
+                                          topo=cfg.topology)
+        mean = summed / self.num_data_shards
+        mask = torch.ones(mean.shape, dtype=torch.bool, device=mean.device)
+        return mean, mask, state._replace(
+            hg=torch.zeros_like(state.hg),
+            chunk_norms=csc_mod.summed_census(mean, cfg.chunk_elems,
+                                              cfg.use_kernels))
 
     # -- analytics ------------------------------------------------------------
 

@@ -4,7 +4,9 @@ The contiguous gradient pool is reduced in θ-element buckets that close
 at tensor boundaries — one all-reduce per bucket. ``issue_bucket`` starts
 one bucket's all-reduce (asynchronously when a process group exists) and
 returns a handle whose ``wait()`` gives the summed segment in f32; the
-overlap engine issues bucket *i* before it emits bucket *i-1*'s update.
+overlap engine issues bucket *i* before it emits bucket *i-1*'s update,
+and the monolithic path (``bucketed_reduce``) issues every bucket, then
+joins the sums.
 
 The all-reduce runs in place on the pool's slice: the wire pool is dead
 after its reduce (the next step packs it anew), so no copy is made. The
@@ -78,3 +80,17 @@ def bucketed_reduce_parts(pool: torch.Tensor,
                             topo=topo, accum_dtype=accum_dtype)
                for i, (s, e) in enumerate(boundaries)]
     return [p.wait() for p in pending]
+
+
+def bucketed_reduce(pool: torch.Tensor,
+                    boundaries: Sequence[Tuple[int, int]],
+                    wire_dtype: Optional[torch.dtype], *,
+                    algo: AlgoSpec = None, topo=None,
+                    accum_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """The summed pool in ``accum_dtype``, one collective per boundary
+    (``bucketed_reduce_parts`` joined): what the monolithic path reduces.
+    The caller divides by the group size."""
+    parts = bucketed_reduce_parts(pool, boundaries, wire_dtype, algo=algo,
+                                  topo=topo, accum_dtype=accum_dtype)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)

@@ -7,9 +7,10 @@ port supports.
 Runs on the first CUDA card unless ``--device cpu``. ``--gf-mode``
 defaults to ``csc``, as in the JAX CLI: each step runs under the CSC
 warm-up stage ``gf.stage_for_step`` picks, with one step function per
-stage, and the log shows the stage and its sparsity. Flags and values the
-port does not support yet — LARS/AdamW, low-bit wires, compiled windows,
-checkpoints — raise with a pointer to ROADMAP.md. Inside an initialised
+stage, and the log shows the stage and its sparsity. ``--optimizer``
+takes momentum_sgd, lars and adamw. Flags and values the port does not
+support yet — low-bit wires, compiled windows, checkpoints — raise with a
+pointer to ROADMAP.md. Inside an initialised
 ``torch.distributed`` group each rank trains on its own shard of the
 global batch.
 """
@@ -64,8 +65,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
-    if args.optimizer != "momentum_sgd":
-        raise NotImplementedError(f"--optimizer {args.optimizer} " + _ROADMAP)
     if args.wire_format != "native":
         raise NotImplementedError(f"--wire-format {args.wire_format} "
                                   + _ROADMAP)

@@ -1,51 +1,93 @@
-"""Optimizers over the gradient pool. The port has momentum SGD (and, for
-``update_pool``, LARS's per-element scaled form of it); LARS's ratios,
-AdamW and the loss scaler are not ported yet (ROADMAP.md queue A)."""
-from repro_torch.optim import schedules, sgd
+"""Optimizers over the gradient pool: momentum SGD, LARS (momentum SGD
+under per-tensor trust ratios, ``optim.lars``) and AdamW. The loss scaler
+is not ported yet (ROADMAP.md queue A, with the guard)."""
+from repro_torch.kernels import ref
+from repro_torch.optim import adamw, lars, schedules, sgd
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.schedules import lr_at
 from repro_torch.optim.sgd import SGDState
 
 
-def _check(name: str) -> None:
-    if name != "momentum_sgd":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A")
-
-
-def init_state(name: str, pool_size: int, device=None) -> SGDState:
-    _check(name)
-    return sgd.init(pool_size, device=device)
-
-
-def update_pool(name: str, *args, **kwargs):
-    """The whole-pool update: (new master pool, new optimizer state).
-    'lars' is momentum SGD with the caller's per-element ``scale``."""
+def _module(name: str):
     if name in ("momentum_sgd", "lars"):
-        return sgd.update_pool(*args, **kwargs)
+        return sgd
     if name == "adamw":
-        raise NotImplementedError(
-            "optimizer 'adamw' is not ported to repro_torch yet; see "
-            "ROADMAP.md queue A")
+        return adamw
     raise ValueError(f"unknown optimizer {name}")
 
 
-def update_unpack(name: str, pool, master, grads, state, mask, cfg, lr,
-                  **kwargs):
-    """Fused update + unravel: (new params tree, new optimizer state)."""
-    _check(name)
-    return sgd.update_unpack(pool, master, grads, state, mask, cfg, lr,
-                             **kwargs)
+def state_type(name: str) -> type:
+    """The optimizer state's NamedTuple: ``SGDState`` or ``AdamWState``."""
+    return SGDState if _module(name) is sgd else AdamWState
 
 
-def update_view(name: str, view, master, grads, state, mask, cfg, lr,
-                **kwargs):
-    """Per-bucket segment update, the overlap engine's retire step:
-    (leaves of the view's tensors, new state segment)."""
-    _check(name)
-    return sgd.update_view(view, master, grads, state, mask, cfg, lr,
-                           **kwargs)
+def init_state(name: str, pool_size: int, device=None):
+    return _module(name).init(pool_size, device=device)
 
 
-__all__ = ["SGDState", "init_state", "lr_at", "schedules", "sgd",
-           "update_pool", "update_unpack", "update_view"]
+def update_pool(name: str, *args, **kwargs):
+    """The whole-pool update: (new master pool, new optimizer state), as
+    new tensors. 'lars' is momentum SGD with the caller's per-element
+    ``scale``."""
+    return _module(name).update_pool(*args, **kwargs)
+
+
+def _adamw_update(table, master, grads, state, mask, cfg, lr, scale, ratios,
+                  out_leaves):
+    """AdamW has no fused kernel: ``update_pool`` on the pool or segment
+    that ``table`` (a ``GradientPool`` or a ``PoolView``) lays out, then
+    the new state and the leaves written back in place (the engine counts
+    on it). Returns (1-D leaves in their declared dtype, ``state``)."""
+    if ratios is not None:
+        assert scale is None
+        scale = ref.expand_ratios(ratios, table.sizes, table.size)
+    new_master, new_state = adamw.update_pool(master, grads, state, mask,
+                                              cfg, lr, scale=scale)
+    leaves = [new_master[o:o + s] for o, s in zip(table.offsets, table.sizes)]
+    if out_leaves is not None:
+        leaves = [dst.copy_(src) for dst, src in zip(out_leaves, leaves)]
+    leaves = [x if x.dtype == spec.dtype else x.to(spec.dtype)
+              for x, spec in zip(leaves, table.specs)]
+    for dst, src in zip(state, new_state):
+        dst.copy_(src)
+    return leaves, state
+
+
+def update_unpack(name: str, pool, master, grads, state, mask, cfg, lr, *,
+                  scale=None, ratios=None, use_kernels: bool = False,
+                  out_leaves=None):
+    """Fused update + unravel over the whole pool: (new params tree, new
+    optimizer state). SGD and LARS run the update kernel (LARS as the
+    per-tensor ``ratios``); AdamW falls back to ``update_pool`` and
+    slices. The state, and the parameter leaves ``out_leaves`` when
+    given, are written in place."""
+    if _module(name) is sgd:
+        return sgd.update_unpack(pool, master, grads, state, mask, cfg, lr,
+                                 scale=scale, ratios=ratios,
+                                 use_kernels=use_kernels,
+                                 out_leaves=out_leaves)
+    leaves, st = _adamw_update(pool, master, grads, state, mask, cfg, lr,
+                               scale, ratios, out_leaves)
+    return pool.unflatten(leaves), st
+
+
+def update_view(name: str, view, master, grads, state, mask, cfg, lr, *,
+                scale=None, ratios=None, use_kernels: bool = False,
+                out_leaves=None):
+    """Per-bucket segment update, the overlap engine's retire step: every
+    array is a span-relative segment (the state's pool-sized leaves
+    sliced to the span). Returns (1-D leaves of the view's tensors, new
+    state segment); the state segment and ``out_leaves`` are written in
+    place."""
+    if _module(name) is sgd:
+        return sgd.update_view(view, master, grads, state, mask, cfg, lr,
+                               scale=scale, ratios=ratios,
+                               use_kernels=use_kernels,
+                               out_leaves=out_leaves)
+    return _adamw_update(view, master, grads, state, mask, cfg, lr, scale,
+                         ratios, out_leaves)
+
+
+__all__ = ["AdamWState", "SGDState", "adamw", "init_state", "lars", "lr_at",
+           "schedules", "sgd", "state_type", "update_pool", "update_unpack",
+           "update_view"]

@@ -429,3 +429,55 @@ def test_cuda_fused_update_matches_plain(dev):
             torch.cuda.synchronize()
             assert torch.equal(got[0], want[0]) and torch.equal(got[1],
                                                                 want[1])
+
+
+@pytest.mark.cuda
+def test_cuda_update_whole_padded_pool_with_ratios(dev):
+    """The monolithic LARS update: one launch over a whole pool padded to
+    a chunk multiple, a chunk-granular mask, the per-tensor ratios with
+    the trailing padding entry (f32[T+1]), written into the leaves and
+    the momentum in place, bit for bit against the plain version."""
+    sizes, chunk = (37, 128, 5, 300, 77), 64
+    offsets, covered = _table(sizes)
+    n = -(-covered // chunk) * chunk
+    assert n > covered
+    master, grads, mom = (_randn(40 + i, n).to(dev) for i in range(3))
+    mask = (_randn(43, n // chunk) > 0).to(dev).repeat_interleave(chunk)
+    ratios = _randn(44, len(sizes) + 1).abs().to(dev)
+    kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
+              weight_decay=1e-4, ratios=ratios)
+    leaves = [torch.empty(s, device=dev) for s in sizes]
+    mom_out = mom.clone()
+    got_l, got_m = t_unpack.launch(master, grads, mom_out, mask, offsets,
+                                   sizes, out_leaves=leaves,
+                                   out_momentum=mom_out, **kw)
+    want_l, want_m = t_unpack.plain(master, grads, mom, mask, offsets, sizes,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert got_m is mom_out and all(a is b for a, b in zip(got_l, leaves))
+    assert torch.equal(got_m, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(got_l, want_l))
+
+
+@pytest.mark.cuda
+def test_cuda_update_padding_span_with_empty_ratios(dev):
+    """CSC's padding-only span under LARS: the view has no tensor, so its
+    ratios vector is empty. A fresh empty tensor hands the C side a null
+    pointer and an empty slice a non-null one with n_ratios = 0; either
+    way the padding takes the ratio 1.0, as the plain version does."""
+    n = 1000
+    master, grads, mom = (_randn(50 + i, n).to(dev) for i in range(3))
+    mask = _randn(53, n).to(dev) > 0
+    kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
+              weight_decay=1e-4)
+    want_l, want_m = t_unpack.plain(master, grads, mom, mask, (), (),
+                                    ratios=torch.zeros(0, device=dev), **kw)
+    unscaled = t_unpack.plain(master, grads, mom, mask, (), (), **kw)[1]
+    assert want_l == [] and torch.equal(want_m, unscaled)
+    fresh = torch.zeros(0, device=dev)
+    for r in (fresh, _randn(54, 8).to(dev)[3:3]):
+        assert r.numel() == 0
+        got_l, got_m = t_unpack.launch(master, grads, mom, mask, (), (),
+                                       ratios=r, **kw)
+        torch.cuda.synchronize()
+        assert got_l == [] and torch.equal(got_m, want_m), r.data_ptr()

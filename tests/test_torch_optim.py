@@ -94,8 +94,11 @@ def test_plain_version_is_the_update_math():
 
 
 def test_update_pool_lars_and_adamw():
-    """'lars' is momentum SGD under the caller's scale; AdamW raises until
-    it is ported."""
+    """'lars' is momentum SGD under the caller's scale; 'adamw' is the JAX
+    package's ``adamw.update_pool`` (see ``test_torch_lars_adamw.py`` for
+    its masked steps); an unknown name raises."""
+    from repro.optim import adamw as j_adamw
+
     master, grads, mom, mask, scale = _inputs(0.5, seed=2)
     args = [torch.from_numpy(a) for a in (master, grads)]
     st = optim.SGDState(momentum=torch.from_numpy(mom))
@@ -107,7 +110,21 @@ def test_update_pool_lars_and_adamw():
                           scale=torch.from_numpy(scale))
     assert torch.equal(a[0], b[0])
     assert torch.equal(a[1].momentum, b[1].momentum)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        optim.update_pool("adamw", *args, st, m, cfg, 0.05)
+    t_master, t_state = optim.update_pool(
+        "adamw", *args, optim.init_state("adamw", N, "cpu"), m, cfg,
+        torch.tensor(np.float32(0.05)))
+    j_master, j_state = j_adamw.update_pool(
+        jnp.asarray(master), jnp.asarray(grads), j_adamw.init(N),
+        jnp.asarray(mask), j_base.OptimizerConfig(**KW),
+        jnp.asarray(np.float32(0.05)))
+    np.testing.assert_array_equal(t_state.counts.numpy(),
+                                  np.asarray(j_state.counts))
+    # atol: a step's last ulp where master - step cancels (PyTorch's CPU
+    # sqrt is not correctly rounded at every input).
+    for got, want, atol in ((t_master, j_master, 1e-8),
+                            (t_state.mu, j_state.mu, 0.0),
+                            (t_state.nu, j_state.nu, 0.0)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=atol)
     with pytest.raises(ValueError, match="unknown optimizer"):
         optim.update_pool("sgdd", *args, st, m, cfg, 0.05)

@@ -40,7 +40,7 @@ B, S, STEPS = 2, 32, 3
 
 
 def _cfg(base, get_smoke_fn, mode, wire, use_kernels=False, batch=B,
-         steps=STEPS):
+         steps=STEPS, optimizer="momentum_sgd"):
     model = dataclasses.replace(get_smoke_fn("smollm-135m")[0],
                                 compute_dtype="float32")
     return base.TrainConfig(
@@ -49,7 +49,7 @@ def _cfg(base, get_smoke_fn, mode, wire, use_kernels=False, batch=B,
             mode=mode, bucket_elems=8192, wire_dtype=wire,
             use_kernels=use_kernels),
         optimizer=base.OptimizerConfig(
-            name="momentum_sgd", learning_rate=0.1, momentum=0.9,
+            name=optimizer, learning_rate=0.1, momentum=0.9,
             weight_decay=1e-4, warmup_steps=2, total_steps=steps,
             schedule="warmup_cosine"),
         seq_len=S, global_batch=batch, attn_chunk=0)
@@ -169,13 +169,28 @@ def test_analytics_match_jax(full, mode, wire, theta):
 def test_unported_settings_raise():
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     for gf in (dict(wire_format="int8"),
-               dict(pipeline_tail_buckets=1), dict(overlap="monolithic")):
+               dict(pipeline_tail_buckets=1), dict(guard=object())):
         cfg = base.replace(gradientflow=dataclasses.replace(
             base.gradientflow, **gf))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, device="cpu").build_train_step()
     with pytest.raises(KeyError, match="ROADMAP"):
         get_arch("qwen3-32b")
+
+
+def test_cli_accepts_the_optimizers():
+    """``--optimizer`` takes the three optimizers; the unported flags
+    still raise, naming ROADMAP.md."""
+    from repro_torch.launch import train as train_mod
+
+    argv = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
+    for name in ("momentum_sgd", "lars", "adamw"):
+        args = train_mod.parse_args(argv + ["--optimizer", name])
+        assert args.optimizer == name
+    for extra in (["--wire-format", "int8"], ["--window-steps", "2"],
+                  ["--ckpt-dir", "ckpt"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_mod.parse_args(argv + ["--optimizer", "lars"] + extra)
 
 
 def test_resolve_algorithm():
@@ -204,6 +219,7 @@ _WORKER = textwrap.dedent("""
     import numpy as np, torch, torch.distributed as dist
     sys.path[:0] = [{tests!r}, {src!r}]
     rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+    optimizer = sys.argv[4]
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{{port}}",
                             world_size=2, rank=rank)
     from repro_torch.core import lazy_allreduce
@@ -216,17 +232,18 @@ _WORKER = textwrap.dedent("""
     from repro_torch.parallel import collectives
     assert collectives.data_world_size() == 2
     assert collectives.reduce_pool(torch.ones(3)).tolist() == [2.0] * 3
-    losses, final = shard_run(rank, 2)
+    losses, final = shard_run(rank, 2, optimizer)
     np.savez(out, mean=mean, losses=np.asarray(losses), **final)
     dist.destroy_process_group()
 """)
 
 
-def shard_run(rank, world):
+def shard_run(rank, world, optimizer="momentum_sgd"):
     """This rank's share of a lazy-mode run on a global batch of
     ``world * B`` rows; ``world=1`` is the single-process reference.
     Returns (losses, {leaf name: final values})."""
-    cfg = _cfg(t_base, get_smoke, "lazy", "float32", True, batch=world * B)
+    cfg = _cfg(t_base, get_smoke, "lazy", "float32", True, batch=world * B,
+               optimizer=optimizer)
     init = convert.params_to_numpy(
         build_model(cfg.model).init_params(1, "cpu"))
     shards = [{k: v[rank * B:(rank + 1) * B] for k, v in b.items()}
@@ -242,14 +259,18 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_two_rank_gloo_reduce_and_step(tmp_path):
+@pytest.mark.parametrize("optimizer", ["momentum_sgd", "lars"])
+def test_two_rank_gloo_reduce_and_step(tmp_path, optimizer):
+    """Two ranks reduce the bf16 pool and train; LARS's ratios come from
+    the post-reduce mean, so its ranks also end bit for bit equal."""
     script = tmp_path / "worker.py"
     script.write_text(_WORKER.format(
         tests=os.path.dirname(os.path.abspath(__file__)), src=SRC))
     port = str(_free_port())
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
-                               str(tmp_path / f"rank{r}.npz")], env=env,
+                               str(tmp_path / f"rank{r}.npz"), optimizer],
+                              env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(2)]
     for p in procs:
@@ -267,7 +288,7 @@ def test_two_rank_gloo_reduce_and_step(tmp_path):
     # Both ranks end with identical parameters, equal (up to f32 sum
     # order) to one process training on the whole batch; the logged loss
     # is the mean over ranks.
-    losses, final = shard_run(0, 1)
+    losses, final = shard_run(0, 1, optimizer)
     np.testing.assert_array_equal(r0["losses"], r1["losses"])
     np.testing.assert_allclose(r0["losses"], losses, rtol=1e-5)
     for name, want in final.items():
