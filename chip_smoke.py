@@ -46,6 +46,14 @@
    - fused_update: the whole f32 pool, all-true and random mask, with and
      without the scale, bit for bit; then optim.update_pool, the entry
      point that reaches it, for 3 steps with its launches counted.
+   - pool_unpack_update also with the guard's ``ok`` over the whole
+     padded pool: ok = true equal to the launch without it, ok = false
+     (NaN gradients) writing nothing; both timed.
+   - Non-finite words (the ``nan_words`` line): NaN, +-Inf and 2^120 in
+     the gradient leaves through the lazy bf16 pack, the CSC f32 pack and
+     the census, and through the ring at N = 2 on the first lazy bucket
+     with a NaN on one rank, each against its plain version with NaN
+     compared by class; the NaN word each one emits.
    Then the optimizer ops, which are PyTorch ops and no kernel (as in
    the JAX package): one step's LARS trust ratios over the lazy spans and
    over CSC's masked spans (equal to the whole-pool ratios), and one AdamW
@@ -77,16 +85,42 @@
        step at k = 616: the ring reduces the compacted wire buffer).
        Every bucket through the ring kernel, both ranks the same
        parameters after every step; each rank's peak device memory.
+       Then (k), guarded lazy (``GuardConfig()``), 4 steps with a NaN
+       written into rank 0's pool only at step 2: both ranks trip there
+       and only there (the poison crossed the ring in-band), keep the same
+       parameters, and launch the ring as often a step as unguarded.
+   The numeric guard (``GuardConfig()``: loss scale 2^15), in the NCCL
+   group, each fault 4096 pool elements wide, injected by the Trainer's
+   fault hook after the pack:
+   (g) lazy, staged, (a)'s settings, 8 steps on the stream: a NaN at step
+       2, 2^120 at step 4, an exponent-MSB bit flip at step 6 (at least
+       one flipped word must have been inside [2^-8, 2) and land at 2^119
+       or more);
+   (h) CSC, staged, (b)'s settings: a NaN in the dense warm-up step 0,
+       2^120 in the steady step 5;
+   (i) LARS, lazy, monolithic, (e)'s monolithic settings: a NaN at step
+       2, 2^120 at step 4.
+   In each, exactly the faulted steps trip; at each trip the parameters,
+   the momentum and (CSC) hg and the chunk norms equal bit for bit the
+   clones taken before the step; the scale halves at each trip from
+   2^15; clean losses are finite; the dispatch counts equal the step
+   plans' (a tripped step still launches its predicated updates); the
+   clean steps' median time goes beside (a)'s, (b)'s and (e)'s.
+   (j) GuardConfig(init_scale=1.0), no fault, against unguarded (twice):
+       6 lazy steps on one repeated batch give the same losses and final
+       parameters bit for bit (or, if the two unguarded runs differ,
+       stay within their spread).
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
    run. Every loss must be finite and the repeated batch's last loss below
    its first.
 
-Prints one JSON line per kernel, one for the optimizer ops, one per train
-run, the card's nvidia-smi line, the kernel summary line, then
-``{"ok": true, "device": {...}}`` as the last line. Any failed check ends the run with a non-zero exit before
-that line. Exits non-zero without a result when no CUDA device is visible.
+Prints one JSON line per kernel, one for the NaN words, one for the
+optimizer ops, one per train run, the card's nvidia-smi line, the kernel
+summary line, then ``{"ok": true, "device": {...}}`` as the last line.
+Any failed check ends the run with a non-zero exit before that line.
+Exits non-zero without a result when no CUDA device is visible.
 
     python3 chip_smoke.py --short-kernels [--src DIR]
 
@@ -416,6 +450,9 @@ def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
                 plain_ms=time_ms(torch, lambda: whole(kunpack.plain, p_out)),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                 max_abs_err=w_err, launches_per_step=1)
+            parts.update(ok_predicate_parts(torch, kunpack, pool, master,
+                                            grads, mom, mask, r, k_out, kw,
+                                            (b_ms, b_by, nbytes), rate, dev))
         ms = time_ms(torch, lambda: step(kunpack.launch, k_out, timed_mask))
         plain_ms = time_ms(torch, lambda: step(kunpack.plain, p_out,
                                                timed_mask))
@@ -432,6 +469,66 @@ def update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate):
                  "src/repro_torch/kernels/csrc/pool_unpack.cu",
                  "src/repro/kernels/pool_unpack.py:132", parts,
                  ("csc_7_spans",), UPDATE_LIBRARY_NOTE)
+
+
+def ok_predicate_parts(torch, kunpack, pool, master, grads, mom, mask, r,
+                       want, kw, bound, rate, dev):
+    """The guard's ``ok`` on the whole-pool launch with ratios, writing
+    into live leaves and the momentum in place: ok = true gives ``want``
+    (the launch without ok) bit for bit; ok = false, fed NaN gradients,
+    writes nothing. Both timed beside the plain version."""
+    ok_t = torch.ones(1, dtype=torch.bool, device=dev)
+    ok_f = torch.zeros(1, dtype=torch.bool, device=dev)
+    live = ([torch.full((s,), 7.0, device=dev) for s in pool.sizes],
+            mom.clone())
+
+    def guarded(fn, ok, g):
+        fn(master, g, live[1], mask, pool.offsets, pool.sizes, ratios=r,
+           out_leaves=live[0], out_momentum=live[1], ok=ok, **kw)
+
+    guarded(kunpack.launch, ok_t, grads)
+    torch.cuda.synchronize()
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip(live[0] + [live[1]], want[0] + [want[1]])),
+          "pool_unpack_update with ok = true != the launch without ok")
+    nan = torch.full_like(grads, float("nan"))
+    before = [x.clone() for x in live[0] + [live[1]]]
+    guarded(kunpack.launch, ok_f, nan)
+    torch.cuda.synchronize()
+    check(all(bits_equal(torch, a, b) for a, b in
+              zip(live[0] + [live[1]], before)),
+          "pool_unpack_update with ok = false wrote its outputs")
+    del before
+    b_ms, b_by, nbytes = bound
+    # The same in-place launch without and with ok = true, timed in turns
+    # (without, with, with, without): the predicate's cost, if any.
+    pair = {None: [], True: []}
+    for flag in (None, True, True, None):
+        pair[flag].append(time_ms(torch, lambda: guarded(
+            kunpack.launch, ok_t if flag else None, grads)))
+    out = {"csc_whole_pool_ratios_ok_true": dict(
+        ms=statistics.mean(pair[True]),
+        ms_without_ok_same_calls=statistics.mean(pair[None]),
+        ms_turns=[pair[None][0], pair[True][0], pair[True][1],
+                  pair[None][1]],
+        plain_ms=time_ms(torch, lambda: guarded(kunpack.plain, ok_t, grads)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        max_abs_err=0.0)}
+    # ok = false reads one byte a CTA and writes nothing: its device time
+    # hides under the host's enqueue, so back to back and the enqueue too.
+    f_ms, f_by = bound_ms(1, 0, rate)
+
+    def skip():
+        guarded(kunpack.launch, ok_f, nan)
+
+    out["csc_whole_pool_ratios_ok_false"] = dict(
+        ms=time_ms(torch, skip), back_to_back_ms=back_to_back_ms(torch, skip),
+        enqueue_ms=enqueue_ms(torch, skip),
+        plain_ms=time_ms(torch, lambda: guarded(kunpack.plain, ok_f, nan)),
+        library_ms=None, bound_ms=f_ms, bound_by=f_by, bytes=1,
+        max_abs_err=0.0)
+    del live, nan
+    return out
 
 
 def census_phase(torch, kcl, num_chunks, dev, rate, grids=True):
@@ -656,6 +753,96 @@ def ring_phase(torch, kring, pool_mod, shapes, dev, rate):
                  note=("ms is the N ranks' launches together on one card: "
                        "the ring runs through this card's memory, not "
                        "over NVLink"))
+
+
+def nan_word(torch, x) -> str:
+    """The bits of the first NaN word of ``x`` in hex, or None."""
+    at = torch.isnan(x.float()).nonzero()
+    if at.numel() == 0:
+        return None
+    bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    word = int(x.view(bits)[at[0, 0]].item()) & (2 ** (8 * x.element_size())
+                                                  - 1)
+    return f"0x{word:0{2 * x.element_size()}X}"
+
+
+def same_class(torch, got, want) -> bool:
+    """NaN where ``want`` has NaN (any NaN word), the same bits
+    elsewhere."""
+    nan = torch.isnan(want.float())
+    bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    return (torch.equal(torch.isnan(got.float()), nan)
+            and torch.equal(got.view(bits)[~nan], want.view(bits)[~nan]))
+
+
+def nonfinite_phase(torch, kpack, kcl, kring, pool_mod, shapes, dev):
+    """The words the guard feeds the kernels: NaN, +-Inf and 2^120 in
+    smollm-135m's gradient leaves through the lazy pack (f32 -> bf16) and
+    the CSC pack (f32 -> f32, padded), the census of the CSC pool, and
+    the ring at N = 2 on the first lazy bucket with a NaN and 2^120 on
+    rank 0 and an Inf on rank 1; each against its plain version, NaN by
+    class. Records the NaN word each one emits."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flat = pool_mod.GradientPool(shapes)
+    padded = pool_mod.GradientPool(shapes, pad_to=CHUNK)
+    grads = [torch.randn(sz, generator=gen, device=dev) * 1e-3
+             for sz in flat.sizes]
+    specials = ((0, 5, float("nan")), (1, 7, float("inf")),
+                (3, 11, -float("inf")), (5, 13, 2.0 ** 120),
+                (10, 17, float("nan")))
+    for leaf, at, v in specials:
+        grads[leaf][at] = v
+    words = {}
+    for label, pool, wire in (("lazy_bf16", flat, torch.bfloat16),
+                              ("csc_f32", padded, torch.float32)):
+        args = (grads, pool.offsets, pool.sizes, pool.size, 0, wire)
+        got, _ = kpack.launch(*args)
+        want, _ = kpack.plain(*args)
+        torch.cuda.synchronize()
+        check(same_class(torch, got, want),
+              f"pool_pack {label} with NaN/Inf/2^120: kernel != plain")
+        words[f"pool_pack {label}"] = nan_word(torch, got)
+        words[f"plain pack {label}"] = nan_word(torch, want)
+        if label == "csc_f32":
+            norms, want_n = kcl.launch(got, CHUNK), kcl.plain(got, CHUNK)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want_n)
+            bad = {(pool.offsets[leaf] + at) // CHUNK
+                   for leaf, at, v in specials if not math.isfinite(v)}
+            check(torch.equal(torch.isnan(norms), torch.isnan(want_n))
+                  and torch.equal(torch.isinf(norms), torch.isinf(want_n))
+                  and int((~fin).sum()) == len(bad),
+                  "chunk_l1norm with NaN/Inf: classes differ from plain")
+            rel = max_rel(torch, norms[fin], want_n[fin])
+            check(rel <= 1e-6, f"chunk_l1norm with 2^120: rel err {rel}")
+            words["chunk_l1norm"] = nan_word(torch, norms)
+            words["plain census"] = nan_word(torch, want_n)
+        del got, want
+    del grads
+    bucket = flat.bucket_boundaries(BUCKET_ELEMS)[0]
+    size = bucket[1] - bucket[0]
+    xs = ring_inputs(torch, 2, size, torch.bfloat16, gen, dev)
+    xs[0][123] = float("nan")
+    xs[0][size // 2] = 2.0 ** 120
+    xs[1][size - 5] = float("inf")
+    ws = kring.RingWorkspace.in_process(2, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = kring.plan(size, 2, torch.bfloat16, sms=sms)
+    got = kring.launch_ranks(xs, ws)
+    want = kring.plain(xs, None, p["seg_elems"])
+    torch.cuda.synchronize()
+    for r in range(2):
+        check(same_class(torch, got[r], want[r])
+              and bits_equal(torch, got[r], got[0])
+              and bool(torch.isnan(got[r][123].float()))
+              and bool(torch.isinf(got[r][size - 5].float())),
+              f"ring_allreduce N=2 with NaN/Inf on rank {r}: != plain by "
+              f"class")
+    words["ring_allreduce bf16"] = nan_word(torch, got[0])
+    words["plain ring bf16"] = nan_word(torch, want[0])
+    del xs, got, want, ws
+    torch.cuda.empty_cache()
+    return words
 
 
 def fused_update_phase(torch, kfu, optim, ops, base, dev, rate):
@@ -934,6 +1121,233 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
     return (run, final) if keep_params else run
 
 
+# -- the numeric guard -------------------------------------------------------
+
+GUARD_WIDTH = 4096  # pool elements a fault covers
+# (step, kind, pool offset, width). (g): three buckets apart, 8 steps.
+GUARD_LAZY_FAULTS = ((2, "nan", 1_000_000, GUARD_WIDTH),
+                     (4, "overflow", 60_000_000, GUARD_WIDTH),
+                     (6, "bitflip", 120_000_000, GUARD_WIDTH))
+GUARD_LAZY_STEPS = 8
+# (h): the dense warm-up step and a steady sparse step (k = 616). CSC
+# unscales before its census, so the overflow limit (2^-9 of the wire's
+# max, ~2^119) meets the injected 2^120 divided by the scale (2^14 by
+# step 5): 4096 such words sum to 2^118 and pass as legitimate, as in
+# the JAX package. The overflow covers a whole chunk (2^121) to trip.
+GUARD_CSC_FAULTS = ((0, "nan", 1_000_000, GUARD_WIDTH),
+                    (5, "overflow", 1831 * CHUNK, CHUNK))
+# (i): LARS lazy monolithic, as (e)'s monolithic run, 6 steps.
+GUARD_MONO_FAULTS = ((2, "nan", 1_000_000, GUARD_WIDTH),
+                     (4, "overflow", 60_000_000, GUARD_WIDTH))
+
+
+def fault_events(faults):
+    from repro_torch.runtime.faults import FaultEvent
+    return [FaultEvent(step=st, kind=kind, offset=off, width=width)
+            for st, kind, off, width in faults]
+
+
+def probing_hook(torch, events, probe):
+    """``runtime.faults.make_hook(events)``; for a bitflip event it also
+    counts, on the device, the words inside the detectable envelope
+    [2^-8, 2) before the flip and the words at 2^119 or more (or Inf)
+    after it: that guards the check (a flip of words outside the envelope
+    can shrink them), not the path."""
+    from repro_torch.runtime.faults import make_hook
+    hook = make_hook(events)
+    flips = {ev.step: ev for ev in events if ev.kind == "bitflip"}
+
+    def probed(gpool, step):
+        ev = flips.get(step)
+        if ev is None:
+            return hook(gpool, step)
+        seg = gpool[ev.offset:ev.offset + ev.width]
+        a = seg.float().abs()
+        probe["in_envelope"] = ((a >= 2.0 ** -8) & (a < 2.0)).sum()
+        out = hook(gpool, step)
+        a = seg.float().abs()
+        probe["flipped_to_2^119_or_more"] = (a >= 2.0 ** 119).sum()
+        return out
+
+    return probed
+
+
+def state_tensors(trainer, state):
+    """Clones of the parameters (one flat tensor), the optimizer state and
+    the GradientFlow state (CSC's hg and chunk norms)."""
+    import torch
+    flat = torch.cat([p.reshape(-1) for p in
+                      trainer.pool.flat_leaves(state.params)])
+    return [flat] + [x.clone() for x in tuple(state.opt) + tuple(state.gf)
+                     if x.numel()]
+
+
+def guarded_run(torch, ops, train_mod, label, argv, steps, faults,
+                overlap="staged", steady_from=1):
+    """``steps`` guarded steps (``GuardConfig()``: scale 2^15) on the
+    synthetic stream with ``faults`` injected by the fault hook, built as
+    the CLI builds ``argv``. Exactly the faulted steps must trip; each
+    trip must leave parameters, optimizer state and CSC's state
+    bit-identical (clones taken before the step, compared on the device);
+    the scale halves at each trip; clean losses are finite; the dispatch
+    counts equal the step plans' (a tripped step still launches its
+    predicated updates). ``steady_step_ms`` is the median of the clean
+    steps from ``steady_from`` on."""
+    import dataclasses
+    from repro_torch.configs.base import GuardConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(argv)
+    _, cfg = train_mod.build(args)
+    cfg = cfg.replace(gradientflow=dataclasses.replace(
+        cfg.gradientflow, overlap=overlap, guard=GuardConfig()))
+    trainer = Trainer(cfg, device=args.device)
+    events = fault_events(faults)
+    at = {ev.step for ev in events}
+    probe = {}
+    hook = probing_hook(torch, events, probe)
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    state = trainer.init_state(args.seed)
+    fns, losses, step_ms, tripped, scales, skipped, frozen = \
+        {}, [], [], [], [], [], []
+    ops.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for st in range(steps):
+        stage = trainer.gf.stage_for_step(st)
+        if stage.index not in fns:
+            fns[stage.index] = trainer.build_train_step(stage,
+                                                        fault_hook=hook)
+        batch = data.batch(st, cfg.global_batch, cfg.seq_len)
+        before = state_tensors(trainer, state) if st in at else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = fns[stage.index](state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        tripped.append(float(metrics["guard_tripped"]))
+        scales.append(float(state.guard.scale))
+        skipped.append(int(state.guard.skipped))
+        if before is not None:
+            # No empty_cache here: the next step would pay cudaMalloc.
+            frozen.append(all(bits_equal(torch, a, b) for a, b in
+                              zip(before, state_tensors(trainer, state))))
+            del before
+    counts = dict(ops.dispatch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    probe = {k: int(v) for k, v in probe.items()}
+    want_scales, scale = [], 2.0 ** 15
+    for st in range(steps):
+        scale /= 2 if st in at else 1
+        want_scales.append(scale)
+    print(f"{label}: tripped {tripped}, scale {scales}, losses {losses}",
+          flush=True)
+    check(tripped == [float(st in at) for st in range(steps)],
+          f"{label}: tripped at {tripped}, faults at {sorted(at)}")
+    check(len(frozen) == len(at) and all(frozen),
+          f"{label}: a tripped step changed the state ({frozen})")
+    check(scales == want_scales, f"{label}: scales {scales}")
+    check(skipped[-1] == len(at), f"{label}: skipped {skipped}")
+    check(all(math.isfinite(x) for st, x in enumerate(losses)
+              if st not in at), f"{label}: non-finite clean loss {losses}")
+    want = expected_counts(trainer, steps)
+    check(counts == want, f"{label}: dispatch counts {counts}, expected "
+          f"{want}")
+    if any(ev.kind == "bitflip" for ev in events):
+        check(probe.get("in_envelope", 0) >= 1
+              and probe.get("flipped_to_2^119_or_more", 0) >= 1,
+              f"{label}: bit flip probe {probe}")
+    stages = [trainer.gf.stage_for_step(st) for st in range(steps)]
+    del state, fns, trainer
+    torch.cuda.empty_cache()
+    clean = [step_ms[st] for st in range(steady_from, steps) if st not in at]
+    return dict(losses=losses, step_ms=step_ms, tripped=tripped,
+                scale=scales, skipped=skipped, trips_bit_identical=frozen,
+                faults=[list(f) for f in faults],
+                bitflip_probe=probe, stage=[x.index for x in stages],
+                num_selected=[x.num_selected for x in stages],
+                peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+                optimizer=args.optimizer, lr=args.lr, overlap=overlap,
+                first_step_ms=step_ms[0],
+                steady_step_ms=statistics.median(clean),
+                tripped_step_ms=[step_ms[st] for st in sorted(at)],
+                tokens_per_s=BATCH * SEQ / (statistics.median(clean) / 1e3))
+
+
+def neutrality_run(torch, ops, train_mod, synthetic, argv, steps):
+    """(j): ``steps`` lazy steps on one repeated batch from one seed,
+    unguarded, under ``GuardConfig(init_scale=1.0)`` (no fault), and
+    unguarded again, each step timed and each run's peak memory read.
+    The guarded run must give the unguarded losses and final parameters
+    bit for bit; if the two unguarded runs differ from each other, the
+    guarded one must stay within their spread."""
+    import dataclasses
+    from repro_torch.configs.base import GuardConfig
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(argv)
+    _, cfg0 = train_mod.build(args)
+    out = []
+    # Unguarded, guarded, unguarded: the two guard-free runs bracket the
+    # guarded one, so the step times compare in turns too.
+    for guard in (None, GuardConfig(init_scale=1.0), None):
+        cfg = cfg0.replace(gradientflow=dataclasses.replace(
+            cfg0.gradientflow, guard=guard))
+        trainer = Trainer(cfg, device=args.device)
+        state = trainer.init_state(args.seed)
+        batch = synthetic.SyntheticLM(cfg.model.vocab_size,
+                                      seed=args.seed).batch(0, BATCH, SEQ)
+        step = trainer.build_train_step()
+        ops.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # The final parameters on the host, so no run's peak holds them.
+        out.append((losses, state_tensors(trainer, state)[0].cpu(),
+                    dict(ops.dispatch_counts),
+                    [float(x) for x in state.guard] if guard else None,
+                    step_ms, peak))
+        del state, trainer
+        torch.cuda.empty_cache()
+    (la, pa, _, _, ma, peak_a), (lg, pg, counts, scaler, mg, peak_g), \
+        (lb, pb, _, _, mb, peak_b) = out
+    spread = (pa - pb).abs().max().item()
+    diff = (pg - pa).abs().max().item()
+    loss_spread = max(abs(x - y) for x, y in zip(la, lb))
+    loss_diff = max(abs(x - y) for x, y in zip(lg, la))
+    same = la == lb and bits_equal(torch, pa, pb)
+    print(f"(j) neutrality: unguarded runs the same bits: {same}; guarded "
+          f"vs unguarded: largest parameter difference {diff}, loss "
+          f"difference {loss_diff}", flush=True)
+    if same:
+        check(lg == la and bits_equal(torch, pg, pa),
+              f"(j) init_scale=1.0 guarded != unguarded: losses {lg} vs "
+              f"{la}, largest parameter difference {diff}")
+    else:
+        check(diff <= spread and loss_diff <= loss_spread,
+              f"(j) guarded outside the unguarded spread: {diff} > "
+              f"{spread} or {loss_diff} > {loss_spread}")
+    check(scaler == [1.0, float(steps), 0.0], f"(j) scaler {scaler}")
+    return dict(losses=lg, unguarded_losses=[la, lb],
+                unguarded_runs_bitwise_equal=same,
+                unguarded_max_param_spread=spread,
+                guarded_max_param_diff=diff, loss_diff=loss_diff,
+                dispatch_counts=counts, scaler_after=scaler,
+                step_ms_unguarded_guarded_unguarded=[ma, mg, mb],
+                steady_step_ms_unguarded_guarded_unguarded=[
+                    statistics.median(m[1:]) for m in (ma, mg, mb)],
+                peak_mem_gib_unguarded_guarded_unguarded=[peak_a, peak_g,
+                                                          peak_b])
+
+
 def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
     """The full-width step in one world-size-1 NCCL group, each run with
     its own dispatch counts: (a) lazy and (b) CSC with momentum SGD;
@@ -973,6 +1387,18 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
             torch, ops, train_mod, synthetic, "(f) adamw, csc, staged",
             csc_args + ["--optimizer", "adamw", "--lr", str(ADAMW_LR)],
             CSC_STEPS)
+        runs["guarded_lazy"] = guarded_run(
+            torch, ops, train_mod, "(g) guarded lazy, staged", lazy_args,
+            GUARD_LAZY_STEPS, GUARD_LAZY_FAULTS)
+        runs["guarded_csc"] = guarded_run(
+            torch, ops, train_mod, "(h) guarded csc, staged", csc_args,
+            CSC_STEPS, GUARD_CSC_FAULTS, steady_from=CSC_WARMUP)
+        runs["guarded_lars_lazy_monolithic"] = guarded_run(
+            torch, ops, train_mod, "(i) guarded lars, lazy, monolithic",
+            lazy_args + lars, LAZY_STEPS, GUARD_MONO_FAULTS,
+            overlap="monolithic")
+        runs["neutral_lazy"] = neutrality_run(
+            torch, ops, train_mod, synthetic, lazy_args, LAZY_STEPS)
     finally:
         dist.destroy_process_group()
     for label in ("csc", "lars_csc"):
@@ -1005,15 +1431,28 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
     runs["lars_lazy"], runs["lars_lazy_monolithic"] = staged, mono
     steady_from = {"lazy": 1, "lars_lazy": 1, "lars_lazy_monolithic": 1}
     for label, run in runs.items():
+        if "steady_step_ms" in run or "step_ms" not in run:
+            continue  # the guarded runs count their clean steps only
         steady = run["step_ms"][steady_from.get(label, CSC_WARMUP):]
         run["first_step_ms"] = run["step_ms"][0]
         run["steady_step_ms"] = statistics.median(steady)
         run["tokens_per_s"] = BATCH * SEQ / (run["steady_step_ms"] / 1e3)
+    for guarded, plain in GUARD_PAIRS.items():
+        g, u = runs[guarded]["steady_step_ms"], runs[plain]["steady_step_ms"]
+        runs[guarded].update(unguarded=plain, unguarded_steady_step_ms=u,
+                             steady_delta_pct=100.0 * (g - u) / u)
     return runs
+
+
+# Each guarded run and the unguarded run of this call it is timed against.
+GUARD_PAIRS = {"guarded_lazy": "lazy", "guarded_csc": "csc",
+               "guarded_lars_lazy_monolithic": "lars_lazy_monolithic"}
 
 
 RING_STEPS = 3  # on the stream, then as many on one repeated batch
 RING_CSC_STEPS = CSC_WARMUP + 1  # the dense step, the ramp, one steady step
+# (k): the guarded lazy ring run, a NaN on rank 0 only at step 2.
+RING_GUARD_STEPS, RING_GUARD_FAULT = 4, (2, "nan", 1_000_000, GUARD_WIDTH)
 
 
 def ring_train_worker(rank: int, port: int, out: str) -> None:
@@ -1044,26 +1483,28 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
     common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
               str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len", str(SEQ)]
 
-    def ring_trainer(extra):
+    def ring_trainer(extra, guard=None):
         args = train_mod.parse_args(common + extra)
         _, cfg = train_mod.build(args)
         cfg = cfg.replace(gradientflow=dataclasses.replace(
-            cfg.gradientflow, collective_algo="pallas_ring"))
+            cfg.gradientflow, collective_algo="pallas_ring", guard=guard))
         return args, cfg, Trainer(cfg)
 
-    def drive(trainer, args, cfg, steps, batch_of):
+    def drive(trainer, args, cfg, steps, batch_of, hook=None):
         """``steps`` steps on the batches ``batch_of(step)``, each under
-        its stage; the counts, the losses, the step times and whether the
-        ranks held the same parameters after every step."""
+        its stage (and the fault hook, if any); the counts, the losses,
+        the step times, the guard's verdicts and whether the ranks held
+        the same parameters after every step."""
         data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
         state = trainer.init_state(args.seed)
-        fns, losses, step_ms, digests = {}, [], [], []
+        fns, losses, step_ms, digests, tripped = {}, [], [], [], []
         stages = [trainer.gf.stage_for_step(s) for s in range(steps)]
         ops.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         for s, stage in enumerate(stages):
             if stage.index not in fns:
-                fns[stage.index] = trainer.build_train_step(stage)
+                fns[stage.index] = trainer.build_train_step(
+                    stage, fault_hook=hook)
             batch = data.batch(batch_of(s), BATCH // 2, SEQ, shard=rank)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1071,6 +1512,8 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
             losses.append(float(metrics["loss"]))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if "guard_tripped" in metrics:
+                tripped.append(float(metrics["guard_tripped"]))
             flat = torch.cat([p.reshape(-1) for p in
                               trainer.pool.flat_leaves(state.params)])
             digests.append(hashlib.sha256(
@@ -1088,7 +1531,9 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                     buckets=[len(p.tasks) for p in plans],
                     num_selected=[st.num_selected for st in stages],
                     peak_mem_gib=peak / 2 ** 30,
-                    same_params_every_step=both[0] == both[1])
+                    same_params_every_step=both[0] == both[1],
+                    digests=digests, tripped=tripped,
+                    skipped=int(state.guard.skipped) if tripped else None)
 
     result = {"rank": rank}
     try:
@@ -1138,6 +1583,19 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                                   post1[t.start:t.end])
             result["first_step_matches_plain_ring"] = bool(ok)
         del trainer, captured, pre, post
+        torch.cuda.empty_cache()
+
+        # (k) guarded, a NaN written into rank 0's pool only: the ring
+        # carries it to rank 1 in-band, so both ranks must trip.
+        from repro_torch.configs.base import GuardConfig
+        from repro_torch.runtime.faults import make_hook
+        hook = make_hook(fault_events([RING_GUARD_FAULT])) \
+            if rank == 0 else None
+        args, cfg, trainer = ring_trainer(["--gf-mode", "lazy"],
+                                          guard=GuardConfig())
+        result["lazy_guarded"] = drive(trainer, args, cfg, RING_GUARD_STEPS,
+                                       lambda s: s, hook=hook)
+        del trainer
         torch.cuda.empty_cache()
 
         args, cfg, trainer = ring_trainer(
@@ -1211,6 +1669,26 @@ def ring_train_phase(torch, dev):
           "of the two ranks' packed pools")
     check(runs["csc"]["num_selected"][-1] < runs["csc"]["num_selected"][0],
           f"ring train csc: no sparse step ({runs['csc']['num_selected']})")
+    # (k): both ranks trip at the faulted step only, keep the same
+    # parameters (the skip: the digests before and after it are equal),
+    # and launch the ring exactly as often a step as the unguarded run.
+    fault_step = RING_GUARD_FAULT[0]
+    want_trips = [float(s == fault_step) for s in range(RING_GUARD_STEPS)]
+    key = "ring_allreduce.kernel"
+    per_step = ranks[0]["lazy"]["counts"][key] / (2 * RING_STEPS)
+    for r in ranks:
+        got = r["lazy_guarded"]
+        check(got["tripped"] == want_trips and got["skipped"] == 1,
+              f"ring guarded rank {r['rank']}: tripped {got['tripped']}")
+        check(got["digests"][fault_step] == got["digests"][fault_step - 1],
+              f"ring guarded rank {r['rank']}: the tripped step changed "
+              f"the parameters")
+        check(got["counts"] == got["expected_counts"]
+              and got["counts"][key] == per_step * RING_GUARD_STEPS,
+              f"ring guarded rank {r['rank']}: counts {got['counts']}, "
+              f"unguarded {per_step} ring launches a step")
+        check(got["same_params_every_step"],
+              "ring guarded: the ranks' parameters differ")
     note = ("world size 2 as two processes on one card: the ranks take "
             "turns on the device, so a step time is no wire's; the ring "
             "runs through this card's memory, not NVLink")
@@ -1229,6 +1707,13 @@ def ring_train_phase(torch, dev):
                  ring_buckets=csc_run["buckets"],
                  dispatch_counts=csc_run["counts"],
                  peak_mem_gib=[r["csc"]["peak_mem_gib"] for r in ranks],
+                 compute_mode=mode.stdout.strip(), note=note),
+            dict(losses=[r["lazy_guarded"]["losses"] for r in ranks],
+                 tripped=[r["lazy_guarded"]["tripped"] for r in ranks],
+                 fault=list(RING_GUARD_FAULT) + ["rank 0"],
+                 step_ms=[r["lazy_guarded"]["step_ms"] for r in ranks],
+                 dispatch_counts=ranks[0]["lazy_guarded"]["counts"],
+                 unguarded_ring_launches_per_step=per_step,
                  compute_mode=mode.stdout.strip(), note=note))
 
 
@@ -1320,14 +1805,18 @@ def main() -> None:
     for e in entries:
         print(json.dumps(dict(kernel=e["name"], gpu=name, power_limit=power,
                               parts=e["parts"])), flush=True)
+    print(json.dumps(dict(nan_words=nonfinite_phase(
+        torch, kpack, kcl, kring, pool_mod, shapes, dev), gpu=name,
+        power_limit=power)), flush=True)
     print(json.dumps(dict(optimizer_ops=optimizer_phase(
         torch, pool_mod, csc, optim, lars_mod, base, shapes, dev, rate),
         gpu=name, power_limit=power)), flush=True)
 
     runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack)
-    ring, ring_csc = ring_train_phase(torch, dev)
+    ring, ring_csc, ring_guarded = ring_train_phase(torch, dev)
     runs["lazy_pallas_ring_2_processes"] = ring
     runs["csc_pallas_ring_2_processes"] = ring_csc
+    runs["guarded_lazy_pallas_ring_2_processes"] = ring_guarded
     for label, run in runs.items():
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,

@@ -46,12 +46,35 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """The numeric guard rail: in-band gradient health detection and
+    dynamic loss scaling with an all-or-nothing step commit (see
+    ``core.guard`` and ``optim.scaler``). A NaN/Inf census entry, or a
+    finite one at ``overflow_fraction`` of the wire dtype's max, rejects
+    the whole step and backs the loss scale off; ``growth_interval``
+    clean steps grow it back."""
+
+    # 1.0 keeps a guarded run bit-identical to the unguarded one until
+    # something trips; mixed-precision runs start high.
+    init_scale: float = 2.0 ** 15
+    growth_interval: int = 2000
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    min_scale: float = 1.0
+    max_scale: float = 2.0 ** 24
+    # 2^-9 of finfo(wire).max: far above any honest census sum, low
+    # enough to catch an exponent-MSB flip of a word in [2^-8, 2).
+    overflow_fraction: float = 1.0 / 512.0
+
+
+@dataclasses.dataclass(frozen=True)
 class GradientFlowConfig:
     """The communication backend's settings (see the JAX package for the
     meaning of each field). The port runs ``mode`` 'dense', 'lazy' and
     'csc', ``wire_format='native'``, ``overlap`` 'staged' and
-    'monolithic', every ``collective_algo`` and ``auto_bucket``; the rest
-    raise ``NotImplementedError`` where they would be used."""
+    'monolithic', every ``collective_algo``, ``auto_bucket`` and the
+    ``guard``; the rest raise ``NotImplementedError`` where they would be
+    used."""
 
     mode: str = "lazy"
     bucket_elems: int = 16 * 1024 * 1024
@@ -70,7 +93,7 @@ class GradientFlowConfig:
     error_feedback: bool = True
     pipeline_tail_buckets: int = 0
     use_kernels: bool = False
-    guard: Optional[Any] = None
+    guard: Optional[GuardConfig] = None
 
     @property
     def csc_enabled(self) -> bool:

@@ -1,5 +1,5 @@
-"""Carry parameter trees and optimizer states between the JAX package
-and the port.
+"""Carry parameter trees, optimizer states and loss-scaler states
+between the JAX package and the port.
 
 The port keeps the JAX package's layout (same nested keys, stacked layer
 weights, (in, out) matrices, pool-shaped optimizer state fields of the
@@ -53,4 +53,26 @@ def opt_state_from_numpy(name: str, state: Any,
 def opt_state_to_numpy(state: Any) -> Any:
     """An optimizer state of torch tensors -> the same NamedTuple of numpy
     arrays."""
+    return type(state)(*(x.detach().cpu().numpy() for x in state))
+
+
+def scaler_from_numpy(state: Any,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> Any:
+    """An ``optim.scaler.ScalerState`` (0-dim f32 scale, i32 counts) from
+    any object with its fields as array-likes (the JAX package's
+    ``ScalerState``, or ``scaler_to_numpy``'s), on ``device`` (CUDA unless
+    given)."""
+    from repro_torch import resolve_device
+    from repro_torch.optim.scaler import ScalerState
+    dev = resolve_device(device)
+    dtypes = (np.float32, np.int32, np.int32)
+    return ScalerState(*(
+        torch.from_numpy(np.array(getattr(state, f), dtype=dt)).to(dev)
+        for f, dt in zip(ScalerState._fields, dtypes)))
+
+
+def scaler_to_numpy(state: Any) -> Any:
+    """A ``ScalerState`` of torch tensors -> the same NamedTuple of 0-dim
+    numpy arrays."""
     return type(state)(*(x.detach().cpu().numpy() for x in state))

@@ -19,10 +19,17 @@ device from the span's master and masked gradient), AdamW as PyTorch ops
 writing its state in place. ``overlap='monolithic'`` does not come here:
 the Trainer runs ``GradientFlow.reduce`` and one whole-pool update.
 
+``OverlapEngine.run_guarded`` is the numeric guard's twin of ``run``
+(``core.guard``): the same collectives in the same order, every bucket's
+reduce issued before any update (the verdict needs all of them, so the
+guarded stages give up the reduce_i ∥ update_{i-1} overlap), the health
+verdict from the reduced buckets' words or CSC's summed census, and
+every write of the step behind the device flag ``ok``.
+
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
-fence. The guard, the quantized wires and the cross-step lane are not
-ported yet (ROADMAP.md).
+fence. The quantized wires and the cross-step lane are not ported yet
+(ROADMAP.md A.13, A.14).
 """
 from __future__ import annotations
 
@@ -93,7 +100,7 @@ def compile_step_plan(gf, stage=None) -> StepPlan:
     if cfg.pipeline_tail_buckets != 0:
         raise NotImplementedError(
             "pipeline_tail_buckets (the cross-step lane) is not ported to "
-            "repro_torch yet; see ROADMAP.md queue A")
+            "repro_torch yet; see ROADMAP.md A.14")
     common = dict(pool_size=pool.size, wire_dtype=str(cfg.wire_dtype),
                   num_data_shards=gf.num_data_shards)
 
@@ -165,6 +172,128 @@ class OverlapEngine:
                                            opt_state, lr)
         return self._assemble(outs), opt_state, gfstate
 
+    def run_guarded(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
+                    opt_state, gfstate, scaler_state, lr: torch.Tensor):
+        """``run`` under the numeric guard. ``gpool`` arrives scaled by
+        ``scaler_state.scale`` (the loss was): dense and lazy keep the
+        scale on the wire and unscale each reduced mean before its update;
+        CSC unscales at entry, so ``hg`` stays scale-free across backoffs.
+        A tripped step writes no parameter, optimizer state, ``hg`` or
+        chunk norm: only the scaler advances. Returns (params_tree,
+        opt_state, gfstate, new scaler state, HealthFlags)."""
+        from repro_torch.core import guard as guard_mod
+        from repro_torch.optim import scaler as scaler_mod
+
+        cfg = self.gf.cfg
+        assert cfg.guard is not None, "run_guarded needs a GuardConfig"
+        limit = guard_mod.overflow_limit(cfg.guard, cfg.wire_dtype)
+        master, _ = self.pool.pack(params_tree, dtype=torch.float32,
+                                   use_kernels=cfg.use_kernels)
+        leaves = self.pool.flat_leaves(params_tree)
+        scale = scaler_state.scale
+        if plan.mode == "csc":
+            run = self._guarded_csc_warmup if plan.warmup \
+                else self._guarded_csc
+            outs, flags = run(plan, gpool, master, leaves, opt_state,
+                              gfstate, scale, lr, limit)
+        else:
+            outs, flags = self._guarded_pool(plan, gpool, master, leaves,
+                                             opt_state, scale, lr, limit)
+        new_scaler = scaler_mod.update(scaler_state,
+                                       ~guard_mod.tripped(flags), cfg.guard)
+        return (self._assemble(outs), opt_state, gfstate, new_scaler,
+                flags)
+
+    def _issue_all(self, plan, pool, wire_dtype=None, mean_out=None
+                   ) -> List[torch.Tensor]:
+        """Every task's collective issued before the first is waited on;
+        the f32 means in task order, each written into ``mean_out`` (a
+        pool-sized f32 tensor, may be ``pool``) when it is given."""
+        issued = [lazy_mod.issue_bucket(pool, t.start, t.end, wire_dtype,
+                                        algo=t.algo,
+                                        topo=self.gf.cfg.topology)
+                  for t in plan.tasks]
+        means = []
+        for t, p in zip(plan.tasks, issued):
+            mean = p.wait() / plan.num_data_shards
+            if mean_out is not None:
+                mean = mean_out[t.start:t.end].copy_(mean)
+            means.append(mean)
+        return means
+
+    def _guarded_pool(self, plan, gpool, master, leaves, opt_state, scale,
+                      lr, limit):
+        """Dense/lazy: reduce every bucket of the scaled wire pool, take
+        each mean's health word (the all-reduce mixed every rank's words
+        in, so every rank reaches the same verdict with no extra
+        collective), unscale the means in place, then every span's update
+        behind ``ok``."""
+        from repro_torch.core import guard as guard_mod
+
+        means = self._issue_all(plan, gpool)
+        flags = guard_mod.flags_from_words(
+            [guard_mod.health_word(m) for m in means], limit)
+        ok = ~guard_mod.tripped(flags)
+        outs = [self._update_span((t.start, t.end),
+                                  means[t.index].div_(scale), master, leaves,
+                                  opt_state, lr, ok=ok)
+                for t in plan.tasks]
+        return outs, flags
+
+    def _guarded_csc(self, plan, g, master, leaves, opt_state, gfstate,
+                     scale, lr, limit):
+        """Sparse CSC under the guard: ``g = gpool / scale + hg`` in place
+        on the staging pool, then ``_run_csc``'s selection, gather,
+        bucketed reduce and scatter, and its summed census, which is the
+        health channel (a NaN or Inf anywhere in the post-reduce pool,
+        sent chunks and kept ones alike, taints its chunk's sum). The
+        masked updates run behind ``ok``; the new ``hg`` (computed last,
+        in ``g``, which the next pack overwrites) and the census are
+        committed with ``commit_where``, so on a trip the selection basis
+        keeps its pre-step values and no NaN reaches ``select_chunks``."""
+        from repro_torch.core import guard as guard_mod
+
+        cfg = self.gf.cfg
+        chunk = plan.chunk_elems
+        g.div_(scale).add_(gfstate.hg)
+        idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
+                                                plan.num_selected)
+        elem_mask = csc_mod.element_mask(chunk_mask, chunk)
+        self._csc_exchange(plan, g, idx)
+        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
+        flags = guard_mod.flags_from_census(norms, limit)
+        ok = ~guard_mod.tripped(flags)
+        outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
+                                  opt_state, lr, elem_mask[span[0]:span[1]],
+                                  ok=ok)
+                for span in plan.update_spans]
+        hg_new = g.mul_(cfg.momentum).masked_fill_(elem_mask, 0.0)
+        guard_mod.commit_where(ok, (hg_new, norms),
+                               (gfstate.hg, gfstate.chunk_norms))
+        return outs, flags
+
+    def _guarded_csc_warmup(self, plan, g, master, leaves, opt_state,
+                            gfstate, scale, lr, limit):
+        """CSC's dense warm-up under the guard: the unscaled hg-corrected
+        pool reduced in lazy buckets, each mean written back into ``g``;
+        the summed census of the mean pool is the health channel; the
+        updates behind ``ok``, then the census committed and ``hg``
+        zeroed, each only on a clean step."""
+        from repro_torch.core import guard as guard_mod
+
+        cfg = self.gf.cfg
+        g.div_(scale).add_(gfstate.hg)
+        self._issue_all(plan, g, getattr(torch, cfg.wire_dtype), mean_out=g)
+        norms = csc_mod.summed_census(g, plan.chunk_elems, cfg.use_kernels)
+        flags = guard_mod.flags_from_census(norms, limit)
+        ok = ~guard_mod.tripped(flags)
+        outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
+                                  opt_state, lr, ok=ok)
+                for span in plan.update_spans]
+        gfstate.hg.masked_fill_(ok, 0.0)
+        guard_mod.commit_where(ok, (norms,), (gfstate.chunk_norms,))
+        return outs, flags
+
     def _run_pool_pipeline(self, plan, gpool, master, leaves, opt_state, lr,
                            wire_dtype=None, mean_out=None) -> List[Any]:
         """Issue reduce_i, then launch update_{i-1} while it is in flight;
@@ -213,6 +342,21 @@ class OverlapEngine:
         idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
                                                 plan.num_selected)
         elem_mask = csc_mod.element_mask(chunk_mask, chunk)
+        self._csc_exchange(plan, g, idx)
+        hg = torch.mul(g, cfg.momentum, out=gfstate.hg)
+        hg.masked_fill_(elem_mask, 0.0)
+        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
+        outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
+                                  opt_state, lr, elem_mask[span[0]:span[1]])
+                for span in plan.update_spans]
+        return outs, gfstate._replace(hg=hg, chunk_norms=norms)
+
+    def _csc_exchange(self, plan, g, idx) -> None:
+        """Gather the selected chunks ``idx`` of ``g`` into the wire buffer,
+        all-reduce it in θ buckets with bucket i in flight while bucket
+        i-1's mean is scattered back into ``g``."""
+        cfg = self.gf.cfg
+        chunk = plan.chunk_elems
         if cfg.use_kernels:
             from repro_torch.kernels import ops
             wire = ops.csc_compact(g, idx, chunk)
@@ -235,14 +379,6 @@ class OverlapEngine:
                 scatter(*pending)
             pending = (task, issued)
         scatter(*pending)
-        del wire
-        hg = torch.mul(g, cfg.momentum, out=gfstate.hg)
-        hg.masked_fill_(elem_mask, 0.0)
-        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
-        outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
-                                  opt_state, lr, elem_mask[span[0]:span[1]])
-                for span in plan.update_spans]
-        return outs, gfstate._replace(hg=hg, chunk_norms=norms)
 
     def _run_csc_warmup(self, plan, g, master, leaves, opt_state, gfstate,
                         lr):
@@ -264,20 +400,21 @@ class OverlapEngine:
                                       chunk_norms=norms)
 
     def _update_span(self, span, red_seg, master, leaves, opt_state, lr,
-                     mask=None):
+                     mask=None, ok=None):
         """One update span's fused optimizer step on the span's segments;
         the new values land in the span's parameter leaves and in the
         optimizer state's slices. ``mask`` is the span's bool segment
-        (CSC's selected chunks); None updates every element. Returns the
+        (CSC's selected chunks); None updates every element. ``ok``: the
+        guard's device verdict; when false nothing is written. Returns the
         span's leaves."""
         start, end = span
         view = self.pool.bucket_view(start, end)
         return self._update_view_seg(view, master[start:end], red_seg,
                                      opt_state, lr, mask,
-                                     leaves[view.leaf_lo:view.leaf_hi])
+                                     leaves[view.leaf_lo:view.leaf_hi], ok)
 
     def _update_view_seg(self, view, m_seg, red_seg, opt_state, lr, mask,
-                         out_leaves):
+                         out_leaves, ok=None):
         """The update on one view: every pool-sized state leaf sliced to
         the span, LARS's trust ratios of the view's tensors (the masked
         gradient's norms) handed to the kernel as ``ratios`` with
@@ -301,7 +438,7 @@ class OverlapEngine:
         new_leaves, _ = optim.update_view(
             self.opt_name, view, m_seg, red_seg, st_seg, mask, self.opt_cfg,
             lr, scale=scale, ratios=ratios, use_kernels=use_k,
-            out_leaves=out_leaves)
+            out_leaves=out_leaves, ok=ok)
         return new_leaves
 
     def _assemble(self, outs):

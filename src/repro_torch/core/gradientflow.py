@@ -12,9 +12,9 @@ mean. Each bucket's collective comes from the topology layer
 ``auto_bucket`` with a topology tunes θ on the cost model. ``plan``
 compiles the layout for the staged overlap engine (``core.engine``);
 ``reduce`` runs it monolithically, every bucket before the update
-(``overlap='monolithic'``). The low-bit wire formats (and with them
-``reduce``'s ``census``, ``census_sum`` and ``loss_scale``) and
-``replan`` are not ported yet (see ROADMAP.md).
+(``overlap='monolithic'``). The low-bit wire formats (which give
+``reduce``'s ``census_sum`` and ``loss_scale`` their use) and ``replan``
+are not ported yet (see ROADMAP.md A.13, A.15).
 """
 from __future__ import annotations
 
@@ -55,8 +55,9 @@ class GradientFlow:
             raise NotImplementedError(f"GradientFlow mode {cfg.mode!r} "
                                       + _NOT_PORTED)
         if cfg.quantized:
-            raise NotImplementedError(f"wire_format {cfg.wire_format!r} "
-                                      + _NOT_PORTED)
+            raise NotImplementedError(
+                f"wire_format {cfg.wire_format!r} is not ported to "
+                f"repro_torch yet; see ROADMAP.md A.13")
         self.cfg = cfg
         self.pool = pool
         self.num_data_shards = int(num_data_shards)
@@ -137,7 +138,8 @@ class GradientFlow:
     # -- the monolithic reduction ---------------------------------------------
 
     def reduce(self, pool_grads: torch.Tensor, state: GFState, *,
-               stage=None, prepacked: bool = False
+               stage=None, prepacked: bool = False, census_sum=None,
+               loss_scale=None
                ) -> Tuple[torch.Tensor, torch.Tensor, GFState]:
         """Reduce the local gradient pool across the data-parallel group,
         every bucket before any update (``overlap='monolithic'``).
@@ -148,7 +150,14 @@ class GradientFlow:
         ``prepacked`` the dense and lazy buckets are already in the wire
         dtype and go on the wire without a cast (and are summed in place);
         CSC takes the f32 pool, because hg is added before the selection.
+
+        ``census_sum`` (an already summed chunk census) and ``loss_scale``
+        (the guard's scale on ``pool_grads``) are the JAX package's
+        keywords for the quantized wires, where the census sets the wire
+        scales and the scale keeps the error feedback unscaled. On the
+        native wires they change nothing, as in JAX.
         """
+        del census_sum, loss_scale  # inert on native wires
         cfg = self.cfg
         if cfg.mode == "csc":
             assert not prepacked, (

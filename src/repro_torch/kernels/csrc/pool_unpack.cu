@@ -10,6 +10,12 @@
 // new_master goes straight into the leaf that owns the element, so the new
 // master pool is never written. Padding has no leaf and is not written.
 //
+// The guard's predicate: `ok` (one device byte, may be null) is the
+// step's health verdict. When it is false every CTA returns before it
+// reads or writes anything else, so a rejected step leaves the leaves and
+// the momentum as they were (the caller must pass the live parameters and
+// momentum as the outputs) without a pool-sized select pass.
+//
 // Each step rounds on its own (__fmul_rn / __fadd_rn / __fsub_rn), so nvcc
 // cannot contract a multiply-add into an FMA and the result matches the
 // plain PyTorch version bit for bit.
@@ -51,7 +57,9 @@ pool_unpack_update_kernel(const long long* __restrict__ table, int n,
                           const float* __restrict__ lr_ptr, float momentum,
                           float weight_decay,
                           const float* __restrict__ scale,
-                          const float* __restrict__ ratios, int n_ratios) {
+                          const float* __restrict__ ratios, int n_ratios,
+                          const unsigned char* __restrict__ ok) {
+  if (ok != nullptr && *ok == 0) return;
   const long long* ptrs = table;
   const long long* offsets = table + n;
   const long long* sizes = table + 2 * n;
@@ -92,12 +100,14 @@ pool_unpack_update_kernel(const long long* __restrict__ table, int n,
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for bad arguments. scale and ratios may be null
-// (at most one is given); lr points to one f32 on the device.
+// (at most one is given); lr points to one f32 on the device; ok is null
+// (unguarded) or one bool byte on the device.
 extern "C" int pool_unpack_update_launch(
     const void* table, int n_leaves, long long covered, long long size,
     const void* master, const void* grads, const void* mom_in, void* mom_out,
     const void* mask, const void* lr, float momentum, float weight_decay,
-    const void* scale, const void* ratios, int n_ratios, void* stream) {
+    const void* scale, const void* ratios, int n_ratios, const void* ok,
+    void* stream) {
   if (size <= 0 || n_leaves < 0 || covered > size ||
       (scale != nullptr && ratios != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -112,6 +122,6 @@ extern "C" int pool_unpack_update_launch(
       static_cast<float*>(mom_out), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(lr), momentum, weight_decay,
       static_cast<const float*>(scale), static_cast<const float*>(ratios),
-      n_ratios);
+      n_ratios, static_cast<const unsigned char*>(ok));
   return static_cast<int>(cudaGetLastError());
 }

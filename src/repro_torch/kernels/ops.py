@@ -88,12 +88,14 @@ def pool_unpack_update(master, grads, momentum_buf, mask,
                        ratios: Optional[torch.Tensor] = None,
                        out_leaves: Optional[Sequence[torch.Tensor]] = None,
                        out_momentum: Optional[torch.Tensor] = None,
+                       ok: Optional[torch.Tensor] = None,
                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Fused momentum-SGD update + unpack of one pool span. Returns
     (leaves, new momentum), written into ``out_leaves`` / ``out_momentum``
-    when given (see ``pool_unpack`` for the in-place contract)."""
+    when given (see ``pool_unpack`` for the in-place contract). ``ok``:
+    the guard's device verdict; when false nothing is written."""
     tensors = [master, grads, momentum_buf, mask, scale, ratios,
-               out_momentum] + list(out_leaves or [])
+               out_momentum, ok] + list(out_leaves or [])
     if not _on_cuda(tensors):
         _count("pool_unpack_update", "plain")
         fn = _pu.plain
@@ -103,7 +105,7 @@ def pool_unpack_update(master, grads, momentum_buf, mask,
     return fn(master, grads, momentum_buf, mask, offsets, sizes, lr=lr,
               momentum=momentum, weight_decay=weight_decay, scale=scale,
               ratios=ratios, out_leaves=out_leaves,
-              out_momentum=out_momentum)
+              out_momentum=out_momentum, ok=ok)
 
 
 def fused_update(master, grads, momentum_buf, mask, *, lr, momentum: float,

@@ -7,13 +7,21 @@ pool_unpack_update`` (body ``_kernel``; the math is
 ``update_math``): the masked momentum-SGD step of Algorithm 1 over one
 pool span, with an optional per-element ``scale`` or per-tensor
 ``ratios``, writing the new momentum and scattering the new master values
-straight into the per-tensor leaves.
+straight into the per-tensor leaves. An optional device ``bool[1]``
+``ok`` (the numeric guard's verdict) predicates the whole launch: when it
+is false nothing is written.
 
 In place: the port writes the new momentum into ``out_momentum`` and the
 new master values into ``out_leaves``, which may be the momentum buffer
 and the parameter tensors themselves. That is safe because the master
 span was packed from the parameters before the update, and it saves the
-pool-sized output buffer the JAX kernel allocates.
+pool-sized output buffer the JAX kernel allocates. With ``ok`` the
+outputs must be the live parameters and momentum (``check_ok``): a
+skipped launch into fresh tensors would hand back uninitialised memory.
+The JAX package skips with a ``where`` over the whole computed update
+(``repro/core/engine.py::_guarded_pool``); here that select would be one
+more pool-sized pass of parameters and momentum, the predicate costs a
+byte a CTA.
 
 Bound on an H100: bytes — 21 B an element (reads of master, grads and
 momentum at 4 B and the mask at 1 B; writes of momentum and the leaf at
@@ -39,7 +47,7 @@ def _lib():
         p = ctypes.c_void_p
         fn.argtypes = [p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                        p, p, p, p, p, p, ctypes.c_float, ctypes.c_float,
-                       p, p, ctypes.c_int, p]
+                       p, p, ctypes.c_int, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -53,6 +61,25 @@ def _outputs(master, momentum_buf, sizes, out_leaves, out_momentum):
     return list(out_leaves), out_momentum
 
 
+def check_ok(ok: Optional[torch.Tensor], momentum_buf: torch.Tensor,
+             out_leaves, out_momentum) -> None:
+    """Refuse a guard predicate that could leave garbage: ``ok`` must be
+    one bool on the update's device, and the outputs must be given, the
+    momentum written in place (``out_momentum`` is ``momentum_buf``)."""
+    if ok is None:
+        return
+    if (ok.dtype != torch.bool or ok.numel() != 1
+            or ok.device != momentum_buf.device):
+        raise ValueError(f"ok must be one bool on {momentum_buf.device}, "
+                         f"got {ok.dtype}{list(ok.shape)} on {ok.device}")
+    if (out_leaves is None or out_momentum is None
+            or out_momentum.data_ptr() != momentum_buf.data_ptr()
+            or out_momentum.shape != momentum_buf.shape):
+        raise ValueError("ok needs the outputs to be the live parameters "
+                         "and momentum: pass out_leaves and "
+                         "out_momentum=momentum_buf")
+
+
 def launch(master: torch.Tensor, grads: torch.Tensor,
            momentum_buf: torch.Tensor, mask: torch.Tensor,
            offsets: Sequence[int], sizes: Sequence[int], *, lr,
@@ -61,12 +88,13 @@ def launch(master: torch.Tensor, grads: torch.Tensor,
            ratios: Optional[torch.Tensor] = None,
            out_leaves: Optional[Sequence[torch.Tensor]] = None,
            out_momentum: Optional[torch.Tensor] = None,
+           ok: Optional[torch.Tensor] = None,
            ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Launch the update kernel on the span's CUDA device and current
     stream. ``lr`` is an f32 scalar (a float or a 0-dim tensor). Returns
     (leaves in segment-table order, new momentum): ``out_leaves`` /
     ``out_momentum`` when given (``out_momentum`` may be
-    ``momentum_buf``), else new tensors."""
+    ``momentum_buf``), else new tensors. ``ok``: see ``check_ok``."""
     device = master.device
     if device.type != "cuda":
         raise ValueError(f"the pool_unpack_update kernel runs on CUDA, got "
@@ -90,6 +118,7 @@ def launch(master: torch.Tensor, grads: torch.Tensor,
                                or ratios.shape[0] not in (len(sizes),
                                                           len(sizes) + 1)):
         raise ValueError("ratios must be f32[num_tensors(+1)] on the device")
+    check_ok(ok, momentum_buf, out_leaves, out_momentum)
     out_leaves, out_momentum = _outputs(master, momentum_buf, sizes,
                                         out_leaves, out_momentum)
     if any(x.dtype != torch.float32 for x in out_leaves):
@@ -116,7 +145,8 @@ def launch(master: torch.Tensor, grads: torch.Tensor,
                  lr_t.data_ptr(), momentum, weight_decay,
                  scale.data_ptr() if scale is not None else None,
                  ratios_c.data_ptr() if ratios_c is not None else None,
-                 ratios_c.shape[0] if ratios_c is not None else 0, stream)
+                 ratios_c.shape[0] if ratios_c is not None else 0,
+                 ok.data_ptr() if ok is not None else None, stream)
     if err != 0:
         raise RuntimeError(f"pool_unpack_update kernel launch failed: CUDA "
                            f"error {err}")
@@ -131,15 +161,23 @@ def plain(master: torch.Tensor, grads: torch.Tensor,
           ratios: Optional[torch.Tensor] = None,
           out_leaves: Optional[Sequence[torch.Tensor]] = None,
           out_momentum: Optional[torch.Tensor] = None,
+          ok: Optional[torch.Tensor] = None,
           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The kernel's function in PyTorch ops, on any device, with the same
     outputs as ``launch`` (leaves copied into ``out_leaves`` and the
     momentum into ``out_momentum`` when given; a leaf of another dtype is
-    cast, as the JAX optimizer casts leaves to their declared dtype)."""
+    cast, as the JAX optimizer casts leaves to their declared dtype).
+    With ``ok`` the outputs take the new values only where it holds
+    (``ref.commit_where``)."""
+    check_ok(ok, momentum_buf, out_leaves, out_momentum)
     leaves, new_mom = ref.pool_unpack_update(
         master, grads, momentum_buf, mask, offsets, sizes, lr=lr,
         momentum=momentum, weight_decay=weight_decay, scale=scale,
         ratios=ratios)
+    if ok is not None:
+        ref.commit_where(ok, list(leaves) + [new_mom],
+                         list(out_leaves) + [out_momentum])
+        return list(out_leaves), out_momentum
     if out_leaves is not None:
         for dst, src in zip(out_leaves, leaves):
             dst.copy_(src)

@@ -122,6 +122,18 @@ def pool_unpack_update(
     return leaves, new_mom
 
 
+def commit_where(ok: torch.Tensor, new: Sequence[torch.Tensor],
+                 old: Sequence[torch.Tensor]) -> None:
+    """Predicated write: each ``old`` tensor takes its ``new`` value where
+    the device flag ``ok`` holds and keeps its own bits otherwise (a
+    select, so NaNs in a rejected ``new`` never reach it). In place, one
+    pass a tensor, no host sync: the plain form of the update kernel's
+    ``ok`` predicate, and the guard's commit of state no kernel writes."""
+    for n, o in zip(new, old):
+        torch.where(ok, n if n.dtype == o.dtype else n.to(o.dtype), o,
+                    out=o)
+
+
 def fused_update(master, grads, momentum_buf, mask, *, lr, momentum: float,
                  weight_decay: float, scale=None):
     """The masked momentum-SGD step over a whole flat pool (the function

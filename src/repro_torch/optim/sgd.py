@@ -7,7 +7,9 @@ step), in PyTorch:
 ``use_kernels=True`` routes through ``kernels.ops.pool_unpack_update``
 (the CUDA kernel for CUDA tensors, its plain version on the CPU). The
 momentum segment and, when given, the parameter leaves are updated in
-place. ``update_pool`` is the whole-pool two-pass form (new master pool,
+place; with the guard's device verdict ``ok`` the update kernel writes
+nothing when it is false (``kernels.pool_unpack``). ``update_pool`` is
+the whole-pool two-pass form (new master pool,
 no unpack), through ``kernels.ops.fused_update`` with ``use_kernels``.
 """
 from __future__ import annotations
@@ -48,7 +50,7 @@ def update_pool(master: torch.Tensor, grads: torch.Tensor, state: SGDState,
 
 
 def _update(offsets, sizes, specs, master, grads, state, mask, cfg, lr, *,
-            scale, ratios, use_kernels, out_leaves):
+            scale, ratios, use_kernels, out_leaves, ok):
     if use_kernels:
         from repro_torch.kernels import ops
         fn = ops.pool_unpack_update
@@ -59,7 +61,7 @@ def _update(offsets, sizes, specs, master, grads, state, mask, cfg, lr, *,
                          lr=lr, momentum=cfg.momentum,
                          weight_decay=cfg.weight_decay, scale=scale,
                          ratios=ratios, out_leaves=out_leaves,
-                         out_momentum=state.momentum)
+                         out_momentum=state.momentum, ok=ok)
     # Leaves take their declared dtype (what the JAX optimizer does).
     leaves = [x if x.dtype == spec.dtype else x.to(spec.dtype)
               for x, spec in zip(leaves, specs)]
@@ -72,13 +74,14 @@ def update_unpack(pool, master: torch.Tensor, grads: torch.Tensor,
                   ratios: Optional[torch.Tensor] = None,
                   use_kernels: bool = False,
                   out_leaves: Optional[Sequence[torch.Tensor]] = None,
+                  ok: Optional[torch.Tensor] = None,
                   ) -> Tuple[dict, SGDState]:
     """Fused update + unravel over the whole pool. Returns (new params
     tree, new state)."""
     leaves, st = _update(pool.offsets, pool.sizes, pool.specs, master,
                          grads, state, mask, cfg, lr, scale=scale,
                          ratios=ratios, use_kernels=use_kernels,
-                         out_leaves=out_leaves)
+                         out_leaves=out_leaves, ok=ok)
     return pool.unflatten(leaves), st
 
 
@@ -88,10 +91,11 @@ def update_view(view, master: torch.Tensor, grads: torch.Tensor,
                 ratios: Optional[torch.Tensor] = None,
                 use_kernels: bool = False,
                 out_leaves: Optional[Sequence[torch.Tensor]] = None,
+                ok: Optional[torch.Tensor] = None,
                 ) -> Tuple[List[torch.Tensor], SGDState]:
     """``update_unpack`` on one bucket-aligned span: every array is a
     span-relative segment, driven by the view's rebased segment table.
     Returns (1-D leaves of the view's tensors, new momentum segment)."""
     return _update(view.offsets, view.sizes, view.specs, master, grads,
                    state, mask, cfg, lr, scale=scale, ratios=ratios,
-                   use_kernels=use_kernels, out_leaves=out_leaves)
+                   use_kernels=use_kernels, out_leaves=out_leaves, ok=ok)

@@ -481,3 +481,95 @@ def test_cuda_update_padding_span_with_empty_ratios(dev):
                                        ratios=r, **kw)
         torch.cuda.synchronize()
         assert got_l == [] and torch.equal(got_m, want_m), r.data_ptr()
+
+
+@pytest.mark.cuda
+def test_cuda_update_ok_predicate(dev):
+    """The guard's predicate at a ragged size, with and without ratios:
+    ok = true gives the launch without ok bit for bit; ok = false writes
+    nothing (NaN gradients included); outputs that are not the live
+    tensors are refused."""
+    sizes = (37, 128, 5, 300, 77)
+    offsets, covered = _table(sizes)
+    n = covered + 11
+    master, grads, mom = (_randn(60 + i, n).to(dev) for i in range(3))
+    mask = _randn(63, n).to(dev) > -0.5
+    nan = torch.full_like(grads, float("nan"))
+    for ratios in (None, _randn(64, len(sizes) + 1).abs().to(dev)):
+        kw = dict(lr=torch.tensor(0.05, device=dev), momentum=0.9,
+                  weight_decay=1e-4, ratios=ratios)
+        want_l, want_m = t_unpack.plain(master, grads, mom, mask, offsets,
+                                        sizes, **kw)
+        for ok in (True, False):
+            leaves = [_randn(70 + i, s).to(dev) for i, s in enumerate(sizes)]
+            old = [x.clone() for x in leaves]
+            m = mom.clone()
+            got_l, got_m = t_unpack.launch(
+                master, grads if ok else nan, m, mask, offsets, sizes,
+                out_leaves=leaves, out_momentum=m,
+                ok=torch.tensor([ok], device=dev), **kw)
+            torch.cuda.synchronize()
+            ref_l, ref_m = (want_l, want_m) if ok else (old, mom)
+            assert torch.equal(got_m.view(torch.uint8),
+                               ref_m.view(torch.uint8)), (ok, ratios)
+            assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                       for a, b in zip(got_l, ref_l)), (ok, ratios)
+        with pytest.raises(ValueError, match="live parameters"):
+            t_unpack.launch(master, grads, mom, mask, offsets, sizes,
+                            ok=torch.tensor([True], device=dev), **kw)
+
+
+def _same_class(got, want):
+    """NaN where the plain version has NaN (any NaN word), the same bits
+    everywhere else."""
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        got.element_size()]
+    assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+
+
+@pytest.mark.cuda
+def test_cuda_nonfinite_words_by_class(dev):
+    """NaN, +-Inf and 2^120 words through the pack (to bf16 and to f32),
+    the census of the packed pool and the ring at N = 2 with a NaN on one
+    rank, against the plain versions by class: no kernel turns a NaN or
+    an Inf into a finite word."""
+    from repro_torch.kernels import ring_reduce as t_ring
+
+    sizes, chunk = (37, 128, 5, 300, 77), 64
+    offsets, covered = _table(sizes)
+    pool_size = -(-covered // chunk) * chunk
+    leaves = [_randn(80 + i, s).to(dev) for i, s in enumerate(sizes)]
+    for (leaf, at), v in zip(((0, 3), (1, 100), (3, 7), (4, 0), (2, 1)),
+                             (float("nan"), float("inf"), -float("inf"),
+                              2.0 ** 120, float("nan"))):
+        leaves[leaf][at] = v
+    for wire in (torch.bfloat16, torch.float32):
+        got, _ = t_pack.launch(leaves, offsets, sizes, pool_size, 0, wire)
+        want, _ = t_pack.plain(leaves, offsets, sizes, pool_size, 0, wire)
+        torch.cuda.synchronize()
+        _same_class(got, want)
+        norms = t_cl.launch(got, chunk)
+        want_n = t_cl.plain(got, chunk)
+        torch.cuda.synchronize()
+        for cls in (torch.isnan, torch.isinf):
+            assert torch.equal(cls(norms), cls(want_n)), (wire, cls)
+        fin = torch.isfinite(want_n)
+        assert fin.sum() < fin.numel()
+        torch.testing.assert_close(norms[fin], want_n[fin], rtol=1e-6,
+                                   atol=0)
+    xs = [x.to(dev) for x in ring_case(2, 70_001, torch.bfloat16, 9)]
+    xs[0][123] = float("nan")
+    xs[0][60_000] = 2.0 ** 120
+    xs[1][5_000] = float("inf")
+    ws = t_ring.RingWorkspace.in_process(2, dev)
+    p = t_ring.plan(70_001, 2, torch.bfloat16, sms=t_ring._sms(dev))
+    got = t_ring.launch_ranks(xs, ws, torch.bfloat16)
+    want = t_ring.plain(xs, torch.bfloat16, p["seg_elems"])
+    torch.cuda.synchronize()
+    for r in range(2):
+        _same_class(got[r], want[r])
+        assert torch.isnan(got[r][123].float()) and \
+            torch.isinf(got[r][5_000].float())
+        assert torch.equal(got[r].view(torch.int16), got[0].view(torch.int16))

@@ -167,13 +167,21 @@ def test_analytics_match_jax(full, mode, wire, theta):
 
 
 def test_unported_settings_raise():
+    """The low-bit wires (guarded or not), the cross-step lane and
+    gradient accumulation still raise, naming ROADMAP.md; the guard is
+    ported (tests/test_torch_guard.py)."""
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
+    guard = t_base.GuardConfig()
     for gf in (dict(wire_format="int8"),
-               dict(pipeline_tail_buckets=1), dict(guard=object())):
+               dict(wire_format="int8", guard=guard),
+               dict(pipeline_tail_buckets=1),
+               dict(pipeline_tail_buckets=1, guard=guard)):
         cfg = base.replace(gradientflow=dataclasses.replace(
             base.gradientflow, **gf))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, device="cpu").build_train_step()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(base.replace(microbatches=2), device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
         get_arch("qwen3-32b")
 
