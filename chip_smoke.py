@@ -58,6 +58,12 @@
    the JAX package): one step's LARS trust ratios over the lazy spans and
    over CSC's masked spans (equal to the whole-pool ratios), and one AdamW
    update sweep over CSC's 7 spans, each timed beside its bytes bound.
+   Then the ring on the low-bit wires' words (the ``quantized_ring``
+   line): N = 2, 4, 8 ranks, each quantizing a θ bucket of its own
+   gradients with the scales of the summed census; int8 equal to the flat
+   integer sum bit for bit, fp8-e4m3 within the JAX package's gate (448 x
+   the largest scale x 2^-4) of the f32 sum of the same words, with no
+   NaN code (0x7F, 0xFF) in any word.
 3. Train: smollm-135m at full width and depth (batch 16, sequence 1024,
    bf16 wire, kernels on) inside a world-size-1 NCCL group, through the
    CLI's loop (``repro_torch.launch.train``) on the synthetic stream,
@@ -110,6 +116,32 @@
        6 lazy steps on one repeated batch give the same losses and final
        parameters bit for bit (or, if the two unguarded runs differ,
        stay within their spread).
+   The low-bit wires (``--wire-format``; lazy runs chunk the pool at
+   32,768 as CSC does, so it has 7 buckets, the last padding only):
+   (l) int8, lazy, staged, 6 + 6 steps: the pack takes the chunk census
+       (``pool_pack``'s census path), 2 packs and 7 updates a step, 8
+       all-reduces a step (7 buckets and the census sum), 134,561,832
+       wire bytes a step against (a)'s 269,030,016 (analytic); on one
+       step, on the device, dequant(q) + residual_new equals g +
+       residual_old to f32 rounding;
+   (m) int8, CSC, staged, 8 + 8 steps: the dense warm-up on the native
+       wire, then k = 616 on int8 (20,201,512 wire bytes a step, the
+       census included); on a steady step the residual moves at exactly
+       the selected chunks;
+   (n) fp8-e4m3, lazy, staged then monolithic, 6 + 6 steps each from one
+       seed: the repeated batch's losses and final parameters the same
+       bits, every parameter and the residual finite;
+   (o) guarded int8 (``GuardConfig()``), lazy with (g)'s faults and CSC
+       with (h)'s: exactly the faulted steps trip, each skip bit-identical
+       on the device, the residual included, and the dispatch and
+       all-reduce counts equal the step plans';
+   (p) in (c)'s two processes over the ring: int8, lazy (3 + 3 steps) and
+       CSC (5 steps); every lazy ring launch and every sparse CSC one
+       carries int8 words (the dense warm-up bf16), the two ranks keep
+       the same parameters.
+   Each low-bit run's steady step time and peak memory go beside its bf16
+   twin's of this call. Every run in the NCCL group also counts its
+   ``dist.all_reduce`` calls against the step plans'.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -117,8 +149,9 @@
    its first.
 
 Prints one JSON line per kernel, one for the NaN words, one for the
-optimizer ops, one per train run, the card's nvidia-smi line, the kernel
-summary line, then ``{"ok": true, "device": {...}}`` as the last line.
+optimizer ops, one for the quantized ring, one per train run, the card's
+nvidia-smi line, the kernel summary line, then ``{"ok": true, "device":
+{...}}`` as the last line.
 Any failed check ends the run with a non-zero exit before that line.
 Exits non-zero without a result when no CUDA device is visible.
 
@@ -999,9 +1032,42 @@ def expected_counts(trainer, steps):
             if gf.cfg.overlap == "monolithic" \
             else sum(len(p.update_spans) for p in plans)
     if gf.cfg.csc_enabled:
-        want["chunk_l1norm.kernel"] = steps
-        want["csc_compact.kernel"] = sum(not p.warmup for p in plans)
+        sparse = sum(not p.warmup for p in plans)
+        # A low-bit sparse step also takes the wire buffer's send census.
+        want["chunk_l1norm.kernel"] = steps + (
+            sparse if gf.wire_spec is not None else 0)
+        want["csc_compact.kernel"] = sparse
     return want
+
+
+def expected_collectives(trainer, steps):
+    """The all-reduces ``steps`` steps issue, from the step plans
+    (``GradientFlow.num_collectives``: the buckets, CSC's norm census,
+    the low-bit dense and lazy census sum); in a world-size-1 group every
+    one is a ``dist.all_reduce`` and the metrics take none."""
+    gf = trainer.gf
+    return sum(gf.num_collectives(gf.stage_for_step(s))
+               for s in range(steps))
+
+
+class CountAllReduce:
+    """Counts ``torch.distributed.all_reduce`` calls while entered."""
+
+    def __init__(self, dist):
+        self.dist, self.calls = dist, 0
+
+    def __enter__(self):
+        self.original = self.dist.all_reduce
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.original(*args, **kwargs)
+
+        self.dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.original
 
 
 def count_ratio_launches(kunpack):
@@ -1046,7 +1112,7 @@ def stream_steps(torch, trainer, cfg, seed, steps):
 
 
 def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
-              overlap="staged", keep_params=False):
+              overlap="staged", keep_params=False, watch=None):
     """(a) ``steps`` steps on the synthetic stream, timed: the CLI's loop,
     or with ``overlap='monolithic'`` the same loop on a Trainer built with
     it; and (b) ``steps`` steps of such a Trainer on ONE batch, each step
@@ -1054,7 +1120,9 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
     steps at the CLI's learning rate move the loss less than the
     batch-to-batch spread, so (a) cannot show learning; a repeated batch
     can. ``keep_params``: also return (b)'s final parameters as one flat
-    tensor."""
+    tensor on the host. ``watch`` maps a step of (b) to ``fn(trainer,
+    state)``, called just before it, which returns ``after(state)``,
+    called just after it, which returns findings for the run's line."""
     import dataclasses
     from repro_torch.launch.trainer import Trainer
 
@@ -1092,17 +1160,35 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
                                   seed=args.seed).batch(0, BATCH, SEQ)
     fns = {}
     ops.reset_counts()
-    fixed = []
-    for s in range(steps):
-        stage = trainer.gf.stage_for_step(s)
-        if stage.index not in fns:
-            fns[stage.index] = trainer.build_train_step(stage)
-        state, metrics = fns[stage.index](state, batch)
-        fixed.append(float(metrics["loss"]))
+    fixed, findings = [], {}
+    import torch.distributed as dist
+    with CountAllReduce(dist) as collectives:
+        for s in range(steps):
+            stage = trainer.gf.stage_for_step(s)
+            if stage.index not in fns:
+                fns[stage.index] = trainer.build_train_step(stage)
+            after = watch[s](trainer, state) if s in (watch or {}) else None
+            state, metrics = fns[stage.index](state, batch)
+            fixed.append(float(metrics["loss"]))
+            if after is not None:
+                findings.update(after(state))
     fixed_counts = dict(ops.dispatch_counts)
+    want_collectives = expected_collectives(trainer, steps)
+    check(collectives.calls == want_collectives, f"{label}: "
+          f"{collectives.calls} all-reduces, expected {want_collectives}")
+    # On the host, so no later run's peak memory holds it.
     final = torch.cat([p.reshape(-1) for p in
-                       trainer.pool.flat_leaves(state.params)]) \
+                       trainer.pool.flat_leaves(state.params)]).cpu() \
         if keep_params else None
+    check(all(bool(torch.isfinite(p).all())
+              for p in trainer.pool.flat_leaves(state.params)),
+          f"{label}: non-finite parameters")
+    residual_abs_max = None
+    if trainer.gf.wire_spec is not None:
+        residual_abs_max = state.gf.residual.abs().max().item()
+        check(math.isfinite(residual_abs_max) and residual_abs_max > 0,
+              f"{label}: residual |max| {residual_abs_max}")
+    wire_bytes = [trainer.gf.wire_bytes_per_step(st) for st in stages]
     del state, fns, trainer
     torch.cuda.empty_cache()
     print(f"{label}, one batch, repeated: losses {fixed}", flush=True)
@@ -1117,8 +1203,149 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
                stage=[s.index for s in stages],
                num_selected=[s.num_selected for s in stages],
                peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+               collectives=collectives.calls, wire_bytes_per_step=wire_bytes,
+               wire_format=args.wire_format,
+               residual_abs_max=residual_abs_max, **findings,
                optimizer=args.optimizer, lr=args.lr, overlap=overlap)
     return (run, final) if keep_params else run
+
+
+# -- the low-bit wires -------------------------------------------------------
+
+# Analytic wire bytes a step (GradientFlow.wire_bytes_per_step): lazy on
+# int8 (the padded pool's 1-byte words and the f32 census) against bf16,
+# and CSC's steady k = 616 on int8 (its norm census carries the scales).
+WIRE_LAZY_BYTES = {"int8": 134_561_832, "native": 269_030_016}
+WIRE_CSC_K616_BYTES = 20_201_512
+
+
+def watch_error_feedback(torch, wire):
+    """(l)'s error-feedback identity on one step, on the device: the packed
+    pool ``g`` and the residual before the step, and the words and scales
+    of its quantize, are kept; then ``dequant(q) + residual_new`` must
+    equal ``g + residual_old`` to f32 rounding: |difference| <= 2^-23 (|g
+    + residual_old| + |residual_new|) at every element."""
+
+    def before(trainer, state):
+        kept = {"r_old": state.gf.residual.clone()}
+        pack_into, quantize = trainer.pool.pack_into, wire.quantize_pool
+
+        def keep_pack(*args, **kwargs):
+            out = pack_into(*args, **kwargs)
+            kept["g"] = out[0].clone()
+            return out
+
+        def keep_quantize(g, scales, **kwargs):
+            q, err = quantize(g, scales, **kwargs)
+            kept["q"], kept["scales"] = q.clone(), scales.clone()
+            return q, err
+
+        trainer.pool.pack_into, wire.quantize_pool = keep_pack, keep_quantize
+
+        def after(state):
+            del trainer.pool.pack_into  # the class's method again
+            wire.quantize_pool = quantize
+            send = kept.pop("g").add_(kept.pop("r_old"))
+            r_new = state.gf.residual
+            diff = wire.dequantize_pool(kept.pop("q"), kept["scales"], CHUNK)
+            diff.add_(r_new).sub_(send).abs_()
+            bound = send.abs_().add_(r_new.abs()).mul_(2.0 ** -23)
+            excess = diff.sub(bound).max().item()
+            found = dict(ef_identity_max_abs_diff=diff.max().item(),
+                         ef_identity_r_new_abs_max=r_new.abs().max().item())
+            del send, diff, bound
+            torch.cuda.empty_cache()
+            check(excess <= 0, f"(l) error feedback: dequant(q) + r_new != "
+                  f"g + r_old beyond f32 rounding ({found})")
+            return found
+
+        return after
+
+    return before
+
+
+def watch_residual_at_selection(torch, csc):
+    """(m) on a steady step (k = 616): the chunks whose residual moved are
+    exactly the selected ones (from the chunk norms before the step)."""
+
+    def before(trainer, state):
+        k = trainer.gf.stage_for_step(state.step).num_selected
+        sel, _ = csc.select_chunks(state.gf.chunk_norms, k)
+        r_old = state.gf.residual.clone()
+
+        def after(state):
+            moved = (state.gf.residual != r_old).view(-1, CHUNK).any(1)
+            moved = moved.nonzero()[:, 0]
+            same = torch.equal(moved, sel)
+            check(k == CSC_KS[0] and same, f"(m) the residual moved at "
+                  f"{moved.numel()} chunks, {k} selected, equal: {same}")
+            return dict(residual_moved_chunks=moved.numel(),
+                        residual_moved_only_at_selection=same)
+
+        return after
+
+    return before
+
+
+def quantized_ring_phase(torch, kring, wire, dev, rate):
+    """The ring on the words the low-bit wires give it: N = 2, 4, 8 ranks
+    in this process, each quantizing its own gradients (one θ bucket of
+    normal values, rank r's times r + 1) with the scales of their summed
+    census (``wire.scales_from_census``, ``wire.quantize_pool``). int8:
+    every rank gets the flat integer sum bit for bit (the grid is exact).
+    fp8-e4m3: the dequantized sum within the JAX package's gate (448 x the
+    largest scale x 2^-4) of the dequantized f32 sum of the same words,
+    and no NaN code (0x7F or 0xFF) in any word, sent or summed."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    size = BUCKET_ELEMS
+    out = {}
+    for n in RING_NS:
+        ws = kring.RingWorkspace.in_process(n, dev)
+        streams = [torch.cuda.Stream(dev) for _ in range(n)]
+        gs = [torch.randn(size, generator=gen, device=dev) * (r + 1)
+              for r in range(n)]
+        census = sum(wire.chunk_l1(g, CHUNK) for g in gs)
+        for fmt in ("int8", "fp8_e4m3"):
+            spec = wire.resolve(fmt)
+            sc = wire.scales_from_census(census, chunk_elems=CHUNK,
+                                         num_shards=n, spec=spec)
+            qs = [wire.quantize_pool(g, sc, chunk_elems=CHUNK, spec=spec,
+                                     num_shards=n)[0] for g in gs]
+            exact = torch.stack([q.float() for q in qs]).sum(0)
+            got = kring.launch_ranks(qs, ws, streams=streams)
+            torch.cuda.synchronize()
+            check(all(bits_equal(torch, g, got[0]) for g in got),
+                  f"quantized ring N={n} {fmt}: ranks differ")
+            nan_codes = 0
+            if fmt == "int8":
+                err = (got[0].float() - exact).abs().max().item()
+                check(exact.abs().max().item() <= 127 and torch.equal(
+                    got[0].to(torch.int32), exact.to(torch.int32)),
+                    f"quantized ring N={n} int8 != the flat sum (max abs "
+                    f"diff {err})")
+                gate = 0.0
+            else:
+                nan_codes = sum(int(((x.view(torch.uint8) & 0x7F) == 0x7F)
+                                    .sum()) for x in qs + got)
+                err = (wire.dequantize_pool(got[0], sc, CHUNK)
+                       - wire.dequantize_pool(exact, sc, CHUNK)
+                       ).abs().max().item()
+                gate = 448.0 * sc.max().item() * 2.0 ** -4
+                check(nan_codes == 0 and err <= gate,
+                      f"quantized ring N={n} fp8: {nan_codes} NaN codes, "
+                      f"max abs err {err} against the gate {gate}")
+            nbytes = n * kring.bound_bytes(size, n, spec.dtype, spec.dtype)
+            b_ms, b_by = bound_ms(nbytes, n * (n - 1) * -(-size // n), rate)
+            out[f"N={n} {fmt}"] = dict(
+                ms=time_ms(torch, lambda: kring.launch_ranks(
+                    qs, ws, outs=got, streams=streams)),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, gate=gate,
+                nan_codes=nan_codes, rank_clip=wire.rank_clip(spec, n),
+                elems=size)
+            del qs, exact, got
+        del ws, gs, census
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- the numeric guard -------------------------------------------------------
@@ -1174,7 +1401,8 @@ def probing_hook(torch, events, probe):
 
 def state_tensors(trainer, state):
     """Clones of the parameters (one flat tensor), the optimizer state and
-    the GradientFlow state (CSC's hg and chunk norms)."""
+    the GradientFlow state (CSC's hg and chunk norms, the low-bit wires'
+    residual)."""
     import torch
     flat = torch.cat([p.reshape(-1) for p in
                       trainer.pool.flat_leaves(state.params)])
@@ -1213,6 +1441,7 @@ def guarded_run(torch, ops, train_mod, label, argv, steps, faults,
         {}, [], [], [], [], [], []
     ops.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    collectives = CountAllReduce(torch.distributed)
     for st in range(steps):
         stage = trainer.gf.stage_for_step(st)
         if stage.index not in fns:
@@ -1222,7 +1451,8 @@ def guarded_run(torch, ops, train_mod, label, argv, steps, faults,
         before = state_tensors(trainer, state) if st in at else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = fns[stage.index](state, batch)
+        with collectives:
+            state, metrics = fns[stage.index](state, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1254,6 +1484,9 @@ def guarded_run(torch, ops, train_mod, label, argv, steps, faults,
     want = expected_counts(trainer, steps)
     check(counts == want, f"{label}: dispatch counts {counts}, expected "
           f"{want}")
+    want_collectives = expected_collectives(trainer, steps)
+    check(collectives.calls == want_collectives, f"{label}: "
+          f"{collectives.calls} all-reduces, expected {want_collectives}")
     if any(ev.kind == "bitflip" for ev in events):
         check(probe.get("in_envelope", 0) >= 1
               and probe.get("flipped_to_2^119_or_more", 0) >= 1,
@@ -1268,6 +1501,7 @@ def guarded_run(torch, ops, train_mod, label, argv, steps, faults,
                 bitflip_probe=probe, stage=[x.index for x in stages],
                 num_selected=[x.num_selected for x in stages],
                 peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+                collectives=collectives.calls, wire_format=args.wire_format,
                 optimizer=args.optimizer, lr=args.lr, overlap=overlap,
                 first_step_ms=step_ms[0],
                 steady_step_ms=statistics.median(clean),
@@ -1348,11 +1582,12 @@ def neutrality_run(torch, ops, train_mod, synthetic, argv, steps):
                                                           peak_b])
 
 
-def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
+def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
+                wire):
     """The full-width step in one world-size-1 NCCL group, each run with
     its own dispatch counts: (a) lazy and (b) CSC with momentum SGD;
     (d) LARS, CSC, staged; (e) LARS, lazy, staged then monolithic; (f)
-    AdamW, CSC, staged."""
+    AdamW, CSC, staged; the guard, (g)-(j); the low-bit wires, (l)-(o)."""
     common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
               str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len",
               str(SEQ), "--log-every", "1"]
@@ -1361,6 +1596,11 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
                          "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
                          str(CSC_WARMUP), "--steps", str(CSC_STEPS)]
     lars = ["--optimizer", "lars", "--lr", str(LARS_LR)]
+    # The low-bit wires' lazy runs chunk the pool as CSC does.
+    int8 = ["--wire-format", "int8"]
+    int8_lazy_args = lazy_args + ["--chunk-elems", str(CHUNK)] + int8
+    fp8_lazy_args = lazy_args + ["--chunk-elems", str(CHUNK),
+                                 "--wire-format", "fp8_e4m3"]
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0)
     runs = {}
@@ -1399,6 +1639,27 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
             overlap="monolithic")
         runs["neutral_lazy"] = neutrality_run(
             torch, ops, train_mod, synthetic, lazy_args, LAZY_STEPS)
+        runs["int8_lazy"] = train_run(
+            torch, ops, train_mod, synthetic, "(l) int8, lazy, staged",
+            int8_lazy_args, LAZY_STEPS,
+            watch={1: watch_error_feedback(torch, wire)})
+        runs["int8_csc"] = train_run(
+            torch, ops, train_mod, synthetic, "(m) int8, csc, staged",
+            csc_args + int8, CSC_STEPS,
+            watch={CSC_STEPS - 1: watch_residual_at_selection(torch, csc)})
+        fp8 = {}
+        for overlap in ("staged", "monolithic"):
+            fp8[overlap] = train_run(
+                torch, ops, train_mod, synthetic,
+                f"(n) fp8-e4m3, lazy, {overlap}", fp8_lazy_args, LAZY_STEPS,
+                overlap=overlap, keep_params=True)
+        runs["guarded_int8_lazy"] = guarded_run(
+            torch, ops, train_mod, "(o) guarded int8, lazy, staged",
+            int8_lazy_args, GUARD_LAZY_STEPS, GUARD_LAZY_FAULTS)
+        runs["guarded_int8_csc"] = guarded_run(
+            torch, ops, train_mod, "(o) guarded int8, csc, staged",
+            csc_args + int8, CSC_STEPS, GUARD_CSC_FAULTS,
+            steady_from=CSC_WARMUP)
     finally:
         dist.destroy_process_group()
     for label in ("csc", "lars_csc"):
@@ -1412,10 +1673,44 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
     check(tally == {"with_ratios": 2 * CSC_COUNTS[
         "pool_unpack_update.kernel"], "without_ratios": 0},
           f"lars_csc: update launches {tally}: each must carry ratios")
-    for label in ("csc", "lars_csc", "adamw_csc"):
+    for label in ("csc", "lars_csc", "adamw_csc", "int8_csc",
+                  "guarded_int8_csc"):
         check(runs[label]["num_selected"] == [4106, 3233, 2361, 1488]
               + [616] * 4, f"{label}: stages select "
               f"{runs[label]['num_selected']}")
+    # (l): the padded pool's 7 buckets (the last padding only, as CSC's
+    # warm-up has) and the census sum: 8 all-reduces a step, 7 updates.
+    got = runs["int8_lazy"]
+    check(got["dispatch_counts"] == {
+        "pool_pack.kernel": 2 * LAZY_STEPS,
+        "pool_unpack_update.kernel": 7 * LAZY_STEPS}
+          and got["collectives"] == 8 * LAZY_STEPS,
+          f"(l): counts {got['dispatch_counts']}, all-reduces "
+          f"{got['collectives']}")
+    check(got["wire_bytes_per_step"] == [WIRE_LAZY_BYTES["int8"]]
+          * LAZY_STEPS and runs["lazy"]["wire_bytes_per_step"]
+          == [WIRE_LAZY_BYTES["native"]] * LAZY_STEPS,
+          f"(l) wire bytes {got['wire_bytes_per_step']} against (a)'s "
+          f"{runs['lazy']['wire_bytes_per_step']}")
+    # (m): the native warm-up, then k = 616 on int8 with its census.
+    got = runs["int8_csc"]
+    check(got["wire_bytes_per_step"][-1] == WIRE_CSC_K616_BYTES
+          and got["wire_bytes_per_step"][0]
+          == runs["csc"]["wire_bytes_per_step"][0],
+          f"(m) wire bytes {got['wire_bytes_per_step']}")
+    # (n): staged and monolithic from one seed on one batch, bit for bit.
+    (staged8, p8s), (mono8, p8m) = fp8["staged"], fp8["monolithic"]
+    same = staged8["repeated_batch_losses"] == mono8[
+        "repeated_batch_losses"] and bits_equal(torch, p8s, p8m)
+    fp8_diff = (p8s - p8m).abs().max().item()
+    check(same, f"(n) fp8 lazy: staged != monolithic (losses "
+          f"{staged8['repeated_batch_losses']} vs "
+          f"{mono8['repeated_batch_losses']}, largest parameter difference "
+          f"{fp8_diff})")
+    del p8s, p8m
+    torch.cuda.empty_cache()
+    mono8["bitwise_equal_to_staged"] = same
+    runs["fp8_lazy"], runs["fp8_lazy_monolithic"] = staged8, mono8
     # (e): staged and monolithic from one seed on one batch.
     (staged, p_staged), (mono, p_mono) = (lars_lazy["staged"],
                                           lars_lazy["monolithic"])
@@ -1429,11 +1724,10 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
     torch.cuda.empty_cache()
     mono["max_param_diff_vs_staged"] = max_param_diff
     runs["lars_lazy"], runs["lars_lazy_monolithic"] = staged, mono
-    steady_from = {"lazy": 1, "lars_lazy": 1, "lars_lazy_monolithic": 1}
     for label, run in runs.items():
         if "steady_step_ms" in run or "step_ms" not in run:
             continue  # the guarded runs count their clean steps only
-        steady = run["step_ms"][steady_from.get(label, CSC_WARMUP):]
+        steady = run["step_ms"][CSC_WARMUP if "csc" in label else 1:]
         run["first_step_ms"] = run["step_ms"][0]
         run["steady_step_ms"] = statistics.median(steady)
         run["tokens_per_s"] = BATCH * SEQ / (run["steady_step_ms"] / 1e3)
@@ -1441,12 +1735,23 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack):
         g, u = runs[guarded]["steady_step_ms"], runs[plain]["steady_step_ms"]
         runs[guarded].update(unguarded=plain, unguarded_steady_step_ms=u,
                              steady_delta_pct=100.0 * (g - u) / u)
+    for low, native in WIRE_PAIRS.items():
+        w, u = runs[low]["steady_step_ms"], runs[native]["steady_step_ms"]
+        runs[low].update(native_twin=native, native_steady_step_ms=u,
+                         steady_delta_pct=100.0 * (w - u) / u,
+                         native_peak_mem_gib=runs[native]["peak_mem_gib"])
     return runs
 
 
 # Each guarded run and the unguarded run of this call it is timed against.
 GUARD_PAIRS = {"guarded_lazy": "lazy", "guarded_csc": "csc",
-               "guarded_lars_lazy_monolithic": "lars_lazy_monolithic"}
+               "guarded_lars_lazy_monolithic": "lars_lazy_monolithic",
+               "guarded_int8_lazy": "int8_lazy",
+               "guarded_int8_csc": "int8_csc"}
+# Each low-bit run and its bf16 twin of this call (one rank: no wire
+# saved, the quantize, dequantize and residual passes added).
+WIRE_PAIRS = {"int8_lazy": "lazy", "int8_csc": "csc", "fp8_lazy": "lazy",
+              "fp8_lazy_monolithic": "lazy"}
 
 
 RING_STEPS = 3  # on the stream, then as many on one repeated batch
@@ -1521,6 +1826,7 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
             del flat
         counts = dict(ops.dispatch_counts)
         peak = torch.cuda.max_memory_allocated()
+        residual_finite = bool(torch.isfinite(state.gf.residual).all())
         both = [None, None]
         dist.all_gather_object(both, digests)
         plans = [trainer.gf.plan(st) for st in stages]
@@ -1532,6 +1838,7 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                     num_selected=[st.num_selected for st in stages],
                     peak_mem_gib=peak / 2 ** 30,
                     same_params_every_step=both[0] == both[1],
+                    residual_finite=residual_finite,
                     digests=digests, tripped=tripped,
                     skipped=int(state.guard.skipped) if tripped else None)
 
@@ -1598,12 +1905,44 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
         del trainer
         torch.cuda.empty_cache()
 
-        args, cfg, trainer = ring_trainer(
-            ["--gf-mode", "csc", "--chunk-elems", str(CHUNK), "--sparsity",
-             str(CSC_SPARSITY), "--csc-warmup", str(CSC_WARMUP)])
+        csc_flags = ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
+                     "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
+                     str(CSC_WARMUP)]
+        args, cfg, trainer = ring_trainer(csc_flags)
         result["csc"] = drive(trainer, args, cfg, RING_CSC_STEPS,
                               lambda s: s)
         del trainer
+        torch.cuda.empty_cache()
+
+        # (p) the int8 wire over the ring, lazy then CSC: the dtype of the
+        # words of every ring launch is recorded.
+        words = {}
+        launch = kring.launch
+
+        def recorded(x, *a, **k):
+            key = str(x.dtype).split(".")[-1]
+            words[key] = words.get(key, 0) + 1
+            return launch(x, *a, **k)
+
+        kring.launch = recorded
+        try:
+            int8 = ["--wire-format", "int8"]
+            args, cfg, trainer = ring_trainer(
+                ["--gf-mode", "lazy", "--chunk-elems", str(CHUNK)] + int8)
+            words.clear()
+            result["int8_lazy"] = drive(trainer, args, cfg, 2 * RING_STEPS,
+                                        lambda s: min(s, RING_STEPS))
+            result["int8_lazy"]["ring_words"] = dict(words)
+            del trainer
+            torch.cuda.empty_cache()
+            args, cfg, trainer = ring_trainer(csc_flags + int8)
+            words.clear()
+            result["int8_csc"] = drive(trainer, args, cfg, RING_CSC_STEPS,
+                                       lambda s: s)
+            result["int8_csc"]["ring_words"] = dict(words)
+            del trainer
+        finally:
+            kring.launch = launch
         kring.release_workspaces()
     finally:
         dist.destroy_process_group()
@@ -1648,9 +1987,11 @@ def ring_train_phase(torch, dev):
         with open(o) as f:
             ranks.append(json.load(f))
     runs = {}
-    for label in ("lazy", "csc"):
+    for label in ("lazy", "csc", "int8_lazy", "int8_csc"):
         for r in ranks:
             got = r[label]
+            check(got["residual_finite"],
+                  f"ring train {label}: non-finite residual")
             check(got["counts"] == got["expected_counts"],
                   f"ring train {label} rank {r['rank']}: dispatch counts "
                   f"{got['counts']}, expected {got['expected_counts']}")
@@ -1661,9 +2002,23 @@ def ring_train_phase(torch, dev):
         check(ranks[0][label]["losses"] == ranks[1][label]["losses"],
               f"ring train {label}: the ranks logged different losses")
         runs[label] = ranks[0][label]
-    rep = runs["lazy"]["losses"][RING_STEPS:]
-    check(rep[-1] < rep[0], f"ring train: loss did not fall on one batch: "
-          f"{rep}")
+    for label in ("lazy", "int8_lazy"):
+        rep = runs[label]["losses"][RING_STEPS:]
+        check(rep[-1] < rep[0], f"ring train {label}: loss did not fall on "
+              f"one batch: {rep}")
+    # (p): every lazy ring launch carries int8 words; CSC's dense warm-up
+    # step stays bf16 (native), its sparse steps' buckets carry int8.
+    key = "ring_allreduce.kernel"
+    for r in ranks:
+        lazy8, csc8 = r["int8_lazy"], r["int8_csc"]
+        want_csc = {"bfloat16": csc8["buckets"][0],
+                    "int8": sum(csc8["buckets"][1:])}
+        check(lazy8["ring_words"] == {"int8": lazy8["counts"][key]},
+              f"(p) rank {r['rank']}: lazy ring words {lazy8['ring_words']}")
+        check(csc8["ring_words"] == want_csc and csc8["counts"][key]
+              == sum(csc8["buckets"]),
+              f"(p) rank {r['rank']}: CSC ring words {csc8['ring_words']}, "
+              f"expected {want_csc}")
     check(ranks[0]["first_step_matches_plain_ring"],
           "ring train: the first step's post-reduce pool != the plain ring "
           "of the two ranks' packed pools")
@@ -1674,7 +2029,6 @@ def ring_train_phase(torch, dev):
     # and launch the ring exactly as often a step as the unguarded run.
     fault_step = RING_GUARD_FAULT[0]
     want_trips = [float(s == fault_step) for s in range(RING_GUARD_STEPS)]
-    key = "ring_allreduce.kernel"
     per_step = ranks[0]["lazy"]["counts"][key] / (2 * RING_STEPS)
     for r in ranks:
         got = r["lazy_guarded"]
@@ -1714,7 +2068,17 @@ def ring_train_phase(torch, dev):
                  step_ms=[r["lazy_guarded"]["step_ms"] for r in ranks],
                  dispatch_counts=ranks[0]["lazy_guarded"]["counts"],
                  unguarded_ring_launches_per_step=per_step,
-                 compute_mode=mode.stdout.strip(), note=note))
+                 compute_mode=mode.stdout.strip(), note=note),
+            *(dict(losses=runs[label]["losses"],
+                   step_ms=[r[label]["step_ms"] for r in ranks],
+                   num_selected=runs[label]["num_selected"],
+                   ring_buckets=runs[label]["buckets"],
+                   ring_words=runs[label]["ring_words"],
+                   dispatch_counts=runs[label]["counts"],
+                   peak_mem_gib=[r[label]["peak_mem_gib"] for r in ranks],
+                   same_params_every_step=True, wire_format="int8",
+                   compute_mode=mode.stdout.strip(), note=note)
+              for label in ("int8_lazy", "int8_csc")))
 
 
 def main() -> None:
@@ -1745,6 +2109,7 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.core import csc
     from repro_torch.core import pool as pool_mod
+    from repro_torch.core import wire
     from repro_torch.data import synthetic
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import chunk_l1norm as kcl
@@ -1811,12 +2176,19 @@ def main() -> None:
     print(json.dumps(dict(optimizer_ops=optimizer_phase(
         torch, pool_mod, csc, optim, lars_mod, base, shapes, dev, rate),
         gpu=name, power_limit=power)), flush=True)
+    print(json.dumps(dict(quantized_ring=quantized_ring_phase(
+        torch, kring, wire, dev, rate), gpu=name, power_limit=power)),
+        flush=True)
 
-    runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack)
-    ring, ring_csc, ring_guarded = ring_train_phase(torch, dev)
+    runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack,
+                       csc, wire)
+    ring, ring_csc, ring_guarded, ring_int8, ring_int8_csc = \
+        ring_train_phase(torch, dev)
     runs["lazy_pallas_ring_2_processes"] = ring
     runs["csc_pallas_ring_2_processes"] = ring_csc
     runs["guarded_lazy_pallas_ring_2_processes"] = ring_guarded
+    runs["int8_lazy_pallas_ring_2_processes"] = ring_int8
+    runs["int8_csc_pallas_ring_2_processes"] = ring_int8_csc
     for label, run in runs.items():
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,

@@ -71,10 +71,11 @@ class GuardConfig:
 class GradientFlowConfig:
     """The communication backend's settings (see the JAX package for the
     meaning of each field). The port runs ``mode`` 'dense', 'lazy' and
-    'csc', ``wire_format='native'``, ``overlap`` 'staged' and
-    'monolithic', every ``collective_algo``, ``auto_bucket`` and the
-    ``guard``; the rest raise ``NotImplementedError`` where they would be
-    used."""
+    'csc', every ``wire_format`` ('native', 'int8', 'fp8_e4m3', with or
+    without ``error_feedback``), ``overlap`` 'staged' and 'monolithic',
+    every ``collective_algo``, ``auto_bucket`` and the ``guard``;
+    ``pipeline_tail_buckets`` raises ``NotImplementedError`` where it
+    would be used."""
 
     mode: str = "lazy"
     bucket_elems: int = 16 * 1024 * 1024

@@ -76,3 +76,26 @@ def scaler_to_numpy(state: Any) -> Any:
     """A ``ScalerState`` of torch tensors -> the same NamedTuple of 0-dim
     numpy arrays."""
     return type(state)(*(x.detach().cpu().numpy() for x in state))
+
+
+def gf_state_from_numpy(state: Any,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> Any:
+    """A ``core.gradientflow.GFState`` (CSC's ``hg`` and chunk norms, the
+    low-bit wires' error-feedback ``residual``; empty where unused) from
+    any object with those fields as f32 array-likes (the JAX package's
+    ``GFState`` of one data shard, or ``gf_state_to_numpy``'s), on
+    ``device`` (CUDA unless given). The JAX Trainer stacks ``hg`` and the
+    residual per data shard: pass one shard's row."""
+    from repro_torch import resolve_device
+    from repro_torch.core.gradientflow import GFState
+    dev = resolve_device(device)
+    return GFState(*(
+        torch.from_numpy(np.array(getattr(state, f), dtype=np.float32))
+        .reshape(-1).to(dev) for f in GFState._fields))
+
+
+def gf_state_to_numpy(state: Any) -> Any:
+    """A ``GFState`` of torch tensors -> the same NamedTuple of numpy
+    arrays."""
+    return type(state)(*(x.detach().cpu().numpy() for x in state))

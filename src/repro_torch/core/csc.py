@@ -17,18 +17,20 @@ full bandwidth.
 * **Warm-up**: ``core.schedule`` — k is static per stage.
 
 ``csc_reduce`` is the monolithic twin of the overlap engine's staged CSC
-path (``core.engine``), kept for the tests. Only the native wire is
-ported: the quantized formats and error feedback raise in
-``GradientFlow``.
+path (``core.engine``): ``GradientFlow.reduce`` runs it for
+``overlap='monolithic'``. On the low-bit wires (``core.wire``) only the
+selected chunks are quantized, with scales from the previous iteration's
+summed norms (no extra collective), and their error feeds the residual.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import GradientFlowConfig
 from repro_torch.core import lazy_allreduce as lazy_mod
+from repro_torch.core import wire as wire_mod
 from repro_torch.kernels import ref
 from repro_torch.parallel.collectives import reduce_pool
 
@@ -93,17 +95,26 @@ def chunk_l1_norms(pool: torch.Tensor, chunk_elems: int) -> torch.Tensor:
     return ref.chunk_l1norm(pool, chunk_elems)
 
 
-def summed_census(pool: torch.Tensor, chunk_elems: int,
-                  use_kernels: bool) -> torch.Tensor:
-    """The per-chunk L1 norms of this rank's post-reduce pool, summed over
-    the data-parallel group (Fig 18): the next iteration's selection
-    basis, the same on every rank. ``use_kernels`` goes through
+def census(pool: torch.Tensor, chunk_elems: int,
+           use_kernels: bool) -> torch.Tensor:
+    """Per-chunk f32 L1 norms; ``use_kernels`` goes through
     ``kernels.ops.chunk_l1norm``."""
     if use_kernels:
         from repro_torch.kernels import ops
-        l1 = ops.chunk_l1norm(pool, chunk_elems)
-    else:
-        l1 = chunk_l1_norms(pool, chunk_elems)
+        return ops.chunk_l1norm(pool, chunk_elems)
+    return chunk_l1_norms(pool, chunk_elems)
+
+
+def summed_census(pool: torch.Tensor, chunk_elems: int,
+                  use_kernels: bool, sent=None) -> torch.Tensor:
+    """The per-chunk L1 norms of this rank's post-reduce pool, summed over
+    the data-parallel group (Fig 18): the next iteration's selection
+    basis, the same on every rank. ``sent`` = (idx, l1, ...): the
+    low-bit wires' pre-quantization census of the selected chunks, which
+    replaces theirs before the sum (see ``csc_reduce``)."""
+    l1 = census(pool, chunk_elems, use_kernels)
+    if sent is not None:
+        l1[sent[0]] = sent[1]
     return reduce_pool(l1)
 
 
@@ -111,38 +122,85 @@ class CSCReduceResult(NamedTuple):
     grads: torch.Tensor      # mean at the selected chunks, zero elsewhere
     elem_mask: torch.Tensor  # bool[pool]: where the update applies
     state: CSCState          # hg differs per rank by design
+    residual: Optional[torch.Tensor] = None  # low-bit wires' feedback
+
+
+def quantize_selection(wire: torch.Tensor, chunk_norms: torch.Tensor,
+                       idx: torch.Tensor, chunk_elems: int, spec,
+                       num_data_shards: int, use_kernels: bool):
+    """The low-bit wires' front half on the compacted buffer ``wire``:
+    scales from the previous summed norms at the selected chunks, the
+    pre-quantization send census (taken before the clip and the cast can
+    eat a NaN or cap a magnitude), the quantize. Returns (q, err, scales,
+    send census)."""
+    scales = wire_mod.scales_from_census(
+        chunk_norms[idx], chunk_elems=chunk_elems,
+        num_shards=num_data_shards, spec=spec)
+    send_l1 = census(wire, chunk_elems, use_kernels)
+    q, err = wire_mod.quantize_pool(wire, scales, chunk_elems=chunk_elems,
+                                    spec=spec, num_shards=num_data_shards)
+    return q, err, scales, send_l1
 
 
 def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
                cfg: GradientFlowConfig, *, num_selected: int,
                bucket_boundaries: Sequence[Tuple[int, int]],
-               num_data_shards: int, algo=None) -> CSCReduceResult:
-    """One CSC reduction (Fig 17 + Algorithm 1's preprocess step) over the
-    native wire: re-inject hg, select from the previous norms, all-reduce
-    the compacted selection in θ buckets over the wire buffer, then the new
-    hg and the summed census of the post-reduce pool."""
+               num_data_shards: int, algo=None,
+               residual: Optional[torch.Tensor] = None) -> CSCReduceResult:
+    """One CSC reduction (Fig 17 + Algorithm 1's preprocess step):
+    re-inject hg, select from the previous norms, all-reduce the
+    compacted selection in θ buckets over the wire buffer, then the new
+    hg and the summed census of the post-reduce pool.
+
+    On a low-bit wire (``cfg.wire_format``) the selected chunks carry
+    ``residual`` too (error feedback; None: none), are quantized with
+    scales from ``state.chunk_norms`` at the selected chunks, reduced in
+    the scaled domain and dequantized; the new residual (a new tensor)
+    takes this step's error at the selected chunks and keeps the rest.
+    The selected chunks' census is their pre-quantization send census:
+    it carries a NaN or a saturating jump the int8 clip would hide (the
+    guard's health channel), it bounds each rank's magnitude as the next
+    scales need, and it ranks the chunks as the post-reduce census
+    would."""
     chunk = cfg.chunk_elems
+    spec = wire_mod.resolve(cfg.wire_format)
     g = pool_grads.to(torch.float32) + state.hg
     idx, chunk_mask = select_chunks(state.chunk_norms, num_selected)
     elem_mask = element_mask(chunk_mask, chunk)
+    g_send = g if (spec is None or residual is None) else g + residual
     if cfg.use_kernels:
         from repro_torch.kernels import ops
-        wire = ops.csc_compact(g, idx, chunk)
+        wire = ops.csc_compact(g_send, idx, chunk)
     else:
-        wire = compact_chunks(g, idx, chunk)
-    parts = lazy_mod.bucketed_reduce_parts(
-        wire, bucket_boundaries, getattr(torch, cfg.wire_dtype), algo=algo,
-        topo=cfg.topology)
-    reduced = torch.cat(parts) / num_data_shards
+        wire = compact_chunks(g_send, idx, chunk)
+    del g_send
+    residual_new, sent = residual, None
+    if spec is None:
+        parts = lazy_mod.bucketed_reduce_parts(
+            wire, bucket_boundaries, getattr(torch, cfg.wire_dtype),
+            algo=algo, topo=cfg.topology)
+        reduced = torch.cat(parts)
+    else:
+        q, err, scales, send_l1 = quantize_selection(
+            wire, state.chunk_norms, idx, chunk, spec, num_data_shards,
+            cfg.use_kernels)
+        parts = lazy_mod.bucketed_reduce_parts(q, bucket_boundaries, None,
+                                               algo=algo, topo=cfg.topology)
+        reduced = wire_mod.dequantize_pool(torch.cat(parts), scales, chunk)
+        if residual is not None:
+            residual_new = scatter_chunks(residual, idx, err, chunk)
+        sent = (idx, send_l1)
+    reduced = reduced / num_data_shards
     # Post-reduce view: the mean at the selected chunks, the local g
     # elsewhere (it feeds this rank's hg and census).
     g_out = scatter_chunks(g, idx, reduced, chunk)
     # Update-ready view: the mean at the selected chunks, zero elsewhere.
     g_update = scatter_chunks(torch.zeros_like(g), idx, reduced, chunk)
     hg_new = torch.where(elem_mask, 0.0, cfg.momentum * g_out)
-    norms_new = summed_census(g_out, chunk, cfg.use_kernels)
+    norms_new = summed_census(g_out, chunk, cfg.use_kernels, sent)
     return CSCReduceResult(grads=g_update, elem_mask=elem_mask,
-                           state=CSCState(hg=hg_new, chunk_norms=norms_new))
+                           state=CSCState(hg=hg_new, chunk_norms=norms_new),
+                           residual=residual_new)
 
 
 def wire_bucket_boundaries(num_selected: int, chunk_elems: int,

@@ -19,17 +19,25 @@ device from the span's master and masked gradient), AdamW as PyTorch ops
 writing its state in place. ``overlap='monolithic'`` does not come here:
 the Trainer runs ``GradientFlow.reduce`` and one whole-pool update.
 
+On the low-bit wires (``core.wire``) dense and lazy quantize the whole
+pool once (``g + residual`` in place in the f32 staging pool, scales from
+the summed pack census, the new residual written over the old), run the
+same pipeline on the 1-byte words and dequantize each bucket's mean as
+it retires; CSC quantizes the compacted selection with scales from the
+previous norms and dequantizes each wire bucket before its scatter.
+
 ``OverlapEngine.run_guarded`` is the numeric guard's twin of ``run``
 (``core.guard``): the same collectives in the same order, every bucket's
 reduce issued before any update (the verdict needs all of them, so the
 guarded stages give up the reduce_i ∥ update_{i-1} overlap), the health
-verdict from the reduced buckets' words or CSC's summed census, and
-every write of the step behind the device flag ``ok``.
+verdict from the reduced buckets' words, CSC's summed census or, on the
+low-bit wires, the census sum (the clip hides poison from the words),
+and every write of the step behind the device flag ``ok``: the residual
+too.
 
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
-fence. The quantized wires and the cross-step lane are not ported yet
-(ROADMAP.md A.13, A.14).
+fence. The cross-step lane is not ported yet (ROADMAP.md A.14).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 
 from repro_torch.core import csc as csc_mod
 from repro_torch.core import lazy_allreduce as lazy_mod
+from repro_torch.core import wire as wire_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,13 +161,16 @@ class OverlapEngine:
         return self.gf.plan(stage)
 
     def run(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
-            opt_state, gfstate, lr: torch.Tensor):
+            opt_state, gfstate, lr: torch.Tensor, census=None):
         """One pipelined reduce+update phase. ``gpool`` is the local
         gradient pool, already packed: in the wire dtype for dense and
-        lazy, in f32 for CSC (hg is added before the wire cast). The
-        parameters and the optimizer state are updated in place (see
-        ``kernels.pool_unpack``); CSC also works in place on ``gpool`` and
-        on ``gfstate.hg``. Returns (params_tree, opt_state, gfstate)."""
+        lazy, in f32 for CSC (hg is added before the wire cast) and for
+        the low-bit wires (the residual is added before the quantize).
+        ``census`` is the pack's chunk-L1 census of ``gpool`` (low-bit
+        dense and lazy; taken here when None). The parameters and the
+        optimizer state are updated in place (see ``kernels.pool_unpack``);
+        CSC and the low-bit wires also work in place on ``gpool`` and on
+        ``gfstate``'s tensors. Returns (params_tree, opt_state, gfstate)."""
         use_k = self.gf.cfg.use_kernels
         master, _ = self.pool.pack(params_tree, dtype=torch.float32,
                                    use_kernels=use_k)
@@ -167,20 +179,25 @@ class OverlapEngine:
             run = self._run_csc_warmup if plan.warmup else self._run_csc
             outs, gfstate = run(plan, gpool, master, leaves, opt_state,
                                 gfstate, lr)
+        elif self.gf.wire_spec is not None:
+            outs = self._run_quantized_pool(plan, gpool, master, leaves,
+                                            opt_state, gfstate, lr, census)
         else:
             outs = self._run_pool_pipeline(plan, gpool, master, leaves,
                                            opt_state, lr)
         return self._assemble(outs), opt_state, gfstate
 
     def run_guarded(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
-                    opt_state, gfstate, scaler_state, lr: torch.Tensor):
+                    opt_state, gfstate, scaler_state, lr: torch.Tensor,
+                    census=None):
         """``run`` under the numeric guard. ``gpool`` arrives scaled by
         ``scaler_state.scale`` (the loss was): dense and lazy keep the
         scale on the wire and unscale each reduced mean before its update;
-        CSC unscales at entry, so ``hg`` stays scale-free across backoffs.
-        A tripped step writes no parameter, optimizer state, ``hg`` or
-        chunk norm: only the scaler advances. Returns (params_tree,
-        opt_state, gfstate, new scaler state, HealthFlags)."""
+        CSC unscales at entry, so ``hg`` stays scale-free across backoffs;
+        the low-bit residual is stored unscaled. A tripped step writes no
+        parameter, optimizer state, ``hg``, chunk norm or residual: only
+        the scaler advances. Returns (params_tree, opt_state, gfstate, new
+        scaler state, HealthFlags)."""
         from repro_torch.core import guard as guard_mod
         from repro_torch.optim import scaler as scaler_mod
 
@@ -196,6 +213,10 @@ class OverlapEngine:
                 else self._guarded_csc
             outs, flags = run(plan, gpool, master, leaves, opt_state,
                               gfstate, scale, lr, limit)
+        elif self.gf.wire_spec is not None:
+            outs, flags = self._guarded_quantized_pool(
+                plan, gpool, master, leaves, opt_state, gfstate, scale, lr,
+                limit, census)
         else:
             outs, flags = self._guarded_pool(plan, gpool, master, leaves,
                                              opt_state, scale, lr, limit)
@@ -240,6 +261,57 @@ class OverlapEngine:
                 for t in plan.tasks]
         return outs, flags
 
+    # -- the low-bit wires ----------------------------------------------------
+
+    def _dequant(self, scales):
+        """Each bucket's scaled-domain mean back to gradient units, in
+        place, as it retires."""
+        chunk = self.gf.cfg.chunk_elems
+        return lambda mean, task: wire_mod.dequantize_segment(
+            mean, scales, task.start, task.end, chunk)
+
+    def _run_quantized_pool(self, plan, gpool, master, leaves, opt_state,
+                            gfstate, lr, census):
+        """Dense/lazy on a low-bit wire: quantize the whole pool once, the
+        new residual written over the old one (its old value is already
+        in ``gpool``), then the staged loop on the 1-byte words, each
+        bucket's mean dequantized as it retires."""
+        out = gfstate.residual if self.gf.cfg.feedback_enabled else None
+        q, _, scales, _ = self.gf.quantize(gpool, gfstate, census=census,
+                                           out=out)
+        return self._run_pool_pipeline(plan, q, master, leaves, opt_state,
+                                       lr, xform=self._dequant(scales))
+
+    def _guarded_quantized_pool(self, plan, gpool, master, leaves,
+                                opt_state, gfstate, scale, lr, limit,
+                                census):
+        """Guarded twin of ``_run_quantized_pool``. The low-bit words
+        saturate at the grid's clip instead of overflowing, so the reduced
+        payload cannot carry the poison: the census sum is the health
+        channel (a rank's NaN or Inf taints its chunk's L1, and the sum
+        the scales need already makes the verdict global: no extra
+        collective). Every bucket's reduce is issued, then the updates
+        behind ``ok``; the new residual, built in a buffer of its own, is
+        committed with ``commit_where``, so a tripped step keeps the old
+        one bit for bit."""
+        from repro_torch.core import guard as guard_mod
+
+        q, err, scales, census_sum = self.gf.quantize(
+            gpool, gfstate, census=census, loss_scale=scale,
+            out=torch.empty_like(gpool))
+        flags = guard_mod.flags_from_census(census_sum, limit)
+        ok = ~guard_mod.tripped(flags)
+        means = self._issue_all(plan, q)
+        dequant = self._dequant(scales)
+        outs = [self._update_span((t.start, t.end),
+                                  dequant(means[t.index], t).div_(scale),
+                                  master, leaves, opt_state, lr, ok=ok)
+                for t in plan.tasks]
+        if self.gf.cfg.feedback_enabled:
+            guard_mod.commit_where(ok, (err.div_(scale),),
+                                   (gfstate.residual,))
+        return outs, flags
+
     def _guarded_csc(self, plan, g, master, leaves, opt_state, gfstate,
                      scale, lr, limit):
         """Sparse CSC under the guard: ``g = gpool / scale + hg`` in place
@@ -250,7 +322,13 @@ class OverlapEngine:
         masked updates run behind ``ok``; the new ``hg`` (computed last,
         in ``g``, which the next pack overwrites) and the census are
         committed with ``commit_where``, so on a trip the selection basis
-        keeps its pre-step values and no NaN reaches ``select_chunks``."""
+        keeps its pre-step values and no NaN reaches ``select_chunks``.
+
+        On a low-bit wire the limit is per chunk (``guard.per_chunk_limit``
+        against the previous norms, the scales' basis): a chunk whose send
+        census jumps far past it saturates the grid, which the int8 clip
+        never shows as an Inf. The residual's selected chunks take the
+        step's error only on a clean step."""
         from repro_torch.core import guard as guard_mod
 
         cfg = self.gf.cfg
@@ -259,8 +337,12 @@ class OverlapEngine:
         idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
                                                 plan.num_selected)
         elem_mask = csc_mod.element_mask(chunk_mask, chunk)
-        self._csc_exchange(plan, g, idx)
-        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
+        sent = self._csc_exchange(plan, g, idx, gfstate)
+        if sent is not None:
+            limit = guard_mod.per_chunk_limit(gfstate.chunk_norms,
+                                              cfg.guard, limit)
+        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels,
+                                      sent)
         flags = guard_mod.flags_from_census(norms, limit)
         ok = ~guard_mod.tripped(flags)
         outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
@@ -270,6 +352,10 @@ class OverlapEngine:
         hg_new = g.mul_(cfg.momentum).masked_fill_(elem_mask, 0.0)
         guard_mod.commit_where(ok, (hg_new, norms),
                                (gfstate.hg, gfstate.chunk_norms))
+        if sent is not None and cfg.feedback_enabled:
+            rows = gfstate.residual.view(-1, chunk)
+            rows.index_copy_(0, idx, torch.where(
+                ok, sent[2].view(-1, chunk), rows.index_select(0, idx)))
         return outs, flags
 
     def _guarded_csc_warmup(self, plan, g, master, leaves, opt_state,
@@ -295,16 +381,21 @@ class OverlapEngine:
         return outs, flags
 
     def _run_pool_pipeline(self, plan, gpool, master, leaves, opt_state, lr,
-                           wire_dtype=None, mean_out=None) -> List[Any]:
+                           wire_dtype=None, mean_out=None, xform=None
+                           ) -> List[Any]:
         """Issue reduce_i, then launch update_{i-1} while it is in flight;
         wait on each bucket just before its own update. ``wire_dtype``
         casts each bucket before its all-reduce (None: ``gpool`` is
         already in the wire dtype); ``mean_out`` (a pool-sized f32 tensor,
-        may be ``gpool``) receives each bucket's mean."""
+        may be ``gpool``) receives each bucket's mean; ``xform(mean,
+        task)`` maps each mean before its update (the low-bit wires'
+        dequantization)."""
         outs: List[Any] = [None] * len(plan.tasks)
 
         def retire(task, issued):
             mean = issued.wait() / plan.num_data_shards
+            if xform is not None:
+                mean = xform(mean, task)
             if mean_out is not None:
                 mean = mean_out[task.start:task.end].copy_(mean)
             outs[task.index] = self._update_span(
@@ -330,7 +421,8 @@ class OverlapEngine:
 
         ``g`` is the f32 staging pool, which the next step's pack
         overwrites, so it becomes the post-reduce pool in place, and
-        ``gfstate.hg`` is overwritten with the new hg. The update reads
+        ``gfstate.hg`` is overwritten with the new hg (and the residual's
+        selected chunks with this step's error). The update reads
         its gradients from the post-reduce pool too, with the mask: where
         it is false the update keeps the master and the state whatever
         the gradient, and LARS's norms zero the gradient first, so the
@@ -342,31 +434,55 @@ class OverlapEngine:
         idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
                                                 plan.num_selected)
         elem_mask = csc_mod.element_mask(chunk_mask, chunk)
-        self._csc_exchange(plan, g, idx)
+        sent = self._csc_exchange(plan, g, idx, gfstate)
+        if sent is not None and cfg.feedback_enabled:
+            gfstate.residual.view(-1, chunk).index_copy_(
+                0, idx, sent[2].view(-1, chunk))
         hg = torch.mul(g, cfg.momentum, out=gfstate.hg)
         hg.masked_fill_(elem_mask, 0.0)
-        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels)
+        norms = csc_mod.summed_census(g, chunk, cfg.use_kernels,
+                                      sent)
         outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
                                   opt_state, lr, elem_mask[span[0]:span[1]])
                 for span in plan.update_spans]
         return outs, gfstate._replace(hg=hg, chunk_norms=norms)
 
-    def _csc_exchange(self, plan, g, idx) -> None:
+    def _csc_exchange(self, plan, g, idx, gfstate):
         """Gather the selected chunks ``idx`` of ``g`` into the wire buffer,
         all-reduce it in θ buckets with bucket i in flight while bucket
-        i-1's mean is scattered back into ``g``."""
+        i-1's mean is scattered back into ``g``.
+
+        On a low-bit wire the selected chunks of ``g`` first take the
+        residual's (in place: the scatter overwrites them, and hg and the
+        census never read them), the buffer is quantized with scales from
+        ``gfstate.chunk_norms`` at ``idx``, and each bucket is dequantized
+        before its scatter. Returns (idx, the pre-quantization send
+        census, the error of the selected chunks), or None on the native
+        wire."""
         cfg = self.gf.cfg
         chunk = plan.chunk_elems
+        spec = self.gf.wire_spec
+        rows = g.view(-1, chunk)
+        if spec is not None and cfg.feedback_enabled:
+            rows.index_add_(0, idx, gfstate.residual.view(-1, chunk)
+                            .index_select(0, idx))
         if cfg.use_kernels:
             from repro_torch.kernels import ops
             wire = ops.csc_compact(g, idx, chunk)
         else:
             wire = csc_mod.compact_chunks(g, idx, chunk)
-        wire_dtype = getattr(torch, cfg.wire_dtype)
-        rows = g.view(-1, chunk)
+        wire_dtype, dequant, sent = getattr(torch, cfg.wire_dtype), None, None
+        if spec is not None:
+            wire, err, scales, send_l1 = csc_mod.quantize_selection(
+                wire, gfstate.chunk_norms, idx, chunk, spec,
+                plan.num_data_shards, cfg.use_kernels)
+            wire_dtype, dequant = None, self._dequant(scales)
+            sent = (idx, send_l1, err)
 
         def scatter(task, issued):
             mean = issued.wait() / plan.num_data_shards
+            if dequant is not None:
+                mean = dequant(mean, task)
             ids = idx[task.start // chunk:task.end // chunk]
             rows.index_copy_(0, ids, mean.view(-1, chunk))
 
@@ -379,6 +495,7 @@ class OverlapEngine:
                 scatter(*pending)
             pending = (task, issued)
         scatter(*pending)
+        return sent
 
     def _run_csc_warmup(self, plan, g, master, leaves, opt_state, gfstate,
                         lr):

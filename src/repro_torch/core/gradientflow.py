@@ -3,22 +3,22 @@
 Modes (``GradientFlowConfig.mode``):
   'dense' — one all-reduce per tensor (§2.3 baseline)
   'lazy'  — θ-bucketed all-reduces over the contiguous pool (§3.1)
-  'csc'   — lazy + coarse-grained sparse communication (§3.2): the pool
-            must be padded to a chunk multiple
-              (``GradientPool(..., pad_to=chunk_elems)``)
-All modes move gradients in the wire dtype and hand the update an f32
-mean. Each bucket's collective comes from the topology layer
-(``parallel.topology``: flat, two_level, tree, pallas_ring or auto), and
-``auto_bucket`` with a topology tunes θ on the cost model. ``plan``
-compiles the layout for the staged overlap engine (``core.engine``);
-``reduce`` runs it monolithically, every bucket before the update
-(``overlap='monolithic'``). The low-bit wire formats (which give
-``reduce``'s ``census_sum`` and ``loss_scale`` their use) and ``replan``
-are not ported yet (see ROADMAP.md A.13, A.15).
+  'csc'   — lazy + coarse-grained sparse communication (§3.2)
+CSC and the low-bit wire formats need the pool padded to a chunk multiple
+(``GradientPool(..., pad_to=chunk_elems)``). All modes move gradients in
+the wire dtype, or with ``wire_format`` 'int8' / 'fp8_e4m3' as 1-byte
+words with per-chunk scales and error feedback (``core.wire``), and hand
+the update an f32 mean. Each bucket's collective comes from the topology
+layer (``parallel.topology``: flat, two_level, tree, pallas_ring or
+auto), and ``auto_bucket`` with a topology tunes θ on the cost model.
+``plan`` compiles the layout for the staged overlap engine
+(``core.engine``); ``reduce`` runs it monolithically, every bucket before
+the update (``overlap='monolithic'``). ``replan`` is not ported yet (see
+ROADMAP.md A.15).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -26,9 +26,11 @@ from repro_torch.configs.base import GradientFlowConfig
 from repro_torch.core import csc as csc_mod
 from repro_torch.core import lazy_allreduce as lazy_mod
 from repro_torch.core import schedule as schedule_mod
+from repro_torch.core import wire as wire_mod
 from repro_torch.core.pool import GradientPool
 from repro_torch.parallel import cost_model
 from repro_torch.parallel import topology as topo_mod
+from repro_torch.parallel.collectives import reduce_pool
 
 _NOT_PORTED = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 
@@ -36,8 +38,10 @@ _NOT_PORTED = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 class GFState(NamedTuple):
     """GradientFlow's cross-iteration state. CSC carries this rank's
     historical gradients ``hg`` (f32[pool]) and the summed chunk norms
-    (f32[chunks]); every other field, and every field in dense and lazy
-    modes, is an empty tensor (the JAX package's placeholders)."""
+    (f32[chunks]); a low-bit wire with error feedback carries this rank's
+    ``residual`` (f32[pool], stored unscaled: the guard's loss scale is
+    multiplied in on read and divided out on write). Every other field is
+    an empty tensor (the JAX package's placeholders)."""
 
     hg: torch.Tensor
     chunk_norms: torch.Tensor
@@ -54,17 +58,16 @@ class GradientFlow:
         if cfg.mode not in ("dense", "lazy", "csc"):
             raise NotImplementedError(f"GradientFlow mode {cfg.mode!r} "
                                       + _NOT_PORTED)
-        if cfg.quantized:
-            raise NotImplementedError(
-                f"wire_format {cfg.wire_format!r} is not ported to "
-                f"repro_torch yet; see ROADMAP.md A.13")
         self.cfg = cfg
         self.pool = pool
         self.num_data_shards = int(num_data_shards)
-        if cfg.csc_enabled:
+        # Validates wire_format when built (an unknown format raises).
+        self.wire_spec = wire_mod.resolve(cfg.wire_format)
+        if cfg.csc_enabled or self.wire_spec is not None:
             assert pool.size % cfg.chunk_elems == 0, (
                 "GradientPool must be constructed with pad_to=chunk_elems "
-                "(CSC chunking keys off whole chunks)")
+                "(CSC chunking and per-chunk quantization scales both key "
+                "off whole chunks)")
             self.num_chunks = pool.size // cfg.chunk_elems
         else:
             self.num_chunks = 0
@@ -81,12 +84,14 @@ class GradientFlow:
             self._dense_bounds += ((self._dense_bounds[-1][1], pool.size),)
         self.bucket_elems = cfg.bucket_elems
         if cfg.auto_bucket and cfg.topology is not None:
-            # The staged pipeline (the port's only overlap) prices θ
-            # against the per-bucket updates too.
+            # Staged execution prices θ against the overlap engine's full
+            # pipeline (the updates overlap the collectives in flight);
+            # monolithic keeps the communication-only objective.
+            update_bw = cost_model.HBM_BW if cfg.overlap == "staged" \
+                else None
             self.bucket_elems, bounds = topo_mod.auto_bucket_boundaries(
                 pool, cfg.wire_dtype, cfg.topology,
-                collective_algo=cfg.collective_algo,
-                update_bw=cost_model.HBM_BW)
+                collective_algo=cfg.collective_algo, update_bw=update_bw)
             self._lazy_bounds = tuple(bounds)
         else:
             self._lazy_bounds = tuple(
@@ -96,7 +101,10 @@ class GradientFlow:
         self._plan_cache: dict = {}
 
     def _algos_for(self, bounds) -> tuple:
-        elt = torch.empty((), dtype=wire_dtype_of(self.cfg)).element_size()
+        """One algorithm per bucket, selected by the bucket's bytes on the
+        wire (1 a word on the low-bit wires)."""
+        elt = wire_mod.wire_itemsize(self.cfg.wire_format,
+                                     self.cfg.wire_dtype)
         return tuple(topo_mod.resolve_algorithm(self.cfg.collective_algo,
                                                 self.cfg.topology,
                                                 (e - s) * elt)
@@ -112,12 +120,16 @@ class GradientFlow:
 
     def init_state(self, device=None) -> GFState:
         empty = torch.zeros((0,), dtype=torch.float32, device=device)
+        # Pool-shaped when error feedback is live, empty otherwise.
+        residual = torch.zeros(
+            (self.pool.size if self.cfg.feedback_enabled else 0,),
+            dtype=torch.float32, device=device)
         if self.cfg.csc_enabled:
             st = csc_mod.init_state(self.pool.size, self.cfg.chunk_elems,
                                     device)
             return GFState(hg=st.hg, chunk_norms=st.chunk_norms,
-                           residual=empty)
-        return GFState(hg=empty, chunk_norms=empty, residual=empty)
+                           residual=residual)
+        return GFState(hg=empty, chunk_norms=empty, residual=residual)
 
     def stage_for_step(self, step: int) -> schedule_mod.SparsityStage:
         return schedule_mod.stage_at(self.stages, step,
@@ -138,8 +150,9 @@ class GradientFlow:
     # -- the monolithic reduction ---------------------------------------------
 
     def reduce(self, pool_grads: torch.Tensor, state: GFState, *,
-               stage=None, prepacked: bool = False, census_sum=None,
-               loss_scale=None
+               stage=None, prepacked: bool = False,
+               census: Optional[torch.Tensor] = None,
+               census_sum: Optional[torch.Tensor] = None, loss_scale=None
                ) -> Tuple[torch.Tensor, torch.Tensor, GFState]:
         """Reduce the local gradient pool across the data-parallel group,
         every bucket before any update (``overlap='monolithic'``).
@@ -149,15 +162,23 @@ class GradientFlow:
         is zero and the update must not apply (Algorithm 1). With
         ``prepacked`` the dense and lazy buckets are already in the wire
         dtype and go on the wire without a cast (and are summed in place);
-        CSC takes the f32 pool, because hg is added before the selection.
+        CSC and the low-bit wires take the f32 pool, because hg and the
+        residual are added before the wire cast.
 
-        ``census_sum`` (an already summed chunk census) and ``loss_scale``
-        (the guard's scale on ``pool_grads``) are the JAX package's
-        keywords for the quantized wires, where the census sets the wire
-        scales and the scale keeps the error feedback unscaled. On the
-        native wires they change nothing, as in JAX.
+        Low-bit wires, dense and lazy: the f32 ``pool_grads`` is
+        overwritten with ``pool_grads + residual``. ``census`` is this
+        rank's chunk-L1 census of ``pool_grads`` from the pack (taken here
+        when None); it is summed over the group (one f32[chunks]
+        collective) and the per-chunk scales come from the sum.
+        ``census_sum`` hands in a census already summed instead (the
+        guarded monolithic step, whose verdict reads it too: the guarded
+        step then issues the unguarded step's collectives).
+        ``loss_scale`` is the guard's power-of-two scale on ``pool_grads``
+        (None: 1): the residual is stored unscaled, so it is multiplied by
+        the scale on read and the new one divided by it on write. The new
+        residual is a new tensor; the state passed in is not written. On
+        the native wires the three keywords change nothing, as in JAX.
         """
-        del census_sum, loss_scale  # inert on native wires
         cfg = self.cfg
         if cfg.mode == "csc":
             assert not prepacked, (
@@ -165,24 +186,91 @@ class GradientFlow:
             stage = stage or self.stages[-1]
             k = stage.num_selected
             if k >= self.num_chunks:
+                # The dense warm-up keeps native transport on the low-bit
+                # wires too: no census basis yet for their scales.
                 return self._dense_or_lazy_with_norms(pool_grads, state)
             bounds = csc_mod.wire_bucket_boundaries(k, cfg.chunk_elems,
                                                     self.bucket_elems)
+            feedback = cfg.feedback_enabled
             res = csc_mod.csc_reduce(
                 pool_grads, csc_mod.CSCState(hg=state.hg,
                                              chunk_norms=state.chunk_norms),
                 cfg, num_selected=k, bucket_boundaries=bounds,
                 num_data_shards=self.num_data_shards,
-                algo=self._algos_for(bounds))
-            return res.grads, res.elem_mask, state._replace(
-                hg=res.state.hg, chunk_norms=res.state.chunk_norms)
+                algo=self._algos_for(bounds),
+                residual=state.residual if feedback else None)
+            return res.grads, res.elem_mask, GFState(
+                hg=res.state.hg, chunk_norms=res.state.chunk_norms,
+                residual=res.residual if feedback else state.residual)
         dense = cfg.mode == "dense"
+        bounds = self._dense_bounds if dense else self._lazy_bounds
+        algos = self._dense_algos if dense else self._lazy_algos
+        if self.wire_spec is not None:
+            assert not prepacked, (
+                "the low-bit wires consume the f32 pool: pack with "
+                "dtype=float32")
+            return self._quantized_dense_or_lazy(
+                pool_grads, state, bounds, algos, census=census,
+                census_sum=census_sum, loss_scale=loss_scale)
         summed = lazy_mod.bucketed_reduce(
-            pool_grads, self._dense_bounds if dense else self._lazy_bounds,
-            None if prepacked else wire_dtype_of(cfg),
-            algo=self._dense_algos if dense else self._lazy_algos,
-            topo=cfg.topology)
+            pool_grads, bounds, None if prepacked else wire_dtype_of(cfg),
+            algo=algos, topo=cfg.topology)
         mean = summed / self.num_data_shards
+        return mean, torch.ones(mean.shape, dtype=torch.bool,
+                                device=mean.device), state
+
+    def quantized_scales(self, census_sum: torch.Tensor) -> torch.Tensor:
+        """Per-chunk wire scales from a census summed over the group."""
+        return wire_mod.scales_from_census(
+            census_sum, chunk_elems=self.cfg.chunk_elems,
+            num_shards=self.num_data_shards, spec=self.wire_spec)
+
+    def quantize(self, pool_grads: torch.Tensor, state: GFState, *,
+                 census=None, census_sum=None, loss_scale=None, out=None):
+        """The low-bit dense/lazy front half, which ``reduce`` and the
+        staged engine share: the census summed over the group (unless
+        ``census_sum`` is given; ``census`` is the pack's, taken from
+        ``pool_grads`` when None), ``pool_grads + residual`` in place (the
+        residual times ``loss_scale`` when given: it is stored unscaled),
+        then one quantize pass whose error lands in ``out`` (a new buffer
+        when None; it must not be the live residual when a guard may keep
+        it). Returns (words, error, scales, census sum)."""
+        cfg = self.cfg
+        chunk = cfg.chunk_elems
+        if census_sum is None:
+            if census is None:
+                census = wire_mod.chunk_l1(pool_grads, chunk)
+            census_sum = reduce_pool(census)
+        if cfg.feedback_enabled:
+            r = state.residual
+            if loss_scale is not None:
+                r = torch.mul(r, loss_scale, out=out)
+            pool_grads.add_(r)
+        scales = self.quantized_scales(census_sum)
+        q, err = wire_mod.quantize_pool(
+            pool_grads, scales, chunk_elems=chunk, spec=self.wire_spec,
+            num_shards=self.num_data_shards, out=out)
+        return q, err, scales, census_sum
+
+    def _quantized_dense_or_lazy(self, pool_grads: torch.Tensor,
+                                 state: GFState, bounds, algos, *,
+                                 census=None, census_sum=None,
+                                 loss_scale=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            GFState]:
+        """Dense/lazy transport on a low-bit wire: ``quantize``, the
+        1-byte buckets on the wire, the dequantized mean after."""
+        cfg = self.cfg
+        q, err, scales, _ = self.quantize(
+            pool_grads, state, census=census, census_sum=census_sum,
+            loss_scale=loss_scale)
+        summed = lazy_mod.bucketed_reduce(q, bounds, None, algo=algos,
+                                          topo=cfg.topology)
+        mean = summed.view(-1, cfg.chunk_elems).mul_(scales[:, None])
+        mean = mean.view(-1).div_(self.num_data_shards)
+        if cfg.feedback_enabled:
+            residual = err if loss_scale is None else err.div_(loss_scale)
+            state = state._replace(residual=residual)
         return mean, torch.ones(mean.shape, dtype=torch.bool,
                                 device=mean.device), state
 
@@ -210,25 +298,39 @@ class GradientFlow:
 
     def wire_bytes_per_step(self, stage=None) -> int:
         """Bytes entering the all-reduce on each device (model, not
-        measured). A sparse CSC stage sends its k chunks plus the norm
-        census, counted at the wire width as the JAX package counts it."""
-        elt = torch.empty((), dtype=wire_dtype_of(self.cfg)).element_size()
+        measured). The low-bit wires count 1 byte a payload element plus
+        the f32 census: CSC's norm all-reduce carries it already, dense
+        and lazy add their census sum. A native sparse CSC stage counts
+        its norm census at the wire width, as the JAX package does; CSC's
+        warm-up stays on the native wire."""
+        elt = wire_mod.wire_itemsize(self.cfg.wire_format,
+                                     self.cfg.wire_dtype)
+        quantized = self.wire_spec is not None
+        census_bytes = self.num_chunks * 4
         if self.cfg.mode == "csc":
             stage = stage or self.stages[-1]
             if stage.num_selected < self.num_chunks:
-                return (stage.num_selected * self.cfg.chunk_elems * elt
-                        + self.num_chunks * elt)
-            return self.pool.size * elt + self.num_chunks * 4
-        return self.pool.size * elt
+                payload = stage.num_selected * self.cfg.chunk_elems * elt
+                return payload + (census_bytes if quantized
+                                  else self.num_chunks * elt)
+            native = torch.empty((), dtype=wire_dtype_of(self.cfg)
+                                 ).element_size()
+            return self.pool.size * native + census_bytes
+        payload = self.pool.size * elt
+        return payload + census_bytes if quantized else payload
 
     def num_collectives(self, stage=None) -> int:
-        """Collectives a step issues; CSC adds the norm census."""
-        if self.cfg.mode == "dense":
-            return len(self._dense_bounds)
-        if self.cfg.mode == "lazy":
-            return len(self._lazy_bounds)
+        """Collectives a step issues; CSC adds the norm census, the
+        low-bit dense and lazy wires their census sum."""
+        cfg = self.cfg
+        extra = 1 if (self.wire_spec is not None
+                      and cfg.mode in ("dense", "lazy")) else 0
+        if cfg.mode == "dense":
+            return len(self._dense_bounds) + extra
+        if cfg.mode == "lazy":
+            return len(self._lazy_bounds) + extra
         stage = stage or self.stages[-1]
         if stage.num_selected >= self.num_chunks:
             return len(self._lazy_bounds) + 1
         return len(csc_mod.wire_bucket_boundaries(
-            stage.num_selected, self.cfg.chunk_elems, self.bucket_elems)) + 1
+            stage.num_selected, cfg.chunk_elems, self.bucket_elems)) + 1

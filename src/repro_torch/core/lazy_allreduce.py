@@ -12,6 +12,13 @@ The all-reduce runs in place on the pool's slice: the wire pool is dead
 after its reduce (the next step packs it anew), so no copy is made. The
 algorithm of a bucket comes from the topology layer; ``topo`` is the
 topology its groups are drawn from (None: the default group).
+
+A low-bit float wire (fp8-e4m3, ``core.wire``) is upcast to the f32
+accumulator before every algorithm but ``pallas_ring``: a library sum in
+fp8 would round at every add (and gloo has no fp8). The sum of the
+upcast words is the exact sum the ring's per-hop rounding is held
+against. int8 words ride every algorithm as they are: the rank clip
+keeps every partial sum on the grid, so any order sums them exactly.
 """
 from __future__ import annotations
 
@@ -56,6 +63,9 @@ def issue_bucket(pool: torch.Tensor, start: int, end: int,
     seg = pool[start:end]
     if wire_dtype is not None and seg.dtype != wire_dtype:
         seg = seg.to(wire_dtype)
+    if (seg.dtype.is_floating_point and seg.element_size() == 1
+            and getattr(algo, "name", "flat") != "pallas_ring"):
+        seg = seg.to(accum_dtype)
     seg, work = (algo or FLAT).reduce(seg, topo, async_op=True)
     return PendingBucket(seg, work, accum_dtype)
 

@@ -8,9 +8,11 @@ Runs on the first CUDA card unless ``--device cpu``. ``--gf-mode``
 defaults to ``csc``, as in the JAX CLI: each step runs under the CSC
 warm-up stage ``gf.stage_for_step`` picks, with one step function per
 stage, and the log shows the stage and its sparsity. ``--optimizer``
-takes momentum_sgd, lars and adamw. Flags and values the port does not
-support yet — low-bit wires, compiled windows, checkpoints — raise with a
-pointer to ROADMAP.md. Inside an initialised
+takes momentum_sgd, lars and adamw; ``--wire-format`` native (the
+bf16 wire cast), int8 or fp8_e4m3 (1-byte words with
+per-chunk scales and error feedback, ``core.wire``). Flags the port does
+not support yet — compiled windows, checkpoints — raise with a pointer
+to ROADMAP.md. Inside an initialised
 ``torch.distributed`` group each rank trains on its own shard of the
 global batch.
 """
@@ -65,9 +67,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
-    if args.wire_format != "native":
-        raise NotImplementedError(f"--wire-format {args.wire_format} "
-                                  + _ROADMAP)
     if args.window_steps > 1:
         raise NotImplementedError("--window-steps > 1 (the compiled "
                                   "window) " + _ROADMAP)
@@ -82,7 +81,8 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
         mode=args.gf_mode, bucket_elems=args.bucket_elems,
         chunk_elems=args.chunk_elems, sparsity=args.sparsity,
         momentum=args.momentum, warmup_steps=args.csc_warmup,
-        warmup_stages=4, use_kernels=args.use_kernels)
+        warmup_stages=4, wire_format=args.wire_format,
+        use_kernels=args.use_kernels)
     opt = OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, momentum=args.momentum,
         warmup_steps=max(args.steps // 20, 1), total_steps=args.steps,

@@ -7,7 +7,9 @@ One step, as ``repro/launch/trainer.py`` runs it with the flat collective:
 2. ``GradientPool.pack_into`` writes them into the pool, in the staging
    buffer the previous step handed back (``TrainState.staging``): in the
    wire dtype for dense and lazy, in f32 for CSC, whose pool is padded to
-   a chunk multiple;
+   a chunk multiple, and in f32 for the low-bit wires (``wire_format``
+   'int8' or 'fp8_e4m3', pool padded too), whose dense and lazy pack also
+   takes the chunk-L1 census the wire scales come from;
 3. ``overlap='staged'`` (the default): ``OverlapEngine.run`` packs the
    parameters into the f32 master pool, then per bucket: issue the
    all-reduce, update the previous bucket (for CSC: select, gather,
@@ -41,7 +43,9 @@ exactly the unguarded step's collectives, its verdict is a device flag
 (the ``guard_tripped`` metric), and a tripped step leaves parameters,
 optimizer state and CSC's state bit-identical; only the scaler advances.
 ``build_train_step(fault_hook=...)`` corrupts the packed pool before the
-reduce (``runtime.faults``). Gradient accumulation is not ported yet.
+reduce (``runtime.faults``); the hook writes after the pack's census, so
+a low-bit dense or lazy step then takes the census anew from the pool it
+corrupted. Gradient accumulation is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from repro_torch.core.engine import OverlapEngine
 from repro_torch.core.gradientflow import GFState, GradientFlow, wire_dtype_of
 from repro_torch.core.pool import GradientPool
 from repro_torch.core.schedule import SparsityStage
+from repro_torch.core.wire import chunk_l1 as wire_chunk_l1
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
 from repro_torch.optim import lr_at
@@ -93,8 +98,10 @@ class Trainer:
         gf_cfg = dataclasses.replace(gf_cfg, topology=mesh_topology(
             self.num_data, gf_cfg.topology))
         collectives.level_groups(gf_cfg.topology)
-        # CSC chunks the pool: pad it to a chunk multiple.
-        pad = gf_cfg.chunk_elems if gf_cfg.csc_enabled else 1
+        # CSC chunking and the low-bit wires' per-chunk scales both key
+        # off whole chunks: pad the pool to a chunk multiple for either.
+        pad = gf_cfg.chunk_elems \
+            if (gf_cfg.csc_enabled or gf_cfg.quantized) else 1
         self.pool = GradientPool(self.model.param_shapes(), pad_to=pad)
         self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
         self.gf_cfg = gf_cfg
@@ -114,10 +121,18 @@ class Trainer:
     @property
     def _pack_dtype(self) -> torch.dtype:
         """Dense/lazy pack the gradients straight to the wire dtype; CSC
-        packs to f32, because hg is added before the wire cast."""
-        if self.gf_cfg.csc_enabled:
+        packs to f32, because hg is added before the wire cast, and so do
+        the low-bit wires, which quantize after the residual is added."""
+        if self.gf_cfg.csc_enabled or self.gf_cfg.quantized:
             return torch.float32
         return wire_dtype_of(self.gf_cfg)
+
+    @property
+    def _census_chunk(self) -> int:
+        """The pack's census chunk: the low-bit dense and lazy wires take
+        their scales from it (one pass, no extra sweep); 0 otherwise."""
+        return self.gf_cfg.chunk_elems \
+            if self.gf_cfg.quantized and not self.gf_cfg.csc_enabled else 0
 
     def init_state(self, seed: int = 0,
                    params: Optional[Dict[str, Any]] = None) -> TrainState:
@@ -170,12 +185,14 @@ class Trainer:
                 loss = loss * state.guard.scale
             grads = torch.autograd.grad(loss, leaves)
             del cp, tracked, leaves, loss
-            gpool, _, staging = self.pool.pack_into(
+            gpool, census, staging = self.pool.pack_into(
                 state.staging, self.pool.unflatten(list(grads)),
-                dtype=self._pack_dtype, use_kernels=use_k)
+                dtype=self._pack_dtype, norms_chunk=self._census_chunk,
+                use_kernels=use_k)
             del grads
             if fault_hook is not None:
                 gpool = fault_hook(gpool, state.step)
+                census = None  # it describes the pool before the fault
             lr = lr_at(cfg.optimizer, state.step)
             if self.device.type == "cuda":
                 lr = lr.pin_memory().to(self.device, non_blocking=True)
@@ -184,18 +201,20 @@ class Trainer:
                 if guarded and self.gf_cfg.overlap == "staged":
                     params, opt, gf, scaler, flags = self.engine.run_guarded(
                         plan, gpool, state.params, state.opt, state.gf,
-                        state.guard, lr)
+                        state.guard, lr, census=census)
                 elif guarded:
                     params, opt, gf, scaler, flags = \
                         self._monolithic_update_guarded(
                             stage, gpool, state.params, state.opt, state.gf,
-                            state.guard, lr)
+                            state.guard, lr, census)
                 elif self.gf_cfg.overlap == "staged":
                     params, opt, gf = self.engine.run(
-                        plan, gpool, state.params, state.opt, state.gf, lr)
+                        plan, gpool, state.params, state.opt, state.gf, lr,
+                        census=census)
                 else:
                     params, opt, gf = self._monolithic_update(
-                        stage, gpool, state.params, state.opt, state.gf, lr)
+                        stage, gpool, state.params, state.opt, state.gf, lr,
+                        census)
             metrics = {k: v.detach() for k, v in metrics.items()}
             if self.num_data > 1:
                 for v in metrics.values():
@@ -210,16 +229,19 @@ class Trainer:
 
         return step
 
-    def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr):
+    def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr,
+                           census=None):
         """``overlap='monolithic'``: reduce every bucket
-        (``GradientFlow.reduce``), pack the f32 masters, LARS's ratios over
+        (``GradientFlow.reduce``, with the pack's census on the low-bit
+        dense and lazy wires), pack the f32 masters, LARS's ratios over
         the whole pool, then one fused update + unpack of the whole pool
         (one ``pool_unpack_update`` launch with ``use_kernels``), written
         into the parameters and the optimizer state in place."""
         cfg = self.gf_cfg
         use_k = cfg.use_kernels
         reduced, mask, gf2 = self.gf.reduce(
-            gpool, gfstate, stage=stage, prepacked=not cfg.csc_enabled)
+            gpool, gfstate, stage=stage,
+            prepacked=not (cfg.csc_enabled or cfg.quantized), census=census)
         master, _ = self.pool.pack(params, dtype=torch.float32,
                                    use_kernels=use_k)
         scale = ratios = None
@@ -237,24 +259,46 @@ class Trainer:
 
 
     def _monolithic_update_guarded(self, stage, gpool, params, opt, gfstate,
-                                   scaler, lr):
+                                   scaler, lr, census=None):
         """``overlap='monolithic'`` under the guard (the JAX package's
-        ``_inner_update_guarded``, native wires): ``gpool`` arrives scaled.
-        Dense and lazy reduce the scaled wire pool and take the verdict
-        from the reduced pool's health word, then unscale the mean; CSC
+        ``_inner_update_guarded``): ``gpool`` arrives scaled. Native dense
+        and lazy reduce the scaled wire pool and take the verdict from the
+        reduced pool's health word, then unscale the mean. The low-bit
+        dense and lazy wires sum the census first (the pack's, or taken
+        here) and pass the sum into ``reduce`` with the scale, so the
+        step issues the unguarded step's collectives; the verdict reads
+        the census sum (the clip hides poison from the words). CSC
         unscales the f32 pool first and takes the verdict from the summed
-        census ``reduce`` already computes. Then the master pack, LARS's
-        ratios (NaN on a tripped step, which the skipped launch never
-        reads) and one update behind ``ok``; CSC's new ``hg`` and census
-        are committed with ``commit_where``. Returns (params, opt,
-        gfstate, new scaler state, HealthFlags)."""
+        census ``reduce`` already computes, on a low-bit sparse stage
+        against the per-chunk limit. Then the master pack, LARS's ratios
+        (NaN on a tripped step, which the skipped launch never reads) and
+        one update behind ``ok``; the state ``reduce`` returned (CSC's
+        ``hg`` and census, the residual) is committed with
+        ``commit_where``. Returns (params, opt, gfstate, new scaler state,
+        HealthFlags)."""
         cfg = self.gf_cfg
         use_k = cfg.use_kernels
+        quantized = cfg.quantized
         limit = guard_mod.overflow_limit(cfg.guard, cfg.wire_dtype)
+        loss_scale = scaler.scale if quantized else None
         if cfg.csc_enabled:
             reduced, mask, gf2 = self.gf.reduce(gpool.div_(scaler.scale),
-                                                gfstate, stage=stage)
-            flags = guard_mod.flags_from_census(gf2.chunk_norms, limit)
+                                                gfstate, stage=stage,
+                                                loss_scale=loss_scale)
+            limit_c = limit
+            if quantized and stage.num_selected < self.gf.num_chunks:
+                limit_c = guard_mod.per_chunk_limit(gfstate.chunk_norms,
+                                                    cfg.guard, limit)
+            flags = guard_mod.flags_from_census(gf2.chunk_norms, limit_c)
+        elif quantized:
+            if census is None:
+                census = wire_chunk_l1(gpool, cfg.chunk_elems)
+            census_sum = collectives.reduce_pool(census)
+            reduced, mask, gf2 = self.gf.reduce(gpool, gfstate, stage=stage,
+                                                census_sum=census_sum,
+                                                loss_scale=loss_scale)
+            flags = guard_mod.flags_from_census(census_sum, limit)
+            reduced.div_(scaler.scale)
         else:
             reduced, mask, gf2 = self.gf.reduce(gpool, gfstate, stage=stage,
                                                 prepacked=True)
@@ -275,9 +319,15 @@ class Trainer:
             self.cfg.optimizer, lr, scale=scale, ratios=ratios,
             use_kernels=use_k, out_leaves=self.pool.flat_leaves(params),
             ok=ok)
+        new, old = [], []
         if cfg.csc_enabled:
-            guard_mod.commit_where(ok, (gf2.hg, gf2.chunk_norms),
-                                   (gfstate.hg, gfstate.chunk_norms))
+            new += [gf2.hg, gf2.chunk_norms]
+            old += [gfstate.hg, gfstate.chunk_norms]
+        if cfg.feedback_enabled:
+            new.append(gf2.residual)
+            old.append(gfstate.residual)
+        if new:
+            guard_mod.commit_where(ok, new, old)
         return (new_params, opt2, gfstate,
                 scaler_mod.update(scaler, ok, cfg.guard), flags)
 

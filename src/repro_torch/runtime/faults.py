@@ -158,8 +158,10 @@ class GuardLane:
             f"t{i}": torch.from_numpy(
                 rng.uniform(0.25, 1.0, s).astype(np.float32)).to(self.device)
             for i, s in enumerate(self.POOL_SIZES)}
-        self.pool = GradientPool(self.params,
-                                 pad_to=self.CHUNK if mode == "csc" else 1)
+        self.pool = GradientPool(
+            self.params,
+            pad_to=self.CHUNK if (mode == "csc" or self.cfg.quantized)
+            else 1)
         self.gf = GradientFlow(self.cfg, self.pool, num_data_shards=1)
         self.opt_cfg = OptimizerConfig(name="momentum_sgd", momentum=0.9,
                                        weight_decay=0.0)
@@ -183,8 +185,10 @@ class GuardLane:
         events = tuple(events)
         by_step = {ev.step: ev for ev in events}
         plan = self.engine.plan_for()
-        # CSC consumes the f32 pool (hg is added before the wire cast).
-        prepack = torch.float32 if self.cfg.csc_enabled \
+        # CSC and the low-bit wires consume the f32 pool (hg and the
+        # residual are added before the wire cast or the quantize).
+        prepack = torch.float32 \
+            if (self.cfg.csc_enabled or self.cfg.quantized) \
             else getattr(torch, self.cfg.wire_dtype)
         params = {k: v.clone() for k, v in self.params.items()}
         opt = optim.init_state("momentum_sgd", self.pool.size, self.device)

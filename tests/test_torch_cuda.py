@@ -573,3 +573,67 @@ def test_cuda_nonfinite_words_by_class(dev):
         assert torch.isnan(got[r][123].float()) and \
             torch.isinf(got[r][5_000].float())
         assert torch.equal(got[r].view(torch.int16), got[0].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+def test_cuda_wire_matches_cpu(dev, fmt):
+    """The low-bit wire's PyTorch ops on the card against the same
+    functions on the CPU, from the same census: the scales, the words,
+    the error (the residual's new value), the dequantized pool and a
+    bucket's dequantized segment bit for bit (round half to even, IEEE
+    f32 division and products on both)."""
+    from repro_torch.core import wire
+
+    spec = wire.resolve(fmt)
+    chunk, chunks, n = 256, 24, 4
+    rng = np.random.default_rng(5)
+    g = (rng.standard_normal(chunk * chunks) *
+         rng.choice([1e-4, 1e-2, 1.0, 40.0], chunk * chunks)).astype(
+             np.float32)
+    g[:chunk] = 0.0
+    census = torch.from_numpy(np.abs(g).reshape(chunks, chunk)
+                              .sum(1, dtype=np.float32) * n)
+    outs = {}
+    for d in ("cpu", dev):
+        s = wire.scales_from_census(census.to(d), chunk_elems=chunk,
+                                    num_shards=n, spec=spec)
+        q, err = wire.quantize_pool(torch.from_numpy(g).to(d), s,
+                                    chunk_elems=chunk, spec=spec,
+                                    num_shards=n)
+        deq = wire.dequantize_pool(q, s, chunk)
+        seg = wire.dequantize_segment(q[300:3001].to(torch.float32), s,
+                                      300, 3001, chunk)
+        outs[str(d)] = [x.cpu() for x in (s, q, err, deq, seg)]
+    torch.cuda.synchronize()
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    q = outs["cpu"][1].to(torch.float32)
+    assert q.abs().max() == wire.rank_clip(spec, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_ring_sums_quantized_int8_words_exactly(dev, n):
+    """N ranks' int8 words from ``quantize_pool`` (scales from their
+    summed census) through the ring kernel: every rank gets the flat
+    integer sum bit for bit, the grid being exact."""
+    from repro_torch.core import wire
+    from repro_torch.kernels import ring_reduce as t_ring
+
+    spec = wire.resolve("int8")
+    chunk = 1024
+    gs = [_randn(40 + r, 333 * chunk).to(dev) * (r + 1) for r in range(n)]
+    census = sum(wire.chunk_l1(g, chunk) for g in gs)
+    s = wire.scales_from_census(census, chunk_elems=chunk, num_shards=n,
+                                spec=spec)
+    qs = [wire.quantize_pool(g, s, chunk_elems=chunk, spec=spec,
+                             num_shards=n)[0] for g in gs]
+    flat = torch.stack([q.to(torch.int32) for q in qs]).sum(0)
+    assert flat.abs().max() <= 127
+    ws = t_ring.RingWorkspace.in_process(n, dev)
+    got = t_ring.launch_ranks(qs, ws)
+    torch.cuda.synchronize()
+    for r in range(n):
+        assert got[r].dtype == torch.int8
+        assert torch.equal(got[r].to(torch.int32), flat), r

@@ -191,22 +191,26 @@ def test_auto_bucket_boundaries_match_jax(full, topo):
                 assert list(got[1]) == [tuple(b) for b in want[1]]
 
 
+@pytest.mark.parametrize("topo", ["cluster_v", "host_2x4"])
+@pytest.mark.parametrize("overlap", ["staged", "monolithic"])
 @pytest.mark.parametrize("mode", ["lazy", "csc"])
 @pytest.mark.parametrize("algo", ["auto", "pallas_ring", "tree"])
-def test_gradientflow_auto_bucket_matches_jax(mode, algo):
+def test_gradientflow_auto_bucket_matches_jax(mode, algo, overlap, topo):
     """A GradientFlow with auto_bucket and a topology: the same θ, bucket
-    layout, per-bucket algorithms and step plans. (The JAX package also
-    stamps a Pallas collective id on each ring bucket; the port's rings
-    share one workspace per level group and carry no id.)"""
+    layout, per-bucket algorithms and step plans, staged (θ priced against
+    the update pipeline) and monolithic (communication only). (The JAX
+    package also stamps a Pallas collective id on each ring bucket; the
+    port's rings share one workspace per level group and carry no id.)"""
     pad = 32768 if mode == "csc" else 1
     jpool, tpool = _pools(True, pad)
-    jt, tt = TOPOLOGIES["cluster_v"]
+    jt, tt = TOPOLOGIES[topo]
     kw = dict(mode=mode, auto_bucket=True, collective_algo=algo,
-              warmup_steps=4, warmup_stages=4)
+              warmup_steps=4, warmup_stages=4, overlap=overlap)
+    n = tt.num_devices
     jgf = JGradientFlow(j_base.GradientFlowConfig(topology=jt, **kw), jpool,
-                        512)
+                        n)
     tgf = GradientFlow(t_base.GradientFlowConfig(topology=tt, **kw), tpool,
-                       512)
+                       n)
     assert tgf.bucket_elems == jgf.bucket_elems != kw.get("bucket_elems")
     assert tgf._lazy_bounds == tuple(tuple(b) for b in jgf._lazy_bounds)
 

@@ -167,14 +167,24 @@ def test_analytics_match_jax(full, mode, wire, theta):
 
 
 def test_unported_settings_raise():
-    """The low-bit wires (guarded or not), the cross-step lane and
-    gradient accumulation still raise, naming ROADMAP.md; the guard is
-    ported (tests/test_torch_guard.py)."""
+    """The low-bit wires build and step, guarded or not
+    (tests/test_torch_wire.py holds them against JAX); the cross-step
+    lane and gradient accumulation still raise, naming ROADMAP.md; the
+    guard is ported (tests/test_torch_guard.py)."""
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     guard = t_base.GuardConfig()
+    batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
     for gf in (dict(wire_format="int8"),
-               dict(wire_format="int8", guard=guard),
-               dict(pipeline_tail_buckets=1),
+               dict(wire_format="int8", guard=guard)):
+        cfg = base.replace(gradientflow=dataclasses.replace(
+            base.gradientflow, **gf))
+        trainer = Trainer(cfg, device="cpu")
+        state, metrics = trainer.build_train_step()(trainer.init_state(0),
+                                                    batch)
+        assert np.isfinite(float(metrics["loss"])) and state.step == 1
+        assert state.gf.residual.shape == (trainer.pool.size,)
+        assert state.gf.residual.abs().max() > 0
+    for gf in (dict(pipeline_tail_buckets=1),
                dict(pipeline_tail_buckets=1, guard=guard)):
         cfg = base.replace(gradientflow=dataclasses.replace(
             base.gradientflow, **gf))
@@ -187,16 +197,25 @@ def test_unported_settings_raise():
 
 
 def test_cli_accepts_the_optimizers():
-    """``--optimizer`` takes the three optimizers; the unported flags
-    still raise, naming ROADMAP.md."""
+    """``--optimizer`` takes the three optimizers and ``--wire-format``
+    the low-bit wires, which reach the config and step; the unported
+    flags still raise, naming ROADMAP.md."""
     from repro_torch.launch import train as train_mod
 
     argv = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
     for name in ("momentum_sgd", "lars", "adamw"):
         args = train_mod.parse_args(argv + ["--optimizer", name])
         assert args.optimizer == name
-    for extra in (["--wire-format", "int8"], ["--window-steps", "2"],
-                  ["--ckpt-dir", "ckpt"]):
+    args = train_mod.parse_args(argv + ["--optimizer", "lars",
+                                        "--wire-format", "int8",
+                                        "--gf-mode", "lazy", "--steps", "1",
+                                        "--batch", "2", "--seq-len", "16"])
+    trainer, cfg = train_mod.build(args)
+    assert cfg.gradientflow.wire_format == "int8"
+    assert trainer.gf.wire_spec.dtype == torch.int8
+    _, losses, _ = train_mod.train(args)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    for extra in (["--window-steps", "2"], ["--ckpt-dir", "ckpt"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_mod.parse_args(argv + ["--optimizer", "lars"] + extra)
 
