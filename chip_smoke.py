@@ -142,6 +142,48 @@
    Each low-bit run's steady step time and peak memory go beside its bf16
    twin's of this call. Every run in the NCCL group also counts its
    ``dist.all_reduce`` calls against the step plans'.
+   The training window as a CUDA graph (``Trainer.build_train_window``,
+   in the NCCL group; the runs above pass ``--window-steps 1``, one
+   eager step at a time):
+   (q) lazy, (a)'s settings, a window of 8 steps: the first window
+       (warm-up on scratch clones, capture, replay) the same losses and
+       final parameters and momentum, bit for bit, as 8 eager steps of
+       the CLI's loop from the same seed on the same batches; then 3
+       replayed windows timed (step ms = window ms / 8, beside the eager
+       steps'), the capture's and warm-up's host seconds, peak memory
+       beside eager, the capture's launches against 8 x the plan's, the
+       all-reduces of the first window (the warm-up body's and the
+       capture's) and none in the replayed ones, the synchronizing
+       calls of one window and its read (``set_sync_debug_mode``: 1)
+       against an eager step's, and one window and two eager steps
+       under ``torch.profiler``: the device's busy time and idle share,
+       the kernels a step, the pool kernels' and the GEMMs' time;
+   (r) (q) with ``pipeline_tail_buckets=2``: the same bits as (q)'s
+       window, a flushed state; 4 head updates a step, 2 lane updates at
+       each step's start and 2 at the flush (each with a pack of its
+       span's masters), (q)'s all-reduces;
+   (s) CSC through the CLI at ``--window-steps 4`` (``--csc-warmup 8``,
+       24 steps: the snapped stages 1 and 2 run 4 steps each, the steady
+       stage 4 four windows): one graph a stage, freed when the stage
+       ends (one graph pool alive at each window's end), the capture's
+       launches the stage plan's x 4, the losses of eager steps under
+       the same snapped schedule bit for bit, the peak reserved memory
+       under one graph's pool plus the state and its warm-up clone; the
+       median step time of the steady stage's three replayed windows
+       beside the eager twin's steady steps;
+   (t) guarded lazy windows of 8 with (g)'s faults fired by the
+       device-step hook inside the graph, unpipelined and with a tail of
+       2: exactly steps 2, 4, 6 trip in the stacked ``guard_tripped``;
+       an in-graph digest of the parameters and momentum shows each skip
+       bit-identical (the rejected lane included); the losses (g)'s; the
+       pipelined window the unpipelined one's bits;
+   (u) in (c)'s two processes over the ring, a lazy window of 3 with a
+       tail of 2, graphed on both ranks, on the lazy run's batches: the
+       same losses as that eager run, the same parameters on both ranks
+       after each window, every ring launch the warm-up body's or the
+       capture's (the replays run the rest).
+   ``GuardLane`` on the card (the ``guard_lane_windowed`` line), lazy and
+   CSC: ``window=4`` gives the per-step records.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -149,9 +191,10 @@
    its first.
 
 Prints one JSON line per kernel, one for the NaN words, one for the
-optimizer ops, one for the quantized ring, one per train run, the card's
-nvidia-smi line, the kernel summary line, then ``{"ok": true, "device":
-{...}}`` as the last line.
+optimizer ops, one for the quantized ring, one per train run, the
+windowed GuardLane's, the card's nvidia-smi line, the kernel summary line
+(each kernel with ``in_graph``: whether a captured window launched it),
+then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed check ends the run with a non-zero exit before that line.
 Exits non-zero without a result when no CUDA device is visible.
 
@@ -1582,6 +1625,512 @@ def neutrality_run(torch, ops, train_mod, synthetic, argv, steps):
                                                           peak_b])
 
 
+# -- the window as a CUDA graph, and the cross-step pipeline -----------------
+
+WINDOW_K = 8       # (q), (r), (t): steps a window
+WINDOW_TIMED = 3   # replayed windows timed after the first
+PIPELINE_TAIL = 2  # (r), (t), (u): deferred buckets
+# (s): CSC through the CLI at K = 4. The warm-up stages (first steps 0,
+# 2, 4, 6, 8 at --csc-warmup 8) snap to 0, 0, 4, 8, 8: stage 1 (k =
+# 3233) and stage 2 (k = 2361) run 4 steps each, the steady stage 4
+# (k = 616) 16, four windows (the last three replays, timed); the dense
+# stage 0 and stage 3 are shadowed.
+CSC_WINDOW_K, CSC_WINDOW_WARMUP, CSC_WINDOW_STEPS = 4, 8, 24
+CSC_WINDOW_STAGES = [1] * 4 + [2] * 4 + [4] * 16
+CSC_WINDOW_K_SELECTED = [3233] * 4 + [2361] * 4 + [616] * 16
+# (u): the two-process ring window.
+RING_WINDOW_K = 3
+
+
+class CountSyncs:
+    """Counts the synchronizing CUDA calls PyTorch warns about
+    (``torch.cuda.set_sync_debug_mode``) while entered."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, 0
+
+    def __enter__(self):
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        self.calls = sum("synchroniz" in str(w.message) for w in self._log)
+
+
+def graph_pool_bytes(torch) -> dict:
+    """Reserved bytes of each CUDA graph memory pool alive (the
+    allocator's segments outside the default pool)."""
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id", (0, 0)))
+        if pid != (0, 0):
+            pools[str(pid)] = pools.get(str(pid), 0) + seg["total_size"]
+    return pools
+
+
+class MemoryLog(list):
+    """The CLI's window record (``train(record=...)``), each entry given
+    the graph pools alive and the peak reserved memory at its window's
+    end."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch = torch
+
+    def append(self, item):
+        item["graph_pool_bytes"] = graph_pool_bytes(self.torch)
+        item["max_reserved_bytes"] = self.torch.cuda.max_memory_reserved()
+        super().append(item)
+
+
+def flat_state(torch, trainer, state):
+    """The parameters and the momentum as one flat host tensor."""
+    return torch.cat([p.reshape(-1) for p in
+                      trainer.pool.flat_leaves(state.params)]
+                     + [state.opt.momentum]).cpu()
+
+
+def state_bytes(torch, trainer) -> int:
+    """Bytes of a TrainState's tensors: the f32 parameters, the momentum,
+    the staging pool, CSC's hg and chunk norms."""
+    n = trainer.pool.size
+    staging = torch.empty((), dtype=trainer._pack_dtype).element_size()
+    out = 4 * trainer.pool.unpadded_size + 4 * n + staging * n
+    if trainer.gf_cfg.csc_enabled:
+        out += 4 * n + 4 * trainer.gf.num_chunks
+    return out
+
+
+def window_counts(plan, steps):
+    """The launches a capture of ``steps`` momentum-SGD step bodies under
+    ``plan`` makes: 2 packs a step and an update a span, CSC's census a
+    step and its gather a sparse step; with a deferred tail, the tail
+    spans' updates at each step's start and at the flush instead, each
+    with a pack of its span's masters."""
+    tail = plan.pipeline_tail
+    want = {"pool_pack.kernel": 2 * steps + tail * (steps + 1),
+            "pool_unpack_update.kernel": (len(plan.update_spans) - tail)
+            * steps + tail * (steps + 1)}
+    if plan.mode == "csc":
+        want["chunk_l1norm.kernel"] = steps
+        if not plan.warmup:
+            want["csc_compact.kernel"] = steps
+    return want
+
+
+# The repo's kernels, by the names of their CUDA functions.
+POOL_KERNELS = ("pool_pack_kernel", "pool_unpack_update_kernel",
+                "chunk_l1norm", "csc_compact", "fused_update_kernel",
+                "ring_kernel")
+
+
+def device_profile(torch, fn, steps):
+    """Run ``fn`` (``steps`` train steps, ending in a host read) under
+    ``torch.profiler`` and split the device's time from the trace's
+    kernels: busy (the union of the kernels' intervals) against the wall
+    time on the host clock, so the idle share, and per step the kernel
+    count and the time of the repo's pool kernels, of the GEMMs and of
+    the rest. Times include the profiler's own overhead."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    check(len(kernels) > 0, "the profiler saw no device kernel")
+    busy, end = 0.0, None
+    for a, b, _ in kernels:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    split = {"pool_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for a, b, name in kernels:
+        low = name.lower()
+        key = "pool_kernels" if any(k in name for k in POOL_KERNELS) else \
+            "gemm" if any(k in low for k in ("gemm", "nvjet", "cutlass",
+                                             "xmma")) else "other"
+        split[key] += (b - a) / 1e3 / steps
+    return dict(wall_ms=wall, device_busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / 1e3 / wall,
+                kernels_per_step=len(kernels) / steps,
+                kernel_ms_per_step=split, steps=steps,
+                note="torch.profiler (CUPTI); its overhead included")
+
+
+def stacked(torch, batches):
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def window_trainer(train_mod, argv, tail, guard=None):
+    import dataclasses
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(argv)
+    _, cfg = train_mod.build(args)
+    cfg = cfg.replace(gradientflow=dataclasses.replace(
+        cfg.gradientflow, pipeline_tail_buckets=tail, guard=guard))
+    return args, cfg, Trainer(cfg, device=args.device)
+
+
+def window_run(torch, dist, ops, train_mod, label, argv, tail, twin=None):
+    """(q)/(r): a lazy window of WINDOW_K steps as a CUDA graph on the
+    synthetic stream, in the NCCL group: the first window (capture, then
+    replay) against ``twin`` (None: WINDOW_K eager steps of the CLI's
+    loop from the same seed, timed; else (q)'s result), the same bits;
+    then WINDOW_TIMED replayed windows timed, one profiled
+    (``device_profile``) and one with its synchronizing calls counted
+    (eager: two more steps' each). The
+    capture's launches against the plan's, the all-reduces of the first
+    window (the warm-up body and the capture) and of the replayed ones,
+    the peak memory. Returns (run, twin)."""
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.trainer import is_flushed
+
+    args, cfg, trainer = window_trainer(train_mod, argv, tail)
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    batches = [data.batch(s, BATCH, SEQ)
+               for s in range(WINDOW_K * (1 + WINDOW_TIMED))]
+    out = {}
+    if twin is None:
+        state = trainer.init_state(args.seed)
+        step = trainer.build_train_step()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, enqueue_ms = [], [], []
+        for s in range(WINDOW_K):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[s])
+            enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        twin = dict(losses=losses, final=flat_state(torch, trainer, state))
+        with CountSyncs(torch) as syncs:
+            for s in range(WINDOW_K, WINDOW_K + 2):
+                state, m = step(state, batches[s])
+                float(m["loss"])
+
+        def two_steps():
+            nonlocal state
+            for s in range(WINDOW_K + 2, WINDOW_K + 4):
+                state, m = step(state, batches[s])
+                float(m["loss"])
+
+        out["eager_profile"] = device_profile(torch, two_steps, 2)
+        e = statistics.median(step_ms[1:])
+        # enqueue: the host's time to return from a step, before the read
+        # of its loss waits for the device.
+        out.update(eager_step_ms=step_ms, eager_steady_step_ms=e,
+                   eager_enqueue_ms=statistics.median(enqueue_ms[1:]),
+                   eager_peak_mem_gib=torch.cuda.max_memory_allocated()
+                   / 2 ** 30, eager_syncs_per_step=syncs.calls / 2)
+        del state, step
+    plan = trainer.engine.plan_for()
+    check(plan.pipeline_tail == tail
+          and (trainer._pipeline_plan() is not None) == bool(tail),
+          f"{label}: plan tail {plan.pipeline_tail}, expected {tail}")
+    state = trainer.init_state(args.seed)
+    window = trainer.build_train_window(WINDOW_K)
+    ops.reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CountAllReduce(dist) as first:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = window(state, stacked(torch, batches[:WINDOW_K]))
+        losses = m["loss"].tolist()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    reserved = torch.cuda.memory_reserved()
+    pools = graph_pool_bytes(torch)
+    final = flat_state(torch, trainer, state)
+    win_ms, win_enqueue_ms = [], []
+    with CountAllReduce(dist) as replayed:
+        for w in range(1, 1 + WINDOW_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = window(state, stacked(
+                torch, batches[w * WINDOW_K:(w + 1) * WINDOW_K]))
+            win_enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+            m["loss"].tolist()
+            torch.cuda.synchronize()
+            win_ms.append((time.perf_counter() - t0) * 1e3)
+    def one_window():
+        nonlocal state
+        state, m = window(state, stacked(torch, batches[:WINDOW_K]))
+        m["loss"].tolist()
+
+    out["profile"] = device_profile(torch, one_window, WINDOW_K)
+    with CountSyncs(torch) as syncs:
+        one_window()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats, counts = dict(window.stats), dict(ops.dispatch_counts)
+    flushed, sbytes = is_flushed(state), state_bytes(torch, trainer)
+    window.release()
+    del state, window, trainer
+    torch.cuda.empty_cache()
+    print(f"{label}: losses {losses}; window ms {win_ms}", flush=True)
+    same = losses == twin["losses"] and bits_equal(torch, final,
+                                                   twin["final"])
+    check(same, f"{label}: the graphed window != its twin (losses {losses} "
+          f"vs {twin['losses']}, largest state difference "
+          f"{(final - twin['final']).abs().max().item()})")
+    check(flushed, f"{label}: the returned state carries a live lane")
+    check(len(pools) == 1, f"{label}: graph pools alive after the capture "
+          f"{pools} (an earlier window's not freed)")
+    want = window_counts(plan, WINDOW_K)
+    check(stats["capture_counts"] == want, f"{label}: the capture launched "
+          f"{stats['capture_counts']}, the plan says {want}")
+    check(stats["captures"] == 1 and stats["replays"] == 3 + WINDOW_TIMED,
+          f"{label}: {stats['captures']} captures, {stats['replays']} "
+          f"replays")
+    check(first.calls == (WINDOW_K + 1) * len(plan.tasks)
+          and replayed.calls == 0,
+          f"{label}: all-reduce calls {first.calls} in the first window "
+          f"(warm-up body + capture), {replayed.calls} in the replayed ones")
+    check(syncs.calls == 1, f"{label}: {syncs.calls} synchronizing calls "
+          f"in a window and its read")
+    step_ms = statistics.median(win_ms) / WINDOW_K
+    out.update(losses=losses, window_ms=win_ms, steady_step_ms=step_ms,
+               window_enqueue_ms=win_enqueue_ms,
+               tokens_per_s=BATCH * SEQ / (step_ms / 1e3),
+               first_window_s=first_s, warmup_s=stats["warmup_s"],
+               capture_s=stats["capture_s"],
+               capture_counts=stats["capture_counts"],
+               expected_capture_counts=want,
+               warmup_counts=stats["warmup_counts"],
+               dispatch_counts=counts, replays=stats["replays"],
+               all_reduce_calls_first_window=first.calls,
+               all_reduce_calls_replayed_windows=replayed.calls,
+               syncs_per_window=syncs.calls, peak_mem_gib=peak,
+               reserved_after_capture_gib=reserved / 2 ** 30,
+               graph_pool_gib={k: v / 2 ** 30 for k, v in pools.items()},
+               state_gib=sbytes / 2 ** 30, pipeline_tail=tail,
+               window_steps=WINDOW_K, same_bits_as_twin=same,
+               twin="eager steps" if "eager_step_ms" in out
+               else "(q), the unpipelined window")
+    if "eager_steady_step_ms" in out:
+        e = out["eager_steady_step_ms"]
+        out["steady_delta_pct"] = 100.0 * (step_ms - e) / e
+    return out, twin
+
+
+def csc_window_run(torch, ops, train_mod, label, argv):
+    """(s): CSC through the CLI at --window-steps 4 over the snapped
+    warm-up stages, one graph a stage, each freed when its stage ends;
+    then the same steps eagerly under the same snapped schedule: the same
+    losses bit for bit. At each window's end at most one graph pool is
+    alive; the peak reserved memory stays under one stage graph's pool
+    plus the state, plus the warm-up's scratch clone of the state."""
+    from repro_torch.core.schedule import (snap_stages_to_window, stage_at,
+                                           stage_first_steps)
+    from repro_torch.data.synthetic import SyntheticLM
+
+    args = train_mod.parse_args(argv)
+    record = MemoryLog(torch)
+    ops.reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, losses, _ = train_mod.train(args, record=record)
+    peak_reserved = torch.cuda.max_memory_reserved()
+    sbytes = state_bytes(torch, trainer)
+    counts = dict(ops.dispatch_counts)
+    stages = snap_stages_to_window(trainer.gf.stages, CSC_WINDOW_K)
+    firsts = stage_first_steps(stages)
+    plans = [trainer.gf.plan(stage_at(stages, r["start"], firsts))
+             for r in record]
+    del trainer
+    torch.cuda.empty_cache()
+    # The eager twin under the same snapped schedule.
+    trainer, cfg = train_mod.build(args)
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    state = trainer.init_state(args.seed)
+    fns, eager, ran, eager_ms = {}, [], [], []
+    for s in range(CSC_WINDOW_STEPS):
+        stage = stage_at(stages, s, firsts)
+        if stage.index not in fns:
+            fns[stage.index] = trainer.build_train_step(stage)
+        # Timed as the CLI times a step: the batch made, the card idle.
+        batch = data.batch(s, BATCH, SEQ)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fns[stage.index](state, batch)
+        eager.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        ran.append((stage.index, stage.num_selected))
+    del state, fns, trainer
+    torch.cuda.empty_cache()
+    print(f"{label}: losses {losses}; eager {eager}", flush=True)
+    check(ran == list(zip(CSC_WINDOW_STAGES, CSC_WINDOW_K_SELECTED)),
+          f"{label}: stages (index, k) {ran}")
+    check([r["stage"] for r in record]
+          == CSC_WINDOW_STAGES[::CSC_WINDOW_K],
+          f"{label}: windows' stages {[r['stage'] for r in record]}")
+    check(losses == eager, f"{label}: graphed losses {losses} != eager "
+          f"{eager} under the same snapped stages")
+    pools = [r["graph_pool_bytes"] for r in record]
+    check(all(len(p) == 1 for p in pools)
+          and len({k for p in pools for k in p}) == len(set(
+              CSC_WINDOW_STAGES)),
+          f"{label}: graph pools alive at the windows' ends {pools}")
+    for i, (r, plan) in enumerate(zip(record, plans)):
+        st = r["stats"]
+        want = window_counts(plan, CSC_WINDOW_K)
+        replays = sum(x["stage"] == r["stage"] for x in record[:i + 1])
+        check(st["captures"] == 1 and st["replays"] == replays
+              and st["capture_counts"] == want,
+              f"{label}: window at {r['start']}: {st}, expected capture "
+              f"counts {want}, {replays} replays")
+    largest = max(v for p in pools for v in p.values())
+    bound = largest + 2 * sbytes + 2 ** 29
+    check(peak_reserved <= bound, f"{label}: peak reserved "
+          f"{peak_reserved / 2 ** 30:.3f} GiB above one graph pool "
+          f"({largest / 2 ** 30:.3f}) + the state and its warm-up clone "
+          f"(2 x {sbytes / 2 ** 30:.3f}) + 0.5 GiB")
+    # Each stage's first window pays its warm-up and capture; the steady
+    # stage's later windows are replays alone, timed against the eager
+    # twin's steady steps after the stage's first.
+    steady = CSC_WINDOW_STAGES[-1]
+    replay_ms = [r["seconds"] * 1e3 / CSC_WINDOW_K for r in record
+                 if r["stage"] == steady][1:]
+    first = CSC_WINDOW_STAGES.index(steady)
+    twin_ms = eager_ms[first + 1:]
+    step_ms = statistics.median(replay_ms)
+    twin = statistics.median(twin_ms)
+    return dict(losses=losses, eager_losses=eager,
+                stages=[r["stage"] for r in record],
+                num_selected=CSC_WINDOW_K_SELECTED,
+                window_ms=[r["seconds"] * 1e3 for r in record],
+                steady_step_ms=step_ms, steady_replay_step_ms=replay_ms,
+                eager_steady_step_ms=twin, eager_step_ms=eager_ms,
+                steady_delta_pct=100.0 * (step_ms / twin - 1.0),
+                capture_counts=[r["stats"]["capture_counts"]
+                                for r in record],
+                warmup_s=[r["stats"]["warmup_s"] for r in record],
+                capture_s=[r["stats"]["capture_s"] for r in record],
+                graph_pool_gib=[{k: v / 2 ** 30 for k, v in p.items()}
+                                for p in pools],
+                reserved_gib_at_window_ends=[r["reserved_bytes"] / 2 ** 30
+                                             for r in record],
+                peak_reserved_gib=peak_reserved / 2 ** 30,
+                state_gib=sbytes / 2 ** 30, dispatch_counts=counts,
+                window_steps=CSC_WINDOW_K, same_bits_as_eager=True)
+
+
+def guarded_window_run(torch, ops, train_mod, label, argv, tail, faults,
+                       twin_losses, twin=None):
+    """(t): a guarded lazy window of WINDOW_K steps as a CUDA graph with
+    ``faults`` fired by the device-step hook inside it. The hook also
+    records, inside the graph, a digest of the parameters and momentum
+    (each tensor's int32 words summed) as each step's update starts:
+    a tripped step t leaves digest t+1 equal to digest t (and a clean
+    one changes it). Exactly the faulted steps trip; the losses equal
+    ``twin_losses`` (the eager guarded run (g)); with ``twin`` (the
+    unpipelined window's) the losses and the state the same bits."""
+    from repro_torch.configs.base import GuardConfig
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.trainer import is_flushed
+    from repro_torch.runtime.faults import make_hook
+
+    args, cfg, trainer = window_trainer(train_mod, argv, tail,
+                                        guard=GuardConfig())
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    state = trainer.init_state(args.seed)
+    hook = make_hook(fault_events(faults))
+    live = trainer.pool.flat_leaves(state.params) + [state.opt.momentum]
+    digests = []
+
+    def probed(gpool, step):
+        digests.append(torch.stack([x.view(torch.int32).sum(
+            dtype=torch.int64) for x in live]))
+        return hook(gpool, step)
+
+    window = trainer.build_train_window(WINDOW_K, fault_hook=probed)
+    ops.reset_counts()
+    state, m = window(state, stacked(torch, [data.batch(s, BATCH, SEQ)
+                                             for s in range(WINDOW_K)]))
+    losses, tripped = m["loss"].tolist(), m["guard_tripped"].tolist()
+    after = torch.stack([x.view(torch.int32).sum(dtype=torch.int64)
+                         for x in live])
+    d = torch.stack(digests[-WINDOW_K:] + [after]).cpu()
+    at = {f[0] for f in faults}
+    frozen = [bool(torch.equal(d[t + 1], d[t])) for t in sorted(at)]
+    moved = [not torch.equal(d[t + 1], d[t]) for t in range(WINDOW_K)
+             if t not in at]
+    scale, skipped = float(state.guard.scale), int(state.guard.skipped)
+    final = flat_state(torch, trainer, state)
+    stats, flushed = dict(window.stats), is_flushed(state)
+    counts = dict(ops.dispatch_counts)
+    window.release()
+    del state, window, trainer, live, digests
+    torch.cuda.empty_cache()
+    print(f"{label}: tripped {tripped}, losses {losses}", flush=True)
+    check(tripped == [float(t in at) for t in range(WINDOW_K)],
+          f"{label}: tripped {tripped}, faults at {sorted(at)}")
+    check(all(frozen) and all(moved), f"{label}: a tripped step moved the "
+          f"state ({frozen}) or a clean one did not ({moved})")
+    check(scale == 2.0 ** 15 / 2 ** len(at) and skipped == len(at),
+          f"{label}: scale {scale}, skipped {skipped}")
+    check(flushed, f"{label}: the returned state carries a live lane")
+    check(losses == twin_losses, f"{label}: losses {losses} != the eager "
+          f"guarded run's {twin_losses}")
+    if twin is not None:
+        check(losses == twin["losses"] and bits_equal(torch, final,
+                                                      twin["final"]),
+              f"{label}: the pipelined guarded window != the unpipelined")
+    return dict(losses=losses, tripped=tripped, faults=[list(f) for f in
+                                                        faults],
+                trips_bit_identical=frozen, clean_steps_moved=moved,
+                scale_after=scale, skipped=skipped,
+                capture_counts=stats["capture_counts"],
+                dispatch_counts=counts, replays=stats["replays"],
+                pipeline_tail=tail, window_steps=WINDOW_K), \
+        dict(losses=losses, final=final)
+
+
+def guard_lane_phase(torch, dev):
+    """``GuardLane`` on the card, lazy and CSC: the windowed lane
+    (window=4) gives the per-step records."""
+    from repro_torch.runtime.faults import FaultEvent, GuardLane, truth_table
+
+    faults = [FaultEvent(step=2, kind="nan", offset=8, width=4),
+              FaultEvent(step=5, kind="overflow", offset=40, width=4),
+              FaultEvent(step=6, kind="bitflip", offset=100, width=6)]
+    out = {}
+    for mode in ("lazy", "csc"):
+        per_step = GuardLane(mode=mode, device=dev).run(9, faults)
+        windowed = GuardLane(mode=mode, device=dev).run(9, faults, window=4)
+        check(windowed == per_step, f"GuardLane {mode}: window=4 records "
+              f"{windowed} != per-step {per_step}")
+        table = truth_table(windowed)
+        check(table["false_trips"] == 0 and all(
+            row["caught"] == row["injected"]
+            for row in table["classes"].values()),
+              f"GuardLane {mode}: {table}")
+        out[mode] = table
+    return out
+
+
 def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
                 wire):
     """The full-width step in one world-size-1 NCCL group, each run with
@@ -1590,7 +2139,7 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
     AdamW, CSC, staged; the guard, (g)-(j); the low-bit wires, (l)-(o)."""
     common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
               str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len",
-              str(SEQ), "--log-every", "1"]
+              str(SEQ), "--log-every", "1", "--window-steps", "1"]
     lazy_args = common + ["--gf-mode", "lazy", "--steps", str(LAZY_STEPS)]
     csc_args = common + ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
                          "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
@@ -1660,6 +2209,26 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
             torch, ops, train_mod, "(o) guarded int8, csc, staged",
             csc_args + int8, CSC_STEPS, GUARD_CSC_FAULTS,
             steady_from=CSC_WARMUP)
+        runs["window_lazy"], twin = window_run(
+            torch, dist, ops, train_mod, "(q) lazy, graphed window",
+            lazy_args, 0)
+        runs["window_lazy_pipelined"], _ = window_run(
+            torch, dist, ops, train_mod, "(r) lazy, pipelined graphed window",
+            lazy_args, PIPELINE_TAIL, twin=twin)
+        runs["window_csc_cli"] = csc_window_run(
+            torch, ops, train_mod, "(s) csc, CLI windows",
+            csc_args + ["--csc-warmup", str(CSC_WINDOW_WARMUP), "--steps",
+                        str(CSC_WINDOW_STEPS), "--window-steps",
+                        str(CSC_WINDOW_K)])
+        runs["window_guarded_lazy"], gtwin = guarded_window_run(
+            torch, ops, train_mod, "(t) guarded lazy, graphed window",
+            lazy_args, 0, GUARD_LAZY_FAULTS,
+            runs["guarded_lazy"]["losses"])
+        runs["window_guarded_lazy_pipelined"], _ = guarded_window_run(
+            torch, ops, train_mod,
+            "(t) guarded lazy, pipelined graphed window", lazy_args,
+            PIPELINE_TAIL, GUARD_LAZY_FAULTS,
+            runs["guarded_lazy"]["losses"], twin=gtwin)
     finally:
         dist.destroy_process_group()
     for label in ("csc", "lars_csc"):
@@ -1786,14 +2355,52 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
     common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
-              str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len", str(SEQ)]
+              str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len", str(SEQ),
+              "--window-steps", "1"]
 
-    def ring_trainer(extra, guard=None):
+    def ring_trainer(extra, guard=None, tail=0):
         args = train_mod.parse_args(common + extra)
         _, cfg = train_mod.build(args)
         cfg = cfg.replace(gradientflow=dataclasses.replace(
-            cfg.gradientflow, collective_algo="pallas_ring", guard=guard))
+            cfg.gradientflow, collective_algo="pallas_ring", guard=guard,
+            pipeline_tail_buckets=tail))
         return args, cfg, Trainer(cfg)
+
+    def digest(trainer, state):
+        flat = torch.cat([p.reshape(-1) for p in
+                          trainer.pool.flat_leaves(state.params)])
+        return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+    def drive_window(trainer, args, cfg, windows, batch_of):
+        """(u): ``windows`` windows of RING_WINDOW_K steps, each a replay
+        of one CUDA graph, on the batches ``batch_of(step)``; the losses,
+        the launches of the warm-up, of the capture and in all, and
+        whether the ranks held the same parameters after every window."""
+        from repro_torch.launch.trainer import is_flushed
+
+        data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+        state = trainer.init_state(args.seed)
+        window = trainer.build_train_window(RING_WINDOW_K)
+        plan = trainer.engine.plan_for()
+        ops.reset_counts()
+        losses, digests = [], []
+        for w in range(windows):
+            steps = range(w * RING_WINDOW_K, (w + 1) * RING_WINDOW_K)
+            bs = [data.batch(batch_of(s), BATCH // 2, SEQ, shard=rank)
+                  for s in steps]
+            state, m = window(state, {k: torch.stack([b[k] for b in bs])
+                                      for k in bs[0]})
+            losses += m["loss"].tolist()
+            digests.append(digest(trainer, state))
+        both = [None, None]
+        dist.all_gather_object(both, digests)
+        out = dict(losses=losses, counts=dict(ops.dispatch_counts),
+                   stats=dict(window.stats), tasks=len(plan.tasks),
+                   pipeline_tail=plan.pipeline_tail,
+                   flushed=is_flushed(state),
+                   same_params_every_window=both[0] == both[1])
+        window.release()
+        return out
 
     def drive(trainer, args, cfg, steps, batch_of, hook=None):
         """``steps`` steps on the batches ``batch_of(step)``, each under
@@ -1943,6 +2550,16 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
             del trainer
         finally:
             kring.launch = launch
+        torch.cuda.empty_cache()
+
+        # (u) the lazy window as a CUDA graph on both ranks with a
+        # deferred tail, on the batches of the lazy run above.
+        args, cfg, trainer = ring_trainer(["--gf-mode", "lazy"],
+                                          tail=PIPELINE_TAIL)
+        result["lazy_window"] = drive_window(
+            trainer, args, cfg, 2 * RING_STEPS // RING_WINDOW_K,
+            lambda s: min(s, RING_STEPS))
+        del trainer
         kring.release_workspaces()
     finally:
         dist.destroy_process_group()
@@ -2043,6 +2660,27 @@ def ring_train_phase(torch, dev):
               f"unguarded {per_step} ring launches a step")
         check(got["same_params_every_step"],
               "ring guarded: the ranks' parameters differ")
+    # (u): every ring launch of the windows is the warm-up body's or the
+    # capture's (the replays run the rest); the losses are the eager lazy
+    # run's on the same batches, bit for bit, on both ranks.
+    for r in ranks:
+        got = r["lazy_window"]
+        st, tasks = got["stats"], got["tasks"]
+        check(got["pipeline_tail"] == PIPELINE_TAIL and got["flushed"],
+              f"(u) rank {r['rank']}: tail {got['pipeline_tail']}, flushed "
+              f"{got['flushed']}")
+        check(st["capture_counts"].get(key) == RING_WINDOW_K * tasks
+              and st["warmup_counts"].get(key) == tasks
+              and got["counts"][key] == (RING_WINDOW_K + 1) * tasks
+              and st["captures"] == 1
+              and st["replays"] == 2 * RING_STEPS // RING_WINDOW_K,
+              f"(u) rank {r['rank']}: ring launches {got['counts']}, "
+              f"window stats {st}")
+        check(got["losses"] == r["lazy"]["losses"],
+              f"(u) rank {r['rank']}: window losses {got['losses']} != the "
+              f"eager run's {r['lazy']['losses']}")
+        check(got["same_params_every_window"],
+              "(u): the ranks' parameters differ after a window")
     note = ("world size 2 as two processes on one card: the ranks take "
             "turns on the device, so a step time is no wire's; the ring "
             "runs through this card's memory, not NVLink")
@@ -2068,6 +2706,12 @@ def ring_train_phase(torch, dev):
                  step_ms=[r["lazy_guarded"]["step_ms"] for r in ranks],
                  dispatch_counts=ranks[0]["lazy_guarded"]["counts"],
                  unguarded_ring_launches_per_step=per_step,
+                 compute_mode=mode.stdout.strip(), note=note),
+            dict(losses=ranks[0]["lazy_window"]["losses"],
+                 window_stats=[r["lazy_window"]["stats"] for r in ranks],
+                 dispatch_counts=ranks[0]["lazy_window"]["counts"],
+                 pipeline_tail=PIPELINE_TAIL, window_steps=RING_WINDOW_K,
+                 same_bits_as="the eager lazy ring run",
                  compute_mode=mode.stdout.strip(), note=note),
             *(dict(losses=runs[label]["losses"],
                    step_ms=[r[label]["step_ms"] for r in ranks],
@@ -2182,13 +2826,14 @@ def main() -> None:
 
     runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack,
                        csc, wire)
-    ring, ring_csc, ring_guarded, ring_int8, ring_int8_csc = \
+    ring, ring_csc, ring_guarded, ring_window, ring_int8, ring_int8_csc = \
         ring_train_phase(torch, dev)
     runs["lazy_pallas_ring_2_processes"] = ring
     runs["csc_pallas_ring_2_processes"] = ring_csc
     runs["guarded_lazy_pallas_ring_2_processes"] = ring_guarded
     runs["int8_lazy_pallas_ring_2_processes"] = ring_int8
     runs["int8_csc_pallas_ring_2_processes"] = ring_int8_csc
+    runs["window_lazy_pipelined_pallas_ring_2_processes"] = ring_window
     for label, run in runs.items():
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,
@@ -2208,6 +2853,20 @@ def main() -> None:
                 for label, run in runs.items() if "pallas" not in label}
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
+    # Which kernels a captured window launched: (q)'s lazy path, (s)'s
+    # CSC stages, (u)'s ring.
+    captured = dict(runs["window_lazy"]["capture_counts"])
+    for counts in runs["window_csc_cli"]["capture_counts"] + [
+            c["capture_counts"] for c in ring_window["window_stats"]]:
+        for k, v in counts.items():
+            captured[k] = captured.get(k, 0) + v
+    for e in entries:
+        e["in_graph"] = captured.get(f"{e['name']}.kernel", 0) > 0
+        e["graph_capture_launches"] = captured.get(f"{e['name']}.kernel", 0)
+    check([e["name"] for e in entries if not e["in_graph"]]
+          == ["fused_update"], f"kernels captured in a window: {captured}")
+    print(json.dumps(dict(guard_lane_windowed=guard_lane_phase(torch, dev),
+                          gpu=name, power_limit=power)), flush=True)
     print(smi_line)
     print(json.dumps({"kernels": entries, "not_ported": [],
                       "gpu": name, "nvidia_smi": smi_line}), flush=True)

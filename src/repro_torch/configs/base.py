@@ -73,9 +73,9 @@ class GradientFlowConfig:
     meaning of each field). The port runs ``mode`` 'dense', 'lazy' and
     'csc', every ``wire_format`` ('native', 'int8', 'fp8_e4m3', with or
     without ``error_feedback``), ``overlap`` 'staged' and 'monolithic',
-    every ``collective_algo``, ``auto_bucket`` and the ``guard``;
-    ``pipeline_tail_buckets`` raises ``NotImplementedError`` where it
-    would be used."""
+    every ``collective_algo``, ``auto_bucket``, the ``guard`` and
+    ``pipeline_tail_buckets`` (the cross-step pipeline, inside a train
+    window of more than one step)."""
 
     mode: str = "lazy"
     bucket_elems: int = 16 * 1024 * 1024

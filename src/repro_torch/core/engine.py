@@ -35,31 +35,56 @@ low-bit wires, the census sum (the clip hides poison from the words),
 and every write of the step behind the device flag ``ok``: the residual
 too.
 
+The cross-step pipeline (``pipeline_tail_buckets``): a plan's last
+``pipeline_tail`` tasks carry ``commit_epoch=1``. Inside a train window
+(``Trainer.build_train_window``) ``run_pipelined`` still reduces them in
+step t but parks their means in an ``InflightLane``; ``apply_inflight``
+updates their spans at the start of step t+1, before the forward pass
+reads those parameters, and once more at the window's edge. ``run``
+ignores the tag, so a per-step step with a tail config runs
+unpipelined, as in the JAX package. A lane segment is the f32 mean the
+in-step update would have read (``lazy_allreduce``'s ``wait() / N``,
+divided by the loss scale when guarded), not the JAX package's
+wire-dtype carry: the deferred update then reads the same bits as the
+unpipelined one, so pipelined and unpipelined training agree bit for
+bit. The JAX package's segment-carry forms (``pool_split``,
+``run_pipelined_segs``) exist so that XLA copies no pool; the port's
+updates are in place already, and they are not ported.
+
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
-fence. The cross-step lane is not ported yet (ROADMAP.md A.14).
+fence.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import csc as csc_mod
 from repro_torch.core import lazy_allreduce as lazy_mod
 from repro_torch.core import wire as wire_mod
+from repro_torch.kernels import ref
+from repro_torch.parallel import cost_model
 
 
 @dataclasses.dataclass(frozen=True)
 class BucketTask:
-    """One collective of the step: pool span [start, end) and its
-    algorithm. Its result unblocks the update of the same span."""
+    """One collective of the step: payload span [start, end) of the wire
+    buffer (the pool for dense and lazy, the compacted k-chunk buffer for
+    CSC) and its algorithm. ``update_span`` is the pool range its result
+    unblocks: the payload span for dense and lazy, None for CSC's sparse
+    stages (their update spans are the plan's own). ``commit_epoch`` 1
+    defers the span's update to the start of the next step (the
+    cross-step lane); 0 commits it in the step."""
 
     index: int
     start: int
     end: int
     algo: Any
+    update_span: Optional[Tuple[int, int]] = None
+    commit_epoch: int = 0
 
     @property
     def size(self) -> int:
@@ -70,7 +95,9 @@ class BucketTask:
 class StepPlan:
     """The compiled pipeline of one train step. For CSC, ``warmup`` marks
     the dense warm-up stage (pool-space tasks) and ``num_selected`` is the
-    stage's k; a sparse stage's tasks tile the k-chunk wire buffer."""
+    stage's k; a sparse stage's tasks tile the k-chunk wire buffer. The
+    last ``pipeline_tail`` tasks carry ``commit_epoch=1`` (native dense
+    and lazy plans only)."""
 
     mode: str
     pool_size: int
@@ -82,14 +109,27 @@ class StepPlan:
     warmup: bool = False
     num_selected: int = 0
     chunk_elems: int = 0
+    pipeline_tail: int = 0
 
     @property
     def num_collectives(self) -> int:
         return len(self.tasks)
 
+    @property
+    def head_tasks(self) -> Tuple[BucketTask, ...]:
+        return self.tasks[:len(self.tasks) - self.pipeline_tail]
+
+    @property
+    def tail_tasks(self) -> Tuple[BucketTask, ...]:
+        """The deferred (``commit_epoch=1``) suffix, in plan order."""
+        return self.tasks[len(self.tasks) - self.pipeline_tail:]
+
     def validate(self) -> None:
         """Tasks tile [0, payload_elems) and update spans tile
-        [0, pool_size), each exactly once, in order."""
+        [0, pool_size), each exactly once, in order. The deferred tasks
+        are exactly the ``pipeline_tail``-long suffix, and only a native
+        dense or lazy plan (static update spans equal to the payload
+        spans) has one."""
         pos = 0
         for t in self.tasks:
             assert t.start == pos and t.end > t.start, (t, pos)
@@ -100,21 +140,64 @@ class StepPlan:
             assert s == pos and e > s, ((s, e), pos)
             pos = e
         assert pos == self.pool_size, (pos, self.pool_size)
+        n = len(self.tasks)
+        assert 0 <= self.pipeline_tail < max(n, 1), (self.pipeline_tail, n)
+        for i, t in enumerate(self.tasks):
+            want = 1 if i >= n - self.pipeline_tail else 0
+            assert t.commit_epoch == want, (i, t.commit_epoch, want)
+        if self.pipeline_tail:
+            assert self.mode in ("dense", "lazy") and not self.warmup, self
+            for t in self.tail_tasks:
+                assert t.update_span == (t.start, t.end), t
+
+
+def resolve_pipeline_tail(gf, tasks) -> int:
+    """How many trailing buckets the cross-step pipeline defers
+    (``GradientFlowConfig.pipeline_tail_buckets``): 0 none, N > 0 the
+    last min(N, buckets - 1), -1 the depth ``cost_model.
+    select_pipeline_tail`` picks on the config's topology (1 without
+    one). CSC (dynamic update spans) and the low-bit wires (the lane
+    would need the per-chunk scales too) never pipeline."""
+    cfg = gf.cfg
+    want = cfg.pipeline_tail_buckets
+    n = len(tasks)
+    if want == 0 or n <= 1 or cfg.mode == "csc" or gf.wire_spec is not None:
+        return 0
+    if want > 0:
+        return min(want, n - 1)
+    if want != -1:
+        raise ValueError(f"pipeline_tail_buckets must be >= -1, got {want}")
+    topo = cfg.topology
+    if topo is None:
+        return 1
+    elt = torch.empty((), dtype=getattr(torch, cfg.wire_dtype)).element_size()
+    sizes = [t.size * elt for t in tasks]
+    backward_s = cost_model.ring_allreduce_time(
+        sum(t.size for t in tasks) * elt, topo.num_devices,
+        topo.slowest_fabric)
+    comm = [t.algo.predicted_time(b, topo) for t, b in zip(tasks, sizes)]
+    rel = cost_model.bucket_release_times(sizes, backward_s)
+    upd = [cost_model.update_time(t.size) for t in tasks]
+    return cost_model.select_pipeline_tail(comm, rel, upd, backward_s)
+
+
+def _tag_tail(tasks, tail: int) -> Tuple[BucketTask, ...]:
+    """Stamp ``commit_epoch=1`` on the deferred suffix."""
+    n = len(tasks)
+    return tuple(dataclasses.replace(t, commit_epoch=1) if i >= n - tail
+                 else t for i, t in enumerate(tasks))
 
 
 def compile_step_plan(gf, stage=None) -> StepPlan:
     """GradientFlow's bucket layout as an explicit StepPlan."""
     cfg = gf.cfg
     pool = gf.pool
-    if cfg.pipeline_tail_buckets != 0:
-        raise NotImplementedError(
-            "pipeline_tail_buckets (the cross-step lane) is not ported to "
-            "repro_torch yet; see ROADMAP.md A.14")
     common = dict(pool_size=pool.size, wire_dtype=str(cfg.wire_dtype),
                   num_data_shards=gf.num_data_shards)
 
-    def make_tasks(bounds, algos):
-        return tuple(BucketTask(index=i, start=s, end=e, algo=a)
+    def make_tasks(bounds, algos, spans=True):
+        return tuple(BucketTask(index=i, start=s, end=e, algo=a,
+                                update_span=(s, e) if spans else None)
                      for i, ((s, e), a) in enumerate(zip(bounds, algos)))
 
     if cfg.mode in ("dense", "lazy"):
@@ -123,9 +206,12 @@ def compile_step_plan(gf, stage=None) -> StepPlan:
             algos = gf._algos_for(tuple(bounds))
         else:
             bounds, algos = list(gf._lazy_bounds), gf._lazy_algos
+        tasks = make_tasks(bounds, algos)
+        tail = resolve_pipeline_tail(gf, tasks)
         return StepPlan(mode=cfg.mode, payload_elems=pool.size,
-                        tasks=make_tasks(bounds, algos),
-                        update_spans=tuple(bounds), **common)
+                        tasks=_tag_tail(tasks, tail),
+                        update_spans=tuple(bounds), pipeline_tail=tail,
+                        **common)
     assert cfg.mode == "csc", cfg.mode
     stage = stage or gf.stages[-1]
     k = stage.num_selected
@@ -139,9 +225,23 @@ def compile_step_plan(gf, stage=None) -> StepPlan:
     wire_bounds = csc_mod.wire_bucket_boundaries(k, cfg.chunk_elems,
                                                  gf.bucket_elems)
     return StepPlan(mode="csc", payload_elems=k * cfg.chunk_elems,
-                    tasks=make_tasks(wire_bounds, gf._algos_for(wire_bounds)),
+                    tasks=make_tasks(wire_bounds, gf._algos_for(wire_bounds),
+                                     spans=False),
                     update_spans=tuple(pool.bucket_boundaries(
                         gf.bucket_elems)), **csc, **common)
+
+
+class InflightLane(NamedTuple):
+    """The cross-step pipeline's lane: the f32 mean of each deferred
+    tail bucket (unscaled: a guarded step divides the loss scale out
+    before it parks them), the emitting step's learning rate and its
+    verdict. ``ok`` false applies nothing: the window's first lane
+    (``OverlapEngine.empty_inflight``) or a guarded step that tripped,
+    whose deferred buckets join its atomic skip."""
+
+    segs: Tuple[torch.Tensor, ...]
+    lr: torch.Tensor     # f32, 0-dim
+    ok: torch.Tensor     # bool, 0-dim
 
 
 class OverlapEngine:
@@ -218,8 +318,8 @@ class OverlapEngine:
                 plan, gpool, master, leaves, opt_state, gfstate, scale, lr,
                 limit, census)
         else:
-            outs, flags = self._guarded_pool(plan, gpool, master, leaves,
-                                             opt_state, scale, lr, limit)
+            outs, flags, _ = self._guarded_pool(plan, gpool, master, leaves,
+                                                opt_state, scale, lr, limit)
         new_scaler = scaler_mod.update(scaler_state,
                                        ~guard_mod.tripped(flags), cfg.guard)
         return (self._assemble(outs), opt_state, gfstate, new_scaler,
@@ -243,23 +343,30 @@ class OverlapEngine:
         return means
 
     def _guarded_pool(self, plan, gpool, master, leaves, opt_state, scale,
-                      lr, limit):
+                      lr, limit, defer=None):
         """Dense/lazy: reduce every bucket of the scaled wire pool, take
         each mean's health word (the all-reduce mixed every rank's words
         in, so every rank reaches the same verdict with no extra
         collective), unscale the means in place, then every span's update
-        behind ``ok``."""
+        behind ``ok``. With ``defer`` (a dict) a ``commit_epoch=1`` task's
+        unscaled mean goes there instead, keyed by its index, and its span
+        is left as it is. Returns (outs, flags, ok)."""
         from repro_torch.core import guard as guard_mod
 
         means = self._issue_all(plan, gpool)
         flags = guard_mod.flags_from_words(
             [guard_mod.health_word(m) for m in means], limit)
         ok = ~guard_mod.tripped(flags)
-        outs = [self._update_span((t.start, t.end),
-                                  means[t.index].div_(scale), master, leaves,
-                                  opt_state, lr, ok=ok)
-                for t in plan.tasks]
-        return outs, flags
+        outs = []
+        for t in plan.tasks:
+            mean = means[t.index].div_(scale)
+            if defer is not None and t.commit_epoch:
+                defer[t.index] = mean
+                outs.append(self._span_leaves(t.update_span, leaves))
+            else:
+                outs.append(self._update_span((t.start, t.end), mean, master,
+                                              leaves, opt_state, lr, ok=ok))
+        return outs, flags, ok
 
     # -- the low-bit wires ----------------------------------------------------
 
@@ -381,15 +488,17 @@ class OverlapEngine:
         return outs, flags
 
     def _run_pool_pipeline(self, plan, gpool, master, leaves, opt_state, lr,
-                           wire_dtype=None, mean_out=None, xform=None
-                           ) -> List[Any]:
+                           wire_dtype=None, mean_out=None, xform=None,
+                           defer=None) -> List[Any]:
         """Issue reduce_i, then launch update_{i-1} while it is in flight;
         wait on each bucket just before its own update. ``wire_dtype``
         casts each bucket before its all-reduce (None: ``gpool`` is
         already in the wire dtype); ``mean_out`` (a pool-sized f32 tensor,
         may be ``gpool``) receives each bucket's mean; ``xform(mean,
         task)`` maps each mean before its update (the low-bit wires'
-        dequantization)."""
+        dequantization). With ``defer`` (a dict) a ``commit_epoch=1``
+        task's mean goes there, keyed by its index, instead of into an
+        update: its span is left as it is."""
         outs: List[Any] = [None] * len(plan.tasks)
 
         def retire(task, issued):
@@ -398,6 +507,10 @@ class OverlapEngine:
                 mean = xform(mean, task)
             if mean_out is not None:
                 mean = mean_out[task.start:task.end].copy_(mean)
+            if defer is not None and task.commit_epoch:
+                defer[task.index] = mean
+                outs[task.index] = self._span_leaves(task.update_span, leaves)
+                return
             outs[task.index] = self._update_span(
                 (task.start, task.end), mean, master, leaves, opt_state, lr)
 
@@ -516,6 +629,119 @@ class OverlapEngine:
         return outs, gfstate._replace(hg=gfstate.hg.zero_(),
                                       chunk_norms=norms)
 
+    # -- the cross-step pipeline ----------------------------------------------
+
+    def empty_inflight(self, plan: StepPlan, device=None) -> InflightLane:
+        """The window's first lane: zero segments, ``ok`` false (nothing
+        to apply), shaped like every lane ``run_pipelined`` emits. The
+        segments are f32, guarded or not: the mean the in-step update
+        reads, so the deferred update's input is the unpipelined one's
+        bit for bit (the JAX package carries the wire dtype unguarded)."""
+        return InflightLane(
+            segs=tuple(torch.zeros((t.size,), dtype=torch.float32,
+                                   device=device)
+                       for t in plan.tail_tasks),
+            lr=torch.zeros((), dtype=torch.float32, device=device),
+            ok=torch.zeros((), dtype=torch.bool, device=device))
+
+    def apply_inflight(self, plan: StepPlan, params_tree, opt_state,
+                       lane: InflightLane):
+        """Update each deferred span from the lane, in place: the
+        previous step's tail buckets, before this step's forward pass
+        reads their parameters (and at a window's edge, its flush). Each
+        span is one ``pool_unpack_update`` over the span's f32 masters
+        (``_view_master``) with the lane's mean, the emitting step's
+        ``lr``, an all-true mask and the lane's ``ok`` as the kernel's
+        predicate: a first or rejected lane writes nothing. The inputs
+        are the unpipelined in-step update's, so the bits are too.
+        Returns (params_tree, opt_state)."""
+        if not plan.pipeline_tail:
+            return params_tree, opt_state
+        leaves = self.pool.flat_leaves(params_tree)
+        for task, mean in zip(plan.tail_tasks, lane.segs):
+            view = self.pool.bucket_view(*task.update_span)
+            self._update_view_seg(view, self._view_master(view, leaves),
+                                  mean, opt_state, lane.lr, None,
+                                  leaves[view.leaf_lo:view.leaf_hi],
+                                  ok=lane.ok)
+        return params_tree, opt_state
+
+    def _view_master(self, view, leaves) -> torch.Tensor:
+        """The f32 masters of one view: its own leaves packed (through
+        ``pool_pack``, the kernel with ``use_kernels``), its padding zero:
+        the bits of ``pool.pack(params)[start:end]``, without packing the
+        rest of the pool."""
+        own = leaves[view.leaf_lo:view.leaf_hi]
+        if self.gf.cfg.use_kernels:
+            from repro_torch.kernels import ops
+            return ops.pool_pack(own, view.offsets, view.sizes, view.size,
+                                 0, torch.float32)[0]
+        return ref.pool_pack(own, view.offsets, view.size, 0,
+                             torch.float32)[0]
+
+    def _span_leaves(self, span, leaves):
+        """A deferred task's share of the step: its span's leaves, as
+        they are (the JAX package's identity span)."""
+        view = self.pool.bucket_view(*span)
+        return leaves[view.leaf_lo:view.leaf_hi]
+
+    @staticmethod
+    def _lane(tail: Dict[int, torch.Tensor], plan, lr, ok) -> InflightLane:
+        return InflightLane(
+            segs=tuple(tail[t.index] for t in plan.tail_tasks),
+            lr=torch.as_tensor(lr, dtype=torch.float32).to(ok.device), ok=ok)
+
+    def run_pipelined(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
+                      opt_state, gfstate, lr):
+        """``run`` with the plan's deferred tail: the same collectives in
+        the same order and the head spans' updates in the step; the tail
+        buckets' means go into the returned lane, which the caller applies
+        at the start of the next step (``apply_inflight``) and at the
+        window's edge. Native dense and lazy only. Returns (params_tree,
+        opt_state, gfstate, lane)."""
+        assert plan.pipeline_tail and plan.mode in ("dense", "lazy") \
+            and self.gf.wire_spec is None, plan
+        master, _ = self.pool.pack(params_tree, dtype=torch.float32,
+                                   use_kernels=self.gf.cfg.use_kernels)
+        leaves = self.pool.flat_leaves(params_tree)
+        tail: Dict[int, torch.Tensor] = {}
+        outs = self._run_pool_pipeline(plan, gpool, master, leaves,
+                                       opt_state, lr, defer=tail)
+        ok = torch.ones((), dtype=torch.bool, device=master.device)
+        return (self._assemble(outs), opt_state, gfstate,
+                self._lane(tail, plan, lr, ok))
+
+    def run_pipelined_guarded(self, plan: StepPlan, gpool: torch.Tensor,
+                              params_tree, opt_state, gfstate, scaler_state,
+                              lr):
+        """``run_pipelined`` under the guard (``_guarded_pool``): every
+        bucket, the deferred ones too, is reduced before the verdict,
+        which gates both commit epochs: the head spans' updates run behind
+        ``ok`` and the lane carries ``ok``, so a tripped step's deferred
+        segments are rejected at the next step's start. The segments are
+        unscaled when parked, so a backoff in between cannot skew them.
+        Returns (params_tree, opt_state, gfstate, new scaler state, lane,
+        HealthFlags)."""
+        from repro_torch.core import guard as guard_mod
+        from repro_torch.optim import scaler as scaler_mod
+
+        cfg = self.gf.cfg
+        assert cfg.guard is not None, \
+            "run_pipelined_guarded needs a GuardConfig"
+        assert plan.pipeline_tail and plan.mode in ("dense", "lazy") \
+            and self.gf.wire_spec is None, plan
+        limit = guard_mod.overflow_limit(cfg.guard, cfg.wire_dtype)
+        master, _ = self.pool.pack(params_tree, dtype=torch.float32,
+                                   use_kernels=cfg.use_kernels)
+        leaves = self.pool.flat_leaves(params_tree)
+        tail: Dict[int, torch.Tensor] = {}
+        outs, flags, ok = self._guarded_pool(
+            plan, gpool, master, leaves, opt_state, scaler_state.scale, lr,
+            limit, defer=tail)
+        new_scaler = scaler_mod.update(scaler_state, ok, cfg.guard)
+        return (self._assemble(outs), opt_state, gfstate, new_scaler,
+                self._lane(tail, plan, lr, ok), flags)
+
     def _update_span(self, span, red_seg, master, leaves, opt_state, lr,
                      mask=None, ok=None):
         """One update span's fused optimizer step on the span's segments;
@@ -537,7 +763,6 @@ class OverlapEngine:
         gradient's norms) handed to the kernel as ``ratios`` with
         ``use_kernels``, else expanded into the per-element ``scale``."""
         from repro_torch import optim
-        from repro_torch.kernels import ref
 
         use_k = self.gf.cfg.use_kernels
         st_seg = opt_state.__class__(*(x[view.start:view.end]

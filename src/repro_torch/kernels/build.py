@@ -11,18 +11,21 @@ kept in ``<lib>.log`` beside each library.
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no ``nvcc``. The few helpers at the end are
 what the wrappers share around a launch: the address alignment a plan
-reads, and the device and stream a launch goes to, at as little host
-cost as a Python wrapper can have.
+reads, the device and stream a launch goes to, at as little host cost as
+a Python wrapper can have, and the host-to-device copy of a launch's
+small inputs (a segment table, a learning rate), which a CUDA graph
+capture takes from a ``HostArena``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -137,3 +140,62 @@ def words(values) -> ctypes.Array:
     """A launch plan as the C launchers read it: int64 words, kept alive
     by the caller (the wrappers cache one per plan)."""
     return (ctypes.c_longlong * len(values))(*values)
+
+
+class HostArena:
+    """Pinned host memory for the host-to-device copies a CUDA graph
+    captures. A captured copy reads its source again at every replay, so
+    the source must outlive the graph and keep its bytes: a buffer that
+    Python frees after the capture would be recycled, and a replay would
+    read whatever came next. The arena is allocated before the capture,
+    handed out in 8-byte aligned pieces during it, and dropped with the
+    graph."""
+
+    def __init__(self, nbytes: int):
+        self.buf = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+        self.used = 0
+
+    def take(self, values: torch.Tensor) -> torch.Tensor:
+        """A pinned copy of the CPU tensor ``values`` in the arena."""
+        n = values.numel() * values.element_size()
+        start = -(-self.used // 8) * 8
+        if start + n > self.buf.numel():
+            raise RuntimeError(f"host arena of {self.buf.numel()} bytes is "
+                               f"full ({start} used, {n} more asked)")
+        self.used = start + n
+        host = self.buf[start:start + n].view(values.dtype)
+        return host.view(values.shape).copy_(values)
+
+
+_ARENA: Optional[HostArena] = None
+
+
+@contextlib.contextmanager
+def capture_arena(arena: HostArena) -> Iterator[HostArena]:
+    """Route ``to_device``'s copies through ``arena`` while a CUDA graph
+    captures."""
+    global _ARENA
+    prev, _ARENA = _ARENA, arena
+    try:
+        yield arena
+    finally:
+        _ARENA = prev
+
+
+def to_device(values: torch.Tensor, device) -> torch.Tensor:
+    """The CPU tensor ``values`` on ``device``, copied asynchronously on
+    the current stream from pinned memory, so a launch never waits for
+    the device. While the current stream captures a CUDA graph the pinned
+    source comes from the capture's arena (``capture_arena``); a capture
+    without one raises rather than leave the graph reading freed
+    memory."""
+    if torch.cuda.is_current_stream_capturing():
+        if _ARENA is None:
+            raise RuntimeError(
+                "a kernel launch with a host-to-device input was captured "
+                "into a CUDA graph outside kernels.build.capture_arena: "
+                "replays would read freed host memory")
+        host = _ARENA.take(values)
+    else:
+        host = values.pin_memory()
+    return host.to(device, non_blocking=True)

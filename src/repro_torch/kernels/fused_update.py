@@ -61,10 +61,9 @@ def launch(master: torch.Tensor, grads: torch.Tensor,
     new_mom = torch.empty_like(momentum_buf)
     if n == 0:
         return new_master, new_mom
-    lr_t = torch.as_tensor(lr, dtype=torch.float32)
+    lr_t = torch.as_tensor(lr, dtype=torch.float32).reshape(1)
     if lr_t.device != device:
-        lr_t = lr_t.pin_memory().to(device, non_blocking=True)
-    lr_t = lr_t.reshape(1)
+        lr_t = build.to_device(lr_t, device)
     fn = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -43,12 +43,11 @@ def _lib():
 def segment_table(leaves: Sequence[torch.Tensor], offsets: Sequence[int],
                   sizes: Sequence[int], device: torch.device) -> torch.Tensor:
     """The device-side segment table the kernels read:
-    int64 [leaf data pointers | pool offsets | sizes]. Staged in pinned
-    host memory and copied asynchronously on the current stream, so a
-    launch never waits for the device."""
+    int64 [leaf data pointers | pool offsets | sizes], copied
+    asynchronously from pinned host memory (``build.to_device``: inside
+    a CUDA graph capture, from the capture's host arena)."""
     rows = [t.data_ptr() for t in leaves] + list(offsets) + list(sizes)
-    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
-    return host.to(device, non_blocking=True)
+    return build.to_device(torch.tensor(rows, dtype=torch.int64), device)
 
 
 def check_segments(leaves: Sequence[torch.Tensor], offsets: Sequence[int],

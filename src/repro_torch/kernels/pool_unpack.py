@@ -129,10 +129,9 @@ def launch(master: torch.Tensor, grads: torch.Tensor,
             or not out_momentum.is_contiguous()):
         raise ValueError("out_momentum must be contiguous f32[n] on the "
                          "device")
-    lr_t = torch.as_tensor(lr, dtype=torch.float32)
+    lr_t = torch.as_tensor(lr, dtype=torch.float32).reshape(1)
     if lr_t.device != device:
-        lr_t = lr_t.pin_memory().to(device, non_blocking=True)
-    lr_t = lr_t.reshape(1)
+        lr_t = build.to_device(lr_t, device)
     ratios_c = ratios.contiguous() if ratios is not None else None
     table = segment_table(out_leaves, offsets, sizes, device)
     covered = offsets[-1] + sizes[-1] if sizes else 0

@@ -5,16 +5,23 @@ port supports.
       --steps 20 --batch 8 --seq-len 256 --use-kernels
 
 Runs on the first CUDA card unless ``--device cpu``. ``--gf-mode``
-defaults to ``csc``, as in the JAX CLI: each step runs under the CSC
-warm-up stage ``gf.stage_for_step`` picks, with one step function per
-stage, and the log shows the stage and its sparsity. ``--optimizer``
-takes momentum_sgd, lars and adamw; ``--wire-format`` native (the
-bf16 wire cast), int8 or fp8_e4m3 (1-byte words with
-per-chunk scales and error feedback, ``core.wire``). Flags the port does
-not support yet — compiled windows, checkpoints — raise with a pointer
-to ROADMAP.md. Inside an initialised
-``torch.distributed`` group each rank trains on its own shard of the
-global batch.
+defaults to ``csc``, as in the JAX CLI, and ``--window-steps`` (K) to 8:
+the steps run in windows of K (``Trainer.build_train_window``; on the
+card one CUDA graph a window, captured once a stage and replayed), the
+CSC warm-up stages snapped to the window grid
+(``core.schedule.snap_stages_to_window``), so each window runs under one
+stage and each stage builds one window, whose graph and memory are freed
+when the schedule leaves the stage; the batches of a window are stacked
+on the host and the losses read once a window. ``--window-steps 1`` runs
+one eager step at a time, each under the stage ``gf.stage_for_step``
+picks. The log shows each step's stage and its sparsity, and tokens/s
+over the windows after the first (``ThroughputMeter``: the first window
+pays the capture). ``--optimizer`` takes momentum_sgd, lars and adamw;
+``--wire-format`` native (the bf16 wire cast), int8 or fp8_e4m3 (1-byte
+words with per-chunk scales and error feedback, ``core.wire``).
+Checkpoints (``--ckpt-dir``) are not supported yet and raise with a
+pointer to ROADMAP.md. Inside an initialised ``torch.distributed`` group
+each rank trains on its own shard of the global batch.
 """
 from __future__ import annotations
 
@@ -27,11 +34,39 @@ import torch
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.configs.base import (GradientFlowConfig, OptimizerConfig,
                                       TrainConfig)
+from repro_torch.core.schedule import (snap_stages_to_window, stage_at,
+                                       stage_first_steps)
 from repro_torch.data.synthetic import SyntheticLM
 from repro_torch.launch.trainer import Trainer
 from repro_torch.parallel import collectives
 
 _ROADMAP = "is not ported to repro_torch yet; see ROADMAP.md queue A"
+
+
+class ThroughputMeter:
+    """Tokens/s over the steps of this process, the first completed window
+    (the one that captures its graph) left out: the clock starts when it
+    ends."""
+
+    def __init__(self, tokens_per_step: float):
+        self.tokens_per_step = tokens_per_step
+        self._t0: Optional[float] = None
+        self._steps = 0
+
+    def note(self, n_steps: int, now: Optional[float] = None) -> None:
+        """Record ``n_steps`` just finished."""
+        now = time.perf_counter() if now is None else now
+        if self._t0 is None:
+            self._t0 = now  # the first window only starts the clock
+        else:
+            self._steps += n_steps
+
+    def rate(self, now: Optional[float] = None) -> Optional[float]:
+        """Tokens/s, or None until a step after the first window ends."""
+        if self._t0 is None or self._steps == 0:
+            return None
+        now = time.perf_counter() if now is None else now
+        return self._steps * self.tokens_per_step / (now - self._t0)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,7 +91,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--use-kernels", action="store_true")
     p.add_argument("--wire-format", default="native",
                    choices=["native", "int8", "fp8_e4m3"])
-    p.add_argument("--window-steps", type=int, default=1)
+    p.add_argument("--window-steps", type=int, default=8,
+                   help="K: steps a window (one CUDA graph on the card, "
+                        "one host read); 1 = one eager step at a time")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
@@ -67,9 +104,9 @@ def _parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
-    if args.window_steps > 1:
-        raise NotImplementedError("--window-steps > 1 (the compiled "
-                                  "window) " + _ROADMAP)
+    if args.window_steps < 1:
+        raise ValueError(f"--window-steps must be >= 1, got "
+                         f"{args.window_steps}")
     if args.ckpt_dir is not None:
         raise NotImplementedError("checkpoints (--ckpt-dir) " + _ROADMAP)
     return args
@@ -89,14 +126,19 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
         schedule="warmup_cosine")
     cfg = TrainConfig(model=model_cfg, gradientflow=gf, optimizer=opt,
                       seq_len=args.seq_len, global_batch=args.batch,
-                      attn_chunk=0, seed=args.seed, window_steps=1)
+                      attn_chunk=0, seed=args.seed,
+                      window_steps=args.window_steps)
     return Trainer(cfg, device=args.device), cfg
 
 
-def train(args: argparse.Namespace
+def train(args: argparse.Namespace, record: Optional[List[dict]] = None
           ) -> Tuple[Trainer, List[float], List[float]]:
-    """Run ``args.steps`` steps. Returns (trainer, losses, step seconds);
-    each step's time is taken on the host clock after a device sync."""
+    """Run ``args.steps`` steps. Returns (trainer, losses, step seconds):
+    a step's time is its window's on the host clock, from a device sync
+    to the read of the window's losses and another sync, over the
+    window's steps. ``record``, if given, receives one dict a window
+    (its first step, length, stage, seconds and, on a CUDA device, the
+    device memory reserved after it and the window's ``stats``)."""
     trainer, cfg = build(args)
     n = collectives.data_world_size()
     if cfg.global_batch % n:
@@ -106,27 +148,59 @@ def train(args: argparse.Namespace
     local_batch = cfg.global_batch // n
     data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
     state = trainer.init_state(args.seed)
-    step_fns: Dict[int, Callable] = {}
-    sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
-            else (lambda: None))
+    cuda = trainer.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    K = args.window_steps
+    stages = snap_stages_to_window(trainer.gf.stages, K)
+    firsts = stage_first_steps(stages)
+    meter = ThroughputMeter(cfg.global_batch * cfg.seq_len)
     losses: List[float] = []
     seconds: List[float] = []
-    for s in range(args.steps):
-        batch = data.batch(s, local_batch, cfg.seq_len, shard=rank)
-        stage = trainer.gf.stage_for_step(s)
-        if stage.index not in step_fns:
-            step_fns[stage.index] = trainer.build_train_step(stage)
+    step_fns: Dict[int, Callable] = {}
+    window, window_stage = None, None
+    for start in range(0, args.steps, K):
+        length = min(K, args.steps - start)
+        stage = stage_at(stages, start, firsts)
+        batches = [data.batch(start + i, local_batch, cfg.seq_len,
+                              shard=rank) for i in range(length)]
         sync()
         t0 = time.perf_counter()
-        state, metrics = step_fns[stage.index](state, batch)
-        loss = float(metrics["loss"])  # waits for the step
+        if K == 1:
+            if stage.index not in step_fns:
+                step_fns[stage.index] = trainer.build_train_step(stage)
+            state, metrics = step_fns[stage.index](state, batches[0])
+        else:
+            if stage.index != window_stage:
+                if window is not None:
+                    window.release()
+                window = trainer.build_train_window(K, stage)
+                window_stage = stage.index
+            state, metrics = window(state, {
+                k: torch.stack([b[k] for b in batches]) for k in batches[0]})
+        got = metrics["loss"].reshape(-1).tolist()  # waits for the window
         sync()
-        seconds.append(time.perf_counter() - t0)
-        losses.append(loss)
-        if s % args.log_every == 0 or s == args.steps - 1:
-            print(f"step {s:5d} stage {stage.index} "
-                  f"sparsity {stage.sparsity:.2f} loss {loss:.4f} "
-                  f"({seconds[-1] * 1e3:.1f} ms)", flush=True)
+        dt = time.perf_counter() - t0
+        seconds += [dt / length] * length
+        losses += got
+        meter.note(length)
+        if record is not None:
+            record.append(dict(
+                start=start, length=length, stage=stage.index, seconds=dt,
+                reserved_bytes=torch.cuda.memory_reserved() if cuda
+                else None,
+                stats=dict(window.stats) if K > 1 else None))
+        rate = meter.rate()
+        for s in range(start, start + length):
+            if s % args.log_every == 0 or s == args.steps - 1:
+                tail = f"{rate:,.0f} tok/s" if rate is not None \
+                    else "first window"
+                print(f"step {s:5d} stage {stage.index} "
+                      f"sparsity {stage.sparsity:.2f} "
+                      f"loss {got[s - start]:.4f} "
+                      f"({dt / length * 1e3:.1f} ms a step; {tail})",
+                      flush=True)
+    if window is not None:
+        window.release()
     return trainer, losses, seconds
 
 

@@ -46,6 +46,17 @@ optimizer state and CSC's state bit-identical; only the scaler advances.
 reduce (``runtime.faults``); the hook writes after the pack's census, so
 a low-bit dense or lazy step then takes the census anew from the pool it
 corrupted. Gradient accumulation is not ported yet.
+
+``build_train_window(K)`` runs up to K steps as one unit, the port's form
+of the JAX package's compile-once window (``launch.window``): on a CUDA
+device the L <= K step bodies are one CUDA graph, captured at the first
+call and replayed after it, with one host read of the stacked metrics a
+window; on the CPU the same bodies run eagerly. With a deferred tail
+(``GradientFlowConfig.pipeline_tail_buckets``, staged native dense or
+lazy) and K > 1 each body first applies the previous step's lane
+(``TrainState.inflight``) and parks its own tail in a new one; the
+window starts from an empty lane and flushes the last before it returns,
+so a state outside a window is always flushed (``assert_flushed``).
 """
 from __future__ import annotations
 
@@ -81,6 +92,27 @@ class TrainState(NamedTuple):
     step: int
     guard: Any = ()      # the loss scaler's ScalerState when guarded
     staging: Any = None  # the pool buffer the next pack writes into
+    # The cross-step pipeline's lane (core.engine.InflightLane), live only
+    # between the step bodies of a pipelined window: every state a window
+    # or a step returns carries the empty tuple.
+    inflight: Any = ()
+
+
+def is_flushed(state: TrainState) -> bool:
+    """True when the state carries no live lane: every update a step
+    emitted has been applied to the parameters."""
+    return not state.inflight
+
+
+def assert_flushed(state: TrainState, what: str = "checkpoint") -> None:
+    """Refuse a state that carries a live lane: its deferred updates
+    exist nowhere else, so saving or stepping it would drop them. A
+    window flushes its lane before it returns."""
+    if not is_flushed(state):
+        raise ValueError(
+            f"TrainState carries an in-flight pipeline lane; {what} needs "
+            f"a flushed state (pass the state a window returned, not one "
+            f"taken between its step bodies)")
 
 
 class Trainer:
@@ -163,17 +195,92 @@ class Trainer:
         CSC's hg, and guarded its chunk norms), which are updated in
         place. ``fault_hook(gpool, step)`` (``runtime.faults.make_hook``)
         may corrupt the packed local pool, in place, before its reduce;
-        ``step`` is the host int ``state.step``."""
+        ``step`` is the host int ``state.step``. A plan with a deferred
+        tail runs unpipelined here, as in the JAX package."""
+        body = self._step_body(stage, fault_hook, pipelined=False)
+
+        def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            assert_flushed(state, "a train step")
+            batch = {k: v.to(self.device, non_blocking=True)
+                     for k, v in batch.items()}
+            lr = lr_at(self.cfg.optimizer, state.step)
+            if self.device.type == "cuda":
+                lr = lr.pin_memory().to(self.device, non_blocking=True)
+            state, metrics = body(state, batch, lr, state.step)
+            return state, self.reduce_metrics(metrics)
+
+        return step
+
+    def build_train_window(self, window_steps: int,
+                           stage: Optional[SparsityStage] = None,
+                           fault_hook: Optional[Callable] = None):
+        """``window(state, batches) -> (state, metrics)``: up to
+        ``window_steps`` steps under one stage as one unit
+        (``launch.window.TrainWindow``). ``batches`` holds 'tokens' and
+        'labels' stacked [L, b, s], L <= window_steps; the metrics come
+        back stacked [L] (``guard_tripped`` too when guarded). The
+        returned state is flushed and shares its tensors with the input
+        state. On a CUDA device the L step bodies are one CUDA graph,
+        captured at the first call for each L and replayed after it (a
+        capture that fails raises; nothing falls back to the eager
+        loop); on the CPU they run eagerly. ``fault_hook(gpool, step)``
+        gets the step as a 0-dim tensor on the trainer's device. With a
+        deferred tail and window_steps > 1 the bodies run the cross-step
+        pipeline. On the card a step that would sum through a gloo group
+        raises here (``launch.window.host_collectives``)."""
+        from repro_torch.launch.window import TrainWindow
+
+        if window_steps < 1:
+            raise ValueError(f"window_steps must be >= 1, got {window_steps}")
+        plan = self._pipeline_plan(stage) if window_steps > 1 else None
+        body = self._step_body(stage, fault_hook, pipelined=plan is not None)
+        return TrainWindow(self, window_steps, body, plan,
+                           self.engine.plan_for(stage))
+
+    def _pipeline_plan(self, stage: Optional[SparsityStage] = None):
+        """The plan a pipelined window runs, or None when the config does
+        not pipeline (no deferred tail, monolithic overlap, CSC, a low-bit
+        wire)."""
+        if self.gf_cfg.overlap != "staged":
+            return None
+        plan = self.engine.plan_for(stage)
+        return plan if plan.pipeline_tail else None
+
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The metrics' mean over the data-parallel ranks, in place (one
+        all-reduce each). ``guard_tripped`` is the same on every rank
+        already and takes none."""
+        if self.num_data > 1:
+            for k, v in metrics.items():
+                if k != "guard_tripped":
+                    collectives.all_reduce_sum(v)
+                    v.div_(self.num_data)
+        return metrics
+
+    def _step_body(self, stage: Optional[SparsityStage],
+                   fault_hook: Optional[Callable], pipelined: bool):
+        """``body(state, batch, lr, step) -> (state, local metrics)``: one
+        step on a batch already on the device, with its learning rate
+        ``lr`` (f32) and ``step`` for the fault hook; the metrics are this
+        rank's (``reduce_metrics`` averages them). ``pipelined``: apply
+        ``state.inflight`` first, then run the pipelined update, which
+        returns the next lane in the state."""
         cfg = self.cfg
         plan = self.engine.plan_for(stage)
         use_k = self.gf_cfg.use_kernels
         guarded = self.gf_cfg.guarded
+        staged = self.gf_cfg.overlap == "staged"
 
-        def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-            batch = {k: v.to(self.device, non_blocking=True)
-                     for k, v in batch.items()}
+        def body(state: TrainState, batch: Dict[str, torch.Tensor], lr,
+                 step):
+            params, opt = state.params, state.opt
+            if pipelined:
+                with torch.no_grad():
+                    params, opt = self.engine.apply_inflight(
+                        plan, params, opt, state.inflight)
             leaves = [p.detach().requires_grad_(True)
-                      for p in self.pool.flat_leaves(state.params)]
+                      for p in self.pool.flat_leaves(params)]
             tracked = self.pool.unflatten(leaves)
             cp = _tree_map(lambda p: p.to(self.compute_dtype), tracked)
             loss, metrics = self.model.loss_fn(
@@ -191,43 +298,42 @@ class Trainer:
                 use_kernels=use_k)
             del grads
             if fault_hook is not None:
-                gpool = fault_hook(gpool, state.step)
+                gpool = fault_hook(gpool, step)
                 census = None  # it describes the pool before the fault
-            lr = lr_at(cfg.optimizer, state.step)
-            if self.device.type == "cuda":
-                lr = lr.pin_memory().to(self.device, non_blocking=True)
-            scaler, flags = state.guard, None
+            scaler, flags, lane = state.guard, None, ()
             with torch.no_grad():
-                if guarded and self.gf_cfg.overlap == "staged":
+                if pipelined and guarded:
+                    params, opt, gf, scaler, lane, flags = \
+                        self.engine.run_pipelined_guarded(
+                            plan, gpool, params, opt, state.gf, state.guard,
+                            lr)
+                elif pipelined:
+                    params, opt, gf, lane = self.engine.run_pipelined(
+                        plan, gpool, params, opt, state.gf, lr)
+                elif guarded and staged:
                     params, opt, gf, scaler, flags = self.engine.run_guarded(
-                        plan, gpool, state.params, state.opt, state.gf,
-                        state.guard, lr, census=census)
+                        plan, gpool, params, opt, state.gf, state.guard, lr,
+                        census=census)
                 elif guarded:
                     params, opt, gf, scaler, flags = \
                         self._monolithic_update_guarded(
-                            stage, gpool, state.params, state.opt, state.gf,
-                            state.guard, lr, census)
-                elif self.gf_cfg.overlap == "staged":
+                            stage, gpool, params, opt, state.gf, state.guard,
+                            lr, census)
+                elif staged:
                     params, opt, gf = self.engine.run(
-                        plan, gpool, state.params, state.opt, state.gf, lr,
+                        plan, gpool, params, opt, state.gf, lr,
                         census=census)
                 else:
                     params, opt, gf = self._monolithic_update(
-                        stage, gpool, state.params, state.opt, state.gf, lr,
-                        census)
+                        stage, gpool, params, opt, state.gf, lr, census)
             metrics = {k: v.detach() for k, v in metrics.items()}
-            if self.num_data > 1:
-                for v in metrics.values():
-                    collectives.all_reduce_sum(v)
-                    v.div_(self.num_data)
             if flags is not None:
-                # The same on every rank already: no collective.
                 metrics.update(guard_mod.as_metrics(flags))
             return TrainState(params=params, opt=opt, gf=gf,
                               step=state.step + 1, guard=scaler,
-                              staging=staging), metrics
+                              staging=staging, inflight=lane), metrics
 
-        return step
+        return body
 
     def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr,
                            census=None):

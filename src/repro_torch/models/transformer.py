@@ -62,8 +62,11 @@ def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     for i in range(cfg.num_layers):
         lp = _layer(per_layer, i)
         if remat == "layer":
+            # The model draws no random numbers, so the recompute needs no
+            # saved RNG state (reading it is not allowed in a CUDA graph).
             x = checkpoint(lambda h, lp=lp: block_apply(
-                lp, h, cfg, attn_chunk=attn_chunk), x, use_reentrant=False)
+                lp, h, cfg, attn_chunk=attn_chunk), x, use_reentrant=False,
+                preserve_rng_state=False)
         else:
             x = block_apply(lp, x, cfg, attn_chunk=attn_chunk)
     return x

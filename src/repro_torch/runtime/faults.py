@@ -18,21 +18,28 @@ catch:
                of scope, as in the JAX package.
 
 ``make_hook(events)`` builds the ``fault_hook(gpool, step)`` of
-``Trainer.build_train_step``: it writes each event of step ``step`` into
-the packed local pool, in place, right before the reduce. The step is the
-trainer's host int, so choosing the events is a plain comparison.
+``Trainer.build_train_step`` and ``build_train_window``: it writes each
+event of step ``step`` into the packed local pool, in place, right before
+the reduce. A per-step step passes its host int, and choosing the events
+is a plain comparison; a window passes the step as a 0-dim device tensor,
+and every event is written through a ``torch.where`` select (a masked
+XOR for the bit flip) on the device, with no host read, so a hook
+captured in a CUDA graph fires on exactly its step at every replay.
 
 ``GuardLane`` is the small real-numeric harness of the JAX package's
 ``repro.runtime.faults``: a pool and the staged guarded engine
 (``OverlapEngine.run_guarded``) on one rank, stepped against a fault
 schedule, recording per step the verdict, the scaler's trajectory and a
 bit-identity check of the skip. Its records are ints, bools and
-power-of-two floats, field for field the JAX lane's.
+power-of-two floats, field for field the JAX lane's. ``run(window=K)``
+is the JAX package's windowed lane: the steps on the device, faults
+chosen by a device step, per-step snapshots stacked and read once a
+window, the same records.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -51,41 +58,58 @@ class FaultEvent:
     width: int = 4
 
 
-def _flip_exponent_msb(seg: torch.Tensor) -> torch.Tensor:
+def _flip_exponent_msb(seg: torch.Tensor,
+                       fire: Optional[torch.Tensor] = None) -> torch.Tensor:
     """XOR the exponent MSB of each wire word, in place: bit 14 of 16-bit
     floats (bf16 and f16 alike), bit 30 of f32 (other dtypes round-trip
-    through f32). Returns ``seg``."""
+    through f32). ``fire`` (a 0-dim bool tensor) masks the XOR: where it
+    is false the words keep their bits. Returns ``seg``."""
+    def bit(b, dtype):
+        return b if fire is None else fire.to(dtype) * b
+
     if seg.element_size() == 2:
-        seg.view(torch.int16).bitwise_xor_(1 << 14)
+        seg.view(torch.int16).bitwise_xor_(bit(1 << 14, torch.int16))
         return seg
     f = seg if seg.dtype == torch.float32 else seg.to(torch.float32)
-    f.view(torch.int32).bitwise_xor_(1 << 30)
+    f.view(torch.int32).bitwise_xor_(bit(1 << 30, torch.int32))
     if f is not seg:
         seg.copy_(f)
     return seg
 
 
-def _corrupt(gpool: torch.Tensor, ev: FaultEvent) -> torch.Tensor:
-    """Write one event into ``gpool`` in place; returns ``gpool``."""
+_FILL = {"nan": float("nan"),
+         # Huge but finite in bf16 and f32 (an f16 pool saturates to Inf;
+         # the nonfinite flag catches that, see guard.overflow_limit).
+         "overflow": 2.0 ** 120}
+
+
+def _corrupt(gpool: torch.Tensor, ev: FaultEvent,
+             fire: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Write one event into ``gpool`` in place, or, given ``fire`` (a
+    0-dim bool tensor), select it in where ``fire`` holds; returns
+    ``gpool``."""
     seg = gpool[ev.offset:ev.offset + ev.width]
-    if ev.kind == "nan":
-        seg.fill_(float("nan"))
-    elif ev.kind == "overflow":
-        # Huge but finite in bf16 and f32 (an f16 pool saturates to Inf;
-        # the nonfinite flag catches that, see guard.overflow_limit).
-        seg.fill_(2.0 ** 120)
+    if ev.kind in _FILL:
+        if fire is None:
+            seg.fill_(_FILL[ev.kind])
+        else:
+            seg.copy_(torch.where(fire, _FILL[ev.kind], seg))
     elif ev.kind == "bitflip":
-        _flip_exponent_msb(seg)
+        _flip_exponent_msb(seg, fire)
     else:
         raise ValueError(f"unknown fault kind: {ev.kind!r}")
     return gpool
 
 
-def apply_faults(gpool: torch.Tensor, step: int,
+def apply_faults(gpool: torch.Tensor, step: Union[int, torch.Tensor],
                  events: Sequence[FaultEvent]) -> torch.Tensor:
-    """Apply, in place and in order, every event of step ``step``."""
+    """Apply, in place and in order, every event of step ``step``: a host
+    int picks the events on the host; a 0-dim tensor on the pool's device
+    selects each one in on the device."""
     for ev in events:
-        if ev.step == step:
+        if isinstance(step, torch.Tensor):
+            _corrupt(gpool, ev, fire=step == ev.step)
+        elif ev.step == step:
             _corrupt(gpool, ev)
     return gpool
 
@@ -174,14 +198,20 @@ class GuardLane:
 
     def run(self, num_steps: int, events: Sequence[FaultEvent] = (),
             window: int = 1) -> List[dict]:
+        """``num_steps`` guarded steps against ``events``, one record a
+        step, in windows of ``window`` steps (the JAX package's
+        ``_run_windows``; ``window`` = 1 is the per-step lane). Each
+        window's steps run on the device with the step a 0-dim device
+        tensor (faults selected in on the device), each step's state
+        snapshot, scale, skip count and verdict stacked; the stacks are
+        read once a window, and the records rebuilt from them, the
+        frozen proof against the previous step's snapshot."""
         from repro_torch import optim
         from repro_torch.core import guard as guard_mod
         from repro_torch.optim import scaler as scaler_mod
 
-        if window > 1:
-            raise NotImplementedError(
-                "GuardLane with window > 1 (the compile-once lane) is not "
-                "ported to repro_torch yet; see ROADMAP.md A.14")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
         events = tuple(events)
         by_step = {ev.step: ev for ev in events}
         plan = self.engine.plan_for()
@@ -200,27 +230,38 @@ class GuardLane:
                     opt.momentum.clone(), gfstate.hg.clone(),
                     gfstate.residual.clone())
 
+        prev = tuple(x.cpu() for x in snapshot())
         records: List[dict] = []
-        for t in range(num_steps):
-            before = snapshot()
-            # The lane's backward pass: the fixed gradients times the live
-            # loss scale, packed to the wire dtype.
-            gpool = (self.base_grads * scaler.scale).to(prepack)
-            gpool = apply_faults(gpool, t, events)
-            params, opt, gfstate, scaler, flags = self.engine.run_guarded(
-                plan, gpool, params, opt, gfstate, scaler, 0.05)
-            tripped = bool(guard_mod.tripped(flags))
-            frozen = not tripped or all(
-                _same_bits(a, b) for a, b in zip(before, snapshot()))
-            ev = by_step.get(t)
-            records.append({
-                "step": t,
-                "fault": ev.kind if ev is not None else None,
-                "tripped": tripped,
-                "state_frozen": frozen,
-                "scale": float(scaler.scale),
-                "skipped": int(scaler.skipped),
-            })
+        for t in range(0, num_steps, window):
+            n = min(window, num_steps - t)
+            snaps = []
+            for i in range(n):
+                step = torch.tensor(t + i, device=self.device)
+                # The lane's backward pass: the fixed gradients times the
+                # live loss scale, packed to the wire dtype.
+                gpool = (self.base_grads * scaler.scale).to(prepack)
+                gpool = apply_faults(gpool, step, events)
+                params, opt, gfstate, scaler, flags = \
+                    self.engine.run_guarded(plan, gpool, params, opt,
+                                            gfstate, scaler, 0.05)
+                snaps.append(snapshot() + (
+                    scaler.scale.clone(), scaler.skipped.clone(),
+                    guard_mod.tripped(flags)))
+            stacked = [torch.stack(col).cpu() for col in zip(*snaps)]
+            for i in range(n):
+                cur = tuple(x[i] for x in stacked[:4])
+                trip = bool(stacked[6][i])
+                ev = by_step.get(t + i)
+                records.append({
+                    "step": t + i,
+                    "fault": ev.kind if ev is not None else None,
+                    "tripped": trip,
+                    "state_frozen": not trip or all(
+                        _same_bits(a, b) for a, b in zip(prev, cur)),
+                    "scale": float(stacked[4][i]),
+                    "skipped": int(stacked[5][i]),
+                })
+                prev = cur
         return records
 
 

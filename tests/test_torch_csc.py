@@ -475,17 +475,19 @@ def test_two_rank_gloo_csc(tmp_path):
 def test_cli_defaults_to_csc(capsys):
     from repro_torch.launch import train as train_mod
 
-    argv = ["--arch", "smollm-135m", "--reduced", "--steps", "6", "--batch",
+    argv = ["--arch", "smollm-135m", "--reduced", "--steps", "9", "--batch",
             "4", "--seq-len", "64", "--use-kernels", "--device", "cpu"]
     args = train_mod.parse_args(argv)
-    assert (args.gf_mode, args.sparsity, args.chunk_elems,
-            args.csc_warmup) == ("csc", 0.85, 2048, 20)
+    assert (args.gf_mode, args.sparsity, args.chunk_elems, args.csc_warmup,
+            args.window_steps) == ("csc", 0.85, 2048, 20, 8)
     ops.reset_counts()
     losses = train_mod.main(argv)
     out = capsys.readouterr().out
-    assert len(losses) == 6 and all(np.isfinite(losses))
-    # Steps 0-4 are the dense warm-up stage; step 5 opens stage 1.
+    assert len(losses) == 9 and all(np.isfinite(losses))
+    # The warm-up stages (first steps 0, 5, 10, 15, 20) snap to the
+    # window grid of 8: steps 0-7 are the dense warm-up stage; stages 1
+    # and 2 both snap to step 8, where stage 2 opens (stage 1 never runs).
     assert "step     0 stage 0 sparsity 0.00" in out
-    assert "step     5 stage 1 sparsity 0.21" in out
+    assert "step     8 stage 2 sparsity 0.42" in out
     assert ops.dispatch_counts["csc_compact.plain"] == 1
-    assert ops.dispatch_counts["chunk_l1norm.plain"] == 6
+    assert ops.dispatch_counts["chunk_l1norm.plain"] == 9

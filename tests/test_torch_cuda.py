@@ -637,3 +637,125 @@ def test_cuda_ring_sums_quantized_int8_words_exactly(dev, n):
     for r in range(n):
         assert got[r].dtype == torch.int8
         assert torch.equal(got[r].to(torch.int32), flat), r
+
+
+# -- the window as a CUDA graph -------------------------------------------------
+
+
+def _window_cfg(mode, tail, guarded, opt="momentum_sgd", wire="native",
+                overlap="staged"):
+    from repro_torch.configs import base, get_smoke
+
+    model = dataclasses.replace(get_smoke("smollm-135m")[0],
+                                compute_dtype="float32")
+    return base.TrainConfig(
+        model=model, seq_len=16, global_batch=2, attn_chunk=0,
+        gradientflow=base.GradientFlowConfig(
+            mode=mode, bucket_elems=4096, chunk_elems=512, sparsity=0.5,
+            warmup_steps=0, wire_dtype="float32", pipeline_tail_buckets=tail,
+            guard=base.GuardConfig(init_scale=2.0, growth_interval=1000)
+            if guarded else None, use_kernels=True, wire_format=wire,
+            overlap=overlap),
+        optimizer=base.OptimizerConfig(
+            name=opt, learning_rate=0.01 if opt == "adamw" else 0.1,
+            warmup_steps=2, total_steps=16, schedule="constant"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tail,guarded,extra", [
+    ("lazy", 0, False, {}), ("lazy", 2, False, {}), ("lazy", 2, True, {}),
+    ("dense", 2, False, {}), ("csc", 0, True, {}),
+    ("lazy", 0, False, {"opt": "lars"}), ("csc", 0, False, {"opt": "lars"}),
+    ("lazy", 0, False, {"opt": "adamw"}), ("csc", 0, True, {"opt": "adamw"}),
+    ("lazy", 0, False, {"wire": "int8"}), ("csc", 0, True, {"wire": "int8"}),
+    ("lazy", 0, False, {"wire": "fp8_e4m3"}),
+    ("lazy", 0, False, {"overlap": "monolithic"}),
+    ("lazy", 0, True, {"opt": "lars", "overlap": "monolithic"})],
+    ids=lambda v: "-".join(map(str, v.values())) if isinstance(v, dict)
+    else str(v))
+def test_cuda_window_graph_matches_eager(dev, mode, tail, guarded, extra):
+    """Two K = 4 windows, each a replay of one CUDA graph, against 8
+    eager per-step steps from the same seed on the same batches, for
+    momentum SGD, LARS and AdamW, the native, int8 and fp8 wires, staged
+    and monolithic overlap: the losses and every tensor of the state
+    (parameters, optimizer state, hg, chunk norms, residual, scaler) the
+    same bits (guarded: a NaN at step 5 trips only step 5); the capture's
+    launches are 4 x the per-step plan's; the pipelined window's state is
+    flushed."""
+    from repro_torch.launch.trainer import Trainer, is_flushed
+    from repro_torch.runtime.faults import FaultEvent, make_hook
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (8, 2, 17)))
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    hook = make_hook([FaultEvent(step=5, kind="nan", offset=8, width=4)]) \
+        if guarded else None
+    cfg = _window_cfg(mode, tail, guarded, **extra)
+    trainer = Trainer(cfg, device=dev)
+    state = trainer.init_state(seed=0)
+    window = trainer.build_train_window(4, fault_hook=hook)
+    losses, tripped = [], []
+    for w in range(2):
+        state, m = window(state, {k: v[4 * w:4 * w + 4]
+                                  for k, v in batches.items()})
+        losses += m["loss"].tolist()
+        tripped += m["guard_tripped"].tolist() if guarded else []
+    assert is_flushed(state) and state.step == 8
+    assert window.stats["captures"] == 1 and window.stats["replays"] == 2
+    eager = Trainer(_window_cfg(mode, 0, guarded, **extra), device=dev)
+    ref = eager.init_state(seed=0)
+    step = eager.build_train_step(fault_hook=hook)
+    ops.reset_counts()
+    ref_losses = []
+    for i in range(8):
+        ref, m = step(ref, {k: v[i] for k, v in batches.items()})
+        ref_losses.append(float(m["loss"]))
+        if i == 3:
+            per_4 = dict(ops.dispatch_counts)
+    assert losses == ref_losses
+    if guarded:
+        assert tripped == [float(i == 5) for i in range(8)]
+
+    def tensors(t, st):
+        return (t.pool.flat_leaves(st.params) + list(st.opt) + list(st.gf)
+                + (list(st.guard) if st.guard else []))
+
+    got_t, want_t = tensors(trainer, state), tensors(eager, ref)
+    assert len(got_t) == len(want_t)
+    for a, b in zip(got_t, want_t):
+        assert torch.equal(a, b)
+    got = window.stats["capture_counts"]
+    if tail:
+        # The tail spans' updates move to the lane apply at each step's
+        # start and the flush, each with a master pack of its span.
+        per_4 = dict(per_4)
+        per_4["pool_pack.kernel"] += tail * 5
+        per_4["pool_unpack_update.kernel"] += tail
+    assert got == per_4
+    window.release()
+
+
+@pytest.mark.cuda
+def test_cuda_capture_needs_the_arena(dev):
+    """A launch whose segment table comes from the host refuses to be
+    captured outside ``build.capture_arena`` (a replay would read freed
+    host memory); inside one it is captured and replays right."""
+    from repro_torch.kernels import build
+
+    sizes = (37, 128, 5)
+    offsets, n = _table(sizes)
+    leaves = [torch.randn(s, device=dev) for s in sizes]
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture_arena"):
+        with torch.cuda.graph(g):
+            ops.pool_pack(leaves, offsets, sizes, n, 0, torch.float32)
+    g = torch.cuda.CUDAGraph()
+    arena = build.HostArena(4096)
+    with build.capture_arena(arena), torch.cuda.graph(g):
+        pool, _ = ops.pool_pack(leaves, offsets, sizes, n, 0, torch.float32)
+    for _ in range(2):
+        for x in leaves:
+            x.normal_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(pool, torch.cat(leaves))

@@ -220,8 +220,10 @@ def test_guard_lane_records_match_jax(mode):
     assert t_faults.truth_table(got) == j_faults.truth_table(want)
     assert t_faults.truth_table(got)["false_trips"] == 0
     assert all(r["state_frozen"] for r in got) and got[-1]["skipped"] == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.14"):
-        lane.run(4, window=2)
+    # The windowed lane (tests/test_torch_window.py holds it against
+    # JAX's windowed lane) gives the same records.
+    assert lane.run(11, [t_faults.FaultEvent(**k) for k in kw],
+                    window=2) == got
 
 
 # -- the Trainer against JAX's ------------------------------------------------

@@ -168,9 +168,12 @@ def test_analytics_match_jax(full, mode, wire, theta):
 
 def test_unported_settings_raise():
     """The low-bit wires build and step, guarded or not
-    (tests/test_torch_wire.py holds them against JAX); the cross-step
-    lane and gradient accumulation still raise, naming ROADMAP.md; the
-    guard is ported (tests/test_torch_guard.py)."""
+    (tests/test_torch_wire.py holds them against JAX); a deferred tail
+    (``pipeline_tail_buckets``) builds and a per-step step runs it
+    unpipelined, as in the JAX package, the same bits as without it
+    (tests/test_torch_pipeline.py and test_torch_window.py hold the
+    pipelined window); gradient accumulation and unknown architectures
+    still raise, naming ROADMAP.md."""
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     guard = t_base.GuardConfig()
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
@@ -184,12 +187,20 @@ def test_unported_settings_raise():
         assert np.isfinite(float(metrics["loss"])) and state.step == 1
         assert state.gf.residual.shape == (trainer.pool.size,)
         assert state.gf.residual.abs().max() > 0
-    for gf in (dict(pipeline_tail_buckets=1),
-               dict(pipeline_tail_buckets=1, guard=guard)):
-        cfg = base.replace(gradientflow=dataclasses.replace(
-            base.gradientflow, **gf))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, device="cpu").build_train_step()
+    for gf in (dict(), dict(guard=guard)):
+        runs = []
+        for tail in (0, 1):
+            cfg = base.replace(gradientflow=dataclasses.replace(
+                base.gradientflow, pipeline_tail_buckets=tail, **gf))
+            trainer = Trainer(cfg, device="cpu")
+            assert trainer.engine.plan_for().pipeline_tail == tail
+            state, metrics = trainer.build_train_step()(
+                trainer.init_state(0), batch)
+            assert np.isfinite(float(metrics["loss"])) and state.step == 1
+            assert state.inflight == ()
+            runs.append(torch.cat([p.reshape(-1) for p in
+                                   trainer.pool.flat_leaves(state.params)]))
+        assert torch.equal(runs[0], runs[1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(base.replace(microbatches=2), device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -198,8 +209,9 @@ def test_unported_settings_raise():
 
 def test_cli_accepts_the_optimizers():
     """``--optimizer`` takes the three optimizers and ``--wire-format``
-    the low-bit wires, which reach the config and step; the unported
-    flags still raise, naming ROADMAP.md."""
+    the low-bit wires, which reach the config and step; ``--window-steps``
+    parses; the unported ``--ckpt-dir`` still raises, naming
+    ROADMAP.md."""
     from repro_torch.launch import train as train_mod
 
     argv = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
@@ -215,9 +227,12 @@ def test_cli_accepts_the_optimizers():
     assert trainer.gf.wire_spec.dtype == torch.int8
     _, losses, _ = train_mod.train(args)
     assert len(losses) == 1 and np.isfinite(losses[0])
-    for extra in (["--window-steps", "2"], ["--ckpt-dir", "ckpt"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train_mod.parse_args(argv + ["--optimizer", "lars"] + extra)
+    # Windows are ported (tests/test_torch_window.py); checkpoints not.
+    assert train_mod.parse_args(argv + ["--window-steps", "2"]) \
+        .window_steps == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_mod.parse_args(argv + ["--optimizer", "lars", "--ckpt-dir",
+                                     "ckpt"])
 
 
 def test_resolve_algorithm():
