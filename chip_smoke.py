@@ -184,6 +184,40 @@
        capture's (the replays run the rest).
    ``GuardLane`` on the card (the ``guard_lane_windowed`` line), lazy and
    CSC: ``window=4`` gives the per-step records.
+   Checkpoints, restarts, resume and elastic (smollm-135m at full
+   width, bf16 wire, momentum SGD, kernels on):
+   (v) lazy windows of 8, 32 steps under ``TrainSupervisor.run_windows``
+       in the NCCL group, a checkpoint every 8, batches from a
+       ``DataPipeline``, a host fault raised at step 20 after the window
+       16-23 ran: one restart, restored to 16, saves at 8, 16, 24 and the
+       final 32, one capture (the restore went into the live tensors)
+       with the launches its plan says, every loss of the final pass and
+       the final parameters and momentum bit for bit an uninterrupted
+       32-step window run; save's blocking
+       seconds, the writer's seconds, bytes a checkpoint, restore
+       seconds, and the step time of windows with a write in flight
+       against those without;
+   (w) CSC through the CLI at ``--window-steps 4`` (``--csc-warmup 8``)
+       in new processes, each with ``--steps 24``: one preempted by a
+       SIGTERM after step 16 (its handler stops the run there, with the
+       checkpoints at 8 and 16), then a process with the same flags
+       resuming that directory at 16 to 24: its losses, and the SHA-256
+       of every leaf of its final checkpoint (parameters, momentum, hg,
+       chunk norms), those of an uninterrupted 24-step CLI run;
+   (x) in (c)'s two processes over the ring, CSC at ``--window-steps
+       1``, 12 steps under the supervisor with a collective checkpoint at
+       8 (``hg`` [2, pool]); then this process restores step 8 into a
+       host state of that layout, re-splits ``hg`` to one row
+       (``reshard_hg``: the column total as numpy sums it), saves it at
+       8, and a one-rank Trainer restores it in place (the re-split row
+       and rank 0's parameters and momentum bit for bit, a one-rank plan
+       key) and trains steps 8-11 on the same global batch, within
+       ELASTIC_RTOL of the two ranks' losses, a bound that two controls
+       (the restored hg zeroed, rank 0's row alone) exceed.
+   Every checkpoint goes under a temporary directory of the script's
+   (the CLI's default directory too), after a check that 16 GiB are
+   free; it is emptied after each phase and removed at the end. Every
+   CLI run must end with no restart of its supervisor.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -1062,13 +1096,15 @@ def optimizer_phase(torch, pool_mod, csc, optim, lars_mod, base, shapes,
     return out
 
 
-def expected_counts(trainer, steps):
-    """The kernel launches ``steps`` steps of this trainer's paths need,
-    from its step plans: 2 packs a step; the SGD and LARS updates one a
-    span (staged) or one a step (monolithic), AdamW's none; CSC's census
-    one a step and its gather one a sparse step."""
+def expected_counts(trainer, steps, first=0):
+    """The kernel launches ``steps`` steps of this trainer's paths from
+    step ``first`` on need, from its step plans: 2 packs a step; the SGD
+    and LARS updates one a span (staged) or one a step (monolithic),
+    AdamW's none; CSC's census one a step and its gather one a sparse
+    step."""
     gf = trainer.gf
-    plans = [gf.plan(gf.stage_for_step(s)) for s in range(steps)]
+    plans = [gf.plan(gf.stage_for_step(s))
+             for s in range(first, first + steps)]
     want = {"pool_pack.kernel": 2 * steps}
     if trainer.opt_name != "adamw":  # AdamW has no update kernel
         want["pool_unpack_update.kernel"] = steps \
@@ -1182,7 +1218,10 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
     ops.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     if overlap == "staged":
-        trainer, losses, seconds = train_mod.train(args)
+        trainer, losses, seconds, run = train_mod.train(args)
+        clear_checkpoints()
+        check(run["restarts"] == 0 and run["preempted"] is None,
+              f"{label}: the CLI's supervisor {run}")
     else:
         trainer, cfg = build()
         losses, seconds = stream_steps(torch, trainer, cfg, args.seed, steps)
@@ -1950,7 +1989,10 @@ def csc_window_run(torch, ops, train_mod, label, argv):
     ops.reset_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    trainer, losses, _ = train_mod.train(args, record=record)
+    trainer, losses, _, run = train_mod.train(args, record=record)
+    clear_checkpoints()
+    check(run["restarts"] == 0 and run["preempted"] is None,
+          f"{label}: the CLI's supervisor {run}")
     peak_reserved = torch.cuda.max_memory_reserved()
     sbytes = state_bytes(torch, trainer)
     counts = dict(ops.dispatch_counts)
@@ -2131,19 +2173,495 @@ def guard_lane_phase(torch, dev):
     return out
 
 
+# -- checkpoints, restarts, resume, elastic ---------------------------------
+
+# Every checkpoint of this script goes under a temporary directory of its
+# own (the CLI's default one too: ``tempfile.tempdir`` and, for the
+# processes it starts, TMPDIR point there), emptied after each phase and
+# removed at the end.
+CKPT_ROOT = None
+CKPT_FREE_BYTES = 16 * 2 ** 30  # (w)'s two directories hold ~6.5 GB
+# (v): lazy windows of K = 8 under the supervisor, a checkpoint every 8,
+# a host fault raised at step 20 inside the window 16-23 after its
+# replay ran (the live tensors then hold step 24's values).
+SUP_STEPS, SUP_EVERY, SUP_FAULT = 32, 8, 20
+# (w): a 24-step CSC run preempted (SIGTERM) after step 16, then a new
+# process with the same flags, which resumes at 16.
+RESUME_FIRST, RESUME_EVERY = 16, 8
+# (x): two ranks over the ring, CSC, 12 steps (the schedule's length), a
+# checkpoint at 8; then one rank from 8. The bound on its losses' largest
+# relative difference from the two ranks' lies between the sound reading
+# and the controls' (NVIDIA H100 80GB HBM3, 700 W: 9.26e-6 sound; the
+# restored hg zeroed 5.27e-5, rank 0's row alone 1.65e-5).
+ELASTIC_STEPS, ELASTIC_AT, ELASTIC_RTOL = 12, 8, 1.25e-5
+
+
+def make_ckpt_root() -> None:
+    """The script's checkpoint directory, after checking the disk holds
+    the largest phase's checkpoints."""
+    global CKPT_ROOT
+    import shutil
+    import tempfile
+    parent = tempfile.gettempdir()
+    free = shutil.disk_usage(parent).free
+    check(free >= CKPT_FREE_BYTES, f"checkpoints: {free / 2 ** 30:.1f} GiB "
+          f"free under {parent}, the checkpoint phases need "
+          f"{CKPT_FREE_BYTES / 2 ** 30:.0f} GiB")
+    CKPT_ROOT = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    tempfile.tempdir = CKPT_ROOT
+    os.environ["TMPDIR"] = CKPT_ROOT
+
+
+def clear_checkpoints() -> None:
+    """Remove every checkpoint a phase left (the CLI saves at its end)."""
+    import shutil
+    if CKPT_ROOT is not None:
+        for name in os.listdir(CKPT_ROOT):
+            shutil.rmtree(os.path.join(CKPT_ROOT, name), ignore_errors=True)
+
+
+def remove_ckpt_root() -> None:
+    import shutil
+    import tempfile
+    if CKPT_ROOT is not None:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        tempfile.tempdir = None
+
+
+def ckpt_dir(name: str) -> str:
+    path = os.path.join(CKPT_ROOT, name)
+    os.makedirs(path)
+    return path
+
+
+def timed_manager(path):
+    """A ``CheckpointManager`` that also times each ``save`` call (its
+    blocking part: the snapshot; the final save's write too) and each
+    ``restore``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def __init__(self, directory):
+            super().__init__(directory, keep=3)
+            self.saves, self.restores = [], []
+
+        def save(self, step, state, blocking=False, logical=False):
+            t0 = time.perf_counter()
+            super().save(step, state, blocking=blocking, logical=logical)
+            self.saves.append(dict(step=int(step), blocking=blocking,
+                                   seconds=time.perf_counter() - t0))
+
+        def restore(self, like, step=None, logical=False):
+            t0 = time.perf_counter()
+            out = super().restore(like, step=step, logical=logical)
+            self.restores.append(dict(step=out[0],
+                                      seconds=time.perf_counter() - t0))
+            return out
+
+    return Timed(path)
+
+
+def supervisor_run(torch, ops, train_mod, label, argv):
+    """(v): lazy windows of WINDOW_K under ``TrainSupervisor.run_windows``
+    (a checkpoint every SUP_EVERY steps, batches from a ``DataPipeline``),
+    a host fault raised at step SUP_FAULT after the window 16-23 ran:
+    one restart, a restore of step 16 into the live tensors, and the
+    window's one graph replayed on them. Against an uninterrupted run of
+    the same windows from the same seed in this process: every loss of
+    the final pass and the final parameters and momentum, bit for bit.
+    Times each save's blocking part, the writer thread, the restore, and
+    each window, which either overlaps a write in flight or not."""
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.runtime.fault_tolerance import (SupervisorConfig,
+                                                     TrainSupervisor)
+
+    args, cfg, trainer = window_trainer(train_mod, argv, 0)
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    batches = [data.batch(s, BATCH, SEQ) for s in range(SUP_STEPS)]
+    # The uninterrupted run: no supervisor, no checkpoint.
+    state = trainer.init_state(args.seed)
+    window = trainer.build_train_window(WINDOW_K)
+    ref_losses, ref_ms = [], []
+    for w in range(0, SUP_STEPS, WINDOW_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = window(state, stacked(torch, batches[w:w + WINDOW_K]))
+        ref_losses += m["loss"].tolist()
+        torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+    ref_final = flat_state(torch, trainer, state)
+    window.release()
+    del state, window
+    torch.cuda.empty_cache()
+
+    ckpt = timed_manager(ckpt_dir("v"))
+    sup = TrainSupervisor(ckpt, SupervisorConfig(checkpoint_every=SUP_EVERY))
+    pipe = DataPipeline(data, BATCH, SEQ, prefetch=0)  # as the CLI's
+    state = trainer.init_state(args.seed)
+    window = trainer.build_train_window(WINDOW_K)
+    losses, windows, restored = {}, [], []
+    fired = {"done": False}
+
+    def window_fn(step, length, state):
+        bs = [pipe.next_at(step + i) for i in range(length)]
+        writing = ckpt.writing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = window(state, stacked(torch, bs))
+        got = m["loss"].tolist()
+        torch.cuda.synchronize()
+        windows.append(dict(start=step, ms=(time.perf_counter() - t0) * 1e3,
+                            write_in_flight=writing))
+        if step <= SUP_FAULT < step + length and not fired["done"]:
+            fired["done"] = True
+            raise RuntimeError(f"host fault at step {SUP_FAULT}")
+        losses.update(zip(range(step, step + length), got))
+        return state
+
+    def on_restore(step):
+        restored.append(step)
+        pipe.skip_to(step)
+
+    ops.reset_counts()
+    pipe.start(0)
+    try:
+        state = sup.run_windows(state, 0, SUP_STEPS, window_fn, WINDOW_K,
+                                on_restore=on_restore)
+    finally:
+        pipe.stop()
+    final = flat_state(torch, trainer, state)
+    stats, counts = dict(window.stats), dict(ops.dispatch_counts)
+    plan = trainer.engine.plan_for()
+    # The warm-up runs one step body, the capture WINDOW_K; every replay
+    # (the restarted window's too) launches nothing from the host.
+    want_warmup, want_capture = window_counts(plan, 1), window_counts(
+        plan, WINDOW_K)
+    steps_on_disk = ckpt.available_steps()
+    window.release()
+    del state, window, trainer
+    torch.cuda.empty_cache()
+    got = [losses[s] for s in range(SUP_STEPS)]
+    print(f"{label}: losses {got}; saves {ckpt.saves}; writes "
+          f"{ckpt.writes}; restores {ckpt.restores}", flush=True)
+    check(sup.restarts == 1 and restored == [16], f"{label}: restarts "
+          f"{sup.run_stats()}, restored to {restored}")
+    check([x["step"] for x in ckpt.saves] == [8, 16, 24, 32]
+          and [x["step"] for x in ckpt.writes] == [8, 16, 24, 32],
+          f"{label}: saves {ckpt.saves}, writes {ckpt.writes}")
+    check(steps_on_disk == [16, 24, 32], f"{label}: on disk "
+          f"{steps_on_disk} (keep=3)")
+    check(stats["captures"] == 1, f"{label}: {stats['captures']} captures "
+          f"(a restore into the live tensors keeps the graph)")
+    check(stats["warmup_counts"] == want_warmup
+          and stats["capture_counts"] == want_capture
+          and counts == {k: want_warmup[k] + want_capture[k]
+                         for k in want_capture},
+          f"{label}: counts {counts}, warm-up {stats['warmup_counts']}, "
+          f"capture {stats['capture_counts']}; the plan says "
+          f"{want_warmup} and {want_capture}")
+    check(got == ref_losses, f"{label}: final pass losses {got} != the "
+          f"uninterrupted run's {ref_losses}")
+    check(bits_equal(torch, final, ref_final), f"{label}: the final state "
+          f"differs from the uninterrupted run's by "
+          f"{(final - ref_final).abs().max().item()}")
+    # Replayed windows only (the first captures): with a write in flight,
+    # and without (the uninterrupted run's, and the supervised run's
+    # window replayed after the restore, which waits for the write).
+    over = [w["ms"] / WINDOW_K for w in windows[1:] if w["write_in_flight"]]
+    quiet = [w["ms"] / WINDOW_K for w in windows[1:]
+             if not w["write_in_flight"]] + [t / WINDOW_K
+                                             for t in ref_ms[1:]]
+    check(over and quiet, f"{label}: windows {windows}")
+    o, q = statistics.median(over), statistics.median(quiet)
+    clear_checkpoints()
+    return dict(losses=got, windows=windows,
+                reference_window_ms=ref_ms,
+                step_ms_write_in_flight=over, step_ms_no_write=quiet,
+                median_step_ms_write_in_flight=o,
+                median_step_ms_no_write=q,
+                write_overlap_delta_pct=100.0 * (o / q - 1.0),
+                save_blocking_s=ckpt.saves, writer=ckpt.writes,
+                bytes_per_checkpoint=[x["bytes"] for x in ckpt.writes],
+                restore_s=ckpt.restores, restarts=sup.run_stats(),
+                restored_to=restored, steps_on_disk=steps_on_disk,
+                window_stats=stats, dispatch_counts=counts,
+                expected_capture_counts=want_capture,
+                checkpoint_every=SUP_EVERY, fault_step=SUP_FAULT,
+                window_steps=WINDOW_K, same_bits_as="an uninterrupted "
+                "32-step window run in this process",
+                hash_on_writer_thread=True)
+
+
+class PreemptAfter(list):
+    """The CLI's window record (``train(record=...)``) that sends this
+    process a SIGTERM, as a scheduler's preemption notice, when the
+    window ending at ``step`` has run: the CLI's handler then stops the
+    run at that window's edge, with its checkpoint there."""
+
+    def __init__(self, step: int):
+        super().__init__()
+        self.step = step
+
+    def append(self, item):
+        super().append(item)
+        if item["start"] + item["length"] == self.step:
+            import signal
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def cli_worker(out: str, argv, preempt_at=None) -> None:
+    """One CLI run in a process of its own (``--cli-train OUT
+    [--preempt-at STEP] -- argv``): ``repro_torch.launch.train.train`` on
+    ``argv``, preempted by a SIGTERM after step ``preempt_at`` if given;
+    its losses, step seconds, windows and supervisor stats to ``out`` as
+    JSON."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.launch import train as train_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import ops
+
+    record = [] if preempt_at is None else PreemptAfter(preempt_at)
+    ops.reset_counts()
+    _, losses, seconds, run = train_mod.train(train_mod.parse_args(argv),
+                                              record=record)
+    with open(out, "w") as f:
+        json.dump(dict(losses=losses, seconds=seconds, run=run,
+                       counts=dict(ops.dispatch_counts), windows=[
+                           dict(start=r["start"], length=r["length"],
+                                stage=r["stage"]) for r in record]), f)
+
+
+def cli_processes(runs):
+    """Run each (out, argv, preempt_at) of ``runs`` as a ``cli_worker``
+    process, all at once; their results."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cli-train", out,
+         *([] if at is None else ["--preempt-at", str(at)]), "--", *argv])
+        for out, argv, at in runs]
+    try:
+        deadline = time.monotonic() + 600
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        fail("CLI processes did not finish within 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"CLI processes: exit codes {[p.returncode for p in procs]}")
+    results = []
+    for out, _, _ in runs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def manifest(path: str, step: int) -> dict:
+    with open(os.path.join(path, f"step_{step}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def resume_phase(label, csc_argv):
+    """(w): CSC through the CLI at --window-steps 4 in new processes, each
+    with --steps 24: one is preempted by a SIGTERM after step 16 (its
+    checkpoints at 8 and 16), and beside it one runs all 24 steps; then a
+    third, launched with the first's flags, resumes its directory at 16
+    and runs to 24. Its losses are the uninterrupted run's for steps
+    16-23, and its final checkpoint holds the same bits (the SHA-256 of
+    every leaf: parameters, momentum, hg, chunk norms). No process
+    restarted a window."""
+    total = CSC_WINDOW_STEPS
+    argv = csc_argv + ["--csc-warmup", str(CSC_WINDOW_WARMUP),
+                       "--window-steps", str(CSC_WINDOW_K), "--log-every",
+                       "4", "--ckpt-every", str(RESUME_EVERY), "--steps",
+                       str(total)]
+    part, whole = ckpt_dir("w_part"), ckpt_dir("w_whole")
+    outs = [os.path.join(CKPT_ROOT, f"w_{n}.json")
+            for n in ("first", "whole", "resumed")]
+    t0 = time.perf_counter()
+    first, ref = cli_processes([
+        (outs[0], argv + ["--ckpt-dir", part], RESUME_FIRST),
+        (outs[1], argv + ["--ckpt-dir", whole], None)])
+    on_disk = sorted(int(n[5:]) for n in os.listdir(part))
+    (resumed,) = cli_processes([(outs[2], argv + ["--ckpt-dir", part],
+                                 None)])
+    seconds = time.perf_counter() - t0
+    got = [m for m in manifest(part, total)["leaves"]]
+    want = [m for m in manifest(whole, total)["leaves"]]
+    same = {m["name"]: m["sha256"] == w["sha256"]
+            for m, w in zip(got, want) if not m.get("scratch")}
+    print(f"{label}: resumed losses {resumed['losses']}; uninterrupted "
+          f"{ref['losses'][RESUME_FIRST:]}", flush=True)
+    runs = [first["run"], ref["run"], resumed["run"]]
+    check(all(r["restarts"] == 0 for r in runs)
+          and [r["preempted"] for r in runs] == [RESUME_FIRST, None, None],
+          f"{label}: the processes' supervisor stats {runs}")
+    check(on_disk == [8, 16], f"{label}: the first process left {on_disk}")
+    check(resumed["windows"][0]["start"] == RESUME_FIRST, f"{label}: the "
+          f"resumed process started at {resumed['windows'][0]}")
+    check(first["losses"] == ref["losses"][:RESUME_FIRST], f"{label}: the "
+          f"first process's losses differ from the uninterrupted run's")
+    check(resumed["losses"] == ref["losses"][RESUME_FIRST:], f"{label}: "
+          f"resumed losses {resumed['losses']} != uninterrupted "
+          f"{ref['losses'][RESUME_FIRST:]}")
+    check([m["name"] for m in got] == [m["name"] for m in want]
+          and all(same.values()), f"{label}: final leaves differ: "
+          f"{[k for k, v in same.items() if not v]}")
+    check({"gf/hg", "gf/chunk_norms", "opt/momentum"} <= set(same),
+          f"{label}: leaves {sorted(same)}")
+    counts = resumed["counts"]
+    check(all(counts.get(f"{k}.kernel", 0) > 0 for k in (
+        "pool_pack", "pool_unpack_update", "chunk_l1norm", "csc_compact"))
+          and not any(k.endswith(".plain") for k in counts),
+          f"{label}: the resumed process's counts {counts}")
+    clear_checkpoints()
+    return dict(losses=resumed["losses"],
+                uninterrupted_losses=ref["losses"],
+                first_losses=first["losses"],
+                resumed_windows=resumed["windows"],
+                resumed_step_ms=[t * 1e3 for t in resumed["seconds"]],
+                uninterrupted_step_ms=[t * 1e3 for t in ref["seconds"]],
+                first_process_checkpoints=on_disk, dispatch_counts=counts,
+                preempted_at=first["run"]["preempted"],
+                leaves_same_sha256=same, seconds_all_processes=seconds,
+                window_steps=CSC_WINDOW_K, same_bits_as="an uninterrupted "
+                "24-step CLI run in another process")
+
+
+def elastic_phase(torch, ops, train_mod, ring, csc_argv, path):
+    """(x), after (c)'s two ranks ran 12 CSC steps over the ring with a
+    checkpoint at 8 (``ring``: rank 0's record): one process follows the
+    elastic pattern — restore step 8 into a host state of the two-rank
+    layout, ``reshard_hg`` to one row, save again at 8 — then a Trainer
+    at N = 1 restores in place and trains steps 8-11 on the same global
+    batch. The column total of hg as numpy sums it, the live hg the
+    re-split row bit for bit, rank 0's parameters and momentum at 8, a
+    one-rank plan, the launches its plans say, and losses within
+    ELASTIC_RTOL of the two ranks'. Two controls, the restored hg zeroed
+    and rank 0's row alone in its place, must exceed that bound."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    from repro_torch.checkpoint import reshard
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(csc_argv + ["--steps", str(ELASTIC_STEPS)])
+    _, cfg = train_mod.build(args)
+    cfg = cfg.replace(gradientflow=dataclasses.replace(
+        cfg.gradientflow, collective_algo="pallas_ring"))
+    trainer = Trainer(cfg)
+    ckpt = timed_manager(path)
+    meta = {m["name"]: m for m in manifest(path, ELASTIC_AT)["leaves"]}
+    check(meta["gf/hg"]["shape"] == [2, trainer.pool.size], f"(x): the "
+          f"two ranks saved hg of {meta['gf/hg']['shape']}")
+    check(reshard.plan([(n, m["shape"]) for n, m in meta.items()], 1) == [],
+          "(x): the reshard plan found a problem")
+    old = reshard.host_like(trainer.init_state(args.seed), 2)
+    _, old = ckpt.restore(old, step=ELASTIC_AT, logical=True)
+    t0 = time.perf_counter()
+    new = reshard.reshard_state(old, 1)
+    reshard_s = time.perf_counter() - t0
+    total = old.gf.hg.numpy().sum(axis=0)
+    check(np.array_equal(new.gf.hg.numpy()[0], total),
+          "(x): the re-split hg's column total differs from numpy's sum")
+    ckpt.save(ELASTIC_AT, new, blocking=True, logical=True)
+    resplit, row0 = new.gf.hg[0].clone(), old.gf.hg[0].clone()
+    del old, new
+    data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    state = trainer.init_state(args.seed)
+    fns = {}
+
+    def one_rank(hg=None):
+        """Step ELASTIC_AT restored into the live one-rank state (``hg``,
+        if given, then written over its hg: a control), steps 8-11;
+        (losses, digest of the restored parameters and momentum, whether
+        the live hg is the re-split row bit for bit)."""
+        nonlocal state
+        _, state = ckpt.restore(state, step=ELASTIC_AT)
+        same_hg = torch.equal(state.gf.hg.cpu(), resplit)
+        flat = torch.cat([p.reshape(-1) for p in
+                          trainer.pool.flat_leaves(state.params)]
+                         + [state.opt.momentum]).cpu()
+        digest = hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+        del flat
+        if hg is not None:
+            state.gf.hg.copy_(hg)
+        losses = []
+        for s in range(ELASTIC_AT, ELASTIC_STEPS):
+            stage = trainer.gf.stage_for_step(s)
+            if stage.index not in fns:
+                fns[stage.index] = trainer.build_train_step(stage)
+            state, m = fns[stage.index](state, data.batch(s, BATCH, SEQ))
+            losses.append(float(m["loss"]))
+        return losses, digest, same_hg
+
+    two = ring["losses"][ELASTIC_AT:]
+
+    def max_rel(losses):
+        return max(abs(a / b - 1.0) for a, b in zip(losses, two))
+
+    ops.reset_counts()
+    losses, digest, same_hg = one_rank()
+    counts = dict(ops.dispatch_counts)
+    key, theta = trainer.gf.plan_cache_key(), trainer.gf.bucket_elems
+    want = expected_counts(trainer, ELASTIC_STEPS - ELASTIC_AT, ELASTIC_AT)
+    # The controls (launches not counted): what the bound must see.
+    controls = {name: max_rel(one_rank(hg)[0]) for name, hg in (
+        ("hg_zeroed", torch.zeros_like(resplit)),
+        ("rank0_row_alone", row0))}
+    del state, fns, trainer
+    torch.cuda.empty_cache()
+    rel = [abs(a / b - 1.0) for a, b in zip(losses, two)]
+    print(f"(x): one rank {losses}; two ranks {two}; relative {rel}; "
+          f"controls {controls}", flush=True)
+    check(same_hg, "(x): the live hg after the in-place restore differs "
+          "from the re-split row")
+    check(digest == ring["digest_at_ckpt"], "(x): the restored parameters "
+          "and momentum differ from rank 0's at the checkpoint")
+    check(key[4] == 1 and key[6] == (("data", 1),) and key[4] != ring[
+        "plan_key"][4], f"(x): plan key {key}, two ranks' "
+          f"{ring['plan_key']}")
+    check(max(rel) <= ELASTIC_RTOL < min(controls.values()), f"(x): losses "
+          f"{losses} against the two ranks' {two}: relative {rel}, the "
+          f"controls {controls}, the bound {ELASTIC_RTOL}")
+    check(counts == want, f"(x): counts {counts}, the plans say {want}")
+    clear_checkpoints()
+    return dict(losses=losses, two_rank_losses=two, relative_diff=rel,
+                rtol=ELASTIC_RTOL, control_max_relative_diff=controls,
+                live_hg_is_resplit_row=same_hg, plan_key=repr(key),
+                theta=theta, two_rank_plan_key=repr(tuple(ring["plan_key"])),
+                two_rank_theta=ring["theta"],
+                hg_rows_saved=meta["gf/hg"]["shape"],
+                restore_s=ckpt.restores, save_s=ckpt.saves,
+                writer=ckpt.writes, reshard_s=reshard_s,
+                two_rank_writes=ring["writes"],
+                dispatch_counts=counts, same_params_as_rank0_at=ELASTIC_AT)
+
+
+COMMON_ARGV = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
+               str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len",
+               str(SEQ), "--log-every", "1", "--window-steps", "1"]
+LAZY_ARGV = COMMON_ARGV + ["--gf-mode", "lazy", "--steps", str(LAZY_STEPS)]
+CSC_ARGV = COMMON_ARGV + ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
+                          "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
+                          str(CSC_WARMUP), "--steps", str(CSC_STEPS)]
+
+
 def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
                 wire):
     """The full-width step in one world-size-1 NCCL group, each run with
     its own dispatch counts: (a) lazy and (b) CSC with momentum SGD;
     (d) LARS, CSC, staged; (e) LARS, lazy, staged then monolithic; (f)
     AdamW, CSC, staged; the guard, (g)-(j); the low-bit wires, (l)-(o)."""
-    common = ["--arch", "smollm-135m", "--use-kernels", "--bucket-elems",
-              str(BUCKET_ELEMS), "--batch", str(BATCH), "--seq-len",
-              str(SEQ), "--log-every", "1", "--window-steps", "1"]
-    lazy_args = common + ["--gf-mode", "lazy", "--steps", str(LAZY_STEPS)]
-    csc_args = common + ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
-                         "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
-                         str(CSC_WARMUP), "--steps", str(CSC_STEPS)]
+    lazy_args, csc_args = LAZY_ARGV, CSC_ARGV
     lars = ["--optimizer", "lars", "--lr", str(LARS_LR)]
     # The low-bit wires' lazy runs chunk the pool as CSC does.
     int8 = ["--wire-format", "int8"]
@@ -2229,6 +2747,9 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
             "(t) guarded lazy, pipelined graphed window", lazy_args,
             PIPELINE_TAIL, GUARD_LAZY_FAULTS,
             runs["guarded_lazy"]["losses"], twin=gtwin)
+        runs["supervisor_lazy_window"] = supervisor_run(
+            torch, ops, train_mod, "(v) lazy windows under the supervisor",
+            lazy_args)
     finally:
         dist.destroy_process_group()
     for label in ("csc", "lars_csc"):
@@ -2329,14 +2850,16 @@ RING_CSC_STEPS = CSC_WARMUP + 1  # the dense step, the ramp, one steady step
 RING_GUARD_STEPS, RING_GUARD_FAULT = 4, (2, "nan", 1_000_000, GUARD_WIDTH)
 
 
-def ring_train_worker(rank: int, port: int, out: str) -> None:
+def ring_train_worker(rank: int, port: int, out: str,
+                      elastic_dir: str) -> None:
     """One rank of the ring runs (a process of its own): smollm-135m at
     full width and depth, bf16 wire, momentum SGD, kernels on,
     ``collective_algo="pallas_ring"``, world size 2 over gloo (NCCL
     refuses two ranks on one card), this rank's half of each global
     batch. First lazy mode, then CSC through its dense step, its ramp and
-    one steady step (the ring then reduces the compacted wire buffer).
-    Writes its findings to ``out`` as JSON."""
+    one steady step (the ring then reduces the compacted wire buffer);
+    last (x), CSC under the supervisor with checkpoints in
+    ``elastic_dir``. Writes its findings to ``out`` as JSON."""
     import dataclasses
     import hashlib
 
@@ -2449,7 +2972,60 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
                     digests=digests, tripped=tripped,
                     skipped=int(state.guard.skipped) if tripped else None)
 
+    def drive_elastic(trainer, args, cfg):
+        """(x): ELASTIC_STEPS eager CSC steps under
+        ``TrainSupervisor.run_windows`` (window 1), batches from a
+        ``DataPipeline`` of this rank's shard, a collective checkpoint
+        every ELASTIC_AT steps into ``elastic_dir`` and a final one.
+        Returns the losses, a digest of the parameters and momentum the
+        checkpoint at ELASTIC_AT holds, the plan key, θ and the writes."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.data.pipeline import DataPipeline
+        from repro_torch.runtime.fault_tolerance import (SupervisorConfig,
+                                                         TrainSupervisor)
+
+        data = SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+        pipe = DataPipeline(data, BATCH // 2, SEQ, shard=rank, prefetch=0)
+        ckpt = CheckpointManager(elastic_dir)
+        sup = TrainSupervisor(ckpt, SupervisorConfig(
+            checkpoint_every=ELASTIC_AT))
+        fns, losses, found = {}, [], {}
+
+        def window_fn(step, length, state):
+            if step == ELASTIC_AT:
+                flat = torch.cat([p.reshape(-1) for p in
+                                  trainer.pool.flat_leaves(state.params)]
+                                 + [state.opt.momentum]).cpu()
+                found["digest"] = hashlib.sha256(
+                    flat.numpy().tobytes()).hexdigest()
+            stage = trainer.gf.stage_for_step(step)
+            if stage.index not in fns:
+                fns[stage.index] = trainer.build_train_step(stage)
+            state, m = fns[stage.index](state, pipe.next_at(step))
+            losses.append(float(m["loss"]))
+            return state
+
+        ops.reset_counts()
+        pipe.start(0)
+        try:
+            sup.run_windows(trainer.init_state(args.seed), 0, ELASTIC_STEPS,
+                            window_fn, 1, on_restore=pipe.skip_to)
+        finally:
+            pipe.stop()
+        plans = [trainer.gf.plan(trainer.gf.stage_for_step(s))
+                 for s in range(ELASTIC_STEPS)]
+        want = expected_counts(trainer, ELASTIC_STEPS)
+        want["ring_allreduce.kernel"] = sum(len(p.tasks) for p in plans)
+        return dict(losses=losses, digest_at_ckpt=found["digest"],
+                    plan_key=list(trainer.gf.plan_cache_key()),
+                    theta=trainer.gf.bucket_elems, writes=ckpt.writes,
+                    counts=dict(ops.dispatch_counts), expected_counts=want,
+                    restarts=sup.restarts)
+
     result = {"rank": rank}
+    csc_flags = ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
+                 "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
+                 str(CSC_WARMUP)]
     try:
         args, cfg, trainer = ring_trainer(["--gf-mode", "lazy"])
         plan = trainer.engine.plan_for(None)
@@ -2512,9 +3088,6 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
         del trainer
         torch.cuda.empty_cache()
 
-        csc_flags = ["--gf-mode", "csc", "--chunk-elems", str(CHUNK),
-                     "--sparsity", str(CSC_SPARSITY), "--csc-warmup",
-                     str(CSC_WARMUP)]
         args, cfg, trainer = ring_trainer(csc_flags)
         result["csc"] = drive(trainer, args, cfg, RING_CSC_STEPS,
                               lambda s: s)
@@ -2560,6 +3133,13 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
             trainer, args, cfg, 2 * RING_STEPS // RING_WINDOW_K,
             lambda s: min(s, RING_STEPS))
         del trainer
+        torch.cuda.empty_cache()
+
+        # (x) CSC under the supervisor, a checkpoint at ELASTIC_AT.
+        args, cfg, trainer = ring_trainer(
+            csc_flags + ["--steps", str(ELASTIC_STEPS)])
+        result["elastic"] = drive_elastic(trainer, args, cfg)
+        del trainer
         kring.release_workspaces()
     finally:
         dist.destroy_process_group()
@@ -2567,14 +3147,9 @@ def ring_train_worker(rank: int, port: int, out: str) -> None:
         json.dump(result, f)
 
 
-def ring_train_phase(torch, dev):
-    """(c) the ring in the trainer: two processes on the one card, one
-    rank each, over the cross-process (IPC) ring workspace; lazy, then
-    CSC."""
-    mode = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu="
-                           "compute_mode", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60)
-    print(f"compute mode: {mode.stdout.strip()}", flush=True)
+def ring_ranks():
+    """The two ring processes (``ring_train_worker``), run to their end;
+    (their records, the directory of (x)'s checkpoints)."""
     port = free_port()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2583,9 +3158,11 @@ def ring_train_phase(torch, dev):
     for o in outs:
         if os.path.exists(o):
             os.remove(o)
+    elastic_dir = ckpt_dir("x")
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                "--ring-rank", str(r), "--port", str(port),
-                               "--out", outs[r]]) for r in range(2)]
+                               "--out", outs[r], "--elastic-dir",
+                               elastic_dir]) for r in range(2)]
     try:
         deadline = time.monotonic() + 600
         for p in procs:
@@ -2603,6 +3180,32 @@ def ring_train_phase(torch, dev):
     for o in outs:
         with open(o) as f:
             ranks.append(json.load(f))
+    # (x): both ranks log the same losses and a checkpoint at ELASTIC_AT
+    # and at the end, one row of hg each in it (checked by elastic_phase).
+    for r in ranks:
+        got = r["elastic"]
+        check(got["losses"] == ranks[0]["elastic"]["losses"]
+              and len(got["losses"]) == ELASTIC_STEPS
+              and got["restarts"] == 0
+              and got["counts"] == got["expected_counts"]
+              and all(math.isfinite(x) for x in got["losses"]),
+              f"(x) rank {r['rank']}: {got}")
+    check([w["step"] for w in ranks[0]["elastic"]["writes"]]
+          == [ELASTIC_AT, ELASTIC_STEPS] and not ranks[1]["elastic"]["writes"],
+          f"(x): writes rank 0 {ranks[0]['elastic']['writes']}, rank 1 "
+          f"{ranks[1]['elastic']['writes']}")
+    return ranks, elastic_dir
+
+
+def ring_train_phase(torch, dev):
+    """(c) the ring in the trainer: two processes on the one card, one
+    rank each, over the cross-process (IPC) ring workspace; lazy, then
+    CSC; last (x)'s two-rank part."""
+    mode = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu="
+                           "compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    print(f"compute mode: {mode.stdout.strip()}", flush=True)
+    ranks, elastic_dir = ring_ranks()
     runs = {}
     for label in ("lazy", "csc", "int8_lazy", "int8_csc"):
         for r in ranks:
@@ -2685,7 +3288,8 @@ def ring_train_phase(torch, dev):
             "turns on the device, so a step time is no wire's; the ring "
             "runs through this card's memory, not NVLink")
     lazy, csc_run = runs["lazy"], runs["csc"]
-    return (dict(losses=lazy["losses"][:RING_STEPS],
+    return (ranks[0]["elastic"], elastic_dir,
+            dict(losses=lazy["losses"][:RING_STEPS],
                  repeated_batch_losses=lazy["losses"][RING_STEPS:],
                  step_ms=[r["lazy"]["step_ms"] for r in ranks],
                  steady_step_ms=statistics.median(
@@ -2731,7 +3335,16 @@ def main() -> None:
         argv = sys.argv[1:]
         ring_train_worker(int(argv[argv.index("--ring-rank") + 1]),
                           int(argv[argv.index("--port") + 1]),
-                          argv[argv.index("--out") + 1])
+                          argv[argv.index("--out") + 1],
+                          argv[argv.index("--elastic-dir") + 1])
+        return
+    if "--cli-train" in sys.argv:
+        argv = sys.argv[1:]
+        head = argv[:argv.index("--")]
+        cli_worker(head[head.index("--cli-train") + 1],
+                   argv[argv.index("--") + 1:],
+                   int(head[head.index("--preempt-at") + 1])
+                   if "--preempt-at" in head else None)
         return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; nothing was run",
@@ -2751,22 +3364,11 @@ def main() -> None:
     sys.path.insert(0, src)
     import torch.distributed as dist
     from repro_torch.configs import get_arch
-    from repro_torch.core import csc
     from repro_torch.core import pool as pool_mod
-    from repro_torch.core import wire
-    from repro_torch.data import synthetic
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     from repro_torch.kernels import chunk_l1norm as kcl
     from repro_torch.kernels import csc_compact as kcc
-    from repro_torch.kernels import fused_update as kfu
-    from repro_torch.kernels import ring_reduce as kring
-    from repro_torch.kernels import pool_pack as kpack
-    from repro_torch.kernels import pool_unpack as kunpack
-    from repro_torch.launch import train as train_mod
-    from repro_torch import optim
-    from repro_torch.configs import base
     from repro_torch.models import build_model
-    from repro_torch.optim import lars as lars_mod
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
                           "power.limit", "--format=csv,noheader"],
@@ -2804,6 +3406,34 @@ def main() -> None:
                   flush=True)
         print(smi_line)
         return
+    make_ckpt_root()
+    try:
+        run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
+                num_chunks)
+    finally:
+        remove_ckpt_root()
+
+
+def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
+            num_chunks):
+    """Every phase after the build (see the module docstring); the
+    result line last."""
+    from repro_torch.core import csc
+    from repro_torch.core import pool as pool_mod
+    from repro_torch.core import wire
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import chunk_l1norm as kcl
+    from repro_torch.kernels import csc_compact as kcc
+    from repro_torch.kernels import fused_update as kfu
+    from repro_torch.kernels import ring_reduce as kring
+    from repro_torch.kernels import pool_pack as kpack
+    from repro_torch.kernels import pool_unpack as kunpack
+    from repro_torch.launch import train as train_mod
+    from repro_torch import optim
+    from repro_torch.configs import base
+    from repro_torch.optim import lars as lars_mod
+
     entries = [
         pack_phase(torch, pool_mod, kpack, shapes, dev, rate),
         update_phase(torch, pool_mod, csc, kunpack, shapes, dev, rate),
@@ -2826,8 +3456,11 @@ def main() -> None:
 
     runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack,
                        csc, wire)
-    ring, ring_csc, ring_guarded, ring_window, ring_int8, ring_int8_csc = \
-        ring_train_phase(torch, dev)
+    runs["resume_csc_cli"] = resume_phase("(w) csc, CLI resumed", CSC_ARGV)
+    (elastic, elastic_dir, ring, ring_csc, ring_guarded, ring_window,
+     ring_int8, ring_int8_csc) = ring_train_phase(torch, dev)
+    runs["elastic_csc_2_to_1"] = elastic_phase(
+        torch, ops, train_mod, elastic, CSC_ARGV, elastic_dir)
     runs["lazy_pallas_ring_2_processes"] = ring
     runs["csc_pallas_ring_2_processes"] = ring_csc
     runs["guarded_lazy_pallas_ring_2_processes"] = ring_guarded
@@ -2850,7 +3483,8 @@ def main() -> None:
             e["launches"] = runs["csc"]["dispatch_counts"][key]
             e["launches_by_run"] = {
                 label: run["dispatch_counts"].get(key, 0)
-                for label, run in runs.items() if "pallas" not in label}
+                for label, run in runs.items() if "pallas" not in label
+                and "dispatch_counts" in run}
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     # Which kernels a captured window launched: (q)'s lazy path, (s)'s

@@ -97,7 +97,10 @@ class StepPlan:
     the dense warm-up stage (pool-space tasks) and ``num_selected`` is the
     stage's k; a sparse stage's tasks tile the k-chunk wire buffer. The
     last ``pipeline_tail`` tasks carry ``commit_epoch=1`` (native dense
-    and lazy plans only)."""
+    and lazy plans only). ``plan_key`` is the layout key
+    (``GradientFlow.plan_cache_key``) the plan was compiled under: a
+    ``replan`` that changes the topology, the data degree or θ changes
+    it."""
 
     mode: str
     pool_size: int
@@ -110,6 +113,7 @@ class StepPlan:
     num_selected: int = 0
     chunk_elems: int = 0
     pipeline_tail: int = 0
+    plan_key: Tuple = ()
 
     @property
     def num_collectives(self) -> int:
@@ -193,7 +197,8 @@ def compile_step_plan(gf, stage=None) -> StepPlan:
     cfg = gf.cfg
     pool = gf.pool
     common = dict(pool_size=pool.size, wire_dtype=str(cfg.wire_dtype),
-                  num_data_shards=gf.num_data_shards)
+                  num_data_shards=gf.num_data_shards,
+                  plan_key=gf.plan_cache_key())
 
     def make_tasks(bounds, algos, spans=True):
         return tuple(BucketTask(index=i, start=s, end=e, algo=a,
@@ -259,6 +264,15 @@ class OverlapEngine:
 
     def plan_for(self, stage=None) -> StepPlan:
         return self.gf.plan(stage)
+
+    def replan(self, topology=None, *, num_data_shards=None,
+               reduce_axes=None) -> None:
+        """Re-resolve the backend's layout for a new topology (delegates
+        to ``GradientFlow.replan``): θ re-tuned, per-bucket algorithms
+        re-selected, plan cache invalidated. The next ``plan_for``
+        returns a plan stamped with the new layout key."""
+        self.gf.replan(topology, num_data_shards=num_data_shards,
+                       reduce_axes=reduce_axes)
 
     def run(self, plan: StepPlan, gpool: torch.Tensor, params_tree,
             opt_state, gfstate, lr: torch.Tensor, census=None):

@@ -13,11 +13,12 @@ layer (``parallel.topology``: flat, two_level, tree, pallas_ring or
 auto), and ``auto_bucket`` with a topology tunes θ on the cost model.
 ``plan`` compiles the layout for the staged overlap engine
 (``core.engine``); ``reduce`` runs it monolithically, every bucket before
-the update (``overlap='monolithic'``). ``replan`` is not ported yet (see
-ROADMAP.md A.15).
+the update (``overlap='monolithic'``). ``replan`` re-resolves the layout
+for a new topology (an elastic event over the same ranks).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -76,7 +77,10 @@ class GradientFlow:
         self._resolve_layout()
 
     def _resolve_layout(self) -> None:
-        """Bucket boundaries and per-bucket algorithms for both modes."""
+        """Resolve the topology-dependent layout: bucket boundaries (θ
+        re-tuned when auto_bucket), per-bucket algorithms, and the plan
+        cache. Called when built and again by ``replan``: everything that
+        depends on the topology is derived here, nowhere else."""
         cfg, pool = self.cfg, self.pool
         self._dense_bounds = tuple(
             (s.offset, s.offset + s.size) for s in pool.specs)
@@ -117,6 +121,33 @@ class GradientFlow:
         return (self.cfg.mode, self.cfg.collective_algo,
                 str(self.cfg.wire_dtype), self.cfg.wire_format,
                 self.num_data_shards, self.bucket_elems, topo_key)
+
+    def replan(self, topology: Optional[topo_mod.Topology] = None, *,
+               num_data_shards: Optional[int] = None,
+               reduce_axes: Optional[Tuple[str, ...]] = None
+               ) -> "GradientFlow":
+        """Re-resolve the collective layout for a new topology (an elastic
+        event).
+
+        Swaps the (frozen) config's topology / reduce_axes, updates the
+        data degree, and re-resolves everything layout-derived: θ is
+        re-tuned, per-bucket algorithms re-selected, and the StepPlan
+        cache invalidated — the next ``plan()`` compiles for the new
+        topology. ``reduce_axes`` defaults to the new topology's axes.
+        Returns self for chaining."""
+        cfg = self.cfg
+        if topology is not None:
+            if reduce_axes is None:
+                reduce_axes = topology.axes
+            cfg = dataclasses.replace(cfg, topology=topology,
+                                      reduce_axes=tuple(reduce_axes))
+        elif reduce_axes is not None:
+            cfg = dataclasses.replace(cfg, reduce_axes=tuple(reduce_axes))
+        self.cfg = cfg
+        if num_data_shards is not None:
+            self.num_data_shards = int(num_data_shards)
+        self._resolve_layout()
+        return self
 
     def init_state(self, device=None) -> GFState:
         empty = torch.zeros((0,), dtype=torch.float32, device=device)

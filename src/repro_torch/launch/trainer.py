@@ -57,6 +57,11 @@ lazy) and K > 1 each body first applies the previous step's lane
 (``TrainState.inflight``) and parks its own tail in a new one; the
 window starts from an empty lane and flushes the last before it returns,
 so a state outside a window is always flushed (``assert_flushed``).
+
+``replan(topology)`` re-resolves the collective layer for a new topology
+over the same ranks (an elastic event); steps and windows built before it
+refuse to run. A checkpoint restore (``checkpoint``) writes into the
+state's tensors in place, so a captured window replays on it.
 """
 from __future__ import annotations
 
@@ -129,7 +134,7 @@ class Trainer:
         self.num_data = collectives.data_world_size()
         gf_cfg = dataclasses.replace(gf_cfg, topology=mesh_topology(
             self.num_data, gf_cfg.topology))
-        collectives.level_groups(gf_cfg.topology)
+        self._prepare_groups(gf_cfg)
         # CSC chunking and the low-bit wires' per-chunk scales both key
         # off whole chunks: pad the pool to a chunk multiple for either.
         pad = gf_cfg.chunk_elems \
@@ -137,18 +142,51 @@ class Trainer:
         self.pool = GradientPool(self.model.param_shapes(), pad_to=pad)
         self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
         self.gf_cfg = gf_cfg
-        # 'auto' resolves to the flat ring on one level (resolve_algorithm).
-        if gf_cfg.collective_algo == "pallas_ring" or (
-                gf_cfg.collective_algo == "auto"
-                and len(gf_cfg.topology.levels) > 1):
-            kops.ring_prepare(collectives.ring_levels(gf_cfg.topology),
-                              self.device)
+        # Steps and windows remember the count they were built at: one
+        # built before a replan holds the old plan and refuses to run.
+        self.replans = 0
         self.opt_name = cfg.optimizer.name
         self.lars = LARSScaler(self.pool) if self.opt_name == "lars" \
             else None
         self.engine = OverlapEngine(self.gf, self.opt_name, cfg.optimizer,
                                     lars=self.lars)
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
+
+    def _prepare_groups(self, gf_cfg) -> None:
+        """The level groups of the config's topology and, when a bucket
+        may run the ring, their ring workspaces (collectively: every rank
+        calls this in one order)."""
+        collectives.level_groups(gf_cfg.topology)
+        # 'auto' resolves to the flat ring on one level (resolve_algorithm).
+        if gf_cfg.collective_algo == "pallas_ring" or (
+                gf_cfg.collective_algo == "auto"
+                and len(gf_cfg.topology.levels) > 1):
+            kops.ring_prepare(collectives.ring_levels(gf_cfg.topology),
+                              self.device)
+
+    def replan(self, topology=None) -> None:
+        """Re-resolve the collective layer for a new topology over the
+        same ranks (an elastic event): the data degree from the world
+        size and ``topology`` (``mesh_topology``: one ('data', N) level
+        when None), its level groups (``dist.new_group``: every rank
+        calls this, in one order) and ring workspaces, then
+        ``OverlapEngine.replan`` (θ re-tuned, algorithms re-selected, the
+        plan cache cleared). Steps and windows built before hold the old
+        plan and refuse to run: release the windows and build new ones.
+        A new world size is a relaunch (``checkpoint.reshard``)."""
+        self.num_data = collectives.data_world_size()
+        topo = mesh_topology(self.num_data, topology)
+        self._prepare_groups(dataclasses.replace(self.gf_cfg, topology=topo))
+        self.engine.replan(topo, num_data_shards=self.num_data)
+        self.gf_cfg = self.gf.cfg
+        self.replans += 1
+
+    def check_current(self, replans: int, what: str) -> None:
+        """Refuse a step or window built before the last ``replan``."""
+        if replans != self.replans:
+            raise ValueError(f"this {what} was built before "
+                             f"Trainer.replan and holds the old plan: build "
+                             f"a new one")
 
     @property
     def _pack_dtype(self) -> torch.dtype:
@@ -198,8 +236,10 @@ class Trainer:
         ``step`` is the host int ``state.step``. A plan with a deferred
         tail runs unpipelined here, as in the JAX package."""
         body = self._step_body(stage, fault_hook, pipelined=False)
+        replans = self.replans
 
         def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            self.check_current(replans, "train step")
             assert_flushed(state, "a train step")
             batch = {k: v.to(self.device, non_blocking=True)
                      for k, v in batch.items()}

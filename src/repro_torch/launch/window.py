@@ -28,6 +28,10 @@ at the first call for each L and replayed after it:
   ``pallas_ring``, and the CSC and low-bit census sums) refuses to be
   built on the card (``host_collectives``); such runs take one eager
   step at a time (``--window-steps 1``).
+* A restore (``checkpoint.CheckpointManager.restore``) writes into the
+  state's own tensors, so the graph replays on the restored values with
+  no new capture. A window built before ``Trainer.replan`` holds the old
+  plan and refuses to run.
 
 ``kernels.ops`` counts launches on the host, so a graph counts its
 launches once, at capture; ``stats`` keeps the warm-up's and the
@@ -142,6 +146,7 @@ class TrainWindow:
                     f"a native dense or lazy wire, or one eager step at a "
                     f"time (--window-steps 1)")
         self.trainer = trainer
+        self._replans = trainer.replans
         self.window_steps = window_steps
         self.body = body
         self.plan = plan  # the pipelined plan, or None
@@ -154,6 +159,7 @@ class TrainWindow:
     def __call__(self, state, batches: Dict[str, torch.Tensor]):
         from repro_torch.launch.trainer import assert_flushed
 
+        self.trainer.check_current(self._replans, "train window")
         assert_flushed(state, "a train window")
         lens = {v.shape[0] for v in batches.values()}
         if len(lens) != 1 or not 1 <= min(lens) <= self.window_steps:

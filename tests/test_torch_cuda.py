@@ -759,3 +759,47 @@ def test_cuda_capture_needs_the_arena(dev):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(pool, torch.cat(leaves))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lazy", "csc"])
+def test_cuda_window_replays_after_in_place_restore(dev, mode, tmp_path):
+    """A K = 4 window: windows 0-3 and 4-7 with a checkpoint at 4, then a
+    restore of step 4 into the live state (in place, the same tensors)
+    and window 4-7 again: the same losses and state bits as the first
+    pass, from the one graph captured at the first call (no new
+    capture). After ``Trainer.replan`` the window refuses to replay."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (8, 2, 17)))
+    batches = [{"tokens": toks[i:i + 4, :, :-1], "labels": toks[i:i + 4, :, 1:]}
+               for i in (0, 4)]
+    trainer = Trainer(_window_cfg(mode, 0, False), device=dev)
+    state = trainer.init_state(seed=0)
+    window = trainer.build_train_window(4)
+    ckpt = CheckpointManager(str(tmp_path))
+    state, _ = window(state, batches[0])
+    ckpt.save(4, state, blocking=True)
+    state, m = window(state, batches[1])
+    first = (m["loss"].tolist(),
+             [t.clone() for t in trainer.pool.flat_leaves(state.params)]
+             + [t.clone() for t in list(state.opt) + list(state.gf)])
+    ptrs = [t.data_ptr() for t in trainer.pool.flat_leaves(state.params)]
+    step, state = ckpt.restore(state)
+    assert step == 4 and state.step == 4
+    assert [t.data_ptr() for t in
+            trainer.pool.flat_leaves(state.params)] == ptrs
+    state, m = window(state, batches[1])
+    again = (m["loss"].tolist(),
+             trainer.pool.flat_leaves(state.params)
+             + list(state.opt) + list(state.gf))
+    assert again[0] == first[0]
+    for a, b in zip(again[1], first[1]):
+        assert torch.equal(a, b)
+    assert window.stats["captures"] == 1 and window.stats["replays"] == 3
+    trainer.replan()
+    with pytest.raises(ValueError, match="replan"):
+        window(state, batches[0])
+    window.release()

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` and
-``chip_smoke.py`` loads neither ``jax`` nor the JAX package ``repro``."""
+``chip_smoke.py`` loads neither ``jax`` nor the JAX package ``repro``,
+nor ``ml_dtypes`` (the checkpoint's bf16 placeholder needs none)."""
 import os
 import subprocess
 import sys
@@ -18,11 +19,16 @@ _SCRIPT = textwrap.dedent("""
     spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     bad = sorted(m for m in sys.modules
-                 if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+                 if m in ("jax", "repro", "ml_dtypes")
+                 or m.startswith(("jax.", "repro.", "ml_dtypes.")))
     assert not bad, bad
     for needed in ("repro_torch.parallel.cost_model",
                    "repro_torch.kernels.ring_reduce",
-                   "repro_torch.kernels.fused_update"):
+                   "repro_torch.kernels.fused_update",
+                   "repro_torch.checkpoint.manager",
+                   "repro_torch.checkpoint.reshard",
+                   "repro_torch.runtime.fault_tolerance",
+                   "repro_torch.data.pipeline"):
         assert needed in names, needed
     print(len(names))
 """)
@@ -35,4 +41,4 @@ def test_port_imports_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 28  # every module was imported
+    assert int(proc.stdout.strip()) >= 36  # every module was imported

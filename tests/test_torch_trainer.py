@@ -207,11 +207,11 @@ def test_unported_settings_raise():
         get_arch("qwen3-32b")
 
 
-def test_cli_accepts_the_optimizers():
+def test_cli_accepts_the_optimizers(tmp_path):
     """``--optimizer`` takes the three optimizers and ``--wire-format``
     the low-bit wires, which reach the config and step; ``--window-steps``
-    parses; the unported ``--ckpt-dir`` still raises, naming
-    ROADMAP.md."""
+    parses; ``--ckpt-dir`` gets the run's final checkpoint
+    (tests/test_torch_checkpoint.py resumes from one)."""
     from repro_torch.launch import train as train_mod
 
     argv = ["--arch", "smollm-135m", "--reduced", "--device", "cpu"]
@@ -221,18 +221,20 @@ def test_cli_accepts_the_optimizers():
     args = train_mod.parse_args(argv + ["--optimizer", "lars",
                                         "--wire-format", "int8",
                                         "--gf-mode", "lazy", "--steps", "1",
-                                        "--batch", "2", "--seq-len", "16"])
+                                        "--batch", "2", "--seq-len", "16",
+                                        "--ckpt-dir", str(tmp_path)])
     trainer, cfg = train_mod.build(args)
     assert cfg.gradientflow.wire_format == "int8"
     assert trainer.gf.wire_spec.dtype == torch.int8
-    _, losses, _ = train_mod.train(args)
+    _, losses, _, run = train_mod.train(args)
+    assert run["restarts"] == 0 and run["preempted"] is None
     assert len(losses) == 1 and np.isfinite(losses[0])
-    # Windows are ported (tests/test_torch_window.py); checkpoints not.
+    assert sorted(os.listdir(tmp_path)) == ["step_1"]
+    # Windows are ported (tests/test_torch_window.py).
     assert train_mod.parse_args(argv + ["--window-steps", "2"]) \
         .window_steps == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_mod.parse_args(argv + ["--optimizer", "lars", "--ckpt-dir",
-                                     "ckpt"])
+    assert train_mod.parse_args(argv + ["--ckpt-dir", "ckpt"]).ckpt_every \
+        == 50
 
 
 def test_resolve_algorithm():

@@ -209,7 +209,8 @@ def test_window_refuses_host_collectives_on_the_card(monkeypatch, mode,
     assert t_window.host_collectives(trainer, plan) == []
     monkeypatch.setattr(t_window.dist, "get_backend", lambda: "gloo")
     assert t_window.host_collectives(trainer, plan) == want
-    card = types.SimpleNamespace(device=torch.device("cuda"), gf=trainer.gf)
+    card = types.SimpleNamespace(device=torch.device("cuda"), gf=trainer.gf,
+                                 replans=trainer.replans)
     if want:
         with pytest.raises(ValueError, match="--window-steps 1"):
             t_window.TrainWindow(card, K, None, None, plan)
@@ -260,10 +261,11 @@ def test_cli_window_matches_per_step(capsys):
             "--gf-mode", "lazy", "--log-every", "1"]
     assert train_mod.parse_args(argv).window_steps == 8
     record = []
-    _, windowed, seconds = train_mod.train(
+    _, windowed, seconds, run = train_mod.train(
         train_mod.parse_args(argv + ["--window-steps", "4"]), record=record)
-    _, per_step, _ = train_mod.train(
+    _, per_step, _, _ = train_mod.train(
         train_mod.parse_args(argv + ["--window-steps", "1"]))
+    assert run["restarts"] == 0
     assert windowed == per_step and len(seconds) == 6
     # A full window of 4, then one of 2 (a second capture on the card).
     assert [(r["start"], r["length"]) for r in record] == [(0, 4), (4, 2)]
