@@ -218,6 +218,54 @@
    (the CLI's default directory too), after a check that 16 GiB are
    free; it is emptied after each phase and removed at the end. Every
    CLI run must end with no restart of its supervisor.
+   Long sequences on the dense models, after every phase above:
+   (z) attention at olmo-1b's layer shape (batch 4, sequence 4096, 16
+       heads of 128, bf16, causal): the blockwise full grid, blockwise
+       causal_skip and full attention (the port's forms) and
+       F.scaled_dot_product_attention (a yardstick the port never
+       calls); each form's output and q, k, v gradients within 2^-6 of
+       the largest full-attention value of full attention's, and within
+       2^-6 relative RMS of it per 1024-position block and head (a
+       planted rescale of the last query block must fail that bound),
+       the two blockwise forms as close to each other; forward and
+       forward +
+       backward ms (CUDA events), the memory autograd holds after the
+       forward, and each one's peak;
+   the pool kernels at olmo-1b's lazy pool (8 leaves, 1,176,764,416
+       elements): the bf16 gradient pack, the f32 master pack and the
+       8-span update, bit for bit against their plain versions, timed
+       beside them, torch.cat and the bytes bound (parts of the
+       pool_pack and pool_unpack_update entries);
+   in a new world-size-1 NCCL group:
+   (y) olmo-1b at full width and depth (16 layers, d_model 2048,
+       non-parametric LayerNorm, 1,176,764,416 parameters), lazy, bf16
+       wire, kernels on, through ``train.build`` with ``--seq-len 4096
+       --batch 16 --attn-chunk 1024`` and ``microbatches=4`` on the
+       TrainConfig (4 x 4096 tokens a microbatch, the blockwise full
+       grid): 6 steps on one repeated batch, then one under the
+       profiler; finite losses that fall, every attention call
+       blockwise, the pack and update launches and the all-reduces the
+       plan's; step ms, tokens/s, peak memory, the first step's seconds,
+       and the model and executed FLOP shares of the dense bf16 peak
+       (``step_flops``: the model's 6 N T and causal attention; the
+       path's remat forward and full masked grid on top);
+   (aa) stablelm-12b and qwen3-32b at their published widths (LayerNorm
+       with bias at 5120; QK-norm, GQA 64/8 on heads of 128), their depth
+       cut to 2 layers (1.58 G and 2.53 G parameters), the same way as
+       (y) at 2 x 4096 tokens in 2 microbatches, 4 steps each; then
+       olmo-smoke, stablelm-smoke and qwen3-smoke through the CLI and
+       the Trainer (``train_run``), CSC (2 warm-up steps, sparsity 0.5,
+       chunks of 2048), sequence 256 with 64-token attention chunks: 5 +
+       5 steps each, finite losses that fall on the repeated batch,
+       chunk_l1norm and csc_compact launched, every attention call
+       blockwise;
+   (ab) smollm-135m lazy ((a)'s settings) at microbatches 2: 4 eager
+       steps against a window of 4 as a CUDA graph on the same batches,
+       the same bits, the capture's launches the plan's x 4; the same
+       guarded with a NaN at step 2 (that step alone trips, its skip
+       bit-identical by an in-graph digest, the eager guarded bits);
+       then int8 lazy with ``--no-error-feedback``, 6 + 6 steps: finite
+       losses that fall, no residual carried (size 0).
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -225,10 +273,12 @@
    its first.
 
 Prints one JSON line per kernel, one for the NaN words, one for the
-optimizer ops, one for the quantized ring, one per train run, the
-windowed GuardLane's, the card's nvidia-smi line, the kernel summary line
-(each kernel with ``in_graph``: whether a captured window launched it),
-then ``{"ok": true, "device": {...}}`` as the last line.
+optimizer ops, one for the quantized ring, one per train run (the long
+sequences' runs too), the attention line, the windowed GuardLane's, the
+script's seconds in all, the card's nvidia-smi line, the kernel summary
+line (each kernel with ``in_graph``: whether a captured window launched
+it, and ``launches_by_run``), then ``{"ok": true, "device": {...}}`` as
+the last line.
 Any failed check ends the run with a non-zero exit before that line.
 Exits non-zero without a result when no CUDA device is visible.
 
@@ -238,6 +288,7 @@ runs only the device line, the build and the chunk_l1norm and csc_compact
 phases, on the package under DIR/repro_torch (default: this tree's src):
 a parent's checkout timed the same way as this tree, in one call. It
 prints their JSON lines and the card's line, and no result line.
+
 """
 from __future__ import annotations
 
@@ -251,6 +302,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 BATCH = 16
 SEQ = 1024
@@ -1191,10 +1243,12 @@ def stream_steps(torch, trainer, cfg, seed, steps):
 
 
 def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
-              overlap="staged", keep_params=False, watch=None):
+              overlap="staged", keep_params=False, watch=None,
+              microbatches=1):
     """(a) ``steps`` steps on the synthetic stream, timed: the CLI's loop,
-    or with ``overlap='monolithic'`` the same loop on a Trainer built with
-    it; and (b) ``steps`` steps of such a Trainer on ONE batch, each step
+    or with ``overlap='monolithic'`` or ``microbatches`` > 1 (no CLI flag
+    sets either) the same loop on a Trainer built with them; and (b)
+    ``steps`` steps of such a Trainer on ONE batch, each step
     under the stage the CLI would pick. On a fresh batch each step, a few
     steps at the CLI's learning rate move the loss less than the
     batch-to-batch spread, so (a) cannot show learning; a repeated batch
@@ -1207,17 +1261,20 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
 
     args = train_mod.parse_args(argv)
 
+    cli = overlap == "staged" and microbatches == 1
+
     def build():
         trainer, cfg = train_mod.build(args)
-        if overlap == "staged":
+        if cli:
             return trainer, cfg
-        cfg = cfg.replace(gradientflow=dataclasses.replace(
-            cfg.gradientflow, overlap=overlap))
+        cfg = cfg.replace(microbatches=microbatches,
+                          gradientflow=dataclasses.replace(
+                              cfg.gradientflow, overlap=overlap))
         return Trainer(cfg, device=args.device), cfg
 
     ops.reset_counts()
     torch.cuda.reset_peak_memory_stats()
-    if overlap == "staged":
+    if cli:
         trainer, losses, seconds, run = train_mod.train(args)
         clear_checkpoints()
         check(run["restarts"] == 0 and run["preempted"] is None,
@@ -1238,8 +1295,8 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
 
     trainer, cfg = build()
     state = trainer.init_state(args.seed)
-    batch = synthetic.SyntheticLM(cfg.model.vocab_size,
-                                  seed=args.seed).batch(0, BATCH, SEQ)
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch, cfg.seq_len)
     fns = {}
     ops.reset_counts()
     fixed, findings = [], {}
@@ -1265,11 +1322,16 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
     check(all(bool(torch.isfinite(p).all())
               for p in trainer.pool.flat_leaves(state.params)),
           f"{label}: non-finite parameters")
-    residual_abs_max = None
+    residual_abs_max = residual_numel = None
     if trainer.gf.wire_spec is not None:
-        residual_abs_max = state.gf.residual.abs().max().item()
-        check(math.isfinite(residual_abs_max) and residual_abs_max > 0,
-              f"{label}: residual |max| {residual_abs_max}")
+        residual_numel = state.gf.residual.numel()
+        if trainer.gf_cfg.feedback_enabled:
+            residual_abs_max = state.gf.residual.abs().max().item()
+            check(math.isfinite(residual_abs_max) and residual_abs_max > 0,
+                  f"{label}: residual |max| {residual_abs_max}")
+        else:  # --no-error-feedback: no residual is carried, as in JAX
+            check(residual_numel == 0, f"{label}: a residual of "
+                  f"{residual_numel} elements without error feedback")
     wire_bytes = [trainer.gf.wire_bytes_per_step(st) for st in stages]
     del state, fns, trainer
     torch.cuda.empty_cache()
@@ -1289,6 +1351,9 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
                wire_format=args.wire_format,
                residual_abs_max=residual_abs_max, **findings,
                optimizer=args.optimizer, lr=args.lr, overlap=overlap)
+    if microbatches != 1 or residual_numel == 0:
+        run.update(microbatches=microbatches, residual_numel=residual_numel,
+                   error_feedback=not args.no_error_feedback)
     return (run, final) if keep_params else run
 
 
@@ -1769,6 +1834,16 @@ POOL_KERNELS = ("pool_pack_kernel", "pool_unpack_update_kernel",
                 "ring_kernel")
 
 
+# The rest of the device's kernels by class, by words in their names (the
+# first class that matches).
+KERNEL_CLASSES = (("softmax", ("softmax",)),
+                  ("reduction", ("reduce", "norm_kernel", "logsumexp")),
+                  ("copy_cat_index", ("copy", "cat", "gather", "scatter",
+                                      "index", "fill")),
+                  ("elementwise", ("elementwise", "unrolled", "vectorized")))
+TOP_KERNELS = 8
+
+
 def device_profile(torch, fn, steps):
     """Run ``fn`` (``steps`` train steps, ending in a host read) under
     ``torch.profiler`` and split the device's time from the trace's
@@ -1801,16 +1876,26 @@ def device_profile(torch, fn, steps):
         elif b > end:
             busy, end = busy + b - end, b
     split = {"pool_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    classes, by_name = {}, {}
     for a, b, name in kernels:
         low = name.lower()
         key = "pool_kernels" if any(k in name for k in POOL_KERNELS) else \
             "gemm" if any(k in low for k in ("gemm", "nvjet", "cutlass",
                                              "xmma")) else "other"
-        split[key] += (b - a) / 1e3 / steps
+        ms = (b - a) / 1e3 / steps
+        split[key] += ms
+        if key == "other":
+            key = next((c for c, words in KERNEL_CLASSES
+                        if any(w in low for w in words)), "other")
+        classes[key] = classes.get(key, 0.0) + ms
+        by_name[name] = by_name.get(name, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
     return dict(wall_ms=wall, device_busy_ms=busy / 1e3,
                 idle_share=1.0 - busy / 1e3 / wall,
                 kernels_per_step=len(kernels) / steps,
-                kernel_ms_per_step=split, steps=steps,
+                kernel_ms_per_step=split, class_ms_per_step=classes,
+                top_kernels_ms_per_step=[[n[:120], t] for n, t in top],
+                steps=steps,
                 note="torch.profiler (CUPTI); its overhead included")
 
 
@@ -2171,6 +2256,642 @@ def guard_lane_phase(torch, dev):
               f"GuardLane {mode}: {table}")
         out[mode] = table
     return out
+
+
+# -- long sequences on the dense models --------------------------------------
+
+# (y): olmo-1b at full width and depth, train_4k's sequence, 16 x 4096
+# tokens a step in 4 microbatches of 4 x 4096, blockwise attention beyond
+# 1024 tokens (the Trainer's default full masked grid, causal_skip off).
+OLMO_BATCH, OLMO_SEQ, OLMO_CHUNK, OLMO_STEPS = 16, 4096, 1024, 6
+OLMO_ARGV = ["--arch", "olmo-1b", "--seq-len", str(OLMO_SEQ), "--batch",
+             str(OLMO_BATCH), "--attn-chunk", str(OLMO_CHUNK), "--gf-mode",
+             "lazy", "--use-kernels", "--window-steps", "1", "--log-every",
+             "1", "--steps", str(OLMO_STEPS)]
+OLMO_MICROBATCHES = 4
+OLMO_POOL = 1_176_764_416  # elements in 8 leaves: the first above 2^30
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet, 700 W)
+# (z): attention at olmo-1b's layer shape (b, S, heads, head_dim), bf16.
+ATTN_SHAPE = (4, 4096, 16, 128)
+ATTN_CHUNK = 1024
+ATTN_REPS = 5
+# Each form against full attention (and the two blockwise forms against
+# each other), outputs and gradients: bf16 rounds each product's output
+# to 8 bits of mantissa at other places in each form, and the blockwise
+# accumulator sums 4 key blocks in bf16, so values differ by about one
+# bf16 ulp of the largest value (2^-7 of it at most); bound: 2^-6 of the
+# largest |full attention| value (measured on the CPU at S = 4096: one
+# ulp, 0.0156 of a largest 2.7; the two blockwise forms the same bits).
+ATTN_TOL = 2.0 ** -6
+# Each form's output and gradients are also held to full attention's per
+# ATTN_CHUNK-position block and head: the RMS of the error over the
+# block's rows and head_dim within ATTN_BLOCK_TOL of the RMS of full
+# attention's there. A late row's values average over thousands of keys
+# and are small beside the first rows', so the bound on the whole tensor
+# alone would pass a fault confined to late blocks (measured on the CPU
+# at S = 4096, 2 x 4 heads: at most 0.0075, the median 0.0042-0.0063; a
+# late query block rescaled by 1 + 2^-4 reads 2^-4 and must fail).
+ATTN_BLOCK_TOL = 2.0 ** -6
+ATTN_CONTROL_SCALE = 1.0 + 2.0 ** -4
+# (aa): the three smoke configurations through the Trainer, CSC, with
+# attention blockwise (64-token chunks of 256).
+SMOKE_ARCHS = ("olmo-1b", "stablelm-12b", "qwen3-32b")
+SMOKE_STEPS = 5
+SMOKE_ARGV = ["--reduced", "--use-kernels", "--gf-mode", "csc", "--batch",
+              "8", "--seq-len", "256", "--attn-chunk", "64",
+              "--chunk-elems", "2048", "--bucket-elems", "65536",
+              "--sparsity", "0.5", "--csc-warmup", "2", "--window-steps",
+              "1", "--log-every", "1", "--steps", str(SMOKE_STEPS)]
+# (aa): stablelm-12b and qwen3-32b at their published widths (LayerNorm
+# with bias at 5120, QK-norm on 128-wide heads, GQA 32/8 with heads of
+# 160 and 64/8 with heads of 128), cut to 2 layers (1.58 G and 2.53 G
+# parameters, the only reduction), lazy, bf16 wire, kernels on: 2 x 4096
+# tokens a step in 2 microbatches, blockwise beyond 1024 tokens.
+WIDE_ARCHS, WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = (
+    ("stablelm-12b", "qwen3-32b"), 2, 2, 4)
+WIDE_MICROBATCHES = 2
+
+
+def wide_argv(arch):
+    return ["--arch", arch, "--seq-len", str(OLMO_SEQ), "--batch",
+            str(WIDE_BATCH), "--attn-chunk", str(OLMO_CHUNK), "--gf-mode",
+            "lazy", "--use-kernels", "--window-steps", "1", "--log-every",
+            "1", "--steps", str(WIDE_STEPS)]
+
+
+# (ab): smollm-135m lazy at microbatches 2, a window of 4 against 4
+# eager steps; a NaN at step 2 inside the guarded window.
+MB_K = 4
+MB_FAULTS = ((2, "nan", 1_000_000, GUARD_WIDTH),)
+
+
+class CountAttention:
+    """Counts the calls of ``attention.blockwise_attention`` and
+    ``full_attention`` (``attend`` looks both up in the module) while
+    entered."""
+
+    def __init__(self):
+        from repro_torch.models.layers import attention
+        self.mod, self.calls = attention, {"blockwise": 0, "full": 0}
+
+    def __enter__(self):
+        self.saved = (self.mod.blockwise_attention, self.mod.full_attention)
+        block, full = self.saved
+
+        def counted_block(*a, **k):
+            self.calls["blockwise"] += 1
+            return block(*a, **k)
+
+        def counted_full(*a, **k):
+            self.calls["full"] += 1
+            return full(*a, **k)
+
+        self.mod.blockwise_attention = counted_block
+        self.mod.full_attention = counted_full
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.blockwise_attention, self.mod.full_attention = self.saved
+
+
+def step_flops(cfg, pool) -> dict:
+    """The FLOPs of one training step, two ways. ``model``: what the
+    model needs, 6 per matmul weight per token (forward 2, backward 4)
+    and the attention's two products (QK^T and PV) over the causal half
+    of the S x S grid, forward and backward (6 S h hd a token a layer),
+    no recompute. ``executed``: what this run's path computes on top of
+    that, the per-layer remat's second forward of the layers (2 per
+    layer weight per token) and the attention over the whole masked grid
+    in the forward, the remat forward and the backward (16 S h hd a
+    token a layer). The embedding counts once, as the head's matmul
+    (tied or not: the input lookup is no product)."""
+    m = cfg.model
+    tokens = cfg.global_batch * cfg.seq_len
+    layers = sum(s.size for s in pool.specs if s.name.startswith("layers/"))
+    head = m.vocab_size * m.d_model
+    attn = cfg.seq_len * m.num_heads * m.resolved_head_dim * m.num_layers
+    return dict(model=float(tokens * (6 * (layers + head) + 6 * attn)),
+                executed=float(tokens * (6 * (layers + head) + 2 * layers
+                                         + 16 * attn)))
+
+
+FLOPS_NOTE = ("model: 6 per matmul weight per token, attention's QK^T and "
+              "PV over the causal half x3 (forward, backward), no remat; "
+              "executed: also the remat forward (2 per layer weight) and "
+              "attention over the whole masked grid x4 (forward, remat, "
+              "backward); shares against 989 TFLOP/s dense bf16")
+
+
+def olmo_pool_kernel_parts(torch, pool_mod, kpack, kunpack, shapes, dev,
+                           rate):
+    """pool_pack and pool_unpack_update at olmo-1b's lazy pool (8 leaves,
+    1,176,764,416 elements, 64-bit offsets past 2^31 bytes): the bf16
+    gradient pack and the f32 master pack, and the 8-span update, each
+    bit for bit against its plain version and timed beside it and its
+    bytes bound. Returns (pack parts, update parts)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pool = pool_mod.GradientPool(shapes)
+    n = pool.size
+    check(n == OLMO_POOL and pool.num_tensors == 8,
+          f"olmo-1b pool {n} in {pool.num_tensors} leaves")
+    leaves = [torch.randn(s, generator=gen, device=dev) for s in pool.sizes]
+    pack = {}
+    for label, wire in (("olmo_1b_lazy_grads_to_bf16", torch.bfloat16),
+                        ("olmo_1b_params_to_f32", torch.float32)):
+        args = (leaves, pool.offsets, pool.sizes, n, 0, wire)
+        staging = torch.empty((n,), dtype=wire, device=dev)
+        got, _ = kpack.launch(*args, out=staging)
+        want, _ = kpack.plain(*args)
+        torch.cuda.synchronize()
+        err = abs_err(got, want)
+        check(torch.equal(got, want), f"pool_pack {label}: kernel != plain "
+              f"(max abs diff {err})")
+        del want
+        lib = torch.empty((n,), dtype=wire, device=dev)
+        nbytes = n * 4 + n * torch.empty((), dtype=wire).element_size()
+        b_ms, b_by = bound_ms(nbytes, n, rate)
+        pack[label] = dict(
+            ms=time_ms(torch, lambda: kpack.launch(*args, out=staging)),
+            plain_ms=time_ms(torch, lambda: kpack.plain(*args)),
+            library_ms=time_ms(torch, lambda: torch.cat(leaves, out=lib)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, max_abs_err=err,
+            pool_elems=n)
+        del got, staging, lib
+        torch.cuda.empty_cache()
+    del leaves
+    torch.cuda.empty_cache()
+    lr = torch.tensor(0.2, dtype=torch.float32, device=dev)
+    kw = dict(lr=lr, momentum=0.9, weight_decay=1e-4)
+    views = [pool.bucket_view(s, e)
+             for s, e in pool.bucket_boundaries(BUCKET_ELEMS)]
+    check(len(views) == 8, f"{len(views)} olmo-1b lazy spans, expected 8")
+    master = torch.randn(n, generator=gen, device=dev)
+    grads = torch.randn(n, generator=gen, device=dev) * 1e-2
+    mom = torch.randn(n, generator=gen, device=dev) * 1e-2
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def outputs():
+        return ([torch.empty(s, device=dev) for s in pool.sizes],
+                torch.empty(n, device=dev))
+
+    def step(fn, out):
+        for v in views:
+            s, e = v.start, v.end
+            fn(master[s:e], grads[s:e], mom[s:e], mask[s:e], v.offsets,
+               v.sizes, out_leaves=out[0][v.leaf_lo:v.leaf_hi],
+               out_momentum=out[1][s:e], **kw)
+
+    k_out = outputs()
+    step(kunpack.launch, k_out)
+    want = outputs()
+    step(kunpack.plain, want)
+    torch.cuda.synchronize()
+    err = max(abs_err(a, b) for a, b in zip(k_out[0] + [k_out[1]],
+                                             want[0] + [want[1]]))
+    check(all(torch.equal(a, b) for a, b in zip(k_out[0] + [k_out[1]],
+                                                 want[0] + [want[1]])),
+          f"pool_unpack_update at olmo-1b's pool: kernel != plain (max abs "
+          f"diff {err})")
+    nbytes = n * 17 + n * 4
+    b_ms, b_by = bound_ms(nbytes, n * 7, rate)
+    update = {"olmo_1b_lazy_8_spans": dict(
+        ms=time_ms(torch, lambda: step(kunpack.launch, k_out)),
+        plain_ms=time_ms(torch, lambda: step(kunpack.plain, want)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        max_abs_err=err, launches_per_step=len(views), pool_elems=n)}
+    del master, grads, mom, mask, k_out, want
+    torch.cuda.empty_cache()
+    for parts in (pack, update):
+        for p in parts.values():
+            p["share_of_bound"] = p["bound_ms"] / p["ms"]
+    return pack, update
+
+
+def block_rms_err(torch, x, want) -> float:
+    """The largest, over ATTN_CHUNK-position blocks and heads of (b, S,
+    h, hd) tensors, of the RMS of ``x - want`` over the block's rows and
+    head_dim relative to the RMS of ``want`` there."""
+    b, s, h, hd = want.shape
+    shape = (b, s // ATTN_CHUNK, ATTN_CHUNK, h, hd)
+    ref = want.float().view(shape)
+    err = (x.float().view(shape) - ref).pow(2).sum((2, 4)).sqrt()
+    return (err / ref.pow(2).sum((2, 4)).sqrt()).max().item()
+
+
+def attention_phase(torch, dev):
+    """(z) attention at olmo-1b's layer shape (ATTN_SHAPE, bf16, causal):
+    the blockwise full grid, blockwise causal_skip, full attention (the
+    port's three forms) and F.scaled_dot_product_attention (a yardstick
+    the port never calls). Each form's output and its q, k, v gradients
+    (for one fixed cotangent) against full attention's, and the two
+    blockwise forms against each other, within ATTN_TOL of the largest
+    value, and against full attention's within ATTN_BLOCK_TOL per block
+    and head (``block_rms_err``; a planted late-block rescale must fail
+    that bound); forward (no_grad) and forward + backward timed with CUDA
+    events (median of ATTN_REPS after a warm-up), the memory autograd
+    holds after the forward, and the peak of each."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import attention
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, cot = [torch.randn(ATTN_SHAPE, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(4)]
+    b, s, h, hd = ATTN_SHAPE
+    forms = {
+        "blockwise_full_grid": lambda q_, k_, v_: attention.
+        blockwise_attention(q_, k_, v_, causal=True, chunk_q=ATTN_CHUNK,
+                            chunk_k=ATTN_CHUNK, causal_skip=False),
+        "blockwise_causal_skip": lambda q_, k_, v_: attention.
+        blockwise_attention(q_, k_, v_, causal=True, chunk_q=ATTN_CHUNK,
+                            chunk_k=ATTN_CHUNK, causal_skip=True),
+        "full": lambda q_, k_, v_: attention.full_attention(
+            q_, k_, v_, causal=True),
+        "sdpa_yardstick": lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+            is_causal=True).transpose(1, 2)}
+
+    def train(fn):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=cot)
+        return [out.detach()] + list(grads)
+
+    def events_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(ATTN_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    results, out = {}, {}
+    for name, fn in forms.items():
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        results[name] = train(fn)
+        torch.cuda.synchronize()
+        peak_train = torch.cuda.max_memory_allocated() - base
+        # What autograd keeps between the forward and the backward.
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        before = torch.cuda.memory_allocated()
+        o = fn(*leaves)
+        saved = torch.cuda.memory_allocated() - before
+        del o, leaves
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fn(q, k, v)
+        torch.cuda.synchronize()
+        peak_fwd = torch.cuda.max_memory_allocated() - base
+        with torch.no_grad():
+            fwd_ms = events_ms(lambda: fn(q, k, v))
+        out[name] = dict(forward_ms=fwd_ms,
+                         forward_backward_ms=events_ms(lambda: train(fn)),
+                         forward_peak_gib=peak_fwd / 2 ** 30,
+                         forward_backward_peak_gib=peak_train / 2 ** 30,
+                         autograd_saved_gib=saved / 2 ** 30)
+    names = ("out", "dq", "dk", "dv")
+    full = results["full"]
+    for name, got in results.items():
+        errs, block_errs = {}, {}
+        for label, x, want in zip(names, got, full):
+            errs[label] = abs_err(x, want)
+            bound = ATTN_TOL * want.float().abs().max().item()
+            check(errs[label] <= bound, f"(z) {name} {label}: max abs err "
+                  f"{errs[label]} against full attention, bound {bound}")
+            block_errs[label] = block_rms_err(torch, x, want)
+            check(block_errs[label] <= ATTN_BLOCK_TOL, f"(z) {name} {label}:"
+                  f" per-block relative RMS error {block_errs[label]} "
+                  f"against full attention, bound {ATTN_BLOCK_TOL}")
+        out[name]["max_abs_err_vs_full"] = errs
+        out[name]["block_rms_err_vs_full"] = block_errs
+    # Control: full attention's output with its last query block off by
+    # a wrong rescale must fail the per-block bound.
+    want = full[0]
+    planted = want.clone()
+    planted[:, -ATTN_CHUNK:] = (planted[:, -ATTN_CHUNK:].float()
+                                * ATTN_CONTROL_SCALE).to(planted.dtype)
+    control = dict(block_rms_err=block_rms_err(torch, planted, want),
+                   max_abs_err=abs_err(planted, want),
+                   whole_tensor_bound=ATTN_TOL
+                   * want.float().abs().max().item())
+    control["whole_tensor_bound_catches"] = \
+        control["max_abs_err"] > control["whole_tensor_bound"]
+    check(control["block_rms_err"] > ATTN_BLOCK_TOL, f"(z) the planted "
+          f"late-block rescale passes the per-block bound: {control}")
+    del planted
+    grid, skip = results["blockwise_full_grid"], \
+        results["blockwise_causal_skip"]
+    forms_err = {label: abs_err(a, b)
+                 for label, a, b in zip(names, grid, skip)}
+    for label, want in zip(names, full):
+        check(forms_err[label] <= ATTN_TOL * want.float().abs().max().item(),
+              f"(z) the blockwise forms disagree on {label}: {forms_err}")
+    # FLOPs of the two products over the causal half (the least the card
+    # could do), at the dense bf16 peak; forward, and x3 with backward.
+    flops = 4 * b * h * s * s * hd / 2
+    summary = dict(shape=dict(batch=b, seq=s, heads=h, head_dim=hd),
+                   dtype="bfloat16", chunk=ATTN_CHUNK, forms=out,
+                   blockwise_forms_max_abs_err=forms_err,
+                   blockwise_forms_same_bits=all(
+                       torch.equal(a, b_) for a, b_ in zip(grid, skip)),
+                   tolerance=f"{ATTN_TOL} x max|full attention|",
+                   block_tolerance=f"{ATTN_BLOCK_TOL} x the RMS of full "
+                   f"attention per {ATTN_CHUNK}-position block and head",
+                   planted_late_rescale=control,
+                   causal_flops_forward=flops,
+                   bound_forward_ms=flops / BF16_FLOPS * 1e3,
+                   bound_forward_backward_ms=3 * flops / BF16_FLOPS * 1e3,
+                   sdpa_note="F.scaled_dot_product_attention: a yardstick "
+                   "timed here only; the port never calls it")
+    del results, full, grid, skip, q, k, v, cot
+    torch.cuda.empty_cache()
+    print(f"(z) attention at {ATTN_SHAPE}: " + ", ".join(
+        f"{n} {o['forward_ms']:.2f} / {o['forward_backward_ms']:.2f} ms"
+        for n, o in out.items()), flush=True)
+    return summary
+
+
+def dense_run(torch, dist, ops, train_mod, synthetic, label, argv,
+              microbatches, layers=None):
+    """(y) and (aa)'s wide runs: a dense model through ``train.build``
+    with ``microbatches`` on the TrainConfig (and its depth cut to
+    ``layers``), in the NCCL group: the steps of ``--steps`` on one
+    repeated batch, each timed (host clock from a sync to a sync), then
+    one more step under ``torch.profiler``. Finite losses that fall;
+    every attention call blockwise (the layers' forwards and their remat
+    recompute, each microbatch); the pool kernels' and the all-reduces'
+    counts the step plan's; step ms (median after the first), tokens/s,
+    peak memory, the first step's seconds, and the model and executed
+    FLOP shares of the dense bf16 peak (``step_flops``)."""
+    import dataclasses
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(argv)
+    _, cfg = train_mod.build(args)
+    published = cfg.model.num_layers
+    if layers is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    num_layers=layers))
+    cfg = cfg.replace(microbatches=microbatches)
+    check(cfg.seq_len > cfg.attn_chunk > 0 and not cfg.causal_skip,
+          f"{label}: attention chunk {cfg.attn_chunk} of {cfg.seq_len}, "
+          f"causal_skip {cfg.causal_skip}")
+    trainer = Trainer(cfg, device=args.device)
+    t0 = time.perf_counter()
+    state = trainer.init_state(args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch, cfg.seq_len)
+    step = trainer.build_train_step()
+    steps = args.steps
+    losses, seconds = [], []
+    ops.reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with CountAttention() as attn, CountAllReduce(dist) as coll:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            print(f"{label}: loss {losses[-1]:.4f} in {seconds[-1]:.3f} s",
+                  flush=True)
+    counts = dict(ops.dispatch_counts)
+    peak = torch.cuda.max_memory_allocated()
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch)
+        float(m["loss"])
+
+    profile = device_profile(torch, one_step, 1)
+    flops = step_flops(cfg, trainer.pool)
+    want = expected_counts(trainer, steps)
+    want_coll = expected_collectives(trainer, steps)
+    pool_elems = trainer.pool.size
+    del state, step, trainer
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall on one "
+          f"batch: {losses}")
+    check(counts == want, f"{label}: dispatch counts {counts}, expected "
+          f"{want}")
+    check(coll.calls == want_coll, f"{label}: {coll.calls} all-reduces, "
+          f"expected {want_coll}")
+    # Each microbatch: every layer's forward and its remat recompute.
+    want_attn = {"blockwise": 2 * cfg.model.num_layers * microbatches
+                 * steps, "full": 0}
+    check(attn.calls == want_attn, f"{label}: attention calls "
+          f"{attn.calls}, expected {want_attn}")
+    step_ms = statistics.median(seconds[1:]) * 1e3
+    tokens = cfg.global_batch * cfg.seq_len
+    m = cfg.model
+    return dict(arch=args.arch, config="CONFIG", batch=cfg.global_batch,
+                seq_len=cfg.seq_len, microbatches=microbatches,
+                attn_chunk=cfg.attn_chunk, causal_skip=cfg.causal_skip,
+                d_model=m.d_model, heads=m.num_heads, kv_heads=m.num_kv_heads,
+                head_dim=m.resolved_head_dim, d_ff=m.d_ff, norm=m.norm,
+                qk_norm=m.qk_norm, num_layers=m.num_layers,
+                reduced={} if layers is None
+                else {"num_layers": [published, layers]},
+                losses=losses, step_ms=[t * 1e3 for t in seconds],
+                steady_step_ms=step_ms, first_step_s=seconds[0],
+                init_state_s=init_s, tokens_per_s=tokens / (step_ms / 1e3),
+                peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+                expected_counts=want, collectives=coll.calls,
+                attention_calls=attn.calls, model_flops=flops["model"],
+                model_flops_share_of_bf16_peak=flops["model"]
+                / (step_ms / 1e3) / BF16_FLOPS,
+                executed_flops=flops["executed"],
+                executed_flops_share_of_bf16_peak=flops["executed"]
+                / (step_ms / 1e3) / BF16_FLOPS,
+                flops_note=FLOPS_NOTE, profile=profile,
+                pool_elems=pool_elems)
+
+
+def microbatch_window_run(torch, ops, train_mod, synthetic, label, argv,
+                          guard=None, faults=()):
+    """(ab) smollm-135m lazy at microbatches 2: MB_K eager steps, then a
+    window of MB_K as a CUDA graph from the same seed on the same
+    batches: the same losses and final parameters and momentum, bit for
+    bit, and the capture's launches the plan's x MB_K. Guarded, the
+    ``faults`` fire through the device-step hook in both; exactly the
+    faulted steps trip, and an in-graph digest shows each skip
+    bit-identical. The eager steps and one replayed window timed."""
+    import dataclasses
+    from repro_torch.launch.trainer import Trainer, is_flushed
+    from repro_torch.runtime.faults import make_hook
+
+    args = train_mod.parse_args(argv)
+    _, cfg = train_mod.build(args)
+    cfg = cfg.replace(microbatches=2, gradientflow=dataclasses.replace(
+        cfg.gradientflow, guard=guard))
+    data = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed)
+    batches = [data.batch(s, BATCH, SEQ) for s in range(2 * MB_K)]
+    hook = make_hook(fault_events(faults)) if faults else None
+    trainer = Trainer(cfg, device=args.device)
+    state = trainer.init_state(args.seed)
+    step = trainer.build_train_step(fault_hook=hook)
+    eager, eager_ms, eager_tripped = [], [], []
+    ops.reset_counts()
+    for s in range(MB_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[s])
+        eager.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        if guard is not None:
+            eager_tripped.append(float(m["guard_tripped"]))
+    eager_counts = dict(ops.dispatch_counts)
+    want_eager = expected_counts(trainer, MB_K)
+    twin = flat_state(torch, trainer, state)
+    del state, step, trainer
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, device=args.device)
+    state = trainer.init_state(args.seed)
+    live = trainer.pool.flat_leaves(state.params) + [state.opt.momentum]
+    digests = []
+
+    def probed(gpool, step_t):
+        digests.append(torch.stack([x.view(torch.int32).sum(
+            dtype=torch.int64) for x in live]))
+        return hook(gpool, step_t) if hook is not None else gpool
+
+    window = trainer.build_train_window(MB_K, fault_hook=probed)
+    ops.reset_counts()
+    state, m = window(state, stacked(torch, batches[:MB_K]))
+    losses = m["loss"].tolist()
+    tripped = m["guard_tripped"].tolist() if guard is not None else None
+    after = torch.stack([x.view(torch.int32).sum(dtype=torch.int64)
+                         for x in live])
+    d = torch.stack(digests[-MB_K:] + [after]).cpu()
+    final = flat_state(torch, trainer, state)
+    flushed = is_flushed(state)
+    stats = dict(window.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = window(state, stacked(torch, batches[MB_K:]))
+    m["loss"].tolist()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    plan = trainer.engine.plan_for()
+    window.release()
+    del state, window, trainer, live, digests
+    torch.cuda.empty_cache()
+    at = {f[0] for f in faults}
+    frozen = [bool(torch.equal(d[t + 1], d[t])) for t in sorted(at)]
+    moved = [not torch.equal(d[t + 1], d[t]) for t in range(MB_K)
+             if t not in at]
+    print(f"{label}: eager {eager}, window {losses}, tripped {tripped}",
+          flush=True)
+    check(all(math.isfinite(x) for t, x in enumerate(eager) if t not in at),
+          f"{label}: non-finite loss {eager}")
+    check(eager_counts == want_eager, f"{label}: eager dispatch counts "
+          f"{eager_counts}, expected {want_eager}")
+    same = losses == eager and bits_equal(torch, final, twin)
+    check(same, f"{label}: the graphed window != the eager steps (losses "
+          f"{losses} vs {eager}, largest state difference "
+          f"{(final - twin).abs().max().item()})")
+    check(flushed, f"{label}: the returned state carries a live lane")
+    want = window_counts(plan, MB_K)
+    check(stats.get("capture_counts") == want, f"{label}: the capture "
+          f"launched {stats.get('capture_counts')}, the plan says {want}")
+    if guard is not None:
+        want_trips = [float(t in at) for t in range(MB_K)]
+        check(tripped == want_trips and eager_tripped == want_trips,
+              f"{label}: tripped {tripped} (eager {eager_tripped}), "
+              f"faults at {sorted(at)}")
+        check(all(frozen) and all(moved), f"{label}: a tripped step moved "
+              f"the state ({frozen}) or a clean one did not ({moved})")
+    return dict(arch="smollm-135m", batch=BATCH, seq_len=SEQ,
+                microbatches=2, losses=losses, eager_losses=eager,
+                tripped=tripped, faults=[list(f) for f in faults],
+                trips_bit_identical=frozen, clean_steps_moved=moved,
+                same_bits_as_eager=same, eager_step_ms=eager_ms,
+                eager_steady_step_ms=statistics.median(eager_ms[1:]),
+                replayed_window_step_ms=replay_ms / MB_K,
+                capture_counts=stats.get("capture_counts"),
+                expected_capture_counts=want, warmup_s=stats["warmup_s"],
+                capture_s=stats["capture_s"], dispatch_counts=eager_counts,
+                window_steps=MB_K)
+
+
+def long_sequence_phase(torch, dist, ops, train_mod, synthetic, pool_mod,
+                        kpack, kunpack, dev, rate):
+    """(y), (aa) and (ab) in one world-size-1 NCCL group, after the
+    pool kernels at olmo-1b's pool. Returns (runs, pack parts, update
+    parts)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    shapes = build_model(get_arch("olmo-1b")[0]).param_shapes()
+    pack, update = olmo_pool_kernel_parts(torch, pool_mod, kpack, kunpack,
+                                          shapes, dev, rate)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    runs = {}
+    try:
+        run = dense_run(torch, dist, ops, train_mod, synthetic,
+                        "(y) olmo-1b, 16 x 4096, lazy", OLMO_ARGV,
+                        OLMO_MICROBATCHES)
+        check(run["pool_elems"] == OLMO_POOL and run["batch"] == OLMO_BATCH
+              and run["seq_len"] == OLMO_SEQ, f"(y): pool "
+              f"{run['pool_elems']}, {run['batch']} x {run['seq_len']}")
+        runs["olmo_1b_lazy_4k_microbatches"] = run
+        for arch in WIDE_ARCHS:
+            runs[f"{arch}_2_layers_lazy_4k_microbatches"] = dense_run(
+                torch, dist, ops, train_mod, synthetic,
+                f"(aa) {arch} at full width, {WIDE_LAYERS} layers, "
+                f"{WIDE_BATCH} x {OLMO_SEQ}, lazy", wide_argv(arch),
+                WIDE_MICROBATCHES, layers=WIDE_LAYERS)
+        for arch in SMOKE_ARCHS:
+            name = get_arch(arch)[0].name
+            with CountAttention() as attn:
+                run = train_run(torch, ops, train_mod, synthetic,
+                                f"(aa) {name} smoke, csc, blockwise",
+                                ["--arch", arch] + SMOKE_ARGV, SMOKE_STEPS)
+            got = run["dispatch_counts"]
+            check(got.get("chunk_l1norm.kernel", 0) > 0
+                  and got.get("csc_compact.kernel", 0) > 0,
+                  f"(aa) {arch}: CSC kernels {got}")
+            check(attn.calls["blockwise"] > 0 and attn.calls["full"] == 0,
+                  f"(aa) {arch}: attention calls {attn.calls}")
+            run.update(arch=arch, config="SMOKE", attention_calls=attn.calls)
+            runs[f"{arch}_smoke_csc_blockwise"] = run
+        runs["mb2_lazy_window"] = microbatch_window_run(
+            torch, ops, train_mod, synthetic,
+            "(ab) smollm-135m lazy, microbatches 2, window", LAZY_ARGV)
+        from repro_torch.configs.base import GuardConfig
+        runs["mb2_guarded_lazy_window"] = microbatch_window_run(
+            torch, ops, train_mod, synthetic,
+            "(ab) smollm-135m guarded lazy, microbatches 2, window",
+            LAZY_ARGV, guard=GuardConfig(), faults=MB_FAULTS)
+        run = train_run(
+            torch, ops, train_mod, synthetic,
+            "(ab) int8 lazy, no error feedback, microbatches 2",
+            LAZY_ARGV + ["--chunk-elems", str(CHUNK), "--wire-format",
+                         "int8", "--no-error-feedback"], LAZY_STEPS,
+            microbatches=2)
+        run.update(arch="smollm-135m", batch=BATCH, seq_len=SEQ)
+        runs["mb2_int8_lazy_no_feedback"] = run
+    finally:
+        dist.destroy_process_group()
+    return runs, pack, update
 
 
 # -- checkpoints, restarts, resume, elastic ---------------------------------
@@ -3329,6 +4050,14 @@ def ring_train_phase(torch, dev):
               for label in ("int8_lazy", "int8_csc")))
 
 
+def print_long_runs(runs, name, power) -> None:
+    for label, run in runs.items():
+        print(json.dumps(dict(train=run["arch"], mode=label, gpu=name,
+                              power_limit=power, **{
+                                  k: v for k, v in run.items()
+                                  if k != "arch"})), flush=True)
+
+
 def main() -> None:
     import torch
     if "--ring-rank" in sys.argv:
@@ -3467,6 +4196,19 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     runs["int8_lazy_pallas_ring_2_processes"] = ring_int8
     runs["int8_csc_pallas_ring_2_processes"] = ring_int8_csc
     runs["window_lazy_pipelined_pallas_ring_2_processes"] = ring_window
+    # Long sequences on the dense models, after every earlier phase.
+    attn = attention_phase(torch, dev)
+    print(json.dumps(dict(attention=attn, gpu=name, power_limit=power)),
+          flush=True)
+    long_runs, olmo_pack, olmo_update = long_sequence_phase(
+        torch, dist, ops, train_mod, synthetic, pool_mod, kpack, kunpack,
+        dev, rate)
+    for e in entries:
+        extra = {"pool_pack": olmo_pack,
+                 "pool_unpack_update": olmo_update}.get(e["name"], {})
+        e["parts"].update(extra)
+        e["max_abs_err"] = max(p["max_abs_err"] for p in e["parts"].values())
+    print_long_runs(long_runs, name, power)
     for label, run in runs.items():
         print(json.dumps(dict(train="smollm-135m", mode=label, batch=BATCH,
                               seq_len=SEQ, gpu=name, power_limit=power,
@@ -3483,7 +4225,8 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
             e["launches"] = runs["csc"]["dispatch_counts"][key]
             e["launches_by_run"] = {
                 label: run["dispatch_counts"].get(key, 0)
-                for label, run in runs.items() if "pallas" not in label
+                for label, run in list(runs.items())
+                + list(long_runs.items()) if "pallas" not in label
                 and "dispatch_counts" in run}
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
@@ -3501,6 +4244,8 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
           == ["fused_update"], f"kernels captured in a window: {captured}")
     print(json.dumps(dict(guard_lane_windowed=guard_lane_phase(torch, dev),
                           gpu=name, power_limit=power)), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all, the "
+          f"kernel build included", flush=True)
     print(smi_line)
     print(json.dumps({"kernels": entries, "not_ported": [],
                       "gpu": name, "nvidia_smi": smi_line}), flush=True)

@@ -3,12 +3,20 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import smollm_135m
+from repro_torch.configs import (olmo_1b, qwen3_32b, smollm_135m,
+                                 stablelm_12b)
 from repro_torch.configs.base import (GradientFlowConfig, MeshConfig,
                                       ModelConfig, OptimizerConfig,
                                       ShapeConfig, TrainConfig)
+from repro_torch.configs.shapes import SHAPES, shapes_for
 
-_MODULES = {"smollm-135m": smollm_135m}
+# The JAX package's registry order, for the architectures ported.
+_MODULES = {
+    "qwen3-32b": qwen3_32b,
+    "stablelm-12b": stablelm_12b,
+    "olmo-1b": olmo_1b,
+    "smollm-135m": smollm_135m,
+}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -33,5 +41,5 @@ def get_smoke(arch_id: str) -> Tuple[ModelConfig, None]:
 
 
 __all__ = ["ARCH_IDS", "GradientFlowConfig", "MeshConfig", "ModelConfig",
-           "OptimizerConfig", "ShapeConfig", "TrainConfig", "get_arch",
-           "get_smoke"]
+           "OptimizerConfig", "SHAPES", "ShapeConfig", "TrainConfig",
+           "get_arch", "get_smoke", "shapes_for"]

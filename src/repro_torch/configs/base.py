@@ -15,7 +15,9 @@ from repro_torch.parallel.topology import Topology
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture config. The port builds ``family='dense'`` only."""
+    """Architecture config. The port builds ``family='dense'`` only:
+    ``norm`` 'rmsnorm', 'layernorm' or 'nonparametric_ln', ``activation``
+    'swiglu', 'geglu' or 'gelu', with or without ``qk_norm``."""
 
     name: str = "model"
     family: str = "dense"
@@ -43,6 +45,11 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic (recurrent-state) decode => long_500k is runnable."""
+        return self.family in ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -58,7 +58,8 @@ class PoolView:
 
 def flatten_tree(tree: Tree, prefix: Tuple[str, ...] = ()
                  ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """Nested dict -> [(key path, leaf)] in JAX's order (sorted keys)."""
+    """Nested dict -> [(key path, leaf)] in JAX's order (sorted keys). An
+    empty subtree has no leaf; ``tree_def`` keeps it."""
     out = []
     for key in sorted(tree):
         value = tree[key]
@@ -69,14 +70,36 @@ def flatten_tree(tree: Tree, prefix: Tuple[str, ...] = ()
     return out
 
 
-def unflatten_tree(paths: Sequence[Tuple[str, ...]],
-                   leaves: Sequence[Any]) -> Tree:
-    tree: Tree = {}
-    for path, leaf in zip(paths, leaves):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
+def tree_def(tree: Tree) -> Tree:
+    """The tree's structure, as JAX's treedef holds it: nested dicts in
+    sorted-key order with None at the leaves, empty subtrees kept (a
+    non-parametric norm's ``{}``)."""
+    return {k: tree_def(v) if isinstance(v, dict) else None
+            for k, v in sorted(tree.items())}
+
+
+def unflatten_tree(treedef: Tree, leaves: Sequence[Any]) -> Tree:
+    """Inverse of ``flatten_tree`` against ``tree_def`` of the same tree:
+    ``leaves`` in ``flatten_tree``'s order; empty subtrees come back as
+    ``{}``."""
+    it = iter(leaves)
+    end = object()
+
+    def walk(node: Tree) -> Tree:
+        out: Tree = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                leaf = next(it, end)
+                if leaf is end:
+                    raise ValueError("fewer leaves than the tree holds")
+                out[k] = leaf
+        return out
+
+    tree = walk(treedef)
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree holds")
     return tree
 
 
@@ -95,7 +118,7 @@ class GradientPool:
     def __init__(self, params: Tree, pad_to: int = 1):
         flat = flatten_tree(params)
         ordered = list(reversed(flat))
-        self._paths = [path for path, _ in flat]
+        self._treedef = tree_def(params)
         specs: List[LeafSpec] = []
         offset = 0
         for path, leaf in ordered:
@@ -133,11 +156,12 @@ class GradientPool:
         return out
 
     def unflatten(self, leaves_1d: Sequence[torch.Tensor]) -> Tree:
-        """1-D leaves in pool order -> tree (inverse of flat_leaves)."""
+        """1-D leaves in pool order -> tree (inverse of flat_leaves), with
+        the structure the pool was built from, empty subtrees included."""
         assert len(leaves_1d) == len(self.specs)
         shaped = [x.reshape(spec.shape)
                   for x, spec in zip(leaves_1d, self.specs)]
-        return unflatten_tree(self._paths, list(reversed(shaped)))
+        return unflatten_tree(self._treedef, list(reversed(shaped)))
 
     # -- pack / unravel -----------------------------------------------------
 

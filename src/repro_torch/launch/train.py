@@ -18,7 +18,11 @@ picks. The log shows each step's stage and its sparsity, and tokens/s
 over the windows after the first (``ThroughputMeter``: the first window
 pays the capture). ``--optimizer`` takes momentum_sgd, lars and adamw;
 ``--wire-format`` native (the bf16 wire cast), int8 or fp8_e4m3 (1-byte
-words with per-chunk scales and error feedback, ``core.wire``). Inside an
+words with per-chunk scales and error feedback, ``core.wire``;
+``--no-error-feedback`` drops the residual). ``--attn-chunk`` N (default
+0: full attention) runs blockwise attention beyond N tokens. Gradient
+accumulation has no flag, as in the JAX CLI: set
+``TrainConfig.microbatches``. Inside an
 initialised ``torch.distributed`` group each rank trains on its own shard
 of the global batch.
 
@@ -113,9 +117,15 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["momentum_sgd", "lars", "adamw"])
     p.add_argument("--lr", type=float, default=0.2)
     p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--attn-chunk", type=int, default=0,
+                   help="blockwise attention beyond this many tokens; "
+                        "0 = full attention")
     p.add_argument("--use-kernels", action="store_true")
     p.add_argument("--wire-format", default="native",
                    choices=["native", "int8", "fp8_e4m3"])
+    p.add_argument("--no-error-feedback", action="store_true",
+                   help="drop the quantization-error residual "
+                        "(ablation; biased wire)")
     p.add_argument("--window-steps", type=int, default=8,
                    help="K: steps a window (one CUDA graph on the card, "
                         "one host read); 1 = one eager step at a time")
@@ -144,6 +154,7 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
         chunk_elems=args.chunk_elems, sparsity=args.sparsity,
         momentum=args.momentum, warmup_steps=args.csc_warmup,
         warmup_stages=4, wire_format=args.wire_format,
+        error_feedback=not args.no_error_feedback,
         use_kernels=args.use_kernels)
     opt = OptimizerConfig(
         name=args.optimizer, learning_rate=args.lr, momentum=args.momentum,
@@ -151,7 +162,7 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
         schedule="warmup_cosine")
     cfg = TrainConfig(model=model_cfg, gradientflow=gf, optimizer=opt,
                       seq_len=args.seq_len, global_batch=args.batch,
-                      attn_chunk=0, seed=args.seed,
+                      attn_chunk=args.attn_chunk, seed=args.seed,
                       window_steps=args.window_steps)
     return Trainer(cfg, device=args.device), cfg
 

@@ -45,7 +45,15 @@ optimizer state and CSC's state bit-identical; only the scaler advances.
 ``build_train_step(fault_hook=...)`` corrupts the packed pool before the
 reduce (``runtime.faults``); the hook writes after the pack's census, so
 a low-bit dense or lazy step then takes the census anew from the pool it
-corrupted. Gradient accumulation is not ported yet.
+corrupted.
+
+With ``TrainConfig.microbatches`` n > 1 the step accumulates gradients,
+as the JAX package's ``_accumulate`` does: n contiguous slices of the
+batch's rows, one forward and backward each in order, the f32 gradients
+summed into zeros and divided by n, each metric the sum of its value / n
+(guarded: each slice's loss carries the live scale). The pack, the
+reduce and the update then run once, in every mode, guard, wire and
+overlap, in a window too.
 
 ``build_train_window(K)`` runs up to K steps as one unit, the port's form
 of the JAX package's compile-once window (``launch.window``): on a CUDA
@@ -65,7 +73,8 @@ state's tensors in place, so a captured window replays on it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import dataclasses
 
@@ -86,8 +95,6 @@ from repro_torch.optim import scaler as scaler_mod
 from repro_torch.optim.lars import LARSScaler
 from repro_torch.parallel import collectives
 from repro_torch.parallel.topology import mesh_topology
-
-_ROADMAP = "is not ported to repro_torch yet; see ROADMAP.md queue A"
 
 
 class TrainState(NamedTuple):
@@ -126,8 +133,9 @@ class Trainer:
         gf_cfg = cfg.gradientflow
         if gf_cfg.overlap not in ("staged", "monolithic"):
             raise ValueError(f"unknown overlap {gf_cfg.overlap!r}")
-        if cfg.microbatches != 1:
-            raise NotImplementedError("gradient accumulation " + _ROADMAP)
+        if cfg.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got "
+                             f"{cfg.microbatches}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
@@ -306,7 +314,6 @@ class Trainer:
         rank's (``reduce_metrics`` averages them). ``pipelined``: apply
         ``state.inflight`` first, then run the pipelined update, which
         returns the next lane in the state."""
-        cfg = self.cfg
         plan = self.engine.plan_for(stage)
         use_k = self.gf_cfg.use_kernels
         guarded = self.gf_cfg.guarded
@@ -319,21 +326,12 @@ class Trainer:
                 with torch.no_grad():
                     params, opt = self.engine.apply_inflight(
                         plan, params, opt, state.inflight)
-            leaves = [p.detach().requires_grad_(True)
-                      for p in self.pool.flat_leaves(params)]
-            tracked = self.pool.unflatten(leaves)
-            cp = _tree_map(lambda p: p.to(self.compute_dtype), tracked)
-            loss, metrics = self.model.loss_fn(
-                cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
-                compute_dtype=self.compute_dtype)
-            if guarded:
-                # Every gradient carries the live scale (small ones survive
-                # the wire cast); the logged loss stays unscaled.
-                loss = loss * state.guard.scale
-            grads = torch.autograd.grad(loss, leaves)
-            del cp, tracked, leaves, loss
+            # Guarded: every gradient carries the live scale (small ones
+            # survive the wire cast); the logged loss stays unscaled.
+            grads, metrics = self._grads(
+                params, batch, state.guard.scale if guarded else None)
             gpool, census, staging = self.pool.pack_into(
-                state.staging, self.pool.unflatten(list(grads)),
+                state.staging, self.pool.unflatten(grads),
                 dtype=self._pack_dtype, norms_chunk=self._census_chunk,
                 use_kernels=use_k)
             del grads
@@ -366,7 +364,6 @@ class Trainer:
                 else:
                     params, opt, gf = self._monolithic_update(
                         stage, gpool, params, opt, state.gf, lr, census)
-            metrics = {k: v.detach() for k, v in metrics.items()}
             if flags is not None:
                 metrics.update(guard_mod.as_metrics(flags))
             return TrainState(params=params, opt=opt, gf=gf,
@@ -374,6 +371,59 @@ class Trainer:
                               staging=staging, inflight=lane), metrics
 
         return body
+
+    def _grads(self, params, batch: Dict[str, torch.Tensor], scale=None
+               ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+        """(f32 gradient leaves in pool order, metrics) of the loss on this
+        rank's ``batch``; ``scale`` (the guard's loss scale) multiplies
+        the loss before the backward pass. With ``microbatches`` n > 1:
+        the JAX package's ``_accumulate`` (see the module docstring)."""
+        n = self.cfg.microbatches
+        flat = self.pool.flat_leaves(params)
+        if n == 1:
+            return self._value_and_grad(flat, batch, scale)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"batch of {rows} rows does not split into "
+                             f"{n} microbatches")
+        size = rows // n
+        # From zeros, not from the first slice's gradient: 0.0 + (-0.0)
+        # is +0.0, as in JAX's scan.
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        macc: Dict[str, torch.Tensor] = {}
+        for i in range(n):
+            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            grads, metrics = self._value_and_grad(flat, mb, scale)
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            del grads
+            for k, v in metrics.items():
+                if k not in macc:
+                    macc[k] = torch.zeros((), dtype=torch.float32,
+                                          device=v.device)
+                macc[k].add_(v / n)
+        for a in acc:
+            a.div_(n)
+        return acc, macc
+
+    def _value_and_grad(self, flat: List[torch.Tensor],
+                        batch: Dict[str, torch.Tensor], scale=None
+                        ) -> Tuple[List[torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
+        """One forward and backward on the f32 masters ``flat`` (pool
+        order) cast to the compute dtype: (f32 gradients in pool order,
+        detached metrics)."""
+        cfg = self.cfg
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        cp = _tree_map(lambda p: p.to(self.compute_dtype),
+                       self.pool.unflatten(leaves))
+        loss, metrics = self.model.loss_fn(
+            cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
+            causal_skip=cfg.causal_skip, compute_dtype=self.compute_dtype)
+        if scale is not None:
+            loss = loss * scale
+        grads = list(torch.autograd.grad(loss, leaves))
+        return grads, {k: v.detach() for k, v in metrics.items()}
 
     def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr,
                            census=None):

@@ -28,6 +28,10 @@ def ones_init(gen, shape):
     return torch.ones(shape)
 
 
+def zeros_init(gen, shape):
+    return torch.zeros(shape)
+
+
 def fan_in_init(fan_axis: int = 0) -> Init:
     def f(gen, shape):
         fan_in = shape[fan_axis] if shape else 1

@@ -1,4 +1,6 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense family: RMSNorm, LayerNorm or the
+non-parametric LayerNorm (``cfg.norm``), SwiGLU, GeGLU or GELU, optional
+QK-norm, full or blockwise attention (``attn_chunk``, ``causal_skip``).
 
 Parameters are a nested dict in the JAX package's layout: layer weights
 stacked along a leading L axis (one tensor per leaf, so the gradient
@@ -35,12 +37,14 @@ def param_specs(cfg) -> Dict[str, Any]:
 
 
 def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
-                attn_chunk: int = 0) -> torch.Tensor:
-    h = norms.apply(layer_params["attn_norm"], x)
+                attn_chunk: int = 0, causal_skip: bool = False
+                ) -> torch.Tensor:
+    h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
     x = x + attention.apply_train(layer_params["attn"], h, cfg,
-                                  attn_chunk=attn_chunk)
-    h = norms.apply(layer_params["mlp_norm"], x)
-    return x + mlp.apply(layer_params["ffn"], h)
+                                  attn_chunk=attn_chunk,
+                                  causal_skip=causal_skip)
+    h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
+    return x + mlp.apply(layer_params["ffn"], h, cfg)
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -54,7 +58,8 @@ def _unbind(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
-             remat: str = "layer", attn_chunk: int = 0) -> torch.Tensor:
+             remat: str = "layer", attn_chunk: int = 0,
+             causal_skip: bool = False) -> torch.Tensor:
     """Run all layers. ``unbind`` splits each stack once, so the backward
     pass stacks the per-layer gradients once instead of scattering each
     layer into a zeroed full-size stack."""
@@ -65,10 +70,11 @@ def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
             # The model draws no random numbers, so the recompute needs no
             # saved RNG state (reading it is not allowed in a CUDA graph).
             x = checkpoint(lambda h, lp=lp: block_apply(
-                lp, h, cfg, attn_chunk=attn_chunk), x, use_reentrant=False,
-                preserve_rng_state=False)
+                lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip),
+                x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block_apply(lp, x, cfg, attn_chunk=attn_chunk)
+            x = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
+                            causal_skip=causal_skip)
     return x
 
 
@@ -110,14 +116,16 @@ class TransformerLM:
 
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 *, remat: str = "layer", attn_chunk: int = 0,
+                causal_skip: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'tokens': (B, S) int, 'labels': (B, S) int}. ``params``
         are already in the compute dtype (the trainer casts the f32
         masters). Returns (loss, metrics)."""
         x = embedding.embed(params["embed"], batch["tokens"], compute_dtype)
-        x = backbone(params, x, self.cfg, remat=remat, attn_chunk=attn_chunk)
-        x = norms.apply(params["final_norm"], x)
+        x = backbone(params, x, self.cfg, remat=remat, attn_chunk=attn_chunk,
+                     causal_skip=causal_skip)
+        x = norms.apply(params["final_norm"], x, self.cfg.norm)
         lg = embedding.logits(self._head_params(params), x)
         loss = xent(lg, batch["labels"], batch.get("loss_mask"))
         aux = torch.zeros((), dtype=torch.float32, device=loss.device)

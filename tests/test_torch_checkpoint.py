@@ -51,6 +51,7 @@ from repro.parallel.collectives import compat_abstract_mesh, compat_set_mesh
 from repro_torch import convert
 from repro_torch.checkpoint import reshard
 from repro_torch.checkpoint.manager import CheckpointCorrupt, CheckpointManager
+from repro_torch.checkpoint.manager import flatten as checkpoint_flatten
 from repro_torch.configs import base as t_base
 from repro_torch.configs import get_smoke
 from repro_torch.data.synthetic import SyntheticLM
@@ -301,28 +302,36 @@ def test_reshard_hg_matches_jax(old, new):
 # -- the JAX package's format ------------------------------------------------
 
 
-def _cfg(base, get_smoke_fn, kind, wire="float32", steps=8):
-    model = dataclasses.replace(get_smoke_fn("smollm-135m")[0],
+def _cfg(base, get_smoke_fn, kind, wire="float32", steps=8,
+         arch="smollm-135m"):
+    """``kind``: [optimizer_][wire format_]mode, e.g. 'lars_csc',
+    'adamw_fp8_csc', 'lars_int8'; 'guarded' (lazy, guarded), 'int8'
+    (lazy, int8); momentum SGD unless named."""
+    model = dataclasses.replace(get_smoke_fn(arch)[0],
                                 compute_dtype="float32")
     gf = dict(mode="csc" if "csc" in kind else "lazy", bucket_elems=8192,
               chunk_elems=512, sparsity=0.5, warmup_steps=0,
               wire_dtype=wire, use_kernels=True)
     if kind == "guarded":
         gf["guard"] = base.GuardConfig(init_scale=2.0, growth_interval=1000)
-    if kind == "int8":
+    if "int8" in kind:
         gf["wire_format"] = "int8"
+    if "fp8" in kind:
+        gf["wire_format"] = "fp8_e4m3"
+    optimizer = kind.split("_")[0] if kind.startswith(("lars", "adamw")) \
+        else "momentum_sgd"
     return base.TrainConfig(
         model=model, seq_len=S, global_batch=B, attn_chunk=0,
         gradientflow=base.GradientFlowConfig(**gf),
         optimizer=base.OptimizerConfig(
-            name="momentum_sgd", learning_rate=0.1, momentum=0.9,
+            name=optimizer, learning_rate=0.1, momentum=0.9,
             weight_decay=1e-4, warmup_steps=2, total_steps=steps,
             schedule="warmup_cosine"))
 
 
-def _jax_trainer(kind, wire="float32"):
-    return JTrainer(_cfg(j_base, j_get_smoke, kind, wire), make_host_mesh(),
-                    j_get_smoke("smollm-135m")[1])
+def _jax_trainer(kind, wire="float32", arch="smollm-135m"):
+    return JTrainer(_cfg(j_base, j_get_smoke, kind, wire, arch=arch),
+                    make_host_mesh(), j_get_smoke(arch)[1])
 
 
 def _to_port(trainer, jstate):
@@ -348,10 +357,16 @@ def _manifest(d, step):
 
 @pytest.mark.parametrize("kind,wire", [("lazy", "bfloat16"), ("csc", "float32"),
                                        ("guarded", "float32"),
-                                       ("int8", "float32")])
+                                       ("int8", "float32"),
+                                       ("adamw_lazy", "bfloat16"),
+                                       ("lars_csc", "float32"),
+                                       ("adamw_fp8_csc", "float32"),
+                                       ("lars_int8", "float32")])
 def test_manifests_match_jax(tmp_path, kind, wire):
     """One state (random optimizer and GradientFlow state), converted,
-    saved by both packages: the manifests are identical."""
+    saved by both packages: the manifests are identical, for momentum
+    SGD, LARS and AdamW (its moments and count), on the bf16, f32, int8
+    and fp8 wires."""
     jt = _jax_trainer(kind, wire)
     rng = np.random.default_rng(0)
     with compat_set_mesh(jt.mesh):
@@ -373,10 +388,62 @@ def test_manifests_match_jax(tmp_path, kind, wire):
     assert names[-1] == "staging" and {"step", "gf/hg"} <= set(names)
     if kind == "guarded":
         assert "guard/scale" in names
-    if kind in ("csc", "int8"):
-        row = "gf/hg" if kind == "csc" else "gf/residual"
+    rows = (["gf/hg"] if "csc" in kind else []) + (
+        ["gf/residual"] if t.gf_cfg.quantized else [])
+    for row in rows:
         assert next(m for m in got["leaves"] if m["name"] == row)[
             "shape"] == [1, t.pool.size]
+    if kind.startswith("adamw"):
+        assert {"opt/mu", "opt/nu", "opt/counts"} <= set(names)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_olmo_checkpoint_keeps_empty_subtrees_across_packages(tmp_path,
+                                                              direction):
+    """olmo-smoke's norms are ``{}`` (no parameters): a state saved by
+    one package restores into the other with every leaf equal and the
+    empty subtrees in place, the manifests of the two writers identical,
+    and the restored port state trains a step."""
+    jt = _jax_trainer("lazy", arch="olmo-1b")
+    t = Trainer(_cfg(t_base, get_smoke, "lazy", arch="olmo-1b"),
+                device="cpu")
+    rng = np.random.default_rng(1)
+    with compat_set_mesh(jt.mesh):
+        js = jt.init_state(jax.random.PRNGKey(0))
+        js = js._replace(opt=jax.tree_util.tree_map(
+            lambda a: jnp.asarray(rng.standard_normal(a.shape)
+                                  .astype(np.float32)), js.opt),
+            step=jnp.asarray(3, jnp.int32))
+        assert js.params["final_norm"] == {}
+        JManager(str(tmp_path / "jax")).save(3, js, blocking=True)
+        CheckpointManager(str(tmp_path / "port")).save(
+            3, _to_port(t, js), blocking=True)
+        assert _manifest(str(tmp_path / "jax"), 3) == \
+            _manifest(str(tmp_path / "port"), 3)
+        if direction == "port_to_jax":
+            step, back = JManager(str(tmp_path / "port")).restore(
+                jt.init_state(jax.random.PRNGKey(1)))
+            assert step == 3 and back.params["final_norm"] == {}
+            assert back.params["layers"]["attn_norm"] == {}
+            for a, b in zip(jax.tree_util.tree_leaves(back),
+                            jax.tree_util.tree_leaves(js)):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            return
+    step, state = CheckpointManager(str(tmp_path / "jax")).restore(
+        t.init_state(seed=1))
+    assert step == 3 and state.step == 3
+    for tree in (state.params, t.pool.unflatten(
+            t.pool.flat_leaves(state.params))):
+        assert tree["final_norm"] == {} and \
+            tree["layers"]["attn_norm"] == {} and \
+            tree["layers"]["mlp_norm"] == {}
+    want = _to_port(t, js)
+    for (name, a), (_, b) in zip(
+            checkpoint_flatten(state), checkpoint_flatten(want)):
+        if isinstance(a, torch.Tensor) and name != "staging":
+            assert torch.equal(a, b), name
+    state, losses = _port_steps(t, state, _batches(1))
+    assert np.isfinite(losses[0]) and state.step == 4
 
 
 def _batches(n, seed=0, batch=B):

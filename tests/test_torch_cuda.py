@@ -643,13 +643,14 @@ def test_cuda_ring_sums_quantized_int8_words_exactly(dev, n):
 
 
 def _window_cfg(mode, tail, guarded, opt="momentum_sgd", wire="native",
-                overlap="staged"):
+                overlap="staged", microbatches=1):
     from repro_torch.configs import base, get_smoke
 
     model = dataclasses.replace(get_smoke("smollm-135m")[0],
                                 compute_dtype="float32")
     return base.TrainConfig(
         model=model, seq_len=16, global_batch=2, attn_chunk=0,
+        microbatches=microbatches,
         gradientflow=base.GradientFlowConfig(
             mode=mode, bucket_elems=4096, chunk_elems=512, sparsity=0.5,
             warmup_steps=0, wire_dtype="float32", pipeline_tail_buckets=tail,
@@ -670,14 +671,17 @@ def _window_cfg(mode, tail, guarded, opt="momentum_sgd", wire="native",
     ("lazy", 0, False, {"wire": "int8"}), ("csc", 0, True, {"wire": "int8"}),
     ("lazy", 0, False, {"wire": "fp8_e4m3"}),
     ("lazy", 0, False, {"overlap": "monolithic"}),
-    ("lazy", 0, True, {"opt": "lars", "overlap": "monolithic"})],
+    ("lazy", 0, True, {"opt": "lars", "overlap": "monolithic"}),
+    ("lazy", 2, True, {"microbatches": 2}),
+    ("csc", 0, True, {"microbatches": 2, "wire": "int8"})],
     ids=lambda v: "-".join(map(str, v.values())) if isinstance(v, dict)
     else str(v))
 def test_cuda_window_graph_matches_eager(dev, mode, tail, guarded, extra):
     """Two K = 4 windows, each a replay of one CUDA graph, against 8
     eager per-step steps from the same seed on the same batches, for
     momentum SGD, LARS and AdamW, the native, int8 and fp8 wires, staged
-    and monolithic overlap: the losses and every tensor of the state
+    and monolithic overlap, one and two microbatches: the losses and every
+    tensor of the state
     (parameters, optimizer state, hg, chunk norms, residual, scaler) the
     same bits (guarded: a NaN at step 5 trips only step 5); the capture's
     launches are 4 x the per-step plan's; the pipelined window's state is
@@ -803,3 +807,73 @@ def test_cuda_window_replays_after_in_place_restore(dev, mode, tmp_path):
     with pytest.raises(ValueError, match="replan"):
         window(state, batches[0])
     window.release()
+
+
+# -- blockwise attention --------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,skip", [(True, True), (True, False),
+                                         (False, False)])
+def test_cuda_blockwise_attention_matches_cpu(dev, causal, skip,
+                                              monkeypatch):
+    """Blockwise attention (PyTorch ops, no kernel of the repo) on the
+    card against the same function on the CPU, f32 with TF32 off: the
+    output and the q, k, v gradients to rtol 1e-5, atol 1e-5 (the two
+    devices' f32 products and exponentials differ in the last bits)."""
+    from repro_torch.models.layers import attention
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.standard_normal((2, 256, 4, 32))
+                           .astype(np.float32)) for _ in range(4)]
+
+    def run(device):
+        q, k, v = [x.to(device).requires_grad_(True) for x in xs[:3]]
+        out = attention.blockwise_attention(q, k, v, causal=causal,
+                                            chunk_q=64, chunk_k=64,
+                                            causal_skip=skip)
+        grads = torch.autograd.grad(out, (q, k, v),
+                                    grad_outputs=xs[3].to(device))
+        return [t.detach().cpu() for t in (out,) + grads]
+
+    for got, want in zip(run(dev), run("cpu")):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_blockwise_microbatched_window_matches_eager(dev):
+    """olmo-smoke through blockwise attention (sequence 128, chunks of
+    64) at microbatches 2: a K = 4 window as a CUDA graph against four
+    eager steps on the same batches, the same losses and state bits."""
+    from repro_torch.configs import base, get_smoke
+    from repro_torch.launch.trainer import Trainer
+
+    cfg = base.TrainConfig(
+        model=dataclasses.replace(get_smoke("olmo-1b")[0],
+                                  compute_dtype="float32"),
+        seq_len=128, global_batch=4, microbatches=2, attn_chunk=64,
+        gradientflow=base.GradientFlowConfig(
+            mode="lazy", bucket_elems=65536, wire_dtype="float32",
+            use_kernels=True),
+        optimizer=base.OptimizerConfig(learning_rate=0.1, warmup_steps=1,
+                                       total_steps=8, schedule="constant"))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (4, 4, 129)))
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    trainer = Trainer(cfg, device=dev)
+    state, m = trainer.build_train_window(4)(trainer.init_state(seed=0),
+                                             batches)
+    eager = Trainer(cfg, device=dev)
+    ref = eager.init_state(seed=0)
+    step = eager.build_train_step()
+    ref_losses = []
+    for i in range(4):
+        ref, r = step(ref, {k: v[i] for k, v in batches.items()})
+        ref_losses.append(float(r["loss"]))
+    assert m["loss"].tolist() == ref_losses
+    for a, b in zip(trainer.pool.flat_leaves(state.params)
+                    + [state.opt.momentum],
+                    eager.pool.flat_leaves(ref.params) + [ref.opt.momentum]):
+        assert torch.equal(a, b)

@@ -28,7 +28,14 @@ _SCRIPT = textwrap.dedent("""
                    "repro_torch.checkpoint.manager",
                    "repro_torch.checkpoint.reshard",
                    "repro_torch.runtime.fault_tolerance",
-                   "repro_torch.data.pipeline"):
+                   "repro_torch.data.pipeline",
+                   "repro_torch.configs.olmo_1b",
+                   "repro_torch.configs.stablelm_12b",
+                   "repro_torch.configs.qwen3_32b",
+                   "repro_torch.configs.shapes",
+                   "repro_torch.models.layers.attention",
+                   "repro_torch.models.layers.norms",
+                   "repro_torch.models.layers.mlp"):
         assert needed in names, needed
     print(len(names))
 """)
@@ -41,4 +48,4 @@ def test_port_imports_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 36  # every module was imported
+    assert int(proc.stdout.strip()) >= 40  # every module was imported

@@ -172,8 +172,10 @@ def test_unported_settings_raise():
     (``pipeline_tail_buckets``) builds and a per-step step runs it
     unpipelined, as in the JAX package, the same bits as without it
     (tests/test_torch_pipeline.py and test_torch_window.py hold the
-    pipelined window); gradient accumulation and unknown architectures
-    still raise, naming ROADMAP.md."""
+    pipelined window); gradient accumulation builds and steps
+    (tests/test_torch_accumulate.py holds it against JAX); the dense
+    architectures resolve, and the unported families still raise, naming
+    ROADMAP.md."""
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     guard = t_base.GuardConfig()
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
@@ -201,10 +203,12 @@ def test_unported_settings_raise():
             runs.append(torch.cat([p.reshape(-1) for p in
                                    trainer.pool.flat_leaves(state.params)]))
         assert torch.equal(runs[0], runs[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(base.replace(microbatches=2), device="cpu")
+    trainer = Trainer(base.replace(microbatches=2), device="cpu")
+    state, metrics = trainer.build_train_step()(trainer.init_state(0), batch)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    assert get_arch("qwen3-32b")[0].qk_norm
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("qwen3-32b")
+        get_arch("grok-1-314b")
 
 
 def test_cli_accepts_the_optimizers(tmp_path):

@@ -502,6 +502,107 @@ def test_trainer_matches_jax(mode, overlap, fmt):
                                        atol=1e-6 * np.abs(hg_want).max())
 
 
+# -- without error feedback ---------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("mode", ["dense", "lazy", "csc"])
+def test_reduce_without_error_feedback_matches_jax(mode, fmt):
+    """``error_feedback=False`` (the CLI's ``--no-error-feedback``): the
+    state carries no residual (size 0, as in JAX) and three steps give
+    JAX's mean (and CSC's mask and hg) bit for bit, CSC's summed norms to
+    1e-6; the wire still rounds what it sends."""
+    kw = dict(mode=mode, bucket_elems=96, chunk_elems=RCHUNK,
+              wire_format=fmt, error_feedback=False)
+    if mode == "csc":
+        kw.update(sparsity=0.5, warmup_steps=1, warmup_stages=1)
+    jp, tp = _pools()
+    jgf = JGradientFlow(j_base.GradientFlowConfig(**kw), jp, 1)
+    tgf = GradientFlow(t_base.GradientFlowConfig(**kw), tp, 1)
+    assert tgf.cfg.quantized and not tgf.cfg.feedback_enabled
+    tstate = tgf.init_state()
+    assert tstate.residual.numel() == jgf.init_state().residual.size == 0
+    rng = np.random.default_rng(7)
+    for step in range(3):
+        g = (rng.standard_normal(tp.size) * 3).astype(np.float32)
+        if mode == "csc":
+            stage, jstage = tgf.stage_for_step(step), jgf.stage_for_step(step)
+            want = _j_reduce(jgf, g, [x.numpy() for x in tstate], jstage)
+            mean, mask, tstate = tgf.reduce(torch.from_numpy(g), tstate,
+                                            stage=stage)
+            np.testing.assert_array_equal(_bits(tstate.hg.numpy()),
+                                          _bits(want[2]))
+            np.testing.assert_allclose(tstate.chunk_norms.numpy(), want[3],
+                                       rtol=1e-6)
+        else:
+            census = np.asarray(j_wire.chunk_l1(jnp.asarray(g), RCHUNK))
+            want = _j_reduce(jgf, g, [x.numpy() for x in tstate], None,
+                             census=census)
+            mean, mask, tstate = tgf.reduce(
+                torch.from_numpy(g.copy()), tstate,
+                census=torch.from_numpy(census.copy()))
+            # What arrives is the rounded pool, not the pool itself.
+            assert not np.array_equal(mean.numpy(), g)
+        np.testing.assert_array_equal(_bits(mean.numpy()), _bits(want[0]))
+        np.testing.assert_array_equal(mask.numpy(), want[1])
+        assert tstate.residual.numel() == want[4].size == 0
+
+
+NO_EF_CASES = [("lazy", "staged", "int8"), ("lazy", "monolithic", "fp8_e4m3"),
+               ("csc", "staged", "fp8_e4m3"), ("csc", "monolithic", "int8")]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run_no_feedback(mode, overlap, fmt):
+    """(initial params, CSC selections, losses) of the JAX Trainer with
+    ``error_feedback=False``."""
+    trainer = JTrainer(_cfg(j_base, j_get_smoke, mode, overlap, fmt,
+                            error_feedback=False),
+                       make_host_mesh(), j_get_smoke("smollm-135m")[1])
+    fns, picks, losses = {}, [], []
+    with compat_set_mesh(trainer.mesh):
+        state = trainer.init_state(jax.random.PRNGKey(0))
+        init = _np_tree(state.params)
+        assert state.gf.residual.size == 0
+        for i, b in enumerate(_batches(STEPS)):
+            stage = trainer.gf.stage_for_step(i)
+            if mode == "csc":
+                idx, _ = j_csc.select_chunks(state.gf.chunk_norms,
+                                             stage.num_selected)
+                picks.append(np.array(idx).tolist())
+            if stage.index not in fns:
+                fns[stage.index] = trainer.build_train_step(stage)
+            state, metrics = fns[stage.index](state, jax.device_put(
+                {k: jnp.asarray(v, jnp.int32) for k, v in b.items()}))
+            losses.append(float(metrics["loss"]))
+    return init, picks, losses
+
+
+@pytest.mark.parametrize("mode,overlap,fmt", NO_EF_CASES)
+def test_trainer_without_error_feedback_matches_jax(mode, overlap, fmt):
+    """The Trainer with ``error_feedback=False``: the losses to rtol 1e-5
+    (f32 compute and wire, as in ``test_trainer_matches_jax``), CSC's
+    selections equal at every step, and no residual at any step."""
+    init, picks, losses = _jax_run_no_feedback(mode, overlap, fmt)
+    cfg = _cfg(t_base, get_smoke, mode, overlap, fmt, use_kernels=True,
+               error_feedback=False)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state(params=convert.params_from_numpy(init, "cpu"))
+    t_picks, t_losses = [], []
+    for i, b in enumerate(_batches(STEPS)):
+        stage = trainer.gf.stage_for_step(i)
+        if mode == "csc":
+            idx, _ = t_csc.select_chunks(state.gf.chunk_norms,
+                                         stage.num_selected)
+            t_picks.append(idx.tolist())
+        state, m = trainer.build_train_step(stage)(state, {
+            k: torch.from_numpy(v) for k, v in b.items()})
+        t_losses.append(float(m["loss"]))
+        assert state.gf.residual.numel() == 0
+    np.testing.assert_allclose(t_losses, losses, rtol=1e-5)
+    assert t_picks == picks
+
+
 # -- error feedback over gloo ranks -------------------------------------------
 
 _EF_BODY = """
