@@ -242,7 +242,7 @@
        wire, kernels on, through ``train.build`` with ``--seq-len 4096
        --batch 16 --attn-chunk 1024`` and ``microbatches=4`` on the
        TrainConfig (4 x 4096 tokens a microbatch, the blockwise full
-       grid): 6 steps on one repeated batch, then one under the
+       grid): 3 steps on one repeated batch, then one under the
        profiler; finite losses that fall, every attention call
        blockwise, the pack and update launches and the all-reduces the
        plan's; step ms, tokens/s, peak memory, the first step's seconds,
@@ -252,7 +252,7 @@
    (aa) stablelm-12b and qwen3-32b at their published widths (LayerNorm
        with bias at 5120; QK-norm, GQA 64/8 on heads of 128), their depth
        cut to 2 layers (1.58 G and 2.53 G parameters), the same way as
-       (y) at 2 x 4096 tokens in 2 microbatches, 4 steps each; then
+       (y) at 2 x 4096 tokens in 2 microbatches, 3 steps each; then
        olmo-smoke, stablelm-smoke and qwen3-smoke through the CLI and
        the Trainer (``train_run``), CSC (2 warm-up steps, sparsity 0.5,
        chunks of 2048), sequence 256 with 64-token attention chunks: 5 +
@@ -266,6 +266,39 @@
        bit-identical by an in-graph digest, the eager guarded bits);
        then int8 lazy with ``--no-error-feedback``, 6 + 6 steps: finite
        losses that fall, no residual carried (size 0).
+   The MoE, vlm and audio families, in a new world-size-1 NCCL group
+   (lazy, bf16 wire, momentum SGD, kernels on, 3 steps on one repeated
+   batch and one profiled, as (y)), after the MoE layer at grok1- and
+   arctic-smoke's widths on the card against its CPU run in f32 (planted
+   ties, capacity 0.5: the same routing and dropped slots, the outputs
+   within 1e-5 of the largest):
+   (ac) arctic-480b at its published widths (d_model 7168, 56 / 8 heads
+       of 128, expert d_ff 4864, dense residual 4864, vocab 32000, top-2,
+       capacity 1.25), cut to 1 layer and 16 of its 128 experts
+       (2,354,451,456 parameters), 2 x 4096 tokens in 2 microbatches
+       (640 slots an expert a microbatch), --attn-chunk 1024: step ms,
+       tokens/s, peak memory, the model (active experts) and executed
+       (the E x cap padded slots) FLOP shares, the aux losses, the slots
+       each expert got and the share dropped (the remat recompute
+       routing as the forward did), and the profiled step's device time
+       by model part (routing, dispatch, expert GEMMs, combine, the dense
+       residual MLP, attention, the pool kernels);
+   (ad) internvl2-26b at its published widths (d_model 6144, 48 / 8
+       heads, d_ff 16384, vocab 92672), 2 layers, 2 sequences of 256
+       vision + 4096 text positions (blocks of 544) in 2 microbatches
+       through the Trainer on ``models.registry.make_batch`` batches;
+   (ae) musicgen-large whole (48 layers, 4 codebooks; 2,454,065,152
+       parameters), 8 x 1500 frames (30 s at 50 Hz) in 2 microbatches,
+       full attention;
+   (af) grok1-, arctic- and musicgen-smoke through the CLI in CSC
+       ((aa)'s smoke settings), internvl2-smoke through the Trainer on
+       make_batch batches: finite losses that fall, the census and the
+       gather launched; grok1-smoke lazy in a graphed window of 4
+       against 4 eager steps (the eager bits; MoE routing inside the
+       graph), and guarded with a NaN at step 2 (that step's skip
+       bit-identical). grok-1-314b is not run at its published widths:
+       one layer with its 8 experts holds 6.53 G parameters (~97 GiB of
+       state).
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -273,14 +306,15 @@
    its first.
 
 Prints one JSON line per kernel, one for the NaN words, one for the
-optimizer ops, one for the quantized ring, one per train run (the long
-sequences' runs too), the attention line, the windowed GuardLane's, the
-script's seconds in all, the card's nvidia-smi line, the kernel summary
-line (each kernel with ``in_graph``: whether a captured window launched
-it, and ``launches_by_run``), then ``{"ok": true, "device": {...}}`` as
-the last line.
-Any failed check ends the run with a non-zero exit before that line.
-Exits non-zero without a result when no CUDA device is visible.
+optimizer ops, one for the quantized ring, the MoE layer's card-against-
+CPU line, one per train run (the long sequences' and the families' runs
+too), the attention line, the windowed GuardLane's, the host seconds of
+each group of phases and of the script in all, the card's nvidia-smi
+line, the kernel summary line (each kernel with ``in_graph``: whether a
+captured window launched it, and ``launches_by_run``), then ``{"ok":
+true, "device": {...}}`` as the last line. Any failed check ends the run
+with a non-zero exit before that line. Exits non-zero without a result
+when no CUDA device is visible.
 
     python3 chip_smoke.py --short-kernels [--src DIR]
 
@@ -312,6 +346,10 @@ REPS, WARMUP = 20, 3
 B2B = 20  # launches in one event region for the back-to-back times
 LAZY_STEPS = 6
 CSC_STEPS = 8
+# Steps on the one repeated batch after the stream's steps, in the runs
+# of (a)-(n) that watch no later step and count no launches over both
+# passes: enough to show the loss falling.
+REPEAT_STEPS = 3
 CSC_SPARSITY, CSC_WARMUP = 0.85, 4
 CSC_KS = (616, 3233)  # the steady stage's k, and the first sparse stage's
 # The CSC run's launches, from its step plans: 2 packs a step, 7 update
@@ -1219,20 +1257,23 @@ def count_ratio_launches(kunpack):
     return tally, restore
 
 
-def stream_steps(torch, trainer, cfg, seed, steps):
-    """``steps`` steps on the synthetic stream, as the CLI's loop runs them
+def stream_steps(torch, trainer, cfg, seed, steps, batch_fn=None):
+    """``steps`` steps on the synthetic stream (or on ``batch_fn(cfg,
+    step)``'s batches), as the CLI's loop runs them
     (``repro_torch.launch.train.train``), for a Trainer the CLI cannot
-    build (``overlap='monolithic'`` has no flag). Returns (losses, step
-    seconds)."""
+    build (``overlap='monolithic'`` has no flag) or a batch its stream
+    cannot give (a vlm's). Returns (losses, step seconds)."""
     from repro_torch.data.synthetic import SyntheticLM
-    data = SyntheticLM(cfg.model.vocab_size, seed=seed)
+    data = SyntheticLM(cfg.model.vocab_size, seed=seed,
+                       num_codebooks=cfg.model.num_codebooks)
     state = trainer.init_state(seed)
     fns, losses, seconds = {}, [], []
     for s in range(steps):
         stage = trainer.gf.stage_for_step(s)
         if stage.index not in fns:
             fns[stage.index] = trainer.build_train_step(stage)
-        batch = data.batch(s, cfg.global_batch, cfg.seq_len)
+        batch = batch_fn(cfg, s) if batch_fn is not None \
+            else data.batch(s, cfg.global_batch, cfg.seq_len)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = fns[stage.index](state, batch)
@@ -1244,24 +1285,28 @@ def stream_steps(torch, trainer, cfg, seed, steps):
 
 def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
               overlap="staged", keep_params=False, watch=None,
-              microbatches=1):
+              microbatches=1, batch_fn=None, repeat=None):
     """(a) ``steps`` steps on the synthetic stream, timed: the CLI's loop,
     or with ``overlap='monolithic'`` or ``microbatches`` > 1 (no CLI flag
     sets either) the same loop on a Trainer built with them; and (b)
-    ``steps`` steps of such a Trainer on ONE batch, each step
-    under the stage the CLI would pick. On a fresh batch each step, a few
-    steps at the CLI's learning rate move the loss less than the
-    batch-to-batch spread, so (a) cannot show learning; a repeated batch
-    can. ``keep_params``: also return (b)'s final parameters as one flat
+    ``repeat`` (default ``steps``) steps of such a Trainer on ONE batch,
+    each step under the stage the CLI would pick. On a fresh batch each
+    step, a few steps at the CLI's learning rate move the loss less than
+    the batch-to-batch spread, so (a) cannot show learning; a repeated
+    batch can. ``keep_params``: also return (b)'s final parameters as one flat
     tensor on the host. ``watch`` maps a step of (b) to ``fn(trainer,
     state)``, called just before it, which returns ``after(state)``,
-    called just after it, which returns findings for the run's line."""
+    called just after it, which returns findings for the run's line.
+    ``batch_fn(cfg, step)``: the batches (a vlm's, which the CLI's stream
+    cannot give) for a Trainer in (a), its step 0's the one batch of
+    (b)."""
     import dataclasses
     from repro_torch.launch.trainer import Trainer
 
     args = train_mod.parse_args(argv)
+    repeat = steps if repeat is None else repeat
 
-    cli = overlap == "staged" and microbatches == 1
+    cli = overlap == "staged" and microbatches == 1 and batch_fn is None
 
     def build():
         trainer, cfg = train_mod.build(args)
@@ -1281,7 +1326,8 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
               f"{label}: the CLI's supervisor {run}")
     else:
         trainer, cfg = build()
-        losses, seconds = stream_steps(torch, trainer, cfg, args.seed, steps)
+        losses, seconds = stream_steps(torch, trainer, cfg, args.seed, steps,
+                                       batch_fn)
     counts = dict(ops.dispatch_counts)
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses),
@@ -1295,14 +1341,16 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
 
     trainer, cfg = build()
     state = trainer.init_state(args.seed)
-    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+    batch = batch_fn(cfg, 0) if batch_fn is not None else \
+        synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed,
+                              num_codebooks=cfg.model.num_codebooks) \
         .batch(0, cfg.global_batch, cfg.seq_len)
     fns = {}
     ops.reset_counts()
     fixed, findings = [], {}
     import torch.distributed as dist
     with CountAllReduce(dist) as collectives:
-        for s in range(steps):
+        for s in range(repeat):
             stage = trainer.gf.stage_for_step(s)
             if stage.index not in fns:
                 fns[stage.index] = trainer.build_train_step(stage)
@@ -1312,7 +1360,8 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
             if after is not None:
                 findings.update(after(state))
     fixed_counts = dict(ops.dispatch_counts)
-    want_collectives = expected_collectives(trainer, steps)
+    want_fixed = expected_counts(trainer, repeat)
+    want_collectives = expected_collectives(trainer, repeat)
     check(collectives.calls == want_collectives, f"{label}: "
           f"{collectives.calls} all-reduces, expected {want_collectives}")
     # On the host, so no later run's peak memory holds it.
@@ -1336,8 +1385,8 @@ def train_run(torch, ops, train_mod, synthetic, label, argv, steps,
     del state, fns, trainer
     torch.cuda.empty_cache()
     print(f"{label}, one batch, repeated: losses {fixed}", flush=True)
-    check(fixed_counts == want, f"{label} (repeated batch): dispatch counts "
-          f"{fixed_counts}, expected {want}")
+    check(fixed_counts == want_fixed, f"{label} (repeated batch): dispatch "
+          f"counts {fixed_counts}, expected {want_fixed}")
     check(all(math.isfinite(x) for x in fixed),
           f"{label}: non-finite loss {fixed}")
     check(fixed[-1] < fixed[0], f"{label}: loss did not fall on one batch: "
@@ -1844,13 +1893,16 @@ KERNEL_CLASSES = (("softmax", ("softmax",)),
 TOP_KERNELS = 8
 
 
-def device_profile(torch, fn, steps):
+def device_profile(torch, fn, steps, parts=None):
     """Run ``fn`` (``steps`` train steps, ending in a host read) under
     ``torch.profiler`` and split the device's time from the trace's
     kernels: busy (the union of the kernels' intervals) against the wall
     time on the host clock, so the idle share, and per step the kernel
     count and the time of the repo's pool kernels, of the GEMMs and of
-    the rest. Times include the profiler's own overhead."""
+    the rest. With ``parts`` (a ``ModelParts`` entered around the call)
+    the kernels are also split by the model part that launched them
+    (``part_ms_per_step``, see ``attribute_parts``). Times include the
+    profiler's own overhead."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
 
@@ -1890,13 +1942,182 @@ def device_profile(torch, fn, steps):
         classes[key] = classes.get(key, 0.0) + ms
         by_name[name] = by_name.get(name, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]
+    extra = {}
+    if parts is not None:
+        extra["part_ms_per_step"] = {
+            k: v / steps for k, v in attribute_parts(events).items()}
+        extra["part_note"] = PARTS_NOTE
     return dict(wall_ms=wall, device_busy_ms=busy / 1e3,
                 idle_share=1.0 - busy / 1e3 / wall,
                 kernels_per_step=len(kernels) / steps,
                 kernel_ms_per_step=split, class_ms_per_step=classes,
                 top_kernels_ms_per_step=[[n[:120], t] for n, t in top],
                 steps=steps,
-                note="torch.profiler (CUPTI); its overhead included")
+                note="torch.profiler (CUPTI); its overhead included",
+                **extra)
+
+
+PART_PREFIX = "model_part:"
+PARTS_NOTE = ("device ms a step by the model part that launched each "
+              "kernel: inside a part's range (the forward and the remat "
+              "recompute), or in the backward of an op that ran inside "
+              "one (the autograd sequence number); pool_kernels by name; "
+              "the rest (embedding, norms, head, loss, casts, the "
+              "optimizer's PyTorch ops) 'other'")
+
+
+class ModelParts:
+    """While entered, each model part's function runs inside a
+    ``torch.profiler.record_function`` range named after the part: the
+    MoE layer's routing (``moe.gate``), dispatch, expert GEMMs and
+    combine, arctic's dense residual MLP (``mlp.apply``) and attention
+    (``attention.apply_train``, the projections included)."""
+
+    PARTS = (("moe", "gate", "routing"), ("moe", "dispatch", "dispatch"),
+             ("moe", "experts", "expert_gemms"),
+             ("moe", "combine", "combine"),
+             ("mlp", "apply", "dense_mlp"),
+             ("attention", "apply_train", "attention"))
+
+    def __enter__(self):
+        import importlib
+        from torch.profiler import record_function
+
+        self.saved = []
+        for mod_name, fn_name, part in self.PARTS:
+            mod = importlib.import_module(
+                f"repro_torch.models.layers.{mod_name}")
+            fn = getattr(mod, fn_name)
+
+            def ranged(*a, _fn=fn, _part=part, **k):
+                with record_function(PART_PREFIX + _part):
+                    return _fn(*a, **k)
+
+            self.saved.append((mod, fn_name, fn))
+            setattr(mod, fn_name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self.saved:
+            setattr(mod, fn_name, fn)
+
+
+def _containing(spans, tid, ts):
+    """The payload of the latest-starting span of ``spans[tid]`` (sorted
+    (start, end, payload) triples) that contains ``ts``, or None."""
+    import bisect
+    rows = spans.get(tid, ())
+    i = bisect.bisect_right(rows, (ts, float("inf"), "~")) - 1
+    for j in range(i, max(i - 8, -1), -1):
+        a, b, payload = rows[j]
+        if a <= ts <= b:
+            return payload
+    return None
+
+
+def attribute_parts(events) -> dict:
+    """Device ms by model part, from a chrome trace's events: a kernel
+    belongs to the part whose range (a ``ModelParts`` user annotation)
+    contains its launch (the forward, and the remat recompute on any
+    thread); else to the part in whose range the forward op ran whose
+    backward (an op with a forward thread, of the same autograd sequence
+    number) launched it; else, by name, to 'pool_kernels'; else to
+    'other'. Sequence numbers count per thread: only the forward ops of
+    the thread that ran the first part (the caller's) are matched, the
+    thread whose graph the backward runs (a remat recompute's graph is
+    never differentiated)."""
+    anns, ops = {}, []
+    for e in events:
+        cat, name = e.get("cat"), e.get("name", "")
+        if cat == "user_annotation" and name.startswith(PART_PREFIX):
+            anns.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0),
+                 name[len(PART_PREFIX):]))
+        elif cat == "cpu_op" and e.get("args", {}).get(
+                "Sequence number") is not None:
+            ops.append(e)
+    if not anns:
+        return {}
+    main = min(anns, key=lambda tid: min(a for a, _, _ in anns[tid]))
+    for rows in anns.values():
+        rows.sort()
+    seq_part, backward = {}, {}
+    for e in ops:
+        if e["tid"] == main and not e["args"].get("Fwd thread id"):
+            part = _containing(anns, main, e["ts"])
+            if part is not None:
+                seq_part.setdefault(e["args"]["Sequence number"], part)
+    for e in ops:
+        part = seq_part.get(e["args"]["Sequence number"])
+        if e["args"].get("Fwd thread id") and part is not None:
+            backward.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), part))
+    for rows in backward.values():
+        rows.sort()
+    # cuBLAS launches through the driver API ('cuda_driver' events).
+    launch = {e["args"]["correlation"]: (e["tid"], e["ts"])
+              for e in events if e.get("cat") in ("cuda_runtime",
+                                                  "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        part = None
+        where = launch.get(e.get("args", {}).get("correlation"))
+        if where is not None:
+            part = _containing(anns, *where) or _containing(backward,
+                                                            *where)
+        if part is None:
+            part = "pool_kernels" if any(k in e["name"]
+                                         for k in POOL_KERNELS) else "other"
+        out[part] = out.get(part, 0.0) + e["dur"] / 1e3
+    return out
+
+
+class MoERouting:
+    """While entered, counts the slots ``moe.slots`` routes to each expert
+    and the slots it drops, on the device (no host read until
+    ``summary``)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models.layers import moe
+        self.mod, self.saved = moe, moe.slots
+        torch = self.torch
+
+        def counted(expert_idx, num_experts, cap):
+            dst, kept = self.saved(expert_idx, num_experts, cap)
+            flat = expert_idx.reshape(-1)
+            per = (flat[:, None] == torch.arange(
+                num_experts, device=flat.device)).sum(0)
+            self.calls.append(torch.cat([per, (~kept).sum()[None]]))
+            return dst, kept
+
+        self.mod.slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.slots = self.saved
+
+    def summary(self, remat: bool) -> dict:
+        """Slots a step routed to each expert (summed over its layers and
+        microbatches), dropped slots, and their share. With remat each
+        routing runs twice (the forward and the recompute), which must
+        agree: counted once."""
+        rows = [tuple(c.tolist()) for c in self.calls]
+        if remat:
+            check(all(rows.count(r) % 2 == 0 for r in rows),
+                  f"the remat recompute routed otherwise: {rows}")
+        div = 2 if remat else 1
+        per = [sum(r[i] for r in rows) // div
+               for i in range(len(rows[0]) - 1)]
+        dropped = sum(r[-1] for r in rows) // div
+        return dict(slots_per_expert=per, dropped_slots=dropped,
+                    slots=sum(per), dropped_share=dropped / sum(per),
+                    routings=len(rows) // div)
 
 
 def stacked(torch, batches):
@@ -2263,7 +2484,7 @@ def guard_lane_phase(torch, dev):
 # (y): olmo-1b at full width and depth, train_4k's sequence, 16 x 4096
 # tokens a step in 4 microbatches of 4 x 4096, blockwise attention beyond
 # 1024 tokens (the Trainer's default full masked grid, causal_skip off).
-OLMO_BATCH, OLMO_SEQ, OLMO_CHUNK, OLMO_STEPS = 16, 4096, 1024, 6
+OLMO_BATCH, OLMO_SEQ, OLMO_CHUNK, OLMO_STEPS = 16, 4096, 1024, 3
 OLMO_ARGV = ["--arch", "olmo-1b", "--seq-len", str(OLMO_SEQ), "--batch",
              str(OLMO_BATCH), "--attn-chunk", str(OLMO_CHUNK), "--gf-mode",
              "lazy", "--use-kernels", "--window-steps", "1", "--log-every",
@@ -2308,7 +2529,7 @@ SMOKE_ARGV = ["--reduced", "--use-kernels", "--gf-mode", "csc", "--batch",
 # parameters, the only reduction), lazy, bf16 wire, kernels on: 2 x 4096
 # tokens a step in 2 microbatches, blockwise beyond 1024 tokens.
 WIDE_ARCHS, WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = (
-    ("stablelm-12b", "qwen3-32b"), 2, 2, 4)
+    ("stablelm-12b", "qwen3-32b"), 2, 2, 3)
 WIDE_MICROBATCHES = 2
 
 
@@ -2359,27 +2580,54 @@ def step_flops(cfg, pool) -> dict:
     model needs, 6 per matmul weight per token (forward 2, backward 4)
     and the attention's two products (QK^T and PV) over the causal half
     of the S x S grid, forward and backward (6 S h hd a token a layer),
-    no recompute. ``executed``: what this run's path computes on top of
-    that, the per-layer remat's second forward of the layers (2 per
-    layer weight per token) and the attention over the whole masked grid
-    in the forward, the remat forward and the backward (16 S h hd a
-    token a layer). The embedding counts once, as the head's matmul
-    (tied or not: the input lookup is no product)."""
+    no recompute. A MoE layer's weights count as the router and ``top_k``
+    of its ``num_experts`` experts a token (the active weights). A vlm's
+    vision positions run through the layers and attention but not the
+    head; an audio model has one head a codebook. ``executed``: what this
+    run's path computes: the experts over every microbatch's E x cap
+    slots, padding and dropped slots included (``moe.capacity``), the
+    per-layer remat's second forward of the layers (2 per layer weight
+    per position) and the attention over the whole masked grid in the
+    forward, the remat forward and the backward (16 S h hd a token a
+    layer). The embedding counts once, as the head's matmul (tied or
+    not: the input lookup is no product)."""
+    from repro_torch.models.layers import moe
     m = cfg.model
-    tokens = cfg.global_batch * cfg.seq_len
+    vision = m.num_vision_tokens if m.family == "vlm" else 0
+    seq = cfg.seq_len + vision
+    rows = cfg.global_batch * seq            # positions through the layers
+    text = cfg.global_batch * cfg.seq_len    # positions through the head
     layers = sum(s.size for s in pool.specs if s.name.startswith("layers/"))
-    head = m.vocab_size * m.d_model
-    attn = cfg.seq_len * m.num_heads * m.resolved_head_dim * m.num_layers
-    return dict(model=float(tokens * (6 * (layers + head) + 6 * attn)),
-                executed=float(tokens * (6 * (layers + head) + 2 * layers
-                                         + 16 * attn)))
+    # The stacked experts are the 4-D (L, E, ., .) leaves of the FFN.
+    experts = sum(s.size for s in pool.specs
+                  if s.name.startswith("layers/ffn/") and len(s.shape) == 4)
+    dense = layers - experts
+    codebooks = m.num_codebooks \
+        if m.family == "audio" and m.num_codebooks > 1 else 1
+    head = codebooks * m.vocab_size * m.d_model
+    attn = seq * m.num_heads * m.resolved_head_dim * m.num_layers
+    active = slots = 0
+    if m.moe is not None:
+        per_expert = experts / m.moe.num_experts
+        active = rows * m.moe.top_k * per_expert
+        slots = cfg.microbatches * m.moe.num_experts * moe.capacity(
+            m, rows // cfg.microbatches) * per_expert
+    weights_model = rows * dense + active
+    weights_run = rows * dense + slots
+    return dict(model=float(6 * weights_model + 6 * text * head
+                            + 6 * rows * attn),
+                executed=float(8 * weights_run + 6 * text * head
+                               + 16 * rows * attn))
 
 
-FLOPS_NOTE = ("model: 6 per matmul weight per token, attention's QK^T and "
-              "PV over the causal half x3 (forward, backward), no remat; "
-              "executed: also the remat forward (2 per layer weight) and "
-              "attention over the whole masked grid x4 (forward, remat, "
-              "backward); shares against 989 TFLOP/s dense bf16")
+FLOPS_NOTE = ("model: 6 per matmul weight per token (MoE: the router and "
+              "top_k of the experts; the head over the text positions, "
+              "one a codebook), attention's QK^T and PV over the causal "
+              "half x3 (forward, backward), no remat; executed: the "
+              "experts over every microbatch's E x cap slots, the remat "
+              "forward (2 per layer weight) and attention over the whole "
+              "masked grid x4 (forward, remat, backward); shares against "
+              "989 TFLOP/s dense bf16")
 
 
 def olmo_pool_kernel_parts(torch, pool_mod, kpack, kunpack, shapes, dev,
@@ -2620,71 +2868,102 @@ def attention_phase(torch, dev):
     return summary
 
 
-def dense_run(torch, dist, ops, train_mod, synthetic, label, argv,
-              microbatches, layers=None):
-    """(y) and (aa)'s wide runs: a dense model through ``train.build``
-    with ``microbatches`` on the TrainConfig (and its depth cut to
-    ``layers``), in the NCCL group: the steps of ``--steps`` on one
-    repeated batch, each timed (host clock from a sync to a sync), then
-    one more step under ``torch.profiler``. Finite losses that fall;
-    every attention call blockwise (the layers' forwards and their remat
-    recompute, each microbatch); the pool kernels' and the all-reduces'
-    counts the step plan's; step ms (median after the first), tokens/s,
-    peak memory, the first step's seconds, and the model and executed
-    FLOP shares of the dense bf16 peak (``step_flops``)."""
+def model_run(torch, dist, ops, train_mod, synthetic, label, argv,
+              microbatches, cut=None, batch_fn=None, moe_split=False):
+    """(y), (aa) and (ac)-(ae): a model through ``train.build`` with
+    ``microbatches`` on the TrainConfig (and the ModelConfig fields in
+    ``cut`` replaced: ``num_layers``, or ``num_experts`` of its
+    MoEConfig), in the NCCL group: the steps of ``--steps`` on one
+    repeated batch (the synthetic stream's first, or ``batch_fn(cfg)``),
+    each timed (host clock from a sync to a sync), then one more step
+    under ``torch.profiler``. Finite losses that fall; every attention
+    call blockwise beyond ``--attn-chunk``, else full (the layers'
+    forwards and their remat recompute, each microbatch); the pool
+    kernels' and the all-reduces' counts the step plan's; step ms (median
+    after the first), tokens/s, peak memory, the first step's seconds,
+    and the model and executed FLOP shares of the dense bf16 peak
+    (``step_flops``). ``moe_split``: the profiled step also splits the
+    device's time into the MoE layer's parts (``moe_parts``) and counts
+    the slots each expert got and the share dropped."""
     import dataclasses
     from repro_torch.launch.trainer import Trainer
+    from repro_torch.models.layers import attention
 
     args = train_mod.parse_args(argv)
     _, cfg = train_mod.build(args)
-    published = cfg.model.num_layers
-    if layers is not None:
-        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                    num_layers=layers))
-    cfg = cfg.replace(microbatches=microbatches)
-    check(cfg.seq_len > cfg.attn_chunk > 0 and not cfg.causal_skip,
-          f"{label}: attention chunk {cfg.attn_chunk} of {cfg.seq_len}, "
-          f"causal_skip {cfg.causal_skip}")
+    model, reduced = cfg.model, {}
+    for field, value in (cut or {}).items():
+        if field == "num_experts":
+            reduced[field] = [model.moe.num_experts, value]
+            model = dataclasses.replace(model, moe=dataclasses.replace(
+                model.moe, num_experts=value))
+        else:
+            reduced[field] = [getattr(model, field), value]
+            model = dataclasses.replace(model, **{field: value})
+    cfg = cfg.replace(model=model, microbatches=microbatches)
+    m = cfg.model
+    seq = cfg.seq_len + (m.num_vision_tokens if m.family == "vlm" else 0)
+    blockwise = 0 < cfg.attn_chunk < seq \
+        and attention._pick_chunk(seq, cfg.attn_chunk) > 0
+    check(not cfg.causal_skip, f"{label}: causal_skip on")
     trainer = Trainer(cfg, device=args.device)
     t0 = time.perf_counter()
-    state = trainer.init_state(args.seed)
+    # Drawn on the card from the seed: the CPU draw takes ~10 s a billion
+    # parameters.
+    state = trainer.init_state(params=trainer.model.init_params(
+        args.seed, trainer.device, on_device=True))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+    batch = batch_fn(cfg) if batch_fn is not None else synthetic.SyntheticLM(
+        m.vocab_size, seed=args.seed, num_codebooks=m.num_codebooks) \
         .batch(0, cfg.global_batch, cfg.seq_len)
     step = trainer.build_train_step()
     steps = args.steps
-    losses, seconds = [], []
+    losses, aux, seconds = [], [], []
     ops.reset_counts()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    first = MoERouting(torch) if moe_split else None
     with CountAttention() as attn, CountAllReduce(dist) as coll:
-        for _ in range(steps):
+        for i in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
+            if i == 0 and first is not None:
+                # The initial weights' routing, on the untimed first step.
+                with first:
+                    state, metrics = step(state, batch)
+            else:
+                state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            aux.append(float(metrics["aux_loss"]))
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-            print(f"{label}: loss {losses[-1]:.4f} in {seconds[-1]:.3f} s",
-                  flush=True)
+            print(f"{label}: loss {losses[-1]:.4f} aux {aux[-1]:.3g} in "
+                  f"{seconds[-1]:.3f} s", flush=True)
     counts = dict(ops.dispatch_counts)
     peak = torch.cuda.max_memory_allocated()
 
     def one_step():
         nonlocal state
-        state, m = step(state, batch)
-        float(m["loss"])
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
 
-    profile = device_profile(torch, one_step, 1)
+    routing = None
+    if moe_split:
+        with MoERouting(torch) as probe, ModelParts() as parts:
+            profile = device_profile(torch, one_step, 1, parts=parts)
+        routing = dict(first_step=first.summary(cfg.remat == "layer"),
+                       profiled_step=probe.summary(cfg.remat == "layer"))
+    else:
+        profile = device_profile(torch, one_step, 1)
     flops = step_flops(cfg, trainer.pool)
     want = expected_counts(trainer, steps)
     want_coll = expected_collectives(trainer, steps)
     pool_elems = trainer.pool.size
     del state, step, trainer
     torch.cuda.empty_cache()
-    check(all(math.isfinite(x) for x in losses),
-          f"{label}: non-finite loss {losses}")
+    check(all(math.isfinite(x) for x in losses + aux),
+          f"{label}: non-finite loss {losses} or aux {aux}")
     check(losses[-1] < losses[0], f"{label}: loss did not fall on one "
           f"batch: {losses}")
     check(counts == want, f"{label}: dispatch counts {counts}, expected "
@@ -2692,55 +2971,74 @@ def dense_run(torch, dist, ops, train_mod, synthetic, label, argv,
     check(coll.calls == want_coll, f"{label}: {coll.calls} all-reduces, "
           f"expected {want_coll}")
     # Each microbatch: every layer's forward and its remat recompute.
-    want_attn = {"blockwise": 2 * cfg.model.num_layers * microbatches
-                 * steps, "full": 0}
+    calls = 2 * m.num_layers * microbatches * steps
+    want_attn = {"blockwise": calls if blockwise else 0,
+                 "full": 0 if blockwise else calls}
     check(attn.calls == want_attn, f"{label}: attention calls "
           f"{attn.calls}, expected {want_attn}")
+    check((m.moe is not None) == all(a > 0 for a in aux),
+          f"{label}: aux losses {aux} for family {m.family}")
     step_ms = statistics.median(seconds[1:]) * 1e3
     tokens = cfg.global_batch * cfg.seq_len
-    m = cfg.model
-    return dict(arch=args.arch, config="CONFIG", batch=cfg.global_batch,
-                seq_len=cfg.seq_len, microbatches=microbatches,
-                attn_chunk=cfg.attn_chunk, causal_skip=cfg.causal_skip,
-                d_model=m.d_model, heads=m.num_heads, kv_heads=m.num_kv_heads,
-                head_dim=m.resolved_head_dim, d_ff=m.d_ff, norm=m.norm,
-                qk_norm=m.qk_norm, num_layers=m.num_layers,
-                reduced={} if layers is None
-                else {"num_layers": [published, layers]},
-                losses=losses, step_ms=[t * 1e3 for t in seconds],
-                steady_step_ms=step_ms, first_step_s=seconds[0],
-                init_state_s=init_s, tokens_per_s=tokens / (step_ms / 1e3),
-                peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
-                expected_counts=want, collectives=coll.calls,
-                attention_calls=attn.calls, model_flops=flops["model"],
-                model_flops_share_of_bf16_peak=flops["model"]
-                / (step_ms / 1e3) / BF16_FLOPS,
-                executed_flops=flops["executed"],
-                executed_flops_share_of_bf16_peak=flops["executed"]
-                / (step_ms / 1e3) / BF16_FLOPS,
-                flops_note=FLOPS_NOTE, profile=profile,
-                pool_elems=pool_elems)
+    run = dict(arch=args.arch, config="CONFIG", family=m.family,
+               batch=cfg.global_batch, seq_len=cfg.seq_len,
+               positions=seq, microbatches=microbatches,
+               attn_chunk=cfg.attn_chunk, causal_skip=cfg.causal_skip,
+               d_model=m.d_model, heads=m.num_heads, kv_heads=m.num_kv_heads,
+               head_dim=m.resolved_head_dim, d_ff=m.d_ff, norm=m.norm,
+               activation=m.activation, qk_norm=m.qk_norm,
+               num_layers=m.num_layers, vocab=m.vocab_size,
+               reduced=reduced, losses=losses, aux_losses=aux,
+               step_ms=[t * 1e3 for t in seconds],
+               steady_step_ms=step_ms, first_step_s=seconds[0],
+               init_state_s=init_s, tokens_per_s=tokens / (step_ms / 1e3),
+               peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+               expected_counts=want, collectives=coll.calls,
+               attention_calls=attn.calls, model_flops=flops["model"],
+               model_flops_share_of_bf16_peak=flops["model"]
+               / (step_ms / 1e3) / BF16_FLOPS,
+               executed_flops=flops["executed"],
+               executed_flops_share_of_bf16_peak=flops["executed"]
+               / (step_ms / 1e3) / BF16_FLOPS,
+               flops_note=FLOPS_NOTE, profile=profile,
+               pool_elems=pool_elems)
+    if m.moe is not None:
+        from repro_torch.models.layers import moe
+        run.update(experts=m.moe.num_experts, top_k=m.moe.top_k,
+                   capacity_factor=m.moe.capacity_factor,
+                   capacity_per_microbatch=moe.capacity(
+                       m, cfg.global_batch // microbatches * seq),
+                   dense_residual=m.moe.dense_residual, routing=routing)
+    if m.family == "vlm":
+        run.update(vision_tokens=m.num_vision_tokens)
+    if m.family == "audio":
+        run.update(codebooks=m.num_codebooks)
+    return run
 
 
 def microbatch_window_run(torch, ops, train_mod, synthetic, label, argv,
-                          guard=None, faults=()):
-    """(ab) smollm-135m lazy at microbatches 2: MB_K eager steps, then a
-    window of MB_K as a CUDA graph from the same seed on the same
-    batches: the same losses and final parameters and momentum, bit for
-    bit, and the capture's launches the plan's x MB_K. Guarded, the
-    ``faults`` fire through the device-step hook in both; exactly the
-    faulted steps trip, and an in-graph digest shows each skip
-    bit-identical. The eager steps and one replayed window timed."""
+                          guard=None, faults=(), microbatches=2):
+    """(ab) smollm-135m lazy at microbatches 2, and (af) grok1-smoke lazy
+    at ``microbatches`` 1 (the argv's model, batch and sequence): MB_K
+    eager steps, then a window of MB_K as a CUDA graph from the same seed
+    on the same batches: the same losses and final parameters and
+    momentum, bit for bit, and the capture's launches the plan's x MB_K.
+    Guarded, the ``faults`` fire through the device-step hook in both;
+    exactly the faulted steps trip, and an in-graph digest shows each
+    skip bit-identical. The eager steps and one replayed window timed."""
     import dataclasses
     from repro_torch.launch.trainer import Trainer, is_flushed
     from repro_torch.runtime.faults import make_hook
 
     args = train_mod.parse_args(argv)
     _, cfg = train_mod.build(args)
-    cfg = cfg.replace(microbatches=2, gradientflow=dataclasses.replace(
-        cfg.gradientflow, guard=guard))
-    data = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed)
-    batches = [data.batch(s, BATCH, SEQ) for s in range(2 * MB_K)]
+    cfg = cfg.replace(microbatches=microbatches,
+                      gradientflow=dataclasses.replace(cfg.gradientflow,
+                                                       guard=guard))
+    data = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed,
+                                 num_codebooks=cfg.model.num_codebooks)
+    batches = [data.batch(s, cfg.global_batch, cfg.seq_len)
+               for s in range(2 * MB_K)]
     hook = make_hook(fault_events(faults)) if faults else None
     trainer = Trainer(cfg, device=args.device)
     state = trainer.init_state(args.seed)
@@ -2818,8 +3116,9 @@ def microbatch_window_run(torch, ops, train_mod, synthetic, label, argv,
               f"faults at {sorted(at)}")
         check(all(frozen) and all(moved), f"{label}: a tripped step moved "
               f"the state ({frozen}) or a clean one did not ({moved})")
-    return dict(arch="smollm-135m", batch=BATCH, seq_len=SEQ,
-                microbatches=2, losses=losses, eager_losses=eager,
+    return dict(arch=args.arch, config="SMOKE" if args.reduced else
+                "CONFIG", batch=cfg.global_batch, seq_len=cfg.seq_len,
+                microbatches=microbatches, losses=losses, eager_losses=eager,
                 tripped=tripped, faults=[list(f) for f in faults],
                 trips_bit_identical=frozen, clean_steps_moved=moved,
                 same_bits_as_eager=same, eager_step_ms=eager_ms,
@@ -2846,7 +3145,7 @@ def long_sequence_phase(torch, dist, ops, train_mod, synthetic, pool_mod,
                             f"{free_port()}", world_size=1, rank=0)
     runs = {}
     try:
-        run = dense_run(torch, dist, ops, train_mod, synthetic,
+        run = model_run(torch, dist, ops, train_mod, synthetic,
                         "(y) olmo-1b, 16 x 4096, lazy", OLMO_ARGV,
                         OLMO_MICROBATCHES)
         check(run["pool_elems"] == OLMO_POOL and run["batch"] == OLMO_BATCH
@@ -2854,11 +3153,11 @@ def long_sequence_phase(torch, dist, ops, train_mod, synthetic, pool_mod,
               f"{run['pool_elems']}, {run['batch']} x {run['seq_len']}")
         runs["olmo_1b_lazy_4k_microbatches"] = run
         for arch in WIDE_ARCHS:
-            runs[f"{arch}_2_layers_lazy_4k_microbatches"] = dense_run(
+            runs[f"{arch}_2_layers_lazy_4k_microbatches"] = model_run(
                 torch, dist, ops, train_mod, synthetic,
                 f"(aa) {arch} at full width, {WIDE_LAYERS} layers, "
                 f"{WIDE_BATCH} x {OLMO_SEQ}, lazy", wide_argv(arch),
-                WIDE_MICROBATCHES, layers=WIDE_LAYERS)
+                WIDE_MICROBATCHES, cut={"num_layers": WIDE_LAYERS})
         for arch in SMOKE_ARCHS:
             name = get_arch(arch)[0].name
             with CountAttention() as attn:
@@ -2886,12 +3185,197 @@ def long_sequence_phase(torch, dist, ops, train_mod, synthetic, pool_mod,
             "(ab) int8 lazy, no error feedback, microbatches 2",
             LAZY_ARGV + ["--chunk-elems", str(CHUNK), "--wire-format",
                          "int8", "--no-error-feedback"], LAZY_STEPS,
-            microbatches=2)
+            microbatches=2, repeat=REPEAT_STEPS)
         run.update(arch="smollm-135m", batch=BATCH, seq_len=SEQ)
         runs["mb2_int8_lazy_no_feedback"] = run
     finally:
         dist.destroy_process_group()
     return runs, pack, update
+
+
+# -- the MoE, vlm and audio families ----------------------------------------
+
+# (ac) arctic-480b at its published widths (d_model 7168, 56 / 8 heads of
+# 128, expert d_ff 4864, the dense residual MLP 4864, vocab 32000, top-2,
+# capacity factor 1.25), its depth cut to 1 layer and its experts to 16
+# of 128 (2,354,451,456 parameters; all 128 experts at one layer hold
+# 14.07 G, ~210 GiB of state), 2 x 4096 tokens in 2 microbatches (640
+# slots an expert a microbatch), blockwise attention beyond 1024 tokens.
+# grok-1-314b is not run at its published widths: one layer with its 8
+# experts holds 6.53 G parameters (~97 GiB of state).
+FAM_STEPS = 3
+ARCTIC_ARGV = ["--arch", "arctic-480b", "--seq-len", str(OLMO_SEQ),
+               "--batch", str(WIDE_BATCH), "--attn-chunk", str(OLMO_CHUNK),
+               "--gf-mode", "lazy", "--use-kernels", "--window-steps", "1",
+               "--log-every", "1", "--steps", str(FAM_STEPS)]
+ARCTIC_CUT = {"num_layers": 1, "num_experts": 16}
+ARCTIC_POOL, ARCTIC_CAP = 2_354_451_456, 640
+# (ad) internvl2-26b at its published widths (d_model 6144, 48 / 8 heads,
+# d_ff 16384, vocab 92672), 2 layers (1,918,924,800 parameters): 2
+# sequences of 256 vision + 4096 text positions in 2 microbatches from
+# ``models.registry.make_batch``, blockwise beyond 1024 (4352 positions
+# in blocks of 544, ``_pick_chunk``'s choice and the JAX package's).
+VLM_ARGV = ["--arch", "internvl2-26b", "--seq-len", str(OLMO_SEQ),
+            "--batch", str(WIDE_BATCH), "--attn-chunk", str(OLMO_CHUNK),
+            "--gf-mode", "lazy", "--use-kernels", "--window-steps", "1",
+            "--log-every", "1", "--steps", str(FAM_STEPS)]
+VLM_LAYERS, VLM_POOL, VLM_BLOCK = 2, 1_918_924_800, 544
+# (ae) musicgen-large whole (48 layers, d_model 2048, 32 heads, GELU,
+# LayerNorm, 4 codebooks of 2048; 2,454,065,152 parameters): 8 x 1500
+# frames (30 s at EnCodec's 50 Hz, arXiv:2306.05284) in 2 microbatches,
+# full attention.
+AUDIO_ARGV = ["--arch", "musicgen-large", "--seq-len", "1500", "--batch",
+              "8", "--gf-mode", "lazy", "--use-kernels", "--window-steps",
+              "1", "--log-every", "1", "--steps", str(FAM_STEPS)]
+AUDIO_POOL = 2_454_065_152
+# (af): the smoke configurations in CSC ((aa)'s settings), the vlm's
+# through the Trainer on make_batch batches; grok1-smoke lazy in a graphed
+# window of MB_K against MB_K eager steps, and guarded with a NaN at 2.
+FAMILY_SMOKE_CLI = ("grok-1-314b", "arctic-480b", "musicgen-large")
+MOE_WINDOW_ARGV = ["--arch", "grok-1-314b", "--reduced", "--use-kernels",
+                   "--gf-mode", "lazy", "--batch", "8", "--seq-len", "256",
+                   "--window-steps", "1", "--log-every", "1"]
+# Inside grok1-smoke's 935,552-element pool (MB_FAULTS' offset is past it).
+MOE_FAULTS = ((2, "nan", 100_000, GUARD_WIDTH),)
+# The MoE layer on the card against its CPU run, f32 (TF32 off): the
+# routing and the dropped slots equal, outputs and aux within MOE_TOL of
+# the largest |value| (the products' sums run in other orders).
+MOE_TOL = 1e-5
+
+
+def vlm_batch_fn(torch, seed):
+    """``fn(cfg, step)``: ``models.registry.make_batch``'s batch for step
+    ``step`` of a train cell of cfg's shape (a generator seeded with
+    (seed, step))."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import registry
+
+    def fn(cfg, step):
+        gen = torch.Generator().manual_seed(seed * 1_000_003 + step)
+        return registry.make_batch(cfg.model, ShapeConfig(
+            seq_len=cfg.seq_len, global_batch=cfg.global_batch),
+            cfg.global_batch, gen)
+    return fn
+
+
+def moe_layer_check(torch, dev) -> dict:
+    """The MoE layer at grok1- and arctic-smoke's widths, f32, on the card
+    and on the CPU from the same weights and tokens, with planted ties
+    (zero tokens: every expert ties; two equal router columns): the
+    expert indices and the kept slots equal, the outputs and aux within
+    MOE_TOL of the largest value; some slots drop (capacity factor 0.5)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.layers import moe
+
+    out = {}
+    for arch in ("grok-1-314b", "arctic-480b"):
+        cfg = get_smoke(arch)[0]
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=0.5))
+        gen = torch.Generator().manual_seed(11)
+        shapes = moe.spec(cfg)
+
+        def draw(tree):
+            return {k: draw(v) if isinstance(v, dict)
+                    else v.init(gen, v.shape) for k, v in tree.items()}
+        params = draw(shapes)
+        params["router"][:, 1] = params["router"][:, 0]
+        x = torch.randn((4, 256, cfg.d_model), generator=gen)
+        x.view(-1, cfg.d_model)[::7] = 0.0
+        res = {}
+        for where in ("cpu", dev):
+            p = {k: ({j: w.to(where) for j, w in v.items()}
+                     if isinstance(v, dict) else v.to(where))
+                 for k, v in params.items()}
+            xt = x.to(where).reshape(-1, cfg.d_model)
+            gates, idx, aux = moe.gate(p, xt, cfg)
+            _, kept = moe.slots(idx, cfg.moe.num_experts,
+                                moe.capacity(cfg, xt.shape[0]))
+            y, aux2 = moe.apply(p, x.to(where), cfg)
+            res[str(where)] = [t.cpu() for t in (idx, kept, y, aux2)]
+        (i0, k0, y0, a0), (i1, k1, y1, a1) = res["cpu"], res[str(dev)]
+        err = (y1 - y0).abs().max().item()
+        top = y0.abs().max().item()
+        out[arch] = dict(routing_equal=bool(torch.equal(i0, i1)),
+                         kept_equal=bool(torch.equal(k0, k1)),
+                         dropped=int((~k0).sum()), max_abs_err=err,
+                         max_abs=top, aux_cpu=float(a0), aux_card=float(a1))
+        check(out[arch]["routing_equal"] and out[arch]["kept_equal"]
+              and out[arch]["dropped"] > 0,
+              f"the MoE layer ({arch}) on the card routed otherwise than "
+              f"on the CPU: {out[arch]}")
+        check(err <= MOE_TOL * top and abs(float(a1) - float(a0))
+              <= MOE_TOL * abs(float(a0)),
+              f"the MoE layer ({arch}) on the card != its CPU run: "
+              f"{out[arch]}")
+    return out
+
+
+def families_phase(torch, dist, ops, train_mod, synthetic, dev):
+    """(ac)-(af) in a new world-size-1 NCCL group, after the MoE layer's
+    card-against-CPU check. Returns (runs, the check's findings)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import GuardConfig
+    from repro_torch.models.layers import attention
+
+    layer = moe_layer_check(torch, dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    runs = {}
+    try:
+        run = model_run(torch, dist, ops, train_mod, synthetic,
+                        "(ac) arctic-480b, 1 layer, 16 experts, 2 x 4096",
+                        ARCTIC_ARGV, WIDE_MICROBATCHES, cut=ARCTIC_CUT,
+                        moe_split=True)
+        check(run["pool_elems"] == ARCTIC_POOL
+              and run["capacity_per_microbatch"] == ARCTIC_CAP,
+              f"(ac): pool {run['pool_elems']}, capacity "
+              f"{run['capacity_per_microbatch']}")
+        runs["arctic_480b_1_layer_16_experts_lazy_4k_microbatches"] = run
+        run = model_run(torch, dist, ops, train_mod, synthetic,
+                        "(ad) internvl2-26b, 2 layers, 2 x (256 + 4096)",
+                        VLM_ARGV, WIDE_MICROBATCHES,
+                        cut={"num_layers": VLM_LAYERS},
+                        batch_fn=lambda cfg: vlm_batch_fn(torch, 0)(cfg, 0))
+        block = attention._pick_chunk(run["positions"], OLMO_CHUNK)
+        check(run["pool_elems"] == VLM_POOL and block == VLM_BLOCK,
+              f"(ad): pool {run['pool_elems']}, attention block {block}")
+        run["attn_block"] = block
+        runs["internvl2_26b_2_layers_lazy_4k_microbatches"] = run
+        run = model_run(torch, dist, ops, train_mod, synthetic,
+                        "(ae) musicgen-large, 8 x 1500 frames", AUDIO_ARGV,
+                        WIDE_MICROBATCHES)
+        check(run["pool_elems"] == AUDIO_POOL and not run["reduced"],
+              f"(ae): pool {run['pool_elems']}, cut {run['reduced']}")
+        runs["musicgen_large_lazy_1500_microbatches"] = run
+        for arch in FAMILY_SMOKE_CLI + ("internvl2-26b",):
+            name = get_smoke(arch)[0].name
+            vlm = arch == "internvl2-26b"
+            run = train_run(torch, ops, train_mod, synthetic,
+                            f"(af) {name}, csc"
+                            + (", Trainer, make_batch" if vlm else ", CLI"),
+                            ["--arch", arch] + SMOKE_ARGV, SMOKE_STEPS,
+                            batch_fn=vlm_batch_fn(torch, 0) if vlm else None)
+            got = run["dispatch_counts"]
+            check(got.get("chunk_l1norm.kernel", 0) > 0
+                  and got.get("csc_compact.kernel", 0) > 0,
+                  f"(af) {arch}: CSC kernels {got}")
+            run.update(arch=arch, config="SMOKE",
+                       through="Trainer" if vlm else "CLI")
+            runs[f"{arch}_smoke_csc"] = run
+        runs["moe_smoke_lazy_window"] = microbatch_window_run(
+            torch, ops, train_mod, synthetic,
+            "(af) grok1-smoke lazy, window", MOE_WINDOW_ARGV
+            + ["--steps", str(MB_K)], microbatches=1)
+        runs["moe_smoke_guarded_lazy_window"] = microbatch_window_run(
+            torch, ops, train_mod, synthetic,
+            "(af) grok1-smoke guarded lazy, window", MOE_WINDOW_ARGV
+            + ["--steps", str(MB_K)], guard=GuardConfig(), faults=MOE_FAULTS,
+            microbatches=1)
+    finally:
+        dist.destroy_process_group()
+    return runs, layer
 
 
 # -- checkpoints, restarts, resume, elastic ---------------------------------
@@ -3394,11 +3878,12 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
     runs = {}
     try:
         runs["lazy"] = train_run(torch, ops, train_mod, synthetic, "lazy",
-                                 lazy_args, LAZY_STEPS)
+                                 lazy_args, LAZY_STEPS, repeat=REPEAT_STEPS)
         runs["csc"] = train_run(torch, ops, train_mod, synthetic, "csc",
-                                csc_args, CSC_STEPS)
+                                csc_args, CSC_STEPS, repeat=REPEAT_STEPS)
         tally, restore = count_ratio_launches(kunpack)
         try:
+            # Every step of both passes: the tally below counts them.
             runs["lars_csc"] = train_run(torch, ops, train_mod, synthetic,
                                          "(d) lars, csc, staged",
                                          csc_args + lars, CSC_STEPS)
@@ -3410,11 +3895,11 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
             lars_lazy[overlap] = train_run(
                 torch, ops, train_mod, synthetic,
                 f"(e) lars, lazy, {overlap}", lazy_args + lars, LAZY_STEPS,
-                overlap=overlap, keep_params=True)
+                overlap=overlap, keep_params=True, repeat=REPEAT_STEPS)
         runs["adamw_csc"] = train_run(
             torch, ops, train_mod, synthetic, "(f) adamw, csc, staged",
             csc_args + ["--optimizer", "adamw", "--lr", str(ADAMW_LR)],
-            CSC_STEPS)
+            CSC_STEPS, repeat=REPEAT_STEPS)
         runs["guarded_lazy"] = guarded_run(
             torch, ops, train_mod, "(g) guarded lazy, staged", lazy_args,
             GUARD_LAZY_STEPS, GUARD_LAZY_FAULTS)
@@ -3429,7 +3914,7 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
             torch, ops, train_mod, synthetic, lazy_args, LAZY_STEPS)
         runs["int8_lazy"] = train_run(
             torch, ops, train_mod, synthetic, "(l) int8, lazy, staged",
-            int8_lazy_args, LAZY_STEPS,
+            int8_lazy_args, LAZY_STEPS, repeat=REPEAT_STEPS,
             watch={1: watch_error_feedback(torch, wire)})
         runs["int8_csc"] = train_run(
             torch, ops, train_mod, synthetic, "(m) int8, csc, staged",
@@ -3440,7 +3925,7 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
             fp8[overlap] = train_run(
                 torch, ops, train_mod, synthetic,
                 f"(n) fp8-e4m3, lazy, {overlap}", fp8_lazy_args, LAZY_STEPS,
-                overlap=overlap, keep_params=True)
+                overlap=overlap, keep_params=True, repeat=REPEAT_STEPS)
         runs["guarded_int8_lazy"] = guarded_run(
             torch, ops, train_mod, "(o) guarded int8, lazy, staged",
             int8_lazy_args, GUARD_LAZY_STEPS, GUARD_LAZY_FAULTS)
@@ -3490,12 +3975,13 @@ def train_phase(torch, dist, ops, train_mod, synthetic, kunpack, csc,
               + [616] * 4, f"{label}: stages select "
               f"{runs[label]['num_selected']}")
     # (l): the padded pool's 7 buckets (the last padding only, as CSC's
-    # warm-up has) and the census sum: 8 all-reduces a step, 7 updates.
+    # warm-up has) and the census sum: 8 all-reduces a step (counted on
+    # the repeated batch's steps), 7 updates.
     got = runs["int8_lazy"]
     check(got["dispatch_counts"] == {
         "pool_pack.kernel": 2 * LAZY_STEPS,
         "pool_unpack_update.kernel": 7 * LAZY_STEPS}
-          and got["collectives"] == 8 * LAZY_STEPS,
+          and got["collectives"] == 8 * REPEAT_STEPS,
           f"(l): counts {got['dispatch_counts']}, all-reduces "
           f"{got['collectives']}")
     check(got["wire_bytes_per_step"] == [WIRE_LAZY_BYTES["int8"]]
@@ -4050,6 +4536,17 @@ def ring_train_phase(torch, dev):
               for label in ("int8_lazy", "int8_csc")))
 
 
+_PHASE_T = [T_START]
+
+
+def phase_seconds(label: str) -> None:
+    """Print the host seconds since the last such line (a guide to what
+    each phase costs of the script's time limit)."""
+    now = time.perf_counter()
+    print(f"chip_smoke: {label}: {now - _PHASE_T[-1]:.1f} s", flush=True)
+    _PHASE_T.append(now)
+
+
 def print_long_runs(runs, name, power) -> None:
     for label, run in runs.items():
         print(json.dumps(dict(train=run["arch"], mode=label, gpu=name,
@@ -4183,8 +4680,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
         torch, kring, wire, dev, rate), gpu=name, power_limit=power)),
         flush=True)
 
+    phase_seconds("device, build and kernels")
     runs = train_phase(torch, dist, ops, train_mod, synthetic, kunpack,
                        csc, wire)
+    phase_seconds("train (a)-(v)")
     runs["resume_csc_cli"] = resume_phase("(w) csc, CLI resumed", CSC_ARGV)
     (elastic, elastic_dir, ring, ring_csc, ring_guarded, ring_window,
      ring_int8, ring_int8_csc) = ring_train_phase(torch, dev)
@@ -4196,6 +4695,7 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     runs["int8_lazy_pallas_ring_2_processes"] = ring_int8
     runs["int8_csc_pallas_ring_2_processes"] = ring_int8_csc
     runs["window_lazy_pipelined_pallas_ring_2_processes"] = ring_window
+    phase_seconds("resume, ring and elastic (w), (c), (k), (p), (u), (x)")
     # Long sequences on the dense models, after every earlier phase.
     attn = attention_phase(torch, dev)
     print(json.dumps(dict(attention=attn, gpu=name, power_limit=power)),
@@ -4203,6 +4703,13 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     long_runs, olmo_pack, olmo_update = long_sequence_phase(
         torch, dist, ops, train_mod, synthetic, pool_mod, kpack, kunpack,
         dev, rate)
+    phase_seconds("long sequences (z), (y)-(ab)")
+    family_runs, moe_layer = families_phase(torch, dist, ops, train_mod,
+                                            synthetic, dev)
+    phase_seconds("families (ac)-(af)")
+    print(json.dumps(dict(moe_layer_card_vs_cpu=moe_layer, gpu=name,
+                          power_limit=power)), flush=True)
+    long_runs.update(family_runs)
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})

@@ -3,15 +3,22 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import (olmo_1b, qwen3_32b, smollm_135m,
-                                 stablelm_12b)
+from repro_torch.configs import (arctic_480b, grok1_314b, internvl2_26b,
+                                 musicgen_large, olmo_1b, qwen3_32b,
+                                 smollm_135m, stablelm_12b)
 from repro_torch.configs.base import (GradientFlowConfig, MeshConfig,
-                                      ModelConfig, OptimizerConfig,
-                                      ShapeConfig, TrainConfig)
+                                      ModelConfig, MoEConfig,
+                                      OptimizerConfig, ShapeConfig,
+                                      TrainConfig)
 from repro_torch.configs.shapes import SHAPES, shapes_for
 
-# The JAX package's registry order, for the architectures ported.
+# The JAX package's registry order, for the architectures ported
+# (falcon-mamba-7b and zamba2-2.7b, the ssm and hybrid families, are not).
 _MODULES = {
+    "musicgen-large": musicgen_large,
+    "grok-1-314b": grok1_314b,
+    "arctic-480b": arctic_480b,
+    "internvl2-26b": internvl2_26b,
     "qwen3-32b": qwen3_32b,
     "stablelm-12b": stablelm_12b,
     "olmo-1b": olmo_1b,
@@ -41,5 +48,5 @@ def get_smoke(arch_id: str) -> Tuple[ModelConfig, None]:
 
 
 __all__ = ["ARCH_IDS", "GradientFlowConfig", "MeshConfig", "ModelConfig",
-           "OptimizerConfig", "SHAPES", "ShapeConfig", "TrainConfig",
-           "get_arch", "get_smoke", "shapes_for"]
+           "MoEConfig", "OptimizerConfig", "SHAPES", "ShapeConfig",
+           "TrainConfig", "get_arch", "get_smoke", "shapes_for"]

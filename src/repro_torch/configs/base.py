@@ -14,10 +14,29 @@ from repro_torch.parallel.topology import Topology
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings for an FFN block."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    # Arctic-style dense residual MLP running in parallel with the MoE FFN.
+    dense_residual: bool = False
+    residual_d_ff: int = 0
+    # Load-balancing auxiliary loss weight (Switch-style).
+    aux_loss_weight: float = 0.01
+    # Capacity factor for expert token buffers (static shapes).
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture config. The port builds ``family='dense'`` only:
-    ``norm`` 'rmsnorm', 'layernorm' or 'nonparametric_ln', ``activation``
-    'swiglu', 'geglu' or 'gelu', with or without ``qk_norm``."""
+    """Architecture config. The port builds the families on
+    ``TransformerLM``: 'dense', 'moe' (MoE FFN blocks, ``moe``), 'vlm'
+    (``num_vision_tokens`` precomputed patch embeddings prepended) and
+    'audio' (``num_codebooks`` codec token streams); ``norm`` 'rmsnorm',
+    'layernorm' or 'nonparametric_ln', ``activation`` 'swiglu', 'geglu'
+    or 'gelu', with or without ``qk_norm``. 'ssm' and 'hybrid' are not
+    ported."""
 
     name: str = "model"
     family: str = "dense"
@@ -34,7 +53,7 @@ class ModelConfig:
     activation: str = "swiglu"
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[Any] = None
     hybrid_attn_every: int = 6
     num_vision_tokens: int = 0

@@ -7,9 +7,11 @@ log(branching). Learning it takes many batches at a large vocabulary;
 over a few steps on fresh batches the loss of a full-vocabulary model
 need not fall.
 Batch t is a pure function of (seed, step, row), so any shard count sees
-the same global sample set. The JAX package draws the same kind of stream
-from ``jax.random``; the bits differ, and tests hand both packages the
-same numpy batches instead.
+the same global sample set. With ``num_codebooks`` K > 1 (the audio
+family) tokens and labels are tiled over a last axis of K, as in the JAX
+package. The JAX package draws the same kind of stream from
+``jax.random``; the bits differ, and tests hand both packages the same
+numpy batches instead.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import torch
 
 
 class SyntheticLM:
-    def __init__(self, vocab_size: int, seed: int = 0, branching: int = 4):
+    def __init__(self, vocab_size: int, seed: int = 0,
+                 num_codebooks: int = 0, branching: int = 4):
         self.vocab = vocab_size
         self.seed = seed
+        self.num_codebooks = num_codebooks
         self.branching = branching
         rng = np.random.RandomState(seed)
         self.succ = rng.randint(0, vocab_size, size=(vocab_size, branching))
@@ -40,7 +44,12 @@ class SyntheticLM:
         for t in range(seq_len + 1):
             tok = self.succ[tok, choices[:, t]]
             toks[:, t] = tok
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        tokens, labels = toks[:, :-1], toks[:, 1:]
+        if self.num_codebooks > 1:
+            k = self.num_codebooks
+            tokens = np.repeat(tokens[..., None], k, axis=-1)
+            labels = np.repeat(labels[..., None], k, axis=-1)
+        return {"tokens": tokens, "labels": labels}
 
     def batch(self, step: int, batch_size: int, seq_len: int,
               shard: int = 0) -> Dict[str, torch.Tensor]:

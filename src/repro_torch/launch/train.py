@@ -4,7 +4,13 @@ port supports.
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --batch 8 --seq-len 256 --use-kernels
 
-Runs on the first CUDA card unless ``--device cpu``. ``--gf-mode``
+``--arch`` takes every id of ``configs.ARCH_IDS`` (the dense, moe and
+audio families; ``--reduced`` their smoke configurations); a vlm
+(internvl2-26b) is refused before any step, as the JAX CLI fails on it:
+the synthetic stream has no vision embeddings (train it through the
+``Trainer`` on ``models.registry.make_batch`` batches). An audio model's
+stream tiles its tokens over the codebooks. Runs on the first CUDA card
+unless ``--device cpu``. ``--gf-mode``
 defaults to ``csc``, as in the JAX CLI, and ``--window-steps`` (K) to 8:
 the steps run in windows of K (``Trainer.build_train_window``; on the
 card one CUDA graph a window, captured once a stage and replayed), the
@@ -194,6 +200,14 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
     memory reserved after it and the window's ``stats``); a restart
     drops the failed pass's entries, as it drops its losses."""
     trainer, cfg = build(args)
+    if cfg.model.family == "vlm":
+        # As in the JAX CLI, whose stream lacks them too: a vlm trains
+        # through the Trainer on batches that carry them
+        # (models.registry.make_batch).
+        raise ValueError(
+            f"--arch {args.arch}: the CLI's synthetic stream has no "
+            f"vision_embeds, which a vlm batch needs; train it through the "
+            f"Trainer with models.registry.make_batch batches")
     n = collectives.data_world_size()
     if cfg.global_batch % n:
         raise ValueError(f"--batch {cfg.global_batch} does not split over "
@@ -201,7 +215,8 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
     rank = torch.distributed.get_rank() if n > 1 else 0
     # No prefetch thread: its batch making would take the interpreter
     # lock from the host-bound step (data.pipeline).
-    pipe = DataPipeline(SyntheticLM(cfg.model.vocab_size, seed=args.seed),
+    pipe = DataPipeline(SyntheticLM(cfg.model.vocab_size, seed=args.seed,
+                                    num_codebooks=cfg.model.num_codebooks),
                         cfg.global_batch // n, cfg.seq_len, shard=rank,
                         prefetch=0)
     ckpt = CheckpointManager(_ckpt_dir(args, n), keep=3)

@@ -422,7 +422,10 @@ class Trainer:
             causal_skip=cfg.causal_skip, compute_dtype=self.compute_dtype)
         if scale is not None:
             loss = loss * scale
-        grads = list(torch.autograd.grad(loss, leaves))
+        # A leaf the loss does not read (the audio family's unused
+        # 'tokens' table) gets zeros, as JAX's gradient gives it.
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr,

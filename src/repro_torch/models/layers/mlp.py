@@ -11,8 +11,10 @@ import torch.nn.functional as F
 from repro_torch.models.params import ParamSpec, fan_in_init
 
 
-def spec(cfg) -> Dict[str, ParamSpec]:
-    d, f = cfg.d_model, cfg.d_ff
+def spec(cfg, d_ff: int = 0) -> Dict[str, ParamSpec]:
+    """``d_ff`` (0: ``cfg.d_ff``) sets the hidden width: arctic's residual
+    MLP has its own."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     if cfg.activation in ("swiglu", "geglu"):
         return {"wi_gate": ParamSpec((d, f), fan_in_init(0)),
                 "wi_up": ParamSpec((d, f), fan_in_init(0)),

@@ -1,0 +1,155 @@
+"""Top-k mixture-of-experts FFN with capacity-bounded gather dispatch, the
+JAX package's ``models/layers/moe.py`` in PyTorch.
+
+Dispatch is a gather and a scatter, not a one-hot product: each of the
+T·k (token, choice) slots gets a position in its expert from a running
+count in token-major order; slots past the expert's capacity drop (they
+write to one spare row and read back zero). The experts are SwiGLU
+products batched over the expert axis. Every shape is static and nothing
+is read back to the host, so a CUDA-graph window can capture the layer.
+
+Routing is the reference's bit for bit in f32: the top k of the softmax
+are chosen by a stable descending sort, which breaks ties toward the
+lower expert index as ``jax.lax.top_k`` does (``torch.topk`` promises no
+order among equal values, and equal router logits are not rare: a zero
+hidden state gives them for every expert).
+
+The Switch-style load-balance loss is returned beside the output.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import mlp as mlp_mod
+from repro_torch.models.params import ParamSpec, fan_in_init
+
+
+def spec(cfg) -> Dict[str, Any]:
+    assert cfg.moe is not None
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    p: Dict[str, Any] = {
+        "router": ParamSpec((d, e), fan_in_init(0)),
+        "wi_gate": ParamSpec((e, d, f), fan_in_init(1)),
+        "wi_up": ParamSpec((e, d, f), fan_in_init(1)),
+        "wo": ParamSpec((e, f, d), fan_in_init(1)),
+    }
+    if cfg.moe.dense_residual:
+        # Arctic: a small dense MLP runs in parallel with the MoE FFN.
+        p["residual"] = mlp_mod.spec(cfg, d_ff=cfg.moe.residual_d_ff
+                                     or cfg.d_ff)
+    return p
+
+
+def capacity(cfg, tokens: int) -> int:
+    """Slots an expert holds for ``tokens`` tokens: the reference's
+    arithmetic, rounded up to a multiple of 8 (it decides which slots
+    drop)."""
+    m = cfg.moe
+    c = int(tokens * m.top_k * m.capacity_factor / m.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def route(logits: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(probs, gate values, expert indices) of f32 router logits (T, E):
+    the softmax, its k largest entries in descending order with ties to
+    the lower index, and those entries renormalised to sum to 1."""
+    probs = torch.softmax(logits, dim=-1)
+    idx = torch.sort(probs.detach(), dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    gates = torch.gather(probs, -1, idx)
+    return probs, gates / torch.sum(gates, dim=-1, keepdim=True), idx
+
+
+def slots(expert_idx: torch.Tensor, num_experts: int, cap: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(destination row, kept) of each of the T·k slots, token-major: an
+    expert's slots fill its ``cap`` rows in order; a dropped slot's row
+    is ``num_experts * cap``, the spare one."""
+    flat = expert_idx.reshape(-1)
+    onehot = (flat[:, None] == torch.arange(num_experts, device=flat.device)
+              ).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 1, flat[:, None])[:, 0]
+    kept = pos < cap
+    dst = torch.where(kept, flat * cap + pos,
+                      torch.full_like(flat, num_experts * cap))
+    return dst, kept
+
+
+def gate(params: Dict[str, Any], xt: torch.Tensor, cfg
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routing: (gate values (T, k) f32, expert indices (T, k), the f32
+    aux loss) of the tokens ``xt`` (T, D). The router product runs in the
+    compute dtype, the softmax in f32."""
+    m = cfg.moe
+    e, k = m.num_experts, m.top_k
+    t = xt.shape[0]
+    probs, gates, idx = route((xt @ params["router"]).float(), k)
+    # Aux loss: mean prob per expert x fraction of slots routed (Switch).
+    me = torch.mean(probs, dim=0)
+    ce = torch.zeros((e,), dtype=torch.float32, device=xt.device) \
+        .index_add_(0, idx.reshape(-1),
+                    torch.ones((t * k,), dtype=torch.float32,
+                               device=xt.device)) / (t * k)
+    return gates, idx, e * torch.sum(me * ce) * m.aux_loss_weight
+
+
+def dispatch(xt: torch.Tensor, idx: torch.Tensor, num_experts: int,
+             cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the experts' buffer (E, cap, D), each slot's row, kept): the
+    slots' tokens scattered into an (E·cap + 1, D) buffer whose last row
+    takes the dropped slots and is cut off."""
+    (t, d), k = xt.shape, idx.shape[1]
+    dst, kept = slots(idx, num_experts, cap)
+    src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+    buf = torch.zeros((num_experts * cap + 1, d), dtype=xt.dtype,
+                      device=xt.device)
+    buf = buf.index_put((dst,), src)[:-1]
+    return buf.reshape(num_experts, cap, d), dst, kept
+
+
+def experts(params: Dict[str, Any], buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts, batched over the expert axis: (E, cap, D) ->
+    (E·cap, D)."""
+    h = F.silu(torch.bmm(buf, params["wi_gate"])) \
+        * torch.bmm(buf, params["wi_up"])
+    out = torch.bmm(h, params["wo"])
+    return out.reshape(-1, out.shape[-1])
+
+
+def combine(out: torch.Tensor, dst: torch.Tensor, kept: torch.Tensor,
+            gates: torch.Tensor) -> torch.Tensor:
+    """Gather each slot's expert output back and weight it by its gate in
+    the compute dtype; a dropped slot adds 0. Each token's k
+    contributions are added to zero in slot order, the reference's
+    scatter-add. Returns (T, D)."""
+    t, k = gates.shape
+    rows, d = out.shape
+    slot_out = torch.where(kept[:, None],
+                           out[torch.clamp(dst, max=rows - 1)],
+                           torch.zeros((), dtype=out.dtype,
+                                       device=out.device))
+    weighted = (slot_out * gates.reshape(-1)[:, None].to(out.dtype)) \
+        .reshape(t, k, d)
+    y = torch.zeros((t, d), dtype=out.dtype, device=out.device)
+    for j in range(k):
+        y = y + weighted[:, j]
+    return y
+
+
+def apply(params: Dict[str, Any], x: torch.Tensor, cfg
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (output (B, S, D), f32 aux loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    gates, idx, aux = gate(params, xt, cfg)
+    buf, dst, kept = dispatch(xt, idx, m.num_experts, capacity(cfg, b * s))
+    y = combine(experts(params, buf), dst, kept, gates)
+    if m.dense_residual:
+        y = y + mlp_mod.apply(params["residual"], xt, cfg)
+    return y.reshape(b, s, d), aux

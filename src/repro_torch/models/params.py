@@ -3,9 +3,12 @@
 Every parameter is declared as a ``ParamSpec`` (shape + initialiser), as
 in the JAX package; ``init_params`` materialises a nested dict of f32
 tensors from a seeded ``torch.Generator`` on the CPU and moves them to the
-device, so the same seed gives the same weights on every device. The
-generator's bits are not ``jax.random``'s: tests that compare the two
-packages carry weights across with ``repro_torch.convert``.
+device, so the same seed gives the same weights on every device. With
+``on_device=True`` it draws on the target device instead: much faster at
+billions of parameters (the CPU draw takes ~10 s a billion), but the
+bits are that device's generator's. The generator's bits are not
+``jax.random``'s: tests that compare the two packages carry weights
+across with ``repro_torch.convert``.
 """
 from __future__ import annotations
 
@@ -20,22 +23,23 @@ Init = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
 
 def normal_init(stddev: float) -> Init:
     def f(gen, shape):
-        return torch.randn(shape, generator=gen) * stddev
+        return torch.randn(shape, generator=gen, device=gen.device) * stddev
     return f
 
 
 def ones_init(gen, shape):
-    return torch.ones(shape)
+    return torch.ones(shape, device=gen.device)
 
 
 def zeros_init(gen, shape):
-    return torch.zeros(shape)
+    return torch.zeros(shape, device=gen.device)
 
 
 def fan_in_init(fan_axis: int = 0) -> Init:
     def f(gen, shape):
         fan_in = shape[fan_axis] if shape else 1
-        return torch.randn(shape, generator=gen) / math.sqrt(max(fan_in, 1))
+        return torch.randn(shape, generator=gen, device=gen.device) \
+            / math.sqrt(max(fan_in, 1))
     return f
 
 
@@ -61,10 +65,12 @@ def stack_spec(tree: Dict[str, Any], n: int) -> Dict[str, Any]:
     return map_specs(wrap, tree)
 
 
-def init_params(specs: Dict[str, Any], seed: int,
-                device: torch.device) -> Dict[str, Any]:
-    """Materialise f32 parameters, leaves drawn in sorted-key order."""
-    gen = torch.Generator().manual_seed(seed)
+def init_params(specs: Dict[str, Any], seed: int, device: torch.device,
+                on_device: bool = False) -> Dict[str, Any]:
+    """Materialise f32 parameters, leaves drawn in sorted-key order from a
+    generator on the CPU (or, ``on_device``, on ``device``)."""
+    gen = torch.Generator(device=device if on_device else "cpu") \
+        .manual_seed(seed)
 
     def walk(tree):
         return {k: walk(tree[k]) if isinstance(tree[k], dict)

@@ -1,6 +1,10 @@
-"""Decoder-only transformer LM, dense family: RMSNorm, LayerNorm or the
-non-parametric LayerNorm (``cfg.norm``), SwiGLU, GeGLU or GELU, optional
-QK-norm, full or blockwise attention (``attn_chunk``, ``causal_skip``).
+"""Decoder-only transformer LM: the dense, moe, vlm and audio families.
+RMSNorm, LayerNorm or the non-parametric LayerNorm (``cfg.norm``),
+SwiGLU, GeGLU or GELU, optional QK-norm, full or blockwise attention
+(``attn_chunk``, ``causal_skip``); MoE FFN blocks (``cfg.moe``) whose
+load-balance losses are summed over the layers; precomputed vision
+embeddings prepended (vlm); K codec token streams summed in and K heads
+out (audio).
 
 Parameters are a nested dict in the JAX package's layout: layer weights
 stacked along a leading L axis (one tensor per leaf, so the gradient
@@ -17,12 +21,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import params as params_mod
-from repro_torch.models.layers import attention, embedding, mlp, norms
+from repro_torch.models.layers import attention, embedding, mlp, moe, norms
+
+
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def block_spec(cfg) -> Dict[str, Any]:
     return {"attn_norm": norms.spec(cfg), "attn": attention.spec(cfg),
-            "mlp_norm": norms.spec(cfg), "ffn": mlp.spec(cfg)}
+            "mlp_norm": norms.spec(cfg),
+            "ffn": moe.spec(cfg) if cfg.moe is not None else mlp.spec(cfg)}
 
 
 def param_specs(cfg) -> Dict[str, Any]:
@@ -38,13 +46,17 @@ def param_specs(cfg) -> Dict[str, Any]:
 
 def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
                 attn_chunk: int = 0, causal_skip: bool = False
-                ) -> torch.Tensor:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x, the MoE block's f32 aux loss, or None for a dense FFN)."""
     h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
     x = x + attention.apply_train(layer_params["attn"], h, cfg,
                                   attn_chunk=attn_chunk,
                                   causal_skip=causal_skip)
     h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
-    return x + mlp.apply(layer_params["ffn"], h, cfg)
+    if cfg.moe is not None:
+        h, aux = moe.apply(layer_params["ffn"], h, cfg)
+        return x + h, aux
+    return x + mlp.apply(layer_params["ffn"], h, cfg), None
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -59,23 +71,29 @@ def _unbind(tree: Dict[str, Any]) -> Dict[str, Any]:
 
 def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
              remat: str = "layer", attn_chunk: int = 0,
-             causal_skip: bool = False) -> torch.Tensor:
-    """Run all layers. ``unbind`` splits each stack once, so the backward
-    pass stacks the per-layer gradients once instead of scattering each
-    layer into a zeroed full-size stack."""
+             causal_skip: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run all layers: (hidden, the aux losses summed in layer order from
+    zero, or None without MoE). ``unbind`` splits each stack once, so the
+    backward pass stacks the per-layer gradients once instead of
+    scattering each layer into a zeroed full-size stack."""
     per_layer = _unbind(params["layers"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if cfg.moe is not None else None
     for i in range(cfg.num_layers):
         lp = _layer(per_layer, i)
         if remat == "layer":
             # The model draws no random numbers, so the recompute needs no
             # saved RNG state (reading it is not allowed in a CUDA graph).
-            x = checkpoint(lambda h, lp=lp: block_apply(
+            x, a = checkpoint(lambda h, lp=lp: block_apply(
                 lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip),
                 x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
-                            causal_skip=causal_skip)
-    return x
+            x, a = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
+                               causal_skip=causal_skip)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -83,7 +101,7 @@ def xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token cross-entropy with f32 accumulation."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -91,10 +109,11 @@ def xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 class TransformerLM:
-    """The dense family. Functional: parameters are passed in, not held."""
+    """Families: dense | moe | vlm | audio. Functional: parameters are
+    passed in, not held."""
 
     def __init__(self, cfg):
-        if cfg.family != "dense" or cfg.moe is not None:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"model family {cfg.family!r} is not ported to repro_torch "
                 "yet; see ROADMAP.md queue A")
@@ -106,8 +125,11 @@ class TransformerLM:
     def param_shapes(self) -> Dict[str, Any]:
         return params_mod.param_shapes(self.param_specs())
 
-    def init_params(self, seed: int, device: torch.device) -> Dict[str, Any]:
-        return params_mod.init_params(self.param_specs(), seed, device)
+    def init_params(self, seed: int, device: torch.device,
+                    on_device: bool = False) -> Dict[str, Any]:
+        """f32 parameters from ``seed`` (``params.init_params``)."""
+        return params_mod.init_params(self.param_specs(), seed, device,
+                                      on_device=on_device)
 
     def _head_params(self, params):
         if self.cfg.tie_embeddings:
@@ -119,14 +141,29 @@ class TransformerLM:
                 causal_skip: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """batch: {'tokens': (B, S) int, 'labels': (B, S) int}. ``params``
-        are already in the compute dtype (the trainer casts the f32
-        masters). Returns (loss, metrics)."""
-        x = embedding.embed(params["embed"], batch["tokens"], compute_dtype)
-        x = backbone(params, x, self.cfg, remat=remat, attn_chunk=attn_chunk,
-                     causal_skip=causal_skip)
-        x = norms.apply(params["final_norm"], x, self.cfg.norm)
-        lg = embedding.logits(self._head_params(params), x)
+        """batch: {'tokens': (B, S) int, or (B, S, K) for audio, 'labels':
+        the same}, and for the vlm 'vision_embeds' (B, V, D) float,
+        prepended to the token embeddings and dropped before the head.
+        ``params`` are already in the compute dtype (the trainer casts the
+        f32 masters). Returns (loss + aux, {'loss', 'aux_loss'})."""
+        cfg = self.cfg
+        x = embedding.embed(params["embed"], batch["tokens"], cfg,
+                            compute_dtype)
+        vision = 0
+        if cfg.family == "vlm":
+            if "vision_embeds" not in batch:
+                raise ValueError("a vlm batch needs 'vision_embeds' "
+                                 "(B, num_vision_tokens, d_model)")
+            vis = batch["vision_embeds"].to(compute_dtype)
+            vision = vis.shape[1]
+            x = torch.cat([vis, x], dim=1)
+        x, aux = backbone(params, x, cfg, remat=remat, attn_chunk=attn_chunk,
+                          causal_skip=causal_skip)
+        x = norms.apply(params["final_norm"], x, cfg.norm)
+        if vision:
+            x = x[:, vision:, :]
+        lg = embedding.logits(self._head_params(params), x, cfg)
         loss = xent(lg, batch["labels"], batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}

@@ -16,6 +16,10 @@
   bf16 scratch placeholder round-trips as npz descr '<V2' with
   ``ml_dtypes`` refused; ``reshard_hg`` is JAX's bit for bit and keeps
   the column total.
+* The same across the packages for arctic-smoke in CSC (router, 4-D
+  stacked experts, residual MLP) and musicgen-smoke lazy (codebooks, the
+  (K, d, V) head): identical manifests, and each package restoring the
+  other's checkpoint trains on with the writer's losses.
 * The CLI (``--ckpt-dir``) resumed in a new launch gives the
   uninterrupted run's losses bit for bit; two gloo ranks save one
   checkpoint with both ``hg`` rows, and one rank restores it after
@@ -511,6 +515,87 @@ def test_cross_package_restore_trains_on(tmp_path, direction):
         jstep = jt.build_train_step()
         losses = []
         for b in _batches(4)[2:]:
+            js, m = jstep(js, jax.device_put(
+                {k: jnp.asarray(v, jnp.int32) for k, v in b.items()}))
+            losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, rest, rtol=1e-5)
+
+
+def _family_batches(arch, n=4, seed=0):
+    """Numpy batches of a smoke configuration: (B, S, K) tokens for the
+    audio family."""
+    cfg = get_smoke(arch)[0]
+    k = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (n, B, S + 1) + k)
+    return [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_family_run(arch, kind):
+    """JAX, 4 steps with a checkpoint at 2, and the manifest the port
+    writes for the same state. Returns (trainer, its step function,
+    initial params, losses, the checkpoint's directory, the port's
+    manifest)."""
+    batches = _family_batches(arch)
+    jt = _jax_trainer(kind, arch=arch)
+    t = Trainer(_cfg(t_base, get_smoke, kind, arch=arch), device="cpu")
+    jdir = tempfile.mkdtemp(prefix="jax_ckpt_")
+    pdir = tempfile.mkdtemp(prefix="port_ckpt_")
+    with compat_set_mesh(jt.mesh):
+        js = jt.init_state(jax.random.PRNGKey(0))
+        init = jax.tree_util.tree_map(np.asarray, js.params)
+        step, losses = jt.build_train_step(), []
+        for i, b in enumerate(batches):
+            if i == 2:
+                JManager(jdir).save(2, js, blocking=True)
+                CheckpointManager(pdir).save(2, _to_port(t, js),
+                                             blocking=True)
+            js, m = step(js, jax.device_put(
+                {k: jnp.asarray(v, jnp.int32) for k, v in b.items()}))
+            losses.append(float(m["loss"]))
+    return jt, step, init, losses, jdir, _manifest(pdir, 2)
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+@pytest.mark.parametrize("arch,kind", [("arctic-480b", "csc"),
+                                       ("musicgen-large", "lazy")])
+def test_family_checkpoint_crosses_packages(tmp_path, arch, kind,
+                                            direction):
+    """arctic-smoke in CSC (the router, the 4-D stacked experts, the
+    residual MLP, hg and the chunk norms) and musicgen-smoke lazy (the
+    codebook tables and the (K, d, V) head): the JAX state at step 2
+    saved by both packages gives identical manifests; a checkpoint at
+    step 2 written by one package and restored by the other trains on
+    with the writer's own losses for steps 2-3 (rtol 1e-5, f32 wire)."""
+    batches = _family_batches(arch)
+    jt, jstep, init, j_losses, jdir, port_manifest = _jax_family_run(arch,
+                                                                     kind)
+    assert _manifest(jdir, 2) == port_manifest
+    names = {m["name"] for m in port_manifest["leaves"]}
+    assert ({"params/layers/ffn/router", "params/layers/ffn/wi_gate",
+             "params/layers/ffn/residual/wo", "gf/hg"}
+            if arch == "arctic-480b" else
+            {"params/embed/codebooks", "params/head/w"}) <= names
+    t = Trainer(_cfg(t_base, get_smoke, kind, arch=arch), device="cpu")
+    if direction == "jax_to_port":
+        step, state = CheckpointManager(jdir).restore(t.init_state(seed=1))
+        assert step == 2 and state.step == 2
+        _, losses = _port_steps(t, state, batches[2:])
+        np.testing.assert_allclose(losses, j_losses[2:], rtol=1e-5)
+        return
+    state = t.init_state(params=convert.params_from_numpy(init, "cpu"))
+    state, first = _port_steps(t, state, batches[:2])
+    np.testing.assert_allclose(first, j_losses[:2], rtol=1e-5)
+    pdir = str(tmp_path / "port")
+    CheckpointManager(pdir).save(2, state, blocking=True)
+    _, rest = _port_steps(t, state, batches[2:])
+    with compat_set_mesh(jt.mesh):
+        step, js = JManager(pdir).restore(jt.init_state(
+            jax.random.PRNGKey(1)))
+        assert step == 2 and int(js.step) == 2
+        losses = []
+        for b in batches[2:]:
             js, m = jstep(js, jax.device_put(
                 {k: jnp.asarray(v, jnp.int32) for k, v in b.items()}))
             losses.append(float(m["loss"]))

@@ -877,3 +877,103 @@ def test_cuda_blockwise_microbatched_window_matches_eager(dev):
                     + [state.opt.momentum],
                     eager.pool.flat_leaves(ref.params) + [ref.opt.momentum]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "arctic-480b"])
+def test_cuda_moe_layer_matches_cpu(dev, arch):
+    """The MoE layer at smoke width in f32 (TF32 off), card against CPU
+    from the same weights, with planted ties (zero tokens; two equal
+    router columns) at capacity factor 0.5: the same expert indices and
+    kept slots, the outputs, aux loss and every gradient within 1e-5 of
+    the largest value."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.layers import moe
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke(arch)[0]
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    gen = torch.Generator().manual_seed(3)
+
+    def draw(tree):
+        return {k: draw(v) if isinstance(v, dict) else v.init(gen, v.shape)
+                for k, v in tree.items()}
+    params = draw(moe.spec(cfg))
+    params["router"][:, 1] = params["router"][:, 0]
+    x = torch.randn((2, 64, cfg.d_model), generator=gen)
+    x.view(-1, cfg.d_model)[::5] = 0.0
+    r = torch.randn(x.shape, generator=gen)
+
+    def run(where):
+        p = {k: ({j: w.to(where).requires_grad_(True) for j, w in v.items()}
+                 if isinstance(v, dict) else v.to(where).requires_grad_(True))
+             for k, v in params.items()}
+        xx = x.to(where).requires_grad_(True)
+        gates, idx, _ = moe.gate(p, xx.reshape(-1, cfg.d_model), cfg)
+        _, kept = moe.slots(idx, cfg.moe.num_experts,
+                            moe.capacity(cfg, 128))
+        y, aux = moe.apply(p, xx, cfg)
+        (torch.sum(y * r.to(where)) + aux).backward()
+        leaves = [p[k] for k in ("router", "wi_gate", "wi_up", "wo")] + (
+            list(p["residual"].values()) if "residual" in p else [])
+        return ([idx.cpu(), kept.cpu()],
+                [y.detach().cpu(), aux.detach().cpu(), xx.grad.cpu()]
+                + [w.grad.cpu() for w in leaves])
+
+    try:
+        (i1, k1), card = run(dev)
+        (i0, k0), cpu = run("cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(i1, i0) and torch.equal(k1, k0)
+    assert not k0.all()
+    for got, want in zip(card, cpu):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "internvl2-26b",
+                                  "musicgen-large"])
+def test_cuda_family_window_matches_eager(dev, arch):
+    """A K = 4 window as a CUDA graph (MoE routing and dispatch captured;
+    the vlm's bf16 vision embeddings and the audio (B, S, K) tokens in
+    its static inputs) against four eager steps on the same batches: the
+    same losses and state bits."""
+    from repro_torch.configs import base, get_smoke
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.trainer import Trainer
+    from repro_torch.models import registry
+
+    cfg = base.TrainConfig(
+        model=dataclasses.replace(get_smoke(arch)[0],
+                                  compute_dtype="float32"),
+        seq_len=32, global_batch=4,
+        gradientflow=base.GradientFlowConfig(
+            mode="lazy", bucket_elems=65536, wire_dtype="float32",
+            use_kernels=True),
+        optimizer=base.OptimizerConfig(learning_rate=0.1, warmup_steps=1,
+                                       total_steps=8, schedule="constant"))
+    gen = torch.Generator().manual_seed(7)
+    steps = [registry.make_batch(cfg.model, ShapeConfig(seq_len=32), 4, gen)
+             for _ in range(4)]
+    batches = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+    trainer = Trainer(cfg, device=dev)
+    window = trainer.build_train_window(4)
+    state, m = window(trainer.init_state(seed=0), batches)
+    assert window.stats["captures"] == 1
+    eager = Trainer(cfg, device=dev)
+    ref = eager.init_state(seed=0)
+    step = eager.build_train_step()
+    ref_losses = []
+    for b in steps:
+        ref, r = step(ref, b)
+        ref_losses.append(float(r["loss"]))
+    assert m["loss"].tolist() == ref_losses
+    for a, b in zip(trainer.pool.flat_leaves(state.params)
+                    + [state.opt.momentum],
+                    eager.pool.flat_leaves(ref.params) + [ref.opt.momentum]):
+        assert torch.equal(a, b)
+    window.release()
