@@ -299,6 +299,28 @@
        bit-identical). grok-1-314b is not run at its published widths:
        one layer with its 8 experts holds 6.53 G parameters (~97 GiB of
        state).
+   The ssm and hybrid families, in a new world-size-1 NCCL group (as the
+   families above), after Mamba-1's and Mamba-2's layers in bf16 on the
+   card against their CPU run at the smoke widths on two 128-position
+   chunks (the output and every gradient within 2^-5 of the largest
+   |value|) and the two cores alone at (ag)'s and (ah)'s widths (the
+   selective scan and the SSD, forward and forward + backward ms against
+   their bounds):
+   (ag) falcon-mamba-7b at its published widths (d_model 4096, d_inner
+       8192, d_state 16, dt_rank 256, vocab 65024, untied head), cut to 4
+       layers (953,929,728 parameters), 2 x 4096 tokens in 2
+       microbatches, remat per layer: step ms, tokens/s, peak memory, the
+       model and executed FLOP shares (the scan counts none) and the
+       profiled step's device time by kernel class and idle share;
+   (ah) zamba2-2.7b whole (54 Mamba-2 layers in 9 groups of 6, the shared
+       attention block after each group; 2,422,670,240 parameters), 2 x
+       4096 in 2 microbatches, full attention, the same numbers;
+   (ai) falcon-mamba-smoke and zamba2-smoke through the CLI, lazy (2
+       steps) and CSC ((aa)'s settings, 3 steps), on 256 positions, then
+       3 steps on one repeated batch: finite losses that fall, no
+       restart, the census and the gather launched in CSC; zamba2-smoke
+       lazy in a graphed window of 4 against 4 eager steps (the eager
+       bits; the nested remat and the shared block inside the graph).
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -307,7 +329,8 @@
 
 Prints one JSON line per kernel, one for the NaN words, one for the
 optimizer ops, one for the quantized ring, the MoE layer's card-against-
-CPU line, one per train run (the long sequences' and the families' runs
+CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
+timings' line, one per train run (the long sequences' and the families' runs
 too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
@@ -2590,44 +2613,86 @@ def step_flops(cfg, pool) -> dict:
     per position) and the attention over the whole masked grid in the
     forward, the remat forward and the backward (16 S h hd a token a
     layer). The embedding counts once, as the head's matmul (tied or
-    not: the input lookup is no product)."""
-    from repro_torch.models.layers import moe
+    not: the input lookup is no product).
+
+    ssm (Mamba-1): the ``layers/`` leaves as weights and no attention;
+    the selective scan counts no FLOPs, being elementwise (no product of
+    two matrices). hybrid (Mamba-2 and the shared block): the
+    ``mamba_layers/`` leaves once a position, the ``shared_attn/`` leaves
+    once a position per application (``groups``), attention in
+    ``groups`` layers, and the SSD's products a layer, in chunks of Q =
+    min(SCAN_CHUNK, S): C·B^T (2 Q d_state a position) and the
+    (Q x Q)-weighted sum of x (2 Q d_inner) over the causal half under
+    ``model`` and the whole masked grid under ``executed``, and the
+    state's two products (C·h and the x ⊗ B update, 4 d_inner d_state)
+    in both. The hybrid's nested remat runs each Mamba-2 block's forward
+    three times (the forward, its group's recompute, its own), so
+    ``executed`` counts 10 per backbone weight and 5 forwards of the SSD
+    (the shared block's weights and attention: 8 and 16, as a layer's).
+    """
+    from repro_torch.models.layers import mamba, mamba2, moe
     m = cfg.model
     vision = m.num_vision_tokens if m.family == "vlm" else 0
     seq = cfg.seq_len + vision
     rows = cfg.global_batch * seq            # positions through the layers
     text = cfg.global_batch * cfg.seq_len    # positions through the head
-    layers = sum(s.size for s in pool.specs if s.name.startswith("layers/"))
-    # The stacked experts are the 4-D (L, E, ., .) leaves of the FFN.
-    experts = sum(s.size for s in pool.specs
-                  if s.name.startswith("layers/ffn/") and len(s.shape) == 4)
-    dense = layers - experts
     codebooks = m.num_codebooks \
         if m.family == "audio" and m.num_codebooks > 1 else 1
     head = codebooks * m.vocab_size * m.d_model
-    attn = seq * m.num_heads * m.resolved_head_dim * m.num_layers
-    active = slots = 0
-    if m.moe is not None:
-        per_expert = experts / m.moe.num_experts
-        active = rows * m.moe.top_k * per_expert
-        slots = cfg.microbatches * m.moe.num_experts * moe.capacity(
-            m, rows // cfg.microbatches) * per_expert
-    weights_model = rows * dense + active
-    weights_run = rows * dense + slots
-    return dict(model=float(6 * weights_model + 6 * text * head
-                            + 6 * rows * attn),
-                executed=float(8 * weights_run + 6 * text * head
-                               + 16 * rows * attn))
+
+    def leaves(prefix, ndim=None):
+        return sum(s.size for s in pool.specs if s.name.startswith(prefix)
+                   and (ndim is None or len(s.shape) == ndim))
+
+    ssd_model = ssd_run = 0
+    if m.family == "ssm":
+        weights = rows * leaves("layers/")
+        weights_model, weights_run, attn = 6 * weights, 8 * weights, 0
+    elif m.family == "hybrid":
+        groups = m.num_layers // m.hybrid_attn_every
+        backbone = rows * leaves("mamba_layers/")
+        shared = rows * groups * leaves("shared_attn/")
+        weights_model = 6 * (backbone + shared)
+        weights_run = 10 * backbone + 8 * shared
+        attn = seq * m.num_heads * m.resolved_head_dim * groups
+        d_inner, _, _, d_state, _ = mamba2.dims(m)
+        q = min(mamba.SCAN_CHUNK, seq)
+        state = 4 * d_inner * d_state
+        ssd_model = 3 * rows * m.num_layers * (q * (d_state + d_inner)
+                                               + state)
+        ssd_run = 5 * rows * m.num_layers * (2 * q * (d_state + d_inner)
+                                             + state)
+    else:
+        # The stacked experts are the 4-D (L, E, ., .) leaves of the FFN.
+        experts = leaves("layers/ffn/", 4)
+        dense = leaves("layers/") - experts
+        attn = seq * m.num_heads * m.resolved_head_dim * m.num_layers
+        active = slots = 0
+        if m.moe is not None:
+            per_expert = experts / m.moe.num_experts
+            active = rows * m.moe.top_k * per_expert
+            slots = cfg.microbatches * m.moe.num_experts * moe.capacity(
+                m, rows // cfg.microbatches) * per_expert
+        weights_model = 6 * (rows * dense + active)
+        weights_run = 8 * (rows * dense + slots)
+    return dict(model=float(weights_model + 6 * text * head
+                            + 6 * rows * attn + ssd_model),
+                executed=float(weights_run + 6 * text * head
+                               + 16 * rows * attn + ssd_run))
 
 
 FLOPS_NOTE = ("model: 6 per matmul weight per token (MoE: the router and "
               "top_k of the experts; the head over the text positions, "
-              "one a codebook), attention's QK^T and PV over the causal "
-              "half x3 (forward, backward), no remat; executed: the "
-              "experts over every microbatch's E x cap slots, the remat "
-              "forward (2 per layer weight) and attention over the whole "
-              "masked grid x4 (forward, remat, backward); shares against "
-              "989 TFLOP/s dense bf16")
+              "one a codebook; hybrid: the shared block once an "
+              "application), attention's QK^T and PV over the causal "
+              "half x3 (forward, backward), the SSD's in-chunk products "
+              "over the causal half and its state products x3, Mamba-1's "
+              "elementwise scan none, no remat; executed: the experts "
+              "over every microbatch's E x cap slots, the remat forward "
+              "(2 per layer weight; the hybrid's nested remat 4 per "
+              "backbone weight), attention over the whole masked grid x4 "
+              "(forward, remat, backward), the SSD over the whole masked "
+              "grid x5; shares against 989 TFLOP/s dense bf16")
 
 
 def olmo_pool_kernel_parts(torch, pool_mod, kpack, kunpack, shapes, dev,
@@ -2870,21 +2935,24 @@ def attention_phase(torch, dev):
 
 def model_run(torch, dist, ops, train_mod, synthetic, label, argv,
               microbatches, cut=None, batch_fn=None, moe_split=False):
-    """(y), (aa) and (ac)-(ae): a model through ``train.build`` with
-    ``microbatches`` on the TrainConfig (and the ModelConfig fields in
-    ``cut`` replaced: ``num_layers``, or ``num_experts`` of its
-    MoEConfig), in the NCCL group: the steps of ``--steps`` on one
-    repeated batch (the synthetic stream's first, or ``batch_fn(cfg)``),
-    each timed (host clock from a sync to a sync), then one more step
-    under ``torch.profiler``. Finite losses that fall; every attention
-    call blockwise beyond ``--attn-chunk``, else full (the layers'
-    forwards and their remat recompute, each microbatch); the pool
+    """(y), (aa), (ac)-(ae), (ag) and (ah): a model through
+    ``train.build`` with ``microbatches`` on the TrainConfig (and the
+    ModelConfig fields in ``cut`` replaced: ``num_layers``, or
+    ``num_experts`` of its MoEConfig), in the NCCL group: the steps of
+    ``--steps`` on one repeated batch (the synthetic stream's first, or
+    ``batch_fn(cfg)``), each timed (host clock from a sync to a sync),
+    then one more step under ``torch.profiler``. Finite losses that
+    fall; every attention call blockwise beyond ``--attn-chunk``, else
+    full (the layers' forwards and their remat recompute, each
+    microbatch); the pool
     kernels' and the all-reduces' counts the step plan's; step ms (median
     after the first), tokens/s, peak memory, the first step's seconds,
     and the model and executed FLOP shares of the dense bf16 peak
     (``step_flops``). ``moe_split``: the profiled step also splits the
     device's time into the MoE layer's parts (``moe_parts``) and counts
-    the slots each expert got and the share dropped."""
+    the slots each expert got and the share dropped. The attention calls
+    are the attention layers' (none for ssm; the hybrid's shared block
+    once a group)."""
     import dataclasses
     from repro_torch.launch.trainer import Trainer
     from repro_torch.models.layers import attention
@@ -2970,8 +3038,11 @@ def model_run(torch, dist, ops, train_mod, synthetic, label, argv,
           f"{want}")
     check(coll.calls == want_coll, f"{label}: {coll.calls} all-reduces, "
           f"expected {want_coll}")
-    # Each microbatch: every layer's forward and its remat recompute.
-    calls = 2 * m.num_layers * microbatches * steps
+    # Each microbatch: every attention layer's forward and its remat
+    # recompute.
+    attn_layers = {"ssm": 0, "hybrid": m.num_layers // m.hybrid_attn_every
+                   }.get(m.family, m.num_layers)
+    calls = 2 * attn_layers * microbatches * steps
     want_attn = {"blockwise": calls if blockwise else 0,
                  "full": 0 if blockwise else calls}
     check(attn.calls == want_attn, f"{label}: attention calls "
@@ -3013,6 +3084,19 @@ def model_run(torch, dist, ops, train_mod, synthetic, label, argv,
         run.update(vision_tokens=m.num_vision_tokens)
     if m.family == "audio":
         run.update(codebooks=m.num_codebooks)
+    if m.ssm is not None:
+        from repro_torch.models.layers import mamba, mamba2
+        run.update(ssm=dataclasses.asdict(m.ssm),
+                   attention_layers=attn_layers)
+        if m.family == "ssm":
+            d_inner, dt_rank, _, _ = mamba.dims(m)
+            run.update(d_inner=d_inner, dt_rank=dt_rank,
+                       scan_chunk=mamba.SCAN_CHUNK)
+        else:
+            d_inner, heads, _, _, _ = mamba2.dims(m)
+            run.update(d_inner=d_inner, ssd_heads=heads,
+                       scan_chunk=mamba.SCAN_CHUNK,
+                       hybrid_attn_every=m.hybrid_attn_every)
     return run
 
 
@@ -3376,6 +3460,223 @@ def families_phase(torch, dist, ops, train_mod, synthetic, dev):
     finally:
         dist.destroy_process_group()
     return runs, layer
+
+
+# -- the ssm and hybrid families --------------------------------------------
+
+# (ag) falcon-mamba-7b at its published widths (d_model 4096, d_inner 8192,
+# d_state 16, dt_rank 256, d_conv 4, vocab 65024, untied head), cut to 4 of
+# its 64 layers (953,929,728 parameters; the whole model's 7.27 G hold
+# ~116 GB of state): 2 x 4096 tokens in 2 microbatches, remat per layer.
+MAMBA_ARGV = ["--arch", "falcon-mamba-7b", "--seq-len", str(OLMO_SEQ),
+              "--batch", str(WIDE_BATCH), "--gf-mode", "lazy",
+              "--use-kernels", "--window-steps", "1", "--log-every", "1",
+              "--steps", str(FAM_STEPS)]
+MAMBA_LAYERS, MAMBA_POOL = 4, 953_929_728
+# (ah) zamba2-2.7b whole (54 Mamba-2 layers in 9 groups of 6, d_model
+# 2560, d_inner 5120, 80 SSD heads of 64, d_state 64, the shared block's
+# 32 heads and d_ff 10240, vocab 32000; 2,422,670,240 parameters): 2 x
+# 4096 tokens in 2 microbatches, full attention in the shared block.
+ZAMBA_ARGV = ["--arch", "zamba2-2.7b", "--seq-len", str(OLMO_SEQ),
+              "--batch", str(WIDE_BATCH), "--gf-mode", "lazy",
+              "--use-kernels", "--window-steps", "1", "--log-every", "1",
+              "--steps", str(FAM_STEPS)]
+ZAMBA_POOL = 2_422_670_240
+# (ai): the smoke configurations through the CLI, lazy (2 steps) and CSC
+# ((aa)'s settings, 3 steps) on 256 positions (two 128-position chunks),
+# then 3 steps on one repeated batch each; zamba2-smoke lazy in a graphed
+# window of MB_K against MB_K eager steps.
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
+SSM_SMOKE_ARGV = ["--reduced", "--use-kernels", "--batch", "8", "--seq-len",
+                  "256", "--chunk-elems", "2048", "--bucket-elems", "65536",
+                  "--sparsity", "0.5", "--csc-warmup", "2", "--window-steps",
+                  "1", "--log-every", "1"]
+SSM_SMOKE_STEPS = {"lazy": 2, "csc": 3}
+SSM_REPEAT = 3
+ZAMBA_WINDOW_ARGV = ["--arch", "zamba2-2.7b", "--reduced", "--use-kernels",
+                     "--gf-mode", "lazy", "--batch", "8", "--seq-len", "256",
+                     "--window-steps", "1", "--log-every", "1", "--steps",
+                     str(MB_K)]
+# The two layers on the card against their CPU run, bf16, smoke widths,
+# 2 x 256 positions (two chunks): the output and every gradient within
+# SSM_TOL of the tensor's largest |value| (4 bf16 ulps at the top of the
+# range; the CPU tests hold the CPU run against JAX's within the same).
+SSM_TOL = 2.0 ** -5
+
+
+def ssm_layer_check(torch, dev) -> dict:
+    """``mamba.apply_train`` (falcon-mamba-smoke) and
+    ``mamba2.apply_train`` (zamba2-smoke) in bf16 on the card and on the
+    CPU, from the same weights, input and output gradient: the output
+    and the gradients of every parameter and of x within SSM_TOL."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.layers import mamba, mamba2
+
+    out = {}
+    for arch, mod in zip(SSM_ARCHS, (mamba, mamba2)):
+        cfg = get_smoke(arch)[0]
+        gen = torch.Generator().manual_seed(13)
+        params = {k: s.init(gen, s.shape) for k, s in mod.spec(cfg).items()}
+        x = torch.randn((2, 2 * mamba.SCAN_CHUNK, cfg.d_model),
+                        generator=gen)
+        ct = torch.randn(x.shape, generator=gen)
+        res = {}
+        for where in ("cpu", dev):
+            p = {k: v.to(where, torch.bfloat16).requires_grad_(True)
+                 for k, v in params.items()}
+            xt = x.to(where, torch.bfloat16).requires_grad_(True)
+            y = mod.apply_train(p, xt, cfg)
+            grads = torch.autograd.grad(y, list(p.values()) + [xt],
+                                        ct.to(where, torch.bfloat16))
+            res[str(where)] = [t.detach().float().cpu() for t in (y, *grads)]
+        errs = {}
+        for name, a, b in zip(["out", *params, "x"], res["cpu"],
+                              res[str(dev)]):
+            errs[name] = dict(max_abs_err=(b - a).abs().max().item(),
+                              max_abs=a.abs().max().item())
+        out[arch] = dict(layer=mod.__name__.rsplit(".", 1)[-1],
+                         dtype="bfloat16", shape=list(x.shape),
+                         chunks=x.shape[1] // mamba.SCAN_CHUNK, tol=SSM_TOL,
+                         tensors=errs)
+        bad = [n for n, e in errs.items()
+               if not e["max_abs_err"] <= SSM_TOL * e["max_abs"]]
+        check(not bad, f"the {arch} layer on the card != its CPU run in "
+              f"bf16 at {bad}: {errs}")
+    return out
+
+
+def ssm_core_times(torch, dev, rate) -> dict:
+    """The two state-space cores alone, in the port's PyTorch ops, on one
+    row of 4096 positions in chunks of 128: Mamba-1's selective scan
+    (``mamba._scan_chunk``, the chunk loop) at (ag)'s layer widths and
+    Mamba-2's SSD (``mamba2._ssd_chunk``) at (ah)'s, f32, forward and
+    forward + backward (CUDA events, median of REPS after WARMUP), against
+    the bound of the function: the inputs read once and the output
+    written once at the card's memory rate, or the operations the
+    recurrence needs (the scan: 7 an (position, channel, state); the SSD:
+    its products over the causal half, as ``step_flops``'s model count) at
+    67 TFLOP/s f32, whichever is longer; forward + backward: 3x the
+    operations and 2x the bytes. The SSD runs as ``apply_train`` runs it
+    (``mamba2._ssd_chunks``: every chunk's products at once)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import mamba, mamba2
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, f32 = OLMO_SEQ, torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    def timed(inputs, run, nbytes, flops):
+        grad_out = None
+
+        def fwd():
+            with torch.no_grad():
+                run()
+
+        def fwd_bwd():
+            nonlocal grad_out
+            y = run()
+            if grad_out is None:
+                grad_out = torch.randn_like(y)
+            torch.autograd.grad(y, inputs, grad_out)
+
+        fwd_bound, by = bound_ms(nbytes, flops, rate)
+        both_bound, both_by = bound_ms(2 * nbytes, 3 * flops, rate)
+        return dict(forward_ms=time_ms(torch, fwd), forward_bound_ms=fwd_bound,
+                    forward_bound_by=by,
+                    forward_backward_ms=time_ms(torch, fwd_bwd),
+                    forward_backward_bound_ms=both_bound,
+                    forward_backward_bound_by=both_by)
+
+    cfg = get_arch("falcon-mamba-7b")[0]
+    di, _, ds, _ = mamba.dims(cfg)
+    q = mamba.SCAN_CHUNK
+    x, b, c = randn(1, n, di), randn(1, n, ds), randn(1, n, ds)
+    delta = mamba.softplus(randn(1, n, di) - 4.6)
+    a = -torch.arange(1, ds + 1, device=dev, dtype=f32).expand(di, ds)
+    scan_in = [t.requires_grad_(True) for t in (x, delta, b, c)]
+
+    def scan():
+        h, ys = torch.zeros((1, di, ds), device=dev), []
+        for k in range(n // q):
+            s = slice(k * q, (k + 1) * q)
+            y, h = mamba._scan_chunk(x[:, s], delta[:, s], b[:, s], c[:, s],
+                                     a, h)
+            ys.append(y)
+        return torch.cat(ys, dim=1)
+
+    out = {"selective_scan": dict(
+        shape=dict(batch=1, positions=n, chunk=q, d_inner=di, d_state=ds),
+        **timed(scan_in, scan, 4 * (3 * n * di + 2 * n * ds + di * ds),
+                7 * n * di * ds))}
+
+    cfg = get_arch("zamba2-2.7b")[0]
+    di, h, hd, ds, _ = mamba2.dims(cfg)
+    xh, b, c = randn(1, n // q, q, h, hd), randn(1, n // q, q, ds), \
+        randn(1, n // q, q, ds)
+    loga = -mamba.softplus(randn(1, n // q, q, h) - 4.6)
+    ssd_in = [t.requires_grad_(True) for t in (xh, b, c, loga)]
+
+    def ssd():
+        return mamba2._ssd_chunks(xh, b, c, loga)
+
+    out["ssd"] = dict(
+        shape=dict(batch=1, positions=n, chunk=q, heads=h, head_dim=hd,
+                   d_state=ds),
+        **timed(ssd_in, ssd, 4 * (2 * n * di + 2 * n * ds + n * h),
+                n * (q * (ds + di) + 4 * di * ds)))
+    return out
+
+
+def ssm_phase(torch, dist, ops, train_mod, synthetic, dev, rate):
+    """(ag)-(ai) in a new world-size-1 NCCL group, after the two layers'
+    card-against-CPU check and the cores' timings. Returns (runs, the
+    check's findings, the timings)."""
+    from repro_torch.configs import get_smoke
+
+    layer = ssm_layer_check(torch, dev)
+    cores = ssm_core_times(torch, dev, rate)
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    runs = {}
+    try:
+        run = model_run(torch, dist, ops, train_mod, synthetic,
+                        "(ag) falcon-mamba-7b, 4 layers, 2 x 4096",
+                        MAMBA_ARGV, WIDE_MICROBATCHES,
+                        cut={"num_layers": MAMBA_LAYERS})
+        check(run["pool_elems"] == MAMBA_POOL, f"(ag): pool "
+              f"{run['pool_elems']}")
+        runs["falcon_mamba_7b_4_layers_lazy_4k_microbatches"] = run
+        run = model_run(torch, dist, ops, train_mod, synthetic,
+                        "(ah) zamba2-2.7b, 2 x 4096", ZAMBA_ARGV,
+                        WIDE_MICROBATCHES)
+        check(run["pool_elems"] == ZAMBA_POOL and not run["reduced"],
+              f"(ah): pool {run['pool_elems']}, cut {run['reduced']}")
+        runs["zamba2_2_7b_lazy_4k_microbatches"] = run
+        for arch in SSM_ARCHS:
+            name = get_smoke(arch)[0].name
+            for mode, steps in SSM_SMOKE_STEPS.items():
+                run = train_run(torch, ops, train_mod, synthetic,
+                                f"(ai) {name}, {mode}, CLI",
+                                ["--arch", arch, "--gf-mode", mode, "--steps",
+                                 str(steps)] + SSM_SMOKE_ARGV, steps,
+                                repeat=SSM_REPEAT)
+                got = run["dispatch_counts"]
+                check(mode != "csc" or (got.get("chunk_l1norm.kernel", 0) > 0
+                                        and got.get("csc_compact.kernel", 0)
+                                        > 0),
+                      f"(ai) {arch}: CSC kernels {got}")
+                run.update(arch=arch, config="SMOKE", through="CLI")
+                runs[f"{arch}_smoke_{mode}"] = run
+        runs["zamba2_smoke_lazy_window"] = microbatch_window_run(
+            torch, ops, train_mod, synthetic,
+            "(ai) zamba2-smoke lazy, window", ZAMBA_WINDOW_ARGV,
+            microbatches=1)
+    finally:
+        dist.destroy_process_group()
+    return runs, layer, cores
 
 
 # -- checkpoints, restarts, resume, elastic ---------------------------------
@@ -4710,6 +5011,14 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(moe_layer_card_vs_cpu=moe_layer, gpu=name,
                           power_limit=power)), flush=True)
     long_runs.update(family_runs)
+    ssm_runs, ssm_layers, ssm_cores = ssm_phase(
+        torch, dist, ops, train_mod, synthetic, dev, rate)
+    phase_seconds("ssm and hybrid (ag)-(ai)")
+    print(json.dumps(dict(ssm_layers_card_vs_cpu=ssm_layers, gpu=name,
+                          power_limit=power)), flush=True)
+    print(json.dumps(dict(ssm_cores=ssm_cores, gpu=name,
+                          power_limit=power)), flush=True)
+    long_runs.update(ssm_runs)
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})

@@ -3,17 +3,17 @@ from __future__ import annotations
 
 from typing import Tuple
 
-from repro_torch.configs import (arctic_480b, grok1_314b, internvl2_26b,
-                                 musicgen_large, olmo_1b, qwen3_32b,
-                                 smollm_135m, stablelm_12b)
+from repro_torch.configs import (arctic_480b, falcon_mamba_7b, grok1_314b,
+                                 internvl2_26b, musicgen_large, olmo_1b,
+                                 qwen3_32b, smollm_135m, stablelm_12b,
+                                 zamba2_27b)
 from repro_torch.configs.base import (GradientFlowConfig, MeshConfig,
                                       ModelConfig, MoEConfig,
-                                      OptimizerConfig, ShapeConfig,
-                                      TrainConfig)
+                                      OptimizerConfig, SSMConfig,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.configs.shapes import SHAPES, shapes_for
 
-# The JAX package's registry order, for the architectures ported
-# (falcon-mamba-7b and zamba2-2.7b, the ssm and hybrid families, are not).
+# The JAX package's registry order.
 _MODULES = {
     "musicgen-large": musicgen_large,
     "grok-1-314b": grok1_314b,
@@ -23,6 +23,8 @@ _MODULES = {
     "stablelm-12b": stablelm_12b,
     "olmo-1b": olmo_1b,
     "smollm-135m": smollm_135m,
+    "falcon-mamba-7b": falcon_mamba_7b,
+    "zamba2-2.7b": zamba2_27b,
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -33,8 +35,8 @@ def _module(arch_id: str):
         return _MODULES[arch_id]
     except KeyError:
         raise KeyError(
-            f"architecture {arch_id!r} is not ported to repro_torch yet "
-            f"(ported: {sorted(_MODULES)}); see ROADMAP.md queue A") from None
+            f"unknown architecture {arch_id!r} (known: {sorted(_MODULES)}); "
+            f"see ROADMAP.md queue A") from None
 
 
 def get_arch(arch_id: str) -> Tuple[ModelConfig, None]:
@@ -48,5 +50,6 @@ def get_smoke(arch_id: str) -> Tuple[ModelConfig, None]:
 
 
 __all__ = ["ARCH_IDS", "GradientFlowConfig", "MeshConfig", "ModelConfig",
-           "MoEConfig", "OptimizerConfig", "SHAPES", "ShapeConfig",
-           "TrainConfig", "get_arch", "get_smoke", "shapes_for"]
+           "MoEConfig", "OptimizerConfig", "SHAPES", "SSMConfig",
+           "ShapeConfig", "TrainConfig", "get_arch", "get_smoke",
+           "shapes_for"]

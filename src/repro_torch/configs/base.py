@@ -29,14 +29,30 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """State-space (Mamba) block settings."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    # mamba2 uses multi-head SSD with scalar A per head.
+    version: int = 1
+    n_heads: int = 0  # mamba2 only; 0 => derived as d_inner // head_dim
+    head_dim: int = 64  # mamba2 only
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture config. The port builds the families on
-    ``TransformerLM``: 'dense', 'moe' (MoE FFN blocks, ``moe``), 'vlm'
-    (``num_vision_tokens`` precomputed patch embeddings prepended) and
-    'audio' (``num_codebooks`` codec token streams); ``norm`` 'rmsnorm',
-    'layernorm' or 'nonparametric_ln', ``activation`` 'swiglu', 'geglu'
-    or 'gelu', with or without ``qk_norm``. 'ssm' and 'hybrid' are not
-    ported."""
+    """Architecture config. ``family`` selects the model
+    (``models.build_model``): on ``TransformerLM`` 'dense', 'moe' (MoE FFN
+    blocks, ``moe``), 'vlm' (``num_vision_tokens`` precomputed patch
+    embeddings prepended) and 'audio' (``num_codebooks`` codec token
+    streams); 'ssm', the attention-free Mamba-1 LM (``MambaLM``), and
+    'hybrid', a Mamba-2 backbone with one shared attention block applied
+    every ``hybrid_attn_every`` blocks (``HybridLM``), both set by
+    ``ssm``. ``norm`` 'rmsnorm', 'layernorm' or 'nonparametric_ln',
+    ``activation`` 'swiglu', 'geglu' or 'gelu', with or without
+    ``qk_norm``."""
 
     name: str = "model"
     family: str = "dense"
@@ -54,7 +70,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     hybrid_attn_every: int = 6
     num_vision_tokens: int = 0
     num_codebooks: int = 0

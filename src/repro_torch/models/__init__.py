@@ -1,4 +1,6 @@
+from repro_torch.models.hybrid_lm import HybridLM
 from repro_torch.models.registry import build_model
+from repro_torch.models.ssm_lm import MambaLM
 from repro_torch.models.transformer import TransformerLM
 
-__all__ = ["TransformerLM", "build_model"]
+__all__ = ["HybridLM", "MambaLM", "TransformerLM", "build_model"]

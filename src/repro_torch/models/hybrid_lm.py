@@ -1,0 +1,108 @@
+"""Zamba2-style hybrid LM (the hybrid family), the training path: a
+Mamba-2 backbone and one *shared* attention block (attention + MLP, one
+set of weights) applied after every ``hybrid_attn_every`` Mamba-2 blocks.
+Its gradient sums over its ``groups`` applications, and the gradient pool
+holds it once.
+
+The ``num_layers`` Mamba-2 blocks are stacked (groups, every, ...), the
+JAX package's two-level layout. With ``remat='layer'`` each Mamba-2
+block is checkpointed, and so is each group around them (the shared
+block included), as JAX nests its ``jax.checkpoint``s: a block's forward
+runs three times a step (the forward, the group's recompute, its own).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import params as params_mod
+from repro_torch.models.layers import attention, embedding, mamba2, mlp, norms
+from repro_torch.models.transformer import (LanguageModel, checkpointed,
+                                            unstack, xent)
+
+
+def mamba_block_spec(cfg) -> Dict[str, Any]:
+    return {"norm": norms.spec(cfg), "mixer": mamba2.spec(cfg)}
+
+
+def shared_block_spec(cfg) -> Dict[str, Any]:
+    return {
+        "attn_norm": norms.spec(cfg),
+        "attn": attention.spec(cfg),
+        "mlp_norm": norms.spec(cfg),
+        "mlp": mlp.spec(cfg),
+    }
+
+
+class HybridLM(LanguageModel):
+    def __init__(self, cfg):
+        if cfg.family != "hybrid" or cfg.ssm is None:
+            raise ValueError(f"HybridLM needs family 'hybrid' and an "
+                             f"SSMConfig, got {cfg.family!r}, {cfg.ssm}")
+        every = cfg.hybrid_attn_every
+        if cfg.num_layers % every:
+            raise ValueError(f"num_layers {cfg.num_layers} is not a "
+                             f"multiple of hybrid_attn_every {every}")
+        self.cfg = cfg
+        self.groups = cfg.num_layers // every
+        self.every = every
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        inner = params_mod.stack_spec(mamba_block_spec(cfg), self.every)
+        p: Dict[str, Any] = {
+            "embed": embedding.spec(cfg),
+            "mamba_layers": params_mod.stack_spec(inner, self.groups),
+            "shared_attn": shared_block_spec(cfg),
+            "final_norm": norms.spec(cfg),
+        }
+        if not cfg.tie_embeddings:
+            p["head"] = embedding.head_spec(cfg)
+        return p
+
+    def _shared_attn_apply(self, shared: Dict[str, Any], x: torch.Tensor,
+                           attn_chunk: int, causal_skip: bool
+                           ) -> torch.Tensor:
+        cfg = self.cfg
+        h = norms.apply(shared["attn_norm"], x, cfg.norm)
+        x = x + attention.apply_train(shared["attn"], h, cfg,
+                                      attn_chunk=attn_chunk,
+                                      causal_skip=causal_skip)
+        h = norms.apply(shared["mlp_norm"], x, cfg.norm)
+        return x + mlp.apply(shared["mlp"], h, cfg)
+
+    def loss_fn(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                *, remat: str = "layer", attn_chunk: int = 0,
+                causal_skip: bool = False,
+                compute_dtype: torch.dtype = torch.bfloat16,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {'tokens', 'labels'} (B, S) int; ``attn_chunk`` and
+        ``causal_skip`` reach the shared block's attention. Returns
+        (loss, {'loss', 'aux_loss': 0})."""
+        cfg = self.cfg
+        x = embedding.embed(params["embed"], batch["tokens"], cfg,
+                            compute_dtype)
+        shared = params["shared_attn"]
+        remat_on = remat == "layer"
+
+        def mamba_block(lp, h):
+            return h + mamba2.apply_train(
+                lp["mixer"], norms.apply(lp["norm"], h, cfg.norm), cfg)
+
+        def group(blocks, h):
+            for lp in blocks:
+                h = checkpointed(lambda hh, lp=lp: mamba_block(lp, hh), h) \
+                    if remat_on else mamba_block(lp, h)
+            return self._shared_attn_apply(shared, h, attn_chunk,
+                                           causal_skip)
+
+        for gp in unstack(params["mamba_layers"], self.groups):
+            blocks = unstack(gp, self.every)
+            x = checkpointed(lambda h, b=blocks: group(b, h), x) \
+                if remat_on else group(blocks, x)
+        x = norms.apply(params["final_norm"], x, cfg.norm)
+        lg = embedding.logits(self._head_params(params), x, cfg)
+        loss = xent(lg, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss, "aux_loss": torch.zeros(
+            (), dtype=torch.float32, device=loss.device)}

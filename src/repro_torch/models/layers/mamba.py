@@ -1,0 +1,144 @@
+"""Mamba-1 selective-state-space block (falcon-mamba), the training path.
+
+An outer loop over sequence chunks of ``scan_chunk`` positions carries
+the (B, d_inner, d_state) f32 recurrent state from chunk to chunk, as
+the JAX package's ``lax.scan`` does. Inside a chunk a doubling
+(Hillis-Steele) scan computes the recurrence h_t = a_t h_{t-1} + u_t in
+log2(chunk) levels of whole-tensor products; JAX's
+``lax.associative_scan`` associates the same sums otherwise, so the two
+differ by about one f32 rounding a level. Chunking bounds the
+materialised (B, chunk, d_inner, d_state) tensors; under autograd each
+chunk keeps its levels for the backward pass, as JAX's scan keeps its
+residuals. What does not depend on the state (the conv, whose window the
+JAX scan carries across chunk edges, and the Δ/B/C projections) runs
+over the whole sequence before the loop: the same values, a chunk's
+launches fewer.
+
+The scan is elementwise work (no matmul): the JAX package writes it in
+``jnp`` and ``lax``, with no Pallas kernel, and the port in PyTorch ops.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import (ParamSpec, fan_in_init, full_init,
+                                       normal_init, ones_init, zeros_init)
+
+
+# Positions a chunk of the training paths' outer loops (Mamba-1's and
+# Mamba-2's).
+SCAN_CHUNK = 128
+
+
+def dims(cfg) -> Tuple[int, int, int, int]:
+    """(d_inner, dt_rank, d_state, d_conv)."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    dt_rank = -(-cfg.d_model // 16)
+    return d_inner, dt_rank, cfg.ssm.d_state, cfg.ssm.d_conv
+
+
+def _a_log_init(gen, shape):
+    """S4D-real init: A = -[1..d_state] per channel, stored as log(-A).
+    The logarithm is taken in f64 and rounded once to f32."""
+    d_inner, d_state = shape
+    a = torch.arange(1, d_state + 1, dtype=torch.float64, device=gen.device)
+    return torch.log(a).float()[None, :].expand(d_inner, d_state).clone()
+
+
+def spec(cfg) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    d_inner, dt_rank, d_state, d_conv = dims(cfg)
+    return {
+        "in_proj": ParamSpec((d, 2 * d_inner), fan_in_init(0)),
+        "conv_w": ParamSpec((d_conv, d_inner), normal_init(0.02)),
+        "conv_b": ParamSpec((d_inner,), zeros_init),
+        "x_proj": ParamSpec((d_inner, dt_rank + 2 * d_state),
+                            fan_in_init(0)),
+        "dt_proj": ParamSpec((dt_rank, d_inner),
+                             normal_init(1.0 / math.sqrt(16))),
+        "dt_bias": ParamSpec((d_inner,), full_init(-4.6)),
+        "A_log": ParamSpec((d_inner, d_state), _a_log_init),
+        "D": ParamSpec((d_inner,), ones_init),
+        "out_proj": ParamSpec((d_inner, d), fan_in_init(0)),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d from zeros before the sequence. x: (B, L,
+    C); w: (K, C). The K taps are added one at a time into a zero tensor
+    of x's dtype, then the bias: one rounding a tap in bf16, JAX's order
+    (not ``F.conv1d``'s f32 sum)."""
+    k, n = w.shape[0], x.shape[1]
+    xp = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2])), x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + n, :] * w[i]
+    return out + b
+
+
+def _ssm_params(params: Dict[str, torch.Tensor], xz: torch.Tensor, cfg
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The input-dependent half: Δ (f32, softplus of the bias-shifted
+    projection computed in the input dtype), B and C (f32)."""
+    _, dt_rank, d_state, _ = dims(cfg)
+    dbc = xz @ params["x_proj"]
+    dt = dbc[..., :dt_rank] @ params["dt_proj"] + params["dt_bias"]
+    delta = softplus(dt.float())
+    b_mat = dbc[..., dt_rank:dt_rank + d_state].float()
+    c_mat = dbc[..., dt_rank + d_state:].float()
+    return delta, b_mat, c_mat
+
+
+def _scan_chunk(x_f32: torch.Tensor, delta: torch.Tensor,
+                b_mat: torch.Tensor, c_mat: torch.Tensor, a: torch.Tensor,
+                h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk. x_f32, delta: (B, Q, di); b, c: (B, Q, ds); a: (di, ds);
+    h0: (B, di, ds). Returns y (B, Q, di) and the last state."""
+    a_bar = torch.exp(delta[..., None] * a)                 # (B,Q,di,ds)
+    u = (delta * x_f32)[..., None] * b_mat[:, :, None, :]   # (B,Q,di,ds)
+    # Fold the incoming state into the first step: h_1 = A_1 h0 + Bx_1.
+    u[:, 0] += a_bar[:, 0] * h0
+    q, k = u.shape[1], 1
+    while k < q:
+        # Step t absorbs step t-k: (a_{t-k} a_t, a_t u_{t-k} + u_t).
+        u = torch.cat([u[:, :k], a_bar[:, k:] * u[:, :-k] + u[:, k:]], dim=1)
+        if 2 * k < q:
+            a_bar = torch.cat([a_bar[:, :k], a_bar[:, k:] * a_bar[:, :-k]],
+                              dim=1)
+        k *= 2
+    y = torch.sum(u * c_mat[:, :, None, :], dim=-1)
+    return y, u[:, -1]
+
+
+def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
+                scan_chunk: int = SCAN_CHUNK) -> torch.Tensor:
+    """x: (B, L, D) -> (B, L, D), in x's dtype; the scan in f32."""
+    b, n, _ = x.shape
+    d_inner, _, d_state, _ = dims(cfg)
+    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    q = min(scan_chunk, n)
+    assert n % q == 0, (n, q)
+    x_act = F.silu(_causal_conv(xs, params["conv_w"], params["conv_b"]))
+    delta, b_mat, c_mat = _ssm_params(params, x_act, cfg)
+    xf = x_act.float()
+    a = -torch.exp(params["A_log"].float())
+    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c in range(n // q):
+        s = slice(c * q, (c + 1) * q)
+        y, h = _scan_chunk(xf[:, s], delta[:, s], b_mat[:, s], c_mat[:, s],
+                           a, h)
+        ys.append(y)
+    y = torch.cat(ys, dim=1) + params["D"].float() * xf
+    return (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]

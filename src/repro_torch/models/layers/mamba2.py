@@ -1,0 +1,135 @@
+"""Mamba-2 (SSD) block, zamba2's backbone mixer: the training path.
+
+The chunked SSD matmul form (Mamba-2 paper §6): inside a chunk of Q
+steps the recurrence becomes a masked (Q, Q) product a head, like
+attention, and a (B, H, head_dim, d_state) f32 state carries from chunk
+to chunk. No per-step (B, L, H, hd, ds) outer products are materialised.
+JAX's ``lax.scan`` runs the whole chunk body (``_ssd_chunk``) a chunk;
+the port computes every chunk's products at once and loops over the
+chunks only for the state's two-op carry: the same formulas in a layer's
+launches instead of a chunk's (eager PyTorch pays the host for each
+launch; XLA compiles the body once).
+
+The JAX package writes the block in ``jnp`` and ``lax``, with no Pallas
+kernel; the port writes it in PyTorch ops.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers.mamba import (SCAN_CHUNK, _causal_conv,
+                                             softplus)
+from repro_torch.models.params import (ParamSpec, fan_in_init, full_init,
+                                       normal_init, ones_init, zeros_init)
+
+
+def dims(cfg) -> Tuple[int, int, int, int, int]:
+    """(d_inner, n_heads, head_dim, d_state, d_conv)."""
+    d_inner = cfg.ssm.expand * cfg.d_model
+    hd = cfg.ssm.head_dim
+    n_heads = cfg.ssm.n_heads or d_inner // hd
+    return d_inner, n_heads, hd, cfg.ssm.d_state, cfg.ssm.d_conv
+
+
+def _a_log_init(gen, shape):
+    """log(A) for A evenly spaced over [1, 16], one a head, in f64 and
+    rounded once to f32."""
+    a = torch.linspace(1.0, 16.0, shape[0], dtype=torch.float64,
+                       device=gen.device)
+    return torch.log(a).float()
+
+
+def spec(cfg) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    d_inner, h, _, ds, dc = dims(cfg)
+    conv_ch = d_inner + 2 * ds  # x, B and C all pass the causal conv
+    return {
+        # order: [z (d_inner), x (d_inner), B (ds), C (ds), dt (h)]
+        "in_proj": ParamSpec((d, 2 * d_inner + 2 * ds + h), fan_in_init(0)),
+        "conv_w": ParamSpec((dc, conv_ch), normal_init(0.02)),
+        "conv_b": ParamSpec((conv_ch,), zeros_init),
+        "A_log": ParamSpec((h,), _a_log_init),
+        "D": ParamSpec((h,), ones_init),
+        "dt_bias": ParamSpec((h,), full_init(-4.6)),
+        "norm_scale": ParamSpec((d_inner,), ones_init),
+        "out_proj": ParamSpec((d_inner, d), fan_in_init(0)),
+    }
+
+
+def _split_proj(proj: torch.Tensor, cfg):
+    """(z, x, B, C, dt) of the input projection, in that order."""
+    d_inner, h, _, ds, _ = dims(cfg)
+    return torch.split(proj, [d_inner, d_inner, ds, ds, h], dim=-1)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm before out_proj, in f32."""
+    yf = y.float() * F.silu(z.float())
+    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    return yf * torch.rsqrt(var + eps) * scale.float()
+
+
+def _ssd_chunks(xh: torch.Tensor, bq: torch.Tensor, cq: torch.Tensor,
+                loga: torch.Tensor) -> torch.Tensor:
+    """The SSD over N chunks of Q steps (matmul form), from a zero state.
+
+    xh:   (B, N, Q, H, hd)  Δ-scaled inputs, f32
+    bq:   (B, N, Q, ds)     input projections (shared by the heads)
+    cq:   (B, N, Q, ds)     output projections
+    loga: (B, N, Q, H)      per-step log decay (Δ·(−exp(A_log)); ≤ 0)
+    Returns y (B, N, Q, H, hd).
+
+    Chunk by chunk the formulas of JAX's ``_ssd_chunk``: the intra-chunk
+    products, the incoming state's contribution, and the state update
+    h_out = exp(ℓ_Q) h0 + Σ_s exp(ℓ_Q−ℓ_s) xh_s ⊗ B_s. The mask is
+    applied after ``exp``, as in JAX: above the diagonal ``exp`` sees
+    ℓ_t − ℓ_s > 0, and a large Δ overflows it there, which gives NaN
+    gradients (0 · inf) in both packages.
+    """
+    q = xh.shape[2]
+    cum = torch.cumsum(loga, dim=2)                    # (B,N,Q,H) ℓ_t
+    # intra-chunk: y_t += Σ_{s<=t} exp(ℓ_t−ℓ_s)·(C_t·B_s)·xh_s
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,N,Qt,Qs,H)
+    causal = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    decay = torch.where(causal[:, :, None], torch.exp(rel), 0.0)
+    cb = torch.einsum("bntd,bnsd->bnts", cq, bq)       # (B,N,Qt,Qs)
+    y = torch.einsum("bntsh,bnshd->bnthd", cb[..., None] * decay, xh)
+    # each chunk's own contribution to the state it passes on
+    tail = cum[:, :, -1:, :]
+    local = torch.einsum("bnqh,bnqhp,bnqd->bnhpd", torch.exp(tail - cum),
+                         xh, bq)
+    carry = torch.exp(tail[:, :, 0])[..., None, None]  # (B,N,H,1,1)
+    h, h_in = torch.zeros_like(local[:, 0]), []
+    for c in range(local.shape[1]):
+        h_in.append(h)
+        h = h * carry[:, c] + local[:, c]
+    # inter-chunk: the incoming state's contribution
+    return y + torch.einsum("bntd,bnhpd,bnth->bnthp", cq,
+                            torch.stack(h_in, dim=1), torch.exp(cum))
+
+
+def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
+                scan_chunk: int = SCAN_CHUNK) -> torch.Tensor:
+    """x: (B, L, D) -> (B, L, D), in x's dtype; the SSD and the gated
+    norm in f32."""
+    b, n, _ = x.shape
+    d_inner, h, hd, ds, _ = dims(cfg)
+    z, xs, b_raw, c_raw, dt = _split_proj(x @ params["in_proj"], cfg)
+    q = min(scan_chunk, n)
+    assert n % q == 0, (n, q)
+    chunks = (b, n // q, q)
+    conv_out = F.silu(_causal_conv(torch.cat([xs, b_raw, c_raw], dim=-1),
+                                   params["conv_w"], params["conv_b"]))
+    xq = conv_out[..., :d_inner].reshape(*chunks, h, hd).float()
+    bq = conv_out[..., d_inner:d_inner + ds].reshape(*chunks, ds).float()
+    cq = conv_out[..., d_inner + ds:].reshape(*chunks, ds).float()
+    delta = softplus(dt.float() + params["dt_bias"]).reshape(*chunks, h)
+    a = -torch.exp(params["A_log"].float())            # (H,)
+    y = _ssd_chunks(xq * delta[..., None], bq, cq, delta * a)
+    y = y + params["D"].float()[:, None] * xq
+    y = _gated_norm(y.reshape(b, n, d_inner), z, params["norm_scale"])
+    return y.to(x.dtype) @ params["out_proj"]

@@ -35,6 +35,12 @@ def zeros_init(gen, shape):
     return torch.zeros(shape, device=gen.device)
 
 
+def full_init(value: float) -> Init:
+    def f(gen, shape):
+        return torch.full(shape, value, device=gen.device)
+    return f
+
+
 def fan_in_init(fan_axis: int = 0) -> Init:
     def f(gen, shape):
         fan_in = shape[fan_axis] if shape else 1

@@ -1,5 +1,6 @@
-"""Model registry: family -> model class, and the inputs of every
-(architecture x shape) cell.
+"""Model registry: family -> model class (``TransformerLM`` for dense,
+moe, vlm and audio; ``MambaLM`` for ssm; ``HybridLM`` for hybrid), and
+the inputs of every (architecture x shape) cell.
 
 ``input_specs`` returns (shape, dtype) pairs, nothing allocated;
 ``make_batch`` draws a matching synthetic batch from a
@@ -14,17 +15,23 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.transformer import FAMILIES, TransformerLM
+from repro_torch.models.hybrid_lm import HybridLM
+from repro_torch.models.ssm_lm import MambaLM
+from repro_torch.models.transformer import (FAMILIES, LanguageModel,
+                                            TransformerLM)
 
 Spec = Tuple[Tuple[int, ...], torch.dtype]
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM:
+def build_model(cfg: ModelConfig) -> LanguageModel:
     if cfg.family in FAMILIES:
         return TransformerLM(cfg)
+    if cfg.family == "ssm":
+        return MambaLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported to repro_torch yet; see "
-        "ROADMAP.md queue A")
+        f"unknown model family {cfg.family!r}; see ROADMAP.md queue A")
 
 
 def _token_shape(cfg: ModelConfig, batch: int, seq: int) -> Tuple[int, ...]:

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM: the dense, moe, vlm and audio families.
+"""Decoder-only transformer LM: the dense, moe, vlm and audio families,
+and what every family's LM shares (``LanguageModel``, ``xent``).
 RMSNorm, LayerNorm or the non-parametric LayerNorm (``cfg.norm``),
 SwiGLU, GeGLU or GELU, optional QK-norm, full or blockwise attention
 (``attn_chunk``, ``causal_skip``); MoE FFN blocks (``cfg.moe``) whose
@@ -15,7 +16,7 @@ layer loop indexes the stacks (``unbind``) and wraps each layer in
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -69,25 +70,35 @@ def _unbind(tree: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
+def unstack(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The n layers of a stacked tree. ``unbind`` splits each stack once,
+    so the backward pass stacks the per-layer gradients once instead of
+    scattering each layer into a zeroed full-size stack."""
+    per_layer = _unbind(tree)
+    return [_layer(per_layer, i) for i in range(n)]
+
+
+def checkpointed(fn, x: torch.Tensor):
+    """``fn(x)`` under a non-reentrant ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward pass. The models draw no
+    random numbers, so the recompute needs no saved RNG state (reading it
+    is not allowed in a CUDA graph)."""
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
              remat: str = "layer", attn_chunk: int = 0,
              causal_skip: bool = False
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run all layers: (hidden, the aux losses summed in layer order from
-    zero, or None without MoE). ``unbind`` splits each stack once, so the
-    backward pass stacks the per-layer gradients once instead of
-    scattering each layer into a zeroed full-size stack."""
-    per_layer = _unbind(params["layers"])
+    zero, or None without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.moe is not None else None
-    for i in range(cfg.num_layers):
-        lp = _layer(per_layer, i)
+    for lp in unstack(params["layers"], cfg.num_layers):
         if remat == "layer":
-            # The model draws no random numbers, so the recompute needs no
-            # saved RNG state (reading it is not allowed in a CUDA graph).
-            x, a = checkpoint(lambda h, lp=lp: block_apply(
+            x, a = checkpointed(lambda h, lp=lp: block_apply(
                 lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip),
-                x, use_reentrant=False, preserve_rng_state=False)
+                x)
         else:
             x, a = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
                                causal_skip=causal_skip)
@@ -108,19 +119,12 @@ def xent(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-class TransformerLM:
-    """Families: dense | moe | vlm | audio. Functional: parameters are
-    passed in, not held."""
-
-    def __init__(self, cfg):
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} is not ported to repro_torch "
-                "yet; see ROADMAP.md queue A")
-        self.cfg = cfg
+class LanguageModel:
+    """What the families' LMs share. Functional: parameters are passed
+    in, not held; a subclass gives ``param_specs`` and ``loss_fn``."""
 
     def param_specs(self) -> Dict[str, Any]:
-        return param_specs(self.cfg)
+        raise NotImplementedError
 
     def param_shapes(self) -> Dict[str, Any]:
         return params_mod.param_shapes(self.param_specs())
@@ -135,6 +139,20 @@ class TransformerLM:
         if self.cfg.tie_embeddings:
             return {"w": params["embed"]["tokens"].T}
         return params["head"]
+
+
+class TransformerLM(LanguageModel):
+    """Families: dense | moe | vlm | audio."""
+
+    def __init__(self, cfg):
+        if cfg.family not in FAMILIES:
+            raise ValueError(
+                f"model family {cfg.family!r} is not a TransformerLM family "
+                f"{FAMILIES}; models.build_model builds every family")
+        self.cfg = cfg
+
+    def param_specs(self) -> Dict[str, Any]:
+        return param_specs(self.cfg)
 
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 *, remat: str = "layer", attn_chunk: int = 0,

@@ -47,13 +47,13 @@ def _fields(cfg):
 
 def test_registry_holds_every_dense_architecture():
     """Every dense architecture, in the JAX registry's order (the other
-    families are held in test_torch_families.py); an unported one raises,
-    naming ROADMAP.md."""
+    families are held in test_torch_families.py and test_torch_ssm.py);
+    an unknown one raises, naming ROADMAP.md."""
     dense = [a for a in J_ARCH_IDS if j_get_arch(a)[0].family == "dense"
              and j_get_arch(a)[0].moe is None]
     assert [a for a in ARCH_IDS if get_arch(a)[0].family == "dense"] == dense
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("falcon-mamba-7b")
+        get_arch("falcon-mamba-1b")
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", *NEW])
@@ -78,9 +78,12 @@ def test_shapes_match_jax():
     assert sum(int(np.prod(s)) for s in shapes.ALEXNET_GRAD_SHAPES) == \
         62_378_344
     for arch in ARCH_IDS:
-        got = [c.name for c in shapes.shapes_for(get_arch(arch)[0])]
+        cfg = get_arch(arch)[0]
+        got = [c.name for c in shapes.shapes_for(cfg)]
         want = [c.name for c in j_shapes.shapes_for(j_get_arch(arch)[0])]
-        assert got == want == ["train_4k", "prefill_32k", "decode_32k"]
+        long = ["long_500k"] if cfg.family in ("ssm", "hybrid") else []
+        assert got == want == ["train_4k", "prefill_32k", "decode_32k"] \
+            + long
     for family in ("ssm", "hybrid"):
         assert [c.name for c in shapes.shapes_for(ModelConfig(
             family=family))][-1] == "long_500k"

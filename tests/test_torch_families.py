@@ -3,8 +3,8 @@ and arctic-480b; vlm: internvl2-26b; audio: musicgen-large) against the
 JAX package's, on the CPU.
 
 * Every field of each ``CONFIG`` and ``SMOKE`` equals the JAX package's;
-  ``ARCH_IDS`` is the JAX registry's order without the unported ssm and
-  hybrid entries, which still raise.
+  ``ARCH_IDS`` holds the JAX registry's ten ids in its order; an unknown
+  architecture or family raises, naming ROADMAP.md.
 * ``TransformerLM.loss_fn`` of each smoke configuration from the same
   weights (``convert``) and the same numpy batch: the loss, ``aux_loss``
   and every leaf's gradient in f32 (rtol 1e-5, atol 1e-6), with remat on
@@ -18,7 +18,10 @@ JAX package's, on the CPU.
   dtypes from a ``torch.Generator``.
 * ``SyntheticLM(num_codebooks=K)`` tiles tokens and labels over K.
 * ``chip_smoke.step_flops`` counts the active MoE weights, the E x cap
-  padded slots, the vision positions (backbone only) and K audio heads.
+  padded slots, the vision positions (backbone only) and K audio heads;
+  for ssm no attention and no scan FLOPs, for hybrid the shared block
+  once an application, its attention in ``groups`` layers and the SSD's
+  products.
 * The CLI trains grok1-, arctic- and musicgen-smoke and refuses
   internvl2-26b before any step (its stream has no vision_embeds).
 """
@@ -66,15 +69,14 @@ def _fields(cfg):
 
 
 def test_registry_follows_jax_order():
-    ported = [a for a in J_ARCH_IDS
-              if j_get_arch(a)[0].family not in ("ssm", "hybrid")]
-    assert list(ARCH_IDS) == ported and len(ported) == 8
+    assert list(ARCH_IDS) == list(J_ARCH_IDS) and len(ARCH_IDS) == 10
     assert list(ARCH_IDS[:4]) == ["musicgen-large", "grok-1-314b",
                                   "arctic-480b", "internvl2-26b"]
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
+    assert list(ARCH_IDS[-2:]) == ["falcon-mamba-7b", "zamba2-2.7b"]
+    for arch in ("falcon-mamba-1b", "zamba3"):
         with pytest.raises(KeyError, match="ROADMAP"):
             get_arch(arch)
-    for family in ("ssm", "hybrid"):
+    for family in ("rwkv", "retnet"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(get_smoke("smollm-135m")[0],
                                             family=family))
@@ -280,15 +282,48 @@ def _layer_weights(m):
     return dense, 3 * m.d_model * m.d_ff  # (dense, one expert)
 
 
+def _ssm_step_flops(m, rows):
+    """(model, executed) for falcon-mamba-smoke or zamba2-smoke, counted
+    from the config's fields."""
+    d, ds, dc, v = m.d_model, m.ssm.d_state, m.ssm.d_conv, m.vocab_size
+    di = 2 * d
+    head = 6 * rows * v * d
+    if m.family == "ssm":
+        r = d // 16  # dt_rank
+        layer = d + d * 2 * di + dc * di + di + di * (r + 2 * ds) \
+            + r * di + di + di * ds + di + di * d
+        w = rows * layer * m.num_layers
+        return 6 * w + head, 8 * w + head  # the scan: no FLOPs
+    h = di // m.ssm.head_dim
+    layer = d + d * (2 * di + 2 * ds + h) + dc * (di + 2 * ds) \
+        + (di + 2 * ds) + 3 * h + di + di * d
+    hd = m.resolved_head_dim
+    shared = 2 * d + d * hd * 2 * (m.num_heads + m.num_kv_heads) \
+        + 3 * d * m.d_ff
+    groups = m.num_layers // m.hybrid_attn_every
+    backbone, shared = rows * layer * m.num_layers, rows * shared * groups
+    attn = rows * S * m.num_heads * hd * groups
+    q = S  # below the 128-position chunk
+    causal = q * (ds + di) + 4 * di * ds
+    full = 2 * q * (ds + di) + 4 * di * ds
+    ssd = rows * m.num_layers
+    return (6 * (backbone + shared) + head + 6 * attn + 3 * ssd * causal,
+            10 * backbone + 8 * shared + head + 16 * attn + 5 * ssd * full)
+
+
 @pytest.mark.parametrize("arch,microbatches", [
     ("grok-1-314b", 1), ("arctic-480b", 2), ("internvl2-26b", 1),
-    ("musicgen-large", 2), ("smollm-135m", 1)])
+    ("musicgen-large", 2), ("smollm-135m", 1), ("falcon-mamba-7b", 1),
+    ("zamba2-2.7b", 2)])
 def test_step_flops_counts(arch, microbatches):
     m = get_smoke(arch)[0]
     cfg = TrainConfig(model=m, seq_len=S, global_batch=4,
                       microbatches=microbatches)
     got = chip_smoke.step_flops(cfg, GradientPool(
         build_model(m).param_shapes()))
+    if m.family in ("ssm", "hybrid"):
+        assert (got["model"], got["executed"]) == _ssm_step_flops(m, 4 * S)
+        return
     L, hd = m.num_layers, m.resolved_head_dim
     seq = S + (m.num_vision_tokens if m.family == "vlm" else 0)
     rows, text = 4 * seq, 4 * S

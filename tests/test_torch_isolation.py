@@ -35,7 +35,13 @@ _SCRIPT = textwrap.dedent("""
                    "repro_torch.configs.shapes",
                    "repro_torch.models.layers.attention",
                    "repro_torch.models.layers.norms",
-                   "repro_torch.models.layers.mlp"):
+                   "repro_torch.models.layers.mlp",
+                   "repro_torch.configs.falcon_mamba_7b",
+                   "repro_torch.configs.zamba2_27b",
+                   "repro_torch.models.layers.mamba",
+                   "repro_torch.models.layers.mamba2",
+                   "repro_torch.models.ssm_lm",
+                   "repro_torch.models.hybrid_lm"):
         assert needed in names, needed
     print(len(names))
 """)

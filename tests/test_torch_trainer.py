@@ -174,8 +174,8 @@ def test_unported_settings_raise():
     (tests/test_torch_pipeline.py and test_torch_window.py hold the
     pipelined window); gradient accumulation builds and steps
     (tests/test_torch_accumulate.py holds it against JAX); the dense and
-    MoE architectures resolve, and the unported families still raise,
-    naming ROADMAP.md."""
+    MoE and ssm architectures resolve, and an unknown one raises, naming
+    ROADMAP.md."""
     base = _cfg(t_base, get_smoke, "lazy", "bfloat16")
     guard = t_base.GuardConfig()
     batch = {k: torch.from_numpy(v) for k, v in _batches(1)[0].items()}
@@ -208,8 +208,9 @@ def test_unported_settings_raise():
     assert np.isfinite(float(metrics["loss"])) and state.step == 1
     assert get_arch("qwen3-32b")[0].qk_norm
     assert get_arch("grok-1-314b")[0].moe.num_experts == 8
+    assert get_arch("falcon-mamba-7b")[0].family == "ssm"
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_arch("falcon-mamba-7b")
+        get_arch("falcon-mamba-1b")
 
 
 def test_cli_accepts_the_optimizers(tmp_path):
