@@ -148,8 +148,8 @@
    (q) lazy, (a)'s settings, a window of 8 steps: the first window
        (warm-up on scratch clones, capture, replay) the same losses and
        final parameters and momentum, bit for bit, as 8 eager steps of
-       the CLI's loop from the same seed on the same batches; then 3
-       replayed windows timed (step ms = window ms / 8, beside the eager
+       the CLI's loop from the same seed on the same batches; then a
+       replayed window timed (step ms = window ms / 8, beside the eager
        steps'), the capture's and warm-up's host seconds, peak memory
        beside eager, the capture's launches against 8 x the plan's, the
        all-reduces of the first window (the warm-up body's and the
@@ -163,14 +163,14 @@
        each step's start and 2 at the flush (each with a pack of its
        span's masters), (q)'s all-reduces;
    (s) CSC through the CLI at ``--window-steps 4`` (``--csc-warmup 8``,
-       24 steps: the snapped stages 1 and 2 run 4 steps each, the steady
-       stage 4 four windows): one graph a stage, freed when the stage
+       16 steps: the snapped stages 1 and 2 run 4 steps each, the steady
+       stage 4 two windows): one graph a stage, freed when the stage
        ends (one graph pool alive at each window's end), the capture's
        launches the stage plan's x 4, the losses of eager steps under
        the same snapped schedule bit for bit, the peak reserved memory
        under one graph's pool plus the state and its warm-up clone; the
-       median step time of the steady stage's three replayed windows
-       beside the eager twin's steady steps;
+       step time of the steady stage's replayed window beside the eager
+       twin's steady steps;
    (t) guarded lazy windows of 8 with (g)'s faults fired by the
        device-step hook inside the graph, unpipelined and with a tail of
        2: exactly steps 2, 4, 6 trip in the stacked ``guard_tripped``;
@@ -186,24 +186,24 @@
    CSC: ``window=4`` gives the per-step records.
    Checkpoints, restarts, resume and elastic (smollm-135m at full
    width, bf16 wire, momentum SGD, kernels on):
-   (v) lazy windows of 8, 32 steps under ``TrainSupervisor.run_windows``
+   (v) lazy windows of 8, 16 steps under ``TrainSupervisor.run_windows``
        in the NCCL group, a checkpoint every 8, batches from a
-       ``DataPipeline``, a host fault raised at step 20 after the window
-       16-23 ran: one restart, restored to 16, saves at 8, 16, 24 and the
-       final 32, one capture (the restore went into the live tensors)
+       ``DataPipeline``, a host fault raised at step 12 after the window
+       8-15 ran: one restart, restored to 8, saves at 8 and the final 16,
+       one capture (the restore went into the live tensors)
        with the launches its plan says, every loss of the final pass and
        the final parameters and momentum bit for bit an uninterrupted
-       32-step window run; save's blocking
+       16-step window run; save's blocking
        seconds, the writer's seconds, bytes a checkpoint, restore
        seconds, and the step time of windows with a write in flight
        against those without;
    (w) CSC through the CLI at ``--window-steps 4`` (``--csc-warmup 8``)
-       in new processes, each with ``--steps 24``: one preempted by a
-       SIGTERM after step 16 (its handler stops the run there, with the
-       checkpoints at 8 and 16), then a process with the same flags
-       resuming that directory at 16 to 24: its losses, and the SHA-256
-       of every leaf of its final checkpoint (parameters, momentum, hg,
-       chunk norms), those of an uninterrupted 24-step CLI run;
+       in new processes, each with ``--steps 16``: one preempted by a
+       SIGTERM after step 8 (its handler stops the run there, with the
+       checkpoint at 8), then a process with the same flags resuming
+       that directory at 8 to 16: its losses, and the SHA-256 of every
+       leaf of its final checkpoint (parameters, momentum, hg, chunk
+       norms), those of an uninterrupted 16-step CLI run;
    (x) in (c)'s two processes over the ring, CSC at ``--window-steps
        1``, 12 steps under the supervisor with a collective checkpoint at
        8 (``hg`` [2, pool]); then this process restores step 8 into a
@@ -242,7 +242,7 @@
        wire, kernels on, through ``train.build`` with ``--seq-len 4096
        --batch 16 --attn-chunk 1024`` and ``microbatches=4`` on the
        TrainConfig (4 x 4096 tokens a microbatch, the blockwise full
-       grid): 3 steps on one repeated batch, then one under the
+       grid): 2 steps on one repeated batch, then one under the
        profiler; finite losses that fall, every attention call
        blockwise, the pack and update launches and the all-reduces the
        plan's; step ms, tokens/s, peak memory, the first step's seconds,
@@ -252,7 +252,7 @@
    (aa) stablelm-12b and qwen3-32b at their published widths (LayerNorm
        with bias at 5120; QK-norm, GQA 64/8 on heads of 128), their depth
        cut to 2 layers (1.58 G and 2.53 G parameters), the same way as
-       (y) at 2 x 4096 tokens in 2 microbatches, 3 steps each; then
+       (y) at 2 x 4096 tokens in 2 microbatches, 2 steps each; then
        olmo-smoke, stablelm-smoke and qwen3-smoke through the CLI and
        the Trainer (``train_run``), CSC (2 warm-up steps, sparsity 0.5,
        chunks of 2048), sequence 256 with 64-token attention chunks: 5 +
@@ -267,7 +267,7 @@
        then int8 lazy with ``--no-error-feedback``, 6 + 6 steps: finite
        losses that fall, no residual carried (size 0).
    The MoE, vlm and audio families, in a new world-size-1 NCCL group
-   (lazy, bf16 wire, momentum SGD, kernels on, 3 steps on one repeated
+   (lazy, bf16 wire, momentum SGD, kernels on, 2 steps on one repeated
    batch and one profiled, as (y)), after the MoE layer at grok1- and
    arctic-smoke's widths on the card against its CPU run in f32 (planted
    ties, capacity 0.5: the same routing and dropped slots, the outputs
@@ -321,6 +321,39 @@
        restart, the census and the gather launched in CSC; zamba2-smoke
        lazy in a graphed window of 4 against 4 eager steps (the eager
        bits; the nested remat and the shared block inside the graph).
+   Serving, after every training phase, bf16 weights drawn on
+   the card (``launch.serve.serve_params``), steps from
+   ``Trainer.build_serve_step``:
+   first every smoke family's prefill (2 x 16) and 4 teacher-forced
+   decode steps in f32 on the card against the same run on the CPU
+   (each call's logits within 1e-4 of the largest |logit|);
+   (aj) the serve CLI (``launch.serve.main``) in this process:
+       smollm-135m at full size, 8 x 1024 then 32 tokens, and the six
+       smoke families (smollm, grok-1, internvl2 text only, musicgen,
+       falcon-mamba, zamba2) at 2 x 16 then 4: prefill and decode
+       tokens/s, peak memory, cache bytes; the tokens of their shape
+       and in [0, vocab);
+   (ak) smollm-135m at full size: the teacher-forced decode of 16
+       positions against the prefill's logits (both forms, within 2^-4
+       of the largest |logit|, a bound measured on the CPU first);
+       prefill_32k's length (1 x 32,768, batch cut from 32, blockwise
+       with causal_skip) timed after a 1 x 2048 warm-up; decode_32k's
+       cache (64 x 32,768, batch cut from 128: 48.3 GB) after a 64 x 512
+       prefill, 8 timed steps after 2 untimed in each form, the two
+       forms from one state within 2^-4, one step under
+       ``set_sync_debug_mode("error")``, the bytes bound and its share,
+       one layer's decode attention in both forms beside SDPA's over the
+       positions written (a yardstick the port never calls);
+   (al) falcon-mamba-7b whole (64 layers, 7.27 G parameters): 1 x 1024
+       prefill (its recurrent states left zero, as JAX's prefill leaves
+       them), 32 decode steps (2 untimed), one profiled (launches a step,
+       idle share), one under the sync check; the drawing's and the
+       run's peak memory, the bound share;
+   (am) zamba2-2.7b whole at long_500k's cache (1 x 524,288 positions,
+       48.3 GB of KV cache): the same, 16 decode steps.
+   Serving launches none of the six kernels: the counts, set to 0 before
+   the group, are read after it (``launches_serving`` in each kernel's
+   entry).
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -330,8 +363,8 @@
 Prints one JSON line per kernel, one for the NaN words, one for the
 optimizer ops, one for the quantized ring, the MoE layer's card-against-
 CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
-timings' line, one per train run (the long sequences' and the families' runs
-too), the attention line, the windowed GuardLane's, the host seconds of
+timings' line, the serving line, one per train run (the long sequences'
+and the families' runs too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
 captured window launched it, and ``launches_by_run``), then ``{"ok":
@@ -1804,16 +1837,16 @@ def neutrality_run(torch, ops, train_mod, synthetic, argv, steps):
 # -- the window as a CUDA graph, and the cross-step pipeline -----------------
 
 WINDOW_K = 8       # (q), (r), (t): steps a window
-WINDOW_TIMED = 3   # replayed windows timed after the first
+WINDOW_TIMED = 1   # replayed windows timed after the first
 PIPELINE_TAIL = 2  # (r), (t), (u): deferred buckets
 # (s): CSC through the CLI at K = 4. The warm-up stages (first steps 0,
 # 2, 4, 6, 8 at --csc-warmup 8) snap to 0, 0, 4, 8, 8: stage 1 (k =
 # 3233) and stage 2 (k = 2361) run 4 steps each, the steady stage 4
-# (k = 616) 16, four windows (the last three replays, timed); the dense
+# (k = 616) 8, two windows (the second a replay, timed); the dense
 # stage 0 and stage 3 are shadowed.
-CSC_WINDOW_K, CSC_WINDOW_WARMUP, CSC_WINDOW_STEPS = 4, 8, 24
-CSC_WINDOW_STAGES = [1] * 4 + [2] * 4 + [4] * 16
-CSC_WINDOW_K_SELECTED = [3233] * 4 + [2361] * 4 + [616] * 16
+CSC_WINDOW_K, CSC_WINDOW_WARMUP, CSC_WINDOW_STEPS = 4, 8, 16
+CSC_WINDOW_STAGES = [1] * 4 + [2] * 4 + [4] * 8
+CSC_WINDOW_K_SELECTED = [3233] * 4 + [2361] * 4 + [616] * 8
 # (u): the two-process ring window.
 RING_WINDOW_K = 3
 
@@ -2507,7 +2540,7 @@ def guard_lane_phase(torch, dev):
 # (y): olmo-1b at full width and depth, train_4k's sequence, 16 x 4096
 # tokens a step in 4 microbatches of 4 x 4096, blockwise attention beyond
 # 1024 tokens (the Trainer's default full masked grid, causal_skip off).
-OLMO_BATCH, OLMO_SEQ, OLMO_CHUNK, OLMO_STEPS = 16, 4096, 1024, 3
+OLMO_BATCH, OLMO_SEQ, OLMO_CHUNK, OLMO_STEPS = 16, 4096, 1024, 2
 OLMO_ARGV = ["--arch", "olmo-1b", "--seq-len", str(OLMO_SEQ), "--batch",
              str(OLMO_BATCH), "--attn-chunk", str(OLMO_CHUNK), "--gf-mode",
              "lazy", "--use-kernels", "--window-steps", "1", "--log-every",
@@ -2552,7 +2585,7 @@ SMOKE_ARGV = ["--reduced", "--use-kernels", "--gf-mode", "csc", "--batch",
 # parameters, the only reduction), lazy, bf16 wire, kernels on: 2 x 4096
 # tokens a step in 2 microbatches, blockwise beyond 1024 tokens.
 WIDE_ARCHS, WIDE_LAYERS, WIDE_BATCH, WIDE_STEPS = (
-    ("stablelm-12b", "qwen3-32b"), 2, 2, 3)
+    ("stablelm-12b", "qwen3-32b"), 2, 2, 2)
 WIDE_MICROBATCHES = 2
 
 
@@ -3287,7 +3320,7 @@ def long_sequence_phase(torch, dist, ops, train_mod, synthetic, pool_mod,
 # slots an expert a microbatch), blockwise attention beyond 1024 tokens.
 # grok-1-314b is not run at its published widths: one layer with its 8
 # experts holds 6.53 G parameters (~97 GiB of state).
-FAM_STEPS = 3
+FAM_STEPS = 2
 ARCTIC_ARGV = ["--arch", "arctic-480b", "--seq-len", str(OLMO_SEQ),
                "--batch", str(WIDE_BATCH), "--attn-chunk", str(OLMO_CHUNK),
                "--gf-mode", "lazy", "--use-kernels", "--window-steps", "1",
@@ -3679,6 +3712,451 @@ def ssm_phase(torch, dist, ops, train_mod, synthetic, dev, rate):
     return runs, layer, cores
 
 
+# -- serving (after every training phase) -----------------------------------
+
+# (aj): the serve CLI (``launch.serve.main``) in this process: smollm-135m
+# at full size, then the six smoke families (internvl2 text only, as the
+# CLI serves it).
+SERVE_FULL_ARGV = ["--arch", "smollm-135m", "--batch", "8", "--prompt-len",
+                   "1024", "--gen", "32"]
+SERVE_SMOKE_ARCHS = ("smollm-135m", "grok-1-314b", "internvl2-26b",
+                     "musicgen-large", "falcon-mamba-7b", "zamba2-2.7b")
+SERVE_SMOKE_ARGV = ["--reduced", "--batch", "2", "--prompt-len", "16",
+                    "--gen", "4"]
+# (ak): smollm-135m at full size. decode_32k's cache of 32,768 positions
+# with its batch cut from 128 to 64 rows (128 rows are a 96.6 GB cache),
+# filled by a 64 x 512 prefill; prefill_32k's length with its batch cut
+# from 32 to 1 (time), after a 1 x 2048 warm-up.
+DECODE_LEN, DECODE_BATCH, DECODE_PROMPT = 32768, 64, 512
+PREFILL_WARMUP = 2048
+DECODE_UNTIMED, DECODE_TIMED = 2, 8
+# (al) falcon-mamba-7b whole (64 layers) and (am) zamba2-2.7b whole at
+# long_500k's cache (1 x 524,288 positions): a 1 x 1024 prefill, then
+# decode steps, the first DECODE_UNTIMED untimed.
+LONG_LEN = 524288
+SSM_SERVE_PROMPT = 1024
+MAMBA_SERVE_STEPS, ZAMBA_SERVE_STEPS = 32, 16
+# Every smoke family's prefill and SERVE_CHECK_STEPS teacher-forced decode
+# steps in f32 (TF32 off) on the card against the same run on the CPU:
+# each call's logits within SERVE_F32_TOL of the CPU's largest |logit|.
+SERVE_F32_TOL = 1e-4
+SERVE_CHECK_STEPS = 4
+# smollm-135m at full size in bf16: the decode of TEACHER_POSITIONS
+# prompt tokens one at a time against the prefill's logits, and (ak)'s two
+# decode forms against each other from one state, within SERVE_BF16_TOL
+# of the largest |logit|. Measured on the CPU first (2 x 16 positions, two
+# seeds, both forms): the decode 0.0125-0.0204 of the largest |logit| from
+# the prefill. The bound is 2^-4, three times the largest.
+SERVE_BF16_TOL = 2.0 ** -4
+TEACHER_POSITIONS = 16
+
+
+def tree_to(tree, dev):
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def tree_bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in tree_leaves(tree))
+
+
+def cache_bytes(torch, abstract) -> int:
+    """Bytes of a serving cache from its (shape, dtype) pairs."""
+    if hasattr(abstract, "_fields"):
+        return sum(cache_bytes(torch, f) for f in abstract)
+    shape, dtype = abstract
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def serve_steps(torch, dev, cfg, batch, max_len):
+    """A Trainer's serving steps (``build_serve_step``): prefill, decode,
+    decode with ``split_combine``."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch.trainer import Trainer
+
+    trainer = Trainer(TrainConfig(model=cfg, global_batch=batch,
+                                  seq_len=max_len), device=dev)
+    sc = ShapeConfig(name="serve", seq_len=max_len, global_batch=batch,
+                     kind="decode")
+    return (trainer.model,
+            trainer.build_serve_step(sc, mode="prefill")[0],
+            trainer.build_serve_step(sc, mode="decode")[0],
+            trainer.build_serve_step(sc, mode="decode",
+                                     split_combine=True)[0])
+
+
+def timed_call(torch, fn):
+    """(fn(), its ms on the host clock from an idle device to the end of
+    its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def decode_steps(torch, step, params, cache, nxt, untimed, timed):
+    """Greedy decode steps, ``untimed`` then ``timed`` (``timed_call``
+    each, the argmax included). Returns (the timed steps' ms, cache, the
+    next tokens, the last logits)."""
+    from repro_torch.launch.serve import greedy
+
+    ms, logits = [], None
+    for i in range(untimed + timed):
+        (logits, cache), t = timed_call(
+            torch, lambda: step(params, {"tokens": nxt}, cache))
+        nxt = greedy(logits)
+        if i >= untimed:
+            ms.append(t)
+    return ms, cache, nxt, logits
+
+
+def no_host_sync(torch, label, fn):
+    """``fn()`` (one decode step) under ``set_sync_debug_mode('error')``:
+    a host synchronisation inside it fails the run."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"{label}: a decode step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def decode_summary(ms, batch, nbytes, rate) -> dict:
+    step = statistics.median(ms)
+    bound = nbytes / rate * 1e3
+    return dict(decode_step_ms=ms, decode_median_ms=step,
+                decode_tokens_per_s=batch / (step / 1e3),
+                decode_bytes=nbytes, decode_bound_ms=bound,
+                decode_bound_by="bytes", decode_bound_share=bound / step)
+
+
+def serve_card_vs_cpu(torch, dev) -> dict:
+    """Every smoke family's prefill of 2 x 16 and SERVE_CHECK_STEPS decode
+    steps (teacher-forced), f32 weights, compute and cache, on the card
+    and on the CPU: each call's logits within SERVE_F32_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import build_model
+
+    out, n = {}, 16
+    for arch in SERVE_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch)[0], compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init_params(21, torch.device("cpu"))
+        gen = torch.Generator().manual_seed(22)
+        shape = (2, n + SERVE_CHECK_STEPS) + (
+            (cfg.num_codebooks,) if cfg.family == "audio" else ())
+        toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             dtype=torch.int32)
+        res = {}
+        for where in (torch.device("cpu"), dev):
+            p = tree_to(params, where)
+            cache = model.init_cache(2, n + SERVE_CHECK_STEPS,
+                                     torch.float32, where)
+            kw = dict(compute_dtype=torch.float32)
+            lg, cache = model.serve_step(p, {"tokens": toks[:, :n].to(where)},
+                                         cache, mode="prefill", **kw)
+            calls = [lg.cpu()]
+            for t in range(n, n + SERVE_CHECK_STEPS):
+                lg, cache = model.serve_step(
+                    p, {"tokens": toks[:, t:t + 1].to(where)}, cache,
+                    mode="decode", **kw)
+                calls.append(lg.cpu())
+            res[where.type] = calls
+        errs = [rel_err(g, w) for g, w in zip(res["cuda"], res["cpu"])]
+        out[arch] = dict(family=cfg.family, prefill=[2, n],
+                         decode_steps=SERVE_CHECK_STEPS,
+                         max_rel_err_per_call=errs, tol=SERVE_F32_TOL)
+        check(max(errs) <= SERVE_F32_TOL, f"serving, {arch} smoke: the "
+              f"card's logits != the CPU's in f32: {errs}")
+    return out
+
+
+def serve_cli_runs(torch, serve, dev) -> dict:
+    """(aj): the CLI at full size (smollm-135m) and on the six smoke
+    families: its rates, peak memory and cache bytes; the tokens of their
+    shape and in [0, vocab)."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.models import build_model
+
+    cases = [("smollm-135m", SERVE_FULL_ARGV, get_arch("smollm-135m")[0])]
+    cases += [(f"{arch} smoke", ["--arch", arch] + SERVE_SMOKE_ARGV,
+               get_smoke(arch)[0]) for arch in SERVE_SMOKE_ARCHS]
+    runs = {}
+    for label, argv, cfg in cases:
+        argv = argv + ["--device", str(dev)]
+        args = serve.parse_args(argv)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        gen = serve.main(argv, stats=stats)
+        k = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+        check(tuple(gen.shape) == (args.batch, args.gen) + k
+              and int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
+              f"(aj) {label}: tokens {tuple(gen.shape)} in "
+              f"[{int(gen.min())}, {int(gen.max())}]")
+        runs[label] = dict(
+            argv=argv, family=cfg.family, tokens_shape=list(gen.shape),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            cache_bytes=cache_bytes(torch, build_model(cfg).abstract_cache(
+                args.batch, args.prompt_len + args.gen)), **stats)
+        print(f"(aj) {label}: prefill {stats['prefill_tokens_per_s']:,.0f} "
+              f"tok/s, decode {stats['decode_tokens_per_s']:,.0f} tok/s",
+              flush=True)
+    return runs
+
+
+def decode_32k_run(torch, serve, dev, rate) -> dict:
+    """(ak): smollm-135m at full size in bf16: prefill_32k's length, then
+    decode_32k's cache (naive and split_combine timed, and held against
+    each other from one state), one naive step profiled (launches, the
+    device's time by kernel class), one decode step checked for host syncs,
+    one layer's decode attention in both forms beside SDPA's (a yardstick
+    the port never calls), and the teacher-forced decode against the
+    prefill."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import attention
+    from repro_torch.models.params import index_struct
+
+    cfg = get_arch("smollm-135m")[0]
+    model, prefill, decode, decode_split = serve_steps(
+        torch, dev, cfg, DECODE_BATCH, DECODE_LEN)
+    params = serve.serve_params(model, 0, dev)
+    wbytes = tree_bytes(params)
+    out = dict(weights_bytes=wbytes)
+
+    # The teacher-forced decode against the prefill, both forms.
+    toks = serve.draw_prompts(cfg, 2, TEACHER_POSITIONS, 1, dev)
+    want, _ = prefill(params, {"tokens": toks},
+                      model.init_cache(2, TEACHER_POSITIONS, device=dev))
+    errs = {}
+    for form, step in (("naive", decode), ("split_combine", decode_split)):
+        cache = model.init_cache(2, TEACHER_POSITIONS, device=dev)
+        got = []
+        for t in range(TEACHER_POSITIONS):
+            lg, cache = step(params, {"tokens": toks[:, t:t + 1]}, cache)
+            got.append(lg[:, 0])
+        errs[form] = rel_err(torch.stack(got, 1), want)
+    out["teacher_forced"] = dict(positions=TEACHER_POSITIONS,
+                                 max_rel_err=errs, tol=SERVE_BF16_TOL)
+    check(max(errs.values()) <= SERVE_BF16_TOL, f"(ak): the teacher-forced "
+          f"decode != the prefill's logits: {errs}")
+    del want, cache
+
+    # prefill_32k: 1 x 32,768 into a 32,768-position cache.
+    toks = serve.draw_prompts(cfg, 1, DECODE_LEN, 2, dev)
+    prefill(params, {"tokens": toks[:, :PREFILL_WARMUP]},
+            model.init_cache(1, DECODE_LEN, device=dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(1, DECODE_LEN, device=dev)
+    (lg, cache), ms = timed_call(
+        torch, lambda: prefill(params, {"tokens": toks}, cache))
+    check(bool(lg.isfinite().all()) and int(cache.index[0]) == DECODE_LEN,
+          f"(ak) prefill_32k: finite {bool(lg.isfinite().all())}, index "
+          f"{cache.index.tolist()}")
+    out["prefill_32k"] = dict(
+        shape=[1, DECODE_LEN], ms=ms, tokens_per_s=DECODE_LEN / (ms / 1e3),
+        attention="blockwise, causal_skip, chunk 2048",
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"(ak) prefill_32k: {ms:.1f} ms", flush=True)
+    del lg, cache, toks
+
+    # decode_32k: 64 rows of 32,768 positions after a 64 x 512 prefill.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(DECODE_BATCH, DECODE_LEN, device=dev)
+    cbytes = cache_bytes(torch, model.abstract_cache(DECODE_BATCH,
+                                                     DECODE_LEN))
+    prompts = serve.draw_prompts(cfg, DECODE_BATCH, DECODE_PROMPT, 3, dev)
+    (lg, cache), prefill_ms = timed_call(
+        torch, lambda: prefill(params, {"tokens": prompts}, cache))
+    nxt = serve.greedy(lg)
+    del lg
+    naive_ms, cache, nxt, _ = decode_steps(
+        torch, decode, params, cache, nxt, DECODE_UNTIMED, DECODE_TIMED)
+    # The two forms from one state: a naive step, the index rewound by
+    # one, the same token through split_combine (it writes the same keys
+    # and values at the same position).
+    lg_naive, cache = decode(params, {"tokens": nxt}, cache)
+    cache.index.sub_(1)
+    lg_split, cache = decode_split(params, {"tokens": nxt}, cache)
+    forms_err = rel_err(lg_split, lg_naive)
+    check(forms_err <= SERVE_BF16_TOL, f"(ak): split_combine's logits != "
+          f"the naive form's: {forms_err}")
+    nxt = serve.greedy(lg_split)
+    del lg_naive, lg_split
+    split_ms, cache, nxt, _ = decode_steps(
+        torch, decode_split, params, cache, nxt, DECODE_UNTIMED,
+        DECODE_TIMED)
+
+    def one_step():
+        nonlocal cache, nxt
+        logits, cache = decode(params, {"tokens": nxt}, cache)
+        nxt = serve.greedy(logits)
+
+    prof = device_profile(torch, one_step, 1)
+    no_host_sync(torch, "(ak)", lambda: decode(params, {"tokens": nxt},
+                                              cache))
+    n = DECODE_PROMPT + 2 * (DECODE_UNTIMED + DECODE_TIMED) + 3
+    check(cache.index.tolist() == [n] * cfg.num_layers,
+          f"(ak): cache index {cache.index.tolist()}, expected {n}")
+    nbytes = wbytes + cbytes
+    out["decode_32k"] = dict(
+        batch=DECODE_BATCH, cache_len=DECODE_LEN, cache_bytes=cbytes,
+        prefill_shape=[DECODE_BATCH, DECODE_PROMPT], prefill_ms=prefill_ms,
+        naive=decode_summary(naive_ms, DECODE_BATCH, nbytes, rate),
+        split_combine=decode_summary(split_ms, DECODE_BATCH, nbytes, rate),
+        forms_max_rel_err=forms_err, forms_tol=SERVE_BF16_TOL,
+        naive_profile=prof, no_host_sync_in_a_step=True,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"(ak) decode_32k: naive {statistics.median(naive_ms):.1f} ms, "
+          f"split_combine {statistics.median(split_ms):.1f} ms a step",
+          flush=True)
+
+    # One layer's decode attention (apply_decode, the projections
+    # included; its index rewound after each call) in both forms, and
+    # SDPA over the same keys and values (the positions written so far).
+    layer = index_struct(cache, 0)
+    p0 = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    x = torch.randn((DECODE_BATCH, 1, cfg.d_model), device=dev,
+                    dtype=torch.bfloat16)
+
+    def layer_call(split):
+        def fn():
+            attention.apply_decode(p0, x, cfg, layer, split_combine=split)
+            layer.index.sub_(1)
+        return fn
+
+    hd, written = cfg.resolved_head_dim, int(layer.index)
+    q = torch.randn((DECODE_BATCH, cfg.num_heads, 1, hd), device=dev,
+                    dtype=torch.bfloat16)
+    k = layer.k[:, :written].transpose(1, 2).contiguous()
+    v = layer.v[:, :written].transpose(1, 2).contiguous()
+    layer_bytes = cbytes // cfg.num_layers
+    out["decode_32k"]["one_layer_attention"] = dict(
+        naive_ms=time_ms(torch, layer_call(False)),
+        split_combine_ms=time_ms(torch, layer_call(True)),
+        sdpa_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True)),
+        sdpa_note=f"F.scaled_dot_product_attention over the {written} "
+                  f"positions written, GQA; a yardstick, not on the path",
+        cache_bytes=layer_bytes, bound_ms=layer_bytes / rate * 1e3)
+    del cache, layer, k, v, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serve_run(torch, serve, dev, rate, arch, max_len, steps,
+                  label) -> dict:
+    """(al)/(am): ``arch`` whole in bf16, weights drawn on the card and
+    cast leaf by leaf: a 1 x SSM_SERVE_PROMPT prefill (the recurrent
+    states untouched, as in JAX), ``steps`` decode steps (the first
+    DECODE_UNTIMED untimed), one profiled (launches, idle share), one
+    checked for host syncs."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch)[0]
+    model, prefill, decode, _ = serve_steps(torch, dev, cfg, 1, max_len)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, draw_ms = timed_call(
+        torch, lambda: serve.serve_params(model, 0, dev))
+    draw_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wbytes = tree_bytes(params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(1, max_len, device=dev)
+    abstract = model.abstract_cache(1, max_len)
+    cbytes = cache_bytes(torch, abstract)
+    states = cache.mamba if hasattr(cache, "mamba") else cache
+    sbytes = cache_bytes(torch, abstract.mamba if hasattr(
+        abstract, "mamba") else abstract)
+    prompts = serve.draw_prompts(cfg, 1, SSM_SERVE_PROMPT, 4, dev)
+    (lg, cache), prefill_ms = timed_call(
+        torch, lambda: prefill(params, {"tokens": prompts}, cache))
+    check(bool(lg.isfinite().all()) and not any(
+        bool(s.any()) for s in states), f"{label}: prefill logits finite "
+          f"{bool(lg.isfinite().all())}; its recurrent states must stay "
+          f"zero (the reference's prefill fills none)")
+    nxt = serve.greedy(lg)
+    del lg
+    ms, cache, nxt, lg = decode_steps(torch, decode, params, cache, nxt,
+                                      DECODE_UNTIMED,
+                                      steps - DECODE_UNTIMED)
+    check(bool(lg.isfinite().all()), f"{label}: decode logits not finite")
+
+    def one_step():
+        nonlocal cache, nxt
+        logits, cache = decode(params, {"tokens": nxt}, cache)
+        nxt = serve.greedy(logits)
+        torch.cuda.synchronize()
+
+    prof = device_profile(torch, one_step, 1)
+    no_host_sync(torch, label, lambda: decode(params, {"tokens": nxt},
+                                              cache))
+    # Each step reads the weights and the whole cache (the states read
+    # and written; the naive decode attention scores every KV position).
+    nbytes = wbytes + cbytes + sbytes
+    out = dict(arch=arch, layers=cfg.num_layers, weights_bytes=wbytes,
+               params=sum(v.numel() for v in tree_leaves(params)),
+               draw_ms=draw_ms, draw_peak_mem_gib=draw_peak,
+               cache_len=max_len, cache_bytes=cbytes, state_bytes=sbytes,
+               prefill_shape=[1, SSM_SERVE_PROMPT], prefill_ms=prefill_ms,
+               prefill_tokens_per_s=SSM_SERVE_PROMPT / (prefill_ms / 1e3),
+               **decode_summary(ms, 1, nbytes, rate),
+               launches_per_decode_step=prof["kernels_per_step"],
+               decode_idle_share=prof["idle_share"],
+               decode_profile=prof, no_host_sync_in_a_step=True,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"{label}: prefill {prefill_ms:.1f} ms, decode "
+          f"{out['decode_median_ms']:.1f} ms a step", flush=True)
+    del params, cache, states, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_phase(torch, ops, dev, rate) -> dict:
+    """(aj)-(am) and the serving checks, the kernels' dispatch counts set
+    to 0 before and read after: serving launches none of the repo's
+    kernels (no ``pl.pallas_call`` lies on the JAX package's serving
+    path either)."""
+    from repro_torch.launch import serve
+
+    ops.reset_counts()
+    out = {"card_vs_cpu_f32": serve_card_vs_cpu(torch, dev)}
+    out["cli"] = serve_cli_runs(torch, serve, dev)
+    out["smollm_135m_32k"] = decode_32k_run(torch, serve, dev, rate)
+    out["falcon_mamba_7b_whole"] = ssm_serve_run(
+        torch, serve, dev, rate, "falcon-mamba-7b",
+        SSM_SERVE_PROMPT + MAMBA_SERVE_STEPS + 2, MAMBA_SERVE_STEPS,
+        "(al) falcon-mamba-7b")
+    out["zamba2_2_7b_whole_500k"] = ssm_serve_run(
+        torch, serve, dev, rate, "zamba2-2.7b", LONG_LEN, ZAMBA_SERVE_STEPS,
+        "(am) zamba2-2.7b")
+    out["dispatch_counts"] = dict(ops.dispatch_counts)
+    check(not any(out["dispatch_counts"].values()),
+          f"serving launched a pool kernel: {out['dispatch_counts']}")
+    return out
+
+
 # -- checkpoints, restarts, resume, elastic ---------------------------------
 
 # Every checkpoint of this script goes under a temporary directory of its
@@ -3688,12 +4166,13 @@ def ssm_phase(torch, dist, ops, train_mod, synthetic, dev, rate):
 CKPT_ROOT = None
 CKPT_FREE_BYTES = 16 * 2 ** 30  # (w)'s two directories hold ~6.5 GB
 # (v): lazy windows of K = 8 under the supervisor, a checkpoint every 8,
-# a host fault raised at step 20 inside the window 16-23 after its
-# replay ran (the live tensors then hold step 24's values).
-SUP_STEPS, SUP_EVERY, SUP_FAULT = 32, 8, 20
-# (w): a 24-step CSC run preempted (SIGTERM) after step 16, then a new
-# process with the same flags, which resumes at 16.
-RESUME_FIRST, RESUME_EVERY = 16, 8
+# a host fault raised at step 12 inside the window 8-15 after its replay
+# ran (the live tensors then hold step 16's values).
+SUP_STEPS, SUP_EVERY, SUP_FAULT = 16, 8, 12
+SUP_RESTORED = SUP_FAULT // WINDOW_K * WINDOW_K
+# (w): a 16-step CSC run preempted (SIGTERM) after step 8, then a new
+# process with the same flags, which resumes at 8.
+RESUME_STEPS, RESUME_FIRST, RESUME_EVERY = 16, 8, 8
 # (x): two ranks over the ring, CSC, 12 steps (the schedule's length), a
 # checkpoint at 8; then one rank from 8. The bound on its losses' largest
 # relative difference from the two ranks' lies between the sound reading
@@ -3770,8 +4249,8 @@ def timed_manager(path):
 def supervisor_run(torch, ops, train_mod, label, argv):
     """(v): lazy windows of WINDOW_K under ``TrainSupervisor.run_windows``
     (a checkpoint every SUP_EVERY steps, batches from a ``DataPipeline``),
-    a host fault raised at step SUP_FAULT after the window 16-23 ran:
-    one restart, a restore of step 16 into the live tensors, and the
+    a host fault raised at step SUP_FAULT after the window 8-15 ran:
+    one restart, a restore of step 8 into the live tensors, and the
     window's one graph replayed on them. Against an uninterrupted run of
     the same windows from the same seed in this process: every loss of
     the final pass and the final parameters and momentum, bit for bit.
@@ -3850,12 +4329,13 @@ def supervisor_run(torch, ops, train_mod, label, argv):
     got = [losses[s] for s in range(SUP_STEPS)]
     print(f"{label}: losses {got}; saves {ckpt.saves}; writes "
           f"{ckpt.writes}; restores {ckpt.restores}", flush=True)
-    check(sup.restarts == 1 and restored == [16], f"{label}: restarts "
-          f"{sup.run_stats()}, restored to {restored}")
-    check([x["step"] for x in ckpt.saves] == [8, 16, 24, 32]
-          and [x["step"] for x in ckpt.writes] == [8, 16, 24, 32],
+    saved = list(range(SUP_EVERY, SUP_STEPS + 1, SUP_EVERY))
+    check(sup.restarts == 1 and restored == [SUP_RESTORED], f"{label}: "
+          f"restarts {sup.run_stats()}, restored to {restored}")
+    check([x["step"] for x in ckpt.saves] == saved
+          and [x["step"] for x in ckpt.writes] == saved,
           f"{label}: saves {ckpt.saves}, writes {ckpt.writes}")
-    check(steps_on_disk == [16, 24, 32], f"{label}: on disk "
+    check(steps_on_disk == saved[-3:], f"{label}: on disk "
           f"{steps_on_disk} (keep=3)")
     check(stats["captures"] == 1, f"{label}: {stats['captures']} captures "
           f"(a restore into the live tensors keeps the graph)")
@@ -3894,8 +4374,8 @@ def supervisor_run(torch, ops, train_mod, label, argv):
                 window_stats=stats, dispatch_counts=counts,
                 expected_capture_counts=want_capture,
                 checkpoint_every=SUP_EVERY, fault_step=SUP_FAULT,
-                window_steps=WINDOW_K, same_bits_as="an uninterrupted "
-                "32-step window run in this process",
+                window_steps=WINDOW_K, same_bits_as=f"an uninterrupted "
+                f"{SUP_STEPS}-step window run in this process",
                 hash_on_writer_thread=True)
 
 
@@ -3975,14 +4455,15 @@ def manifest(path: str, step: int) -> dict:
 
 def resume_phase(label, csc_argv):
     """(w): CSC through the CLI at --window-steps 4 in new processes, each
-    with --steps 24: one is preempted by a SIGTERM after step 16 (its
-    checkpoints at 8 and 16), and beside it one runs all 24 steps; then a
-    third, launched with the first's flags, resumes its directory at 16
-    and runs to 24. Its losses are the uninterrupted run's for steps
-    16-23, and its final checkpoint holds the same bits (the SHA-256 of
-    every leaf: parameters, momentum, hg, chunk norms). No process
-    restarted a window."""
-    total = CSC_WINDOW_STEPS
+    with --steps RESUME_STEPS: one is preempted by a SIGTERM after step
+    RESUME_FIRST (its checkpoints every RESUME_EVERY up to there), and
+    beside it one runs all the steps; then a third, launched with the
+    first's flags, resumes its directory at RESUME_FIRST and runs to the
+    end. Its losses are the uninterrupted run's for those steps, and its
+    final checkpoint holds the same bits (the SHA-256 of every leaf:
+    parameters, momentum, hg, chunk norms). No process restarted a
+    window."""
+    total = RESUME_STEPS
     argv = csc_argv + ["--csc-warmup", str(CSC_WINDOW_WARMUP),
                        "--window-steps", str(CSC_WINDOW_K), "--log-every",
                        "4", "--ckpt-every", str(RESUME_EVERY), "--steps",
@@ -4008,7 +4489,9 @@ def resume_phase(label, csc_argv):
     check(all(r["restarts"] == 0 for r in runs)
           and [r["preempted"] for r in runs] == [RESUME_FIRST, None, None],
           f"{label}: the processes' supervisor stats {runs}")
-    check(on_disk == [8, 16], f"{label}: the first process left {on_disk}")
+    check(on_disk == list(range(RESUME_EVERY, RESUME_FIRST + 1,
+                                RESUME_EVERY)),
+          f"{label}: the first process left {on_disk}")
     check(resumed["windows"][0]["start"] == RESUME_FIRST, f"{label}: the "
           f"resumed process started at {resumed['windows'][0]}")
     check(first["losses"] == ref["losses"][:RESUME_FIRST], f"{label}: the "
@@ -4036,8 +4519,8 @@ def resume_phase(label, csc_argv):
                 first_process_checkpoints=on_disk, dispatch_counts=counts,
                 preempted_at=first["run"]["preempted"],
                 leaves_same_sha256=same, seconds_all_processes=seconds,
-                window_steps=CSC_WINDOW_K, same_bits_as="an uninterrupted "
-                "24-step CLI run in another process")
+                window_steps=CSC_WINDOW_K, same_bits_as=f"an uninterrupted "
+                f"{RESUME_STEPS}-step CLI run in another process")
 
 
 def elastic_phase(torch, ops, train_mod, ring, csc_argv, path):
@@ -5019,6 +5502,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(ssm_cores=ssm_cores, gpu=name,
                           power_limit=power)), flush=True)
     long_runs.update(ssm_runs)
+    serving = serving_phase(torch, ops, dev, rate)
+    phase_seconds("serving")
+    print(json.dumps(dict(serving=serving, gpu=name, power_limit=power)),
+          flush=True)
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})
@@ -5044,6 +5531,9 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
                 for label, run in list(runs.items())
                 + list(long_runs.items()) if "pallas" not in label
                 and "dispatch_counts" in run}
+    for e in entries:
+        e["launches_serving"] = serving["dispatch_counts"].get(
+            f"{e['name']}.kernel", 0)
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     # Which kernels a captured window launched: (q)'s lazy path, (s)'s

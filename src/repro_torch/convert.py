@@ -1,5 +1,5 @@
-"""Carry parameter trees, optimizer states and loss-scaler states
-between the JAX package and the port.
+"""Carry parameter trees, optimizer states, loss-scaler states and
+serving caches between the JAX package and the port.
 
 The port keeps the JAX package's layout (same nested keys, stacked layer
 weights, (in, out) matrices, pool-shaped optimizer state fields of the
@@ -99,3 +99,55 @@ def gf_state_to_numpy(state: Any) -> Any:
     """A ``GFState`` of torch tensors -> the same NamedTuple of numpy
     arrays."""
     return type(state)(*(x.detach().cpu().numpy() for x in state))
+
+
+def _cache_types() -> Dict[str, Any]:
+    from repro_torch.models.hybrid_lm import HybridCache
+    from repro_torch.models.layers.attention import KVCache
+    from repro_torch.models.layers.mamba import MambaState
+    from repro_torch.models.layers.mamba2 import Mamba2State
+    return {c.__name__: c for c in (KVCache, MambaState, Mamba2State,
+                                    HybridCache)}
+
+
+def _tensor_from_numpy(a: Any, dev: torch.device) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: the same 2 bytes
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def cache_from_numpy(cache: Any,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> Any:
+    """A serving cache (``KVCache``, ``MambaState``, ``Mamba2State`` or
+    ``HybridCache``, stacked or not) from any NamedTuple of the same
+    class name and fields holding array-likes (the JAX package's cache,
+    or ``cache_to_numpy``'s), field for field through numpy, the bits
+    kept (bf16 arrays of ``ml_dtypes`` too), on ``device`` (CUDA unless
+    given)."""
+    from repro_torch import resolve_device
+    dev = resolve_device(device)
+    types = _cache_types()
+
+    def walk(x):
+        name = type(x).__name__
+        if name in types:
+            cls = types[name]
+            return cls(*(walk(getattr(x, f)) for f in cls._fields))
+        return _tensor_from_numpy(x, dev)
+    return walk(cache)
+
+
+def cache_to_numpy(cache: Any) -> Any:
+    """A serving cache of torch tensors -> the same NamedTuples of numpy
+    arrays; a bf16 field becomes ``ml_dtypes.bfloat16`` (which it needs)
+    with the same bits."""
+    if isinstance(cache, tuple):
+        return type(cache)(*(cache_to_numpy(x) for x in cache))
+    t = cache.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -285,6 +285,31 @@ class Trainer:
         return TrainWindow(self, window_steps, body, plan,
                            self.engine.plan_for(stage))
 
+    def build_serve_step(self, shape, *, mode: str,
+                         split_combine: bool = False):
+        """``(step, None)``: ``step(params, batch, cache) -> (logits,
+        cache)`` runs ``model.serve_step`` in ``mode`` ('prefill' or
+        'decode') under ``torch.no_grad`` at the model's compute dtype,
+        the batch moved to the trainer's device. ``params`` are the
+        serving weights (the CLI's are bf16); the cache is consumed: the
+        returned one shares its tensors, updated in place. No training
+        state is allocated. JAX's second value is its serving sharding
+        rules; one device has none (as ``configs.get_arch``'s rules), so
+        ``shape``, which picks them in JAX, is unused."""
+        del shape
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        model, dtype, dev = self.model, self.compute_dtype, self.device
+
+        def step(params, batch: Dict[str, torch.Tensor], cache):
+            batch = {k: v.to(dev, non_blocking=True)
+                     for k, v in batch.items()}
+            return model.serve_step(params, batch, cache, mode=mode,
+                                    compute_dtype=dtype,
+                                    split_combine=split_combine)
+
+        return step, None
+
     def _pipeline_plan(self, stage: Optional[SparsityStage] = None):
         """The plan a pipelined window runs, or None when the config does
         not pipeline (no deferred tail, monolithic overlap, CSC, a low-bit

@@ -9,17 +9,29 @@ JAX package's two-level layout. With ``remat='layer'`` each Mamba-2
 block is checkpointed, and so is each group around them (the shared
 block included), as JAX nests its ``jax.checkpoint``s: a block's forward
 runs three times a step (the forward, the group's recompute, its own).
+
+Serving: a ``HybridCache`` holds the Mamba-2 states stacked (groups,
+every, ...) and one KV cache a group, stacked (groups, ...): the shared
+block's weights are one, its caches one an application. The prefill
+runs the Mamba-2 training path and writes the KV caches, and leaves the
+Mamba-2 states as they were passed in, as the JAX package's does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.models import params as params_mod
 from repro_torch.models.layers import attention, embedding, mamba2, mlp, norms
+from repro_torch.models.params import index_struct, stack_abstract
 from repro_torch.models.transformer import (LanguageModel, checkpointed,
                                             unstack, xent)
+
+
+class HybridCache(NamedTuple):
+    mamba: Any  # mamba2.Mamba2State stacked (groups, every, ...)
+    attn: Any   # attention.KVCache stacked (groups, ...)
 
 
 def mamba_block_spec(cfg) -> Dict[str, Any]:
@@ -106,3 +118,60 @@ class HybridLM(LanguageModel):
         loss = xent(lg, batch["labels"], batch.get("loss_mask"))
         return loss, {"loss": loss, "aux_loss": torch.zeros(
             (), dtype=torch.float32, device=loss.device)}
+
+    # -- serving ------------------------------------------------------------
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype: torch.dtype = torch.bfloat16) -> HybridCache:
+        """The Mamba-2 states (groups, every, ...) and the KV caches
+        (groups, ...) of ``max_len`` positions, as (shape, dtype)."""
+        cfg = self.cfg
+        return HybridCache(
+            mamba=stack_abstract(mamba2.abstract_state(cfg, batch, dtype),
+                                 (self.groups, self.every)),
+            attn=stack_abstract(attention.abstract_cache(cfg, batch,
+                                                         max_len, dtype),
+                                (self.groups,)))
+
+    @torch.no_grad()
+    def serve_step(self, params: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor], cache: HybridCache, *,
+                   mode: str = "decode",
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   split_combine: bool = False
+                   ) -> Tuple[torch.Tensor, HybridCache]:
+        """Each group's Mamba-2 blocks, then the shared block with the
+        group's KV cache. 'prefill': batch['tokens'] (B, S) through the
+        training path, the caches written, the Mamba-2 states untouched;
+        'decode': one token (B, 1) a row, every state and cache advanced
+        in place. Returns (logits, the cache passed in)."""
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        cfg = self.cfg
+        x = embedding.embed(params["embed"], batch["tokens"], cfg,
+                            compute_dtype)
+        shared = params["shared_attn"]
+        for g, gp in enumerate(unstack(params["mamba_layers"],
+                                       self.groups)):
+            states = index_struct(cache.mamba, g)
+            for i, lp in enumerate(unstack(gp, self.every)):
+                y = norms.apply(lp["norm"], x, cfg.norm)
+                if mode == "prefill":
+                    y = mamba2.apply_train(lp["mixer"], y, cfg)
+                else:
+                    y, _ = mamba2.apply_decode(lp["mixer"], y, cfg,
+                                               index_struct(states, i))
+                x = x + y
+            h = norms.apply(shared["attn_norm"], x, cfg.norm)
+            kv = index_struct(cache.attn, g)
+            if mode == "prefill":
+                h, _ = attention.apply_prefill(shared["attn"], h, cfg, kv,
+                                               attn_chunk=2048)
+            else:
+                h, _ = attention.apply_decode(shared["attn"], h, cfg, kv,
+                                              split_combine=split_combine)
+            x = x + h
+            h = norms.apply(shared["mlp_norm"], x, cfg.norm)
+            x = x + mlp.apply(shared["mlp"], h, cfg)
+        x = norms.apply(params["final_norm"], x, cfg.norm)
+        return embedding.logits(self._head_params(params), x, cfg), cache

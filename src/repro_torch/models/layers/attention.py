@@ -11,17 +11,35 @@ pairs (i >= j) of a causal square grid, half the attention FLOPs of the
 masked full grid. Under autograd each block keeps its scores and
 probabilities for the backward pass (as JAX's scan does under
 ``jax.checkpoint``), so training memory is not below full attention's.
+
+Serving: a KV cache (``KVCache``), ``apply_prefill`` over the prompt
+(causal attention, the prompt's keys and values written into the cache)
+and ``apply_decode`` of one token against the whole cache, naive or
+``split_combine``, as the JAX package writes them. The cache's index is
+a device tensor, and every write lands at a device offset: a decode
+step reads nothing back to the host.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.models.layers import norms, rotary
-from repro_torch.models.params import ParamSpec, fan_in_init, ones_init
+from repro_torch.models.params import (ParamSpec, fan_in_init, ones_init,
+                                      zeros_of)
 
 NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    """A layer's KV cache; stacked, a model's (a leading layer axis on
+    every field). The serving functions update k, v and index in place
+    and return the same tensors: the cache passed in is consumed, as
+    the JAX package's serve step donates it (``donate_argnums``)."""
+    k: torch.Tensor      # (B, S_max, KV, hd), the cache dtype
+    v: torch.Tensor      # (B, S_max, KV, hd)
+    index: torch.Tensor  # 0-dim int32: positions written so far
 
 
 def spec(cfg) -> Dict[str, ParamSpec]:
@@ -37,9 +55,12 @@ def spec(cfg) -> Dict[str, ParamSpec]:
     return p
 
 
-def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg
+def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                 positions: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (b, s, h, hd), k and v (b, s, kv, hd); QK-norm before RoPE."""
+    """q (b, s, h, hd), k and v (b, s, kv, hd); QK-norm before RoPE at
+    ``positions`` (None: 0..s-1 for every row; a decode step passes its
+    (b, 1) device positions)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = (x @ params["wq"]).view(b, s, h, hd)
@@ -48,8 +69,9 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg
     if cfg.qk_norm:
         q = norms.rms_head_norm(params["q_norm"], q)
         k = norms.rms_head_norm(params["k_norm"], k)
-    cos, sin = rotary.rope_tables(torch.arange(s, device=x.device), hd,
-                                  cfg.rope_theta)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    cos, sin = rotary.rope_tables(positions, hd, cfg.rope_theta)
     return rotary.apply_rope(q, cos, sin), rotary.apply_rope(k, cos, sin), v
 
 
@@ -181,3 +203,101 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                  causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip)
     return out.reshape(b, s, -1) @ params["wo"]
+
+
+def abstract_cache(cfg, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> KVCache:
+    """The cache's fields as (shape, dtype) pairs; nothing allocated."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    return KVCache(k=((batch, max_len, kv, hd), dtype),
+                   v=((batch, max_len, kv, hd), dtype),
+                   index=((), torch.int32))
+
+
+def init_cache(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> KVCache:
+    """An empty cache (zeros, index 0) on ``device`` (CUDA unless
+    given)."""
+    from repro_torch import resolve_device
+    return zeros_of(abstract_cache(cfg, batch, max_len, dtype),
+                    resolve_device(device))
+
+
+def _write(buf: torch.Tensor, new: torch.Tensor, index: torch.Tensor
+           ) -> None:
+    """Write new (b, s, ...) into buf (b, S, ...) at positions index ..
+    index + s - 1, in place. The start is clamped to [0, S - s] on the
+    device, as ``lax.dynamic_update_slice`` clamps it: past the end the
+    write lands on the last s positions."""
+    s = new.shape[1]
+    start = torch.clamp(index, 0, buf.shape[1] - s).long()
+    buf.index_copy_(1, start + torch.arange(s, device=buf.device),
+                    new.to(buf.dtype))
+
+
+def apply_prefill(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                  cache: KVCache, *, attn_chunk: int = 0
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Causal attention over the prompt x (b, s, d), at positions 0..s-1
+    whatever the cache holds (as in JAX), blockwise with ``causal_skip``
+    beyond ``attn_chunk``; its keys and values are written into the
+    cache at ``cache.index`` and the index advances by s. Returns (y,
+    the cache passed in, updated in place)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                 causal=True, attn_chunk=attn_chunk)
+    _write(cache.k, k, cache.index)
+    _write(cache.v, v, cache.index)
+    cache.index.add_(s)
+    return out.reshape(b, s, -1) @ params["wo"], cache
+
+
+def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                 cache: KVCache, *, split_combine: bool = False
+                 ) -> Tuple[torch.Tensor, KVCache]:
+    """One token x (b, 1, d) at position ``cache.index`` against the
+    whole cache (every ``S_max`` position scored, those past the index
+    masked), the cache repeated to the query heads. Returns (y, the
+    cache passed in, with the token's keys and values written and the
+    index advanced by one, in place).
+
+    Naive: write the token into the cache, then attend over it.
+    ``split_combine``: attend over the old cache and the fresh token
+    apart and merge them with an online-softmax combine, then write (in
+    JAX the attention then never consumes the updated cache, which keeps
+    a sequence-sharded cache shard-local)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(params, x, cfg,
+                           positions=cache.index.expand(b, 1))
+    groups = cfg.num_heads // cfg.num_kv_heads
+    kpos = torch.arange(cache.k.shape[1], device=x.device)
+    out = None
+    if split_combine:
+        vf = _repeat_kv(cache.v, groups)
+        s_old = _scores(q, _repeat_kv(cache.k, groups))     # (B,H,1,S)
+        s_old = s_old.masked_fill(~(kpos < cache.index), NEG_INF)
+        s_new = torch.einsum("bqhd,bqhd->bhq", q, _repeat_kv(k, groups)) \
+            .float()[..., None] * hd ** -0.5                 # (B,H,1,1)
+        m = torch.maximum(s_old.amax(dim=-1, keepdim=True), s_new)
+        p_old = torch.exp(s_old - m)
+        p_new = torch.exp(s_new - m)
+        num = torch.einsum("bhqk,bkhd->bqhd", p_old.to(q.dtype), vf) \
+            .float() + p_new.transpose(1, 2).float() \
+            * _repeat_kv(v, groups).float()
+        den = p_old.sum(dim=-1) + p_new[..., 0]              # (B,H,1)
+        out = (num / den.transpose(1, 2)[..., None]).to(q.dtype)
+    _write(cache.k, k, cache.index)
+    _write(cache.v, v, cache.index)
+    if out is None:
+        vf = _repeat_kv(cache.v, groups)
+        s = _scores(q, _repeat_kv(cache.k, groups))
+        s = s.masked_fill(~(kpos <= cache.index), NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    cache.index.add_(1)
+    return out.reshape(b, 1, -1) @ params["wo"], cache

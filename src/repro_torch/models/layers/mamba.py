@@ -16,22 +16,34 @@ launches fewer.
 
 The scan is elementwise work (no matmul): the JAX package writes it in
 ``jnp`` and ``lax``, with no Pallas kernel, and the port in PyTorch ops.
+
+Decode (``apply_decode``): one token a step against a ``MambaState``,
+the conv's trailing window (in the cache dtype) and the f32 SSM state,
+both O(1) in the sequence length and updated in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import (ParamSpec, fan_in_init, full_init,
-                                       normal_init, ones_init, zeros_init)
+                                       normal_init, ones_init, zeros_init,
+                                       zeros_of)
 
 
 # Positions a chunk of the training paths' outer loops (Mamba-1's and
 # Mamba-2's).
 SCAN_CHUNK = 128
+
+
+class MambaState(NamedTuple):
+    """A layer's decode state (stacked: a model's). ``apply_decode``
+    updates both fields in place and returns the same tensors."""
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner): the trailing window
+    ssm: torch.Tensor   # (B, d_inner, d_state) f32
 
 
 def dims(cfg) -> Tuple[int, int, int, int]:
@@ -142,3 +154,50 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         ys.append(y)
     y = torch.cat(ys, dim=1) + params["D"].float() * xf
     return (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+
+
+def abstract_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> MambaState:
+    """The state's fields as (shape, dtype) pairs; nothing allocated."""
+    d_inner, _, d_state, d_conv = dims(cfg)
+    return MambaState(conv=((batch, d_conv - 1, d_inner), dtype),
+                      ssm=((batch, d_inner, d_state), torch.float32))
+
+
+def init_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> MambaState:
+    """A zero state on ``device`` (CUDA unless given)."""
+    from repro_torch import resolve_device
+    return zeros_of(abstract_state(cfg, batch, dtype), resolve_device(device))
+
+
+def decode_conv(window: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The causal conv at one position: window (B, K, C) times w (K, C)
+    summed over the K taps in the window's dtype, plus the bias; (B, 1,
+    C). JAX's ``jnp.sum`` of the bf16 products, which XLA accumulates in
+    f32 and rounds once, as ``torch.sum`` does."""
+    return torch.sum(window * w.to(window.dtype), dim=1, keepdim=True) + b
+
+
+def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                 state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+    """One token x (B, 1, D) -> (y (B, 1, D), the state passed in, its
+    window shifted by the token and its SSM state advanced, in
+    place)."""
+    _, _, d_state, _ = dims(cfg)
+    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)         # (B,1,di)
+    window = torch.cat([state.conv, xs.to(state.conv.dtype)], dim=1)
+    xa = F.silu(decode_conv(window, params["conv_w"], params["conv_b"]))
+    delta, b_mat, c_mat = _ssm_params(params, xa, cfg)
+    a = -torch.exp(params["A_log"].float())
+    a_bar = torch.exp(delta[:, 0, :, None] * a)               # (B,di,ds)
+    bx = (delta[:, 0] * xa[:, 0].float())[..., None] * b_mat[:, 0, None, :]
+    h = a_bar * state.ssm + bx
+    y = torch.sum(h * c_mat[:, 0, None, :], dim=-1)
+    y = y + params["D"].float() * xa[:, 0].float()
+    y = (y[:, None, :] * F.silu(z).float()).to(x.dtype)
+    state.conv.copy_(window[:, 1:])
+    state.ssm.copy_(h)
+    return y @ params["out_proj"], state

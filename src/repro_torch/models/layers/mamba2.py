@@ -12,18 +12,30 @@ launch; XLA compiles the body once).
 
 The JAX package writes the block in ``jnp`` and ``lax``, with no Pallas
 kernel; the port writes it in PyTorch ops.
+
+Decode (``apply_decode``): one token a step, the scalar-decay state
+update against a ``Mamba2State`` (the conv window of x, B and C in the
+cache dtype, the f32 (B, H, head_dim, d_state) state), in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.mamba import (SCAN_CHUNK, _causal_conv,
-                                             softplus)
+                                             decode_conv, softplus)
 from repro_torch.models.params import (ParamSpec, fan_in_init, full_init,
-                                       normal_init, ones_init, zeros_init)
+                                       normal_init, ones_init, zeros_init,
+                                       zeros_of)
+
+
+class Mamba2State(NamedTuple):
+    """A layer's decode state (stacked: a model's). ``apply_decode``
+    updates both fields in place and returns the same tensors."""
+    conv: torch.Tensor  # (B, d_conv - 1, d_inner + 2 d_state)
+    ssm: torch.Tensor   # (B, H, head_dim, d_state) f32
 
 
 def dims(cfg) -> Tuple[int, int, int, int, int]:
@@ -133,3 +145,45 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     y = y + params["D"].float()[:, None] * xq
     y = _gated_norm(y.reshape(b, n, d_inner), z, params["norm_scale"])
     return y.to(x.dtype) @ params["out_proj"]
+
+
+def abstract_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16
+                   ) -> Mamba2State:
+    """The state's fields as (shape, dtype) pairs; nothing allocated."""
+    d_inner, h, hd, ds, dc = dims(cfg)
+    return Mamba2State(conv=((batch, dc - 1, d_inner + 2 * ds), dtype),
+                       ssm=((batch, h, hd, ds), torch.float32))
+
+
+def init_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
+               device: Optional[Union[str, torch.device]] = None
+               ) -> Mamba2State:
+    """A zero state on ``device`` (CUDA unless given)."""
+    from repro_torch import resolve_device
+    return zeros_of(abstract_state(cfg, batch, dtype), resolve_device(device))
+
+
+def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                 state: Mamba2State) -> Tuple[torch.Tensor, Mamba2State]:
+    """One token x (B, 1, D) -> (y (B, 1, D), the state passed in, its
+    window shifted and its SSM state advanced, in place)."""
+    b = x.shape[0]
+    d_inner, h, hd, ds, _ = dims(cfg)
+    z, xs, b_raw, c_raw, dt = _split_proj(x @ params["in_proj"], cfg)
+    window = torch.cat([state.conv, torch.cat([xs, b_raw, c_raw], dim=-1)
+                        .to(state.conv.dtype)], dim=1)
+    conv_out = F.silu(decode_conv(window, params["conv_w"],
+                                  params["conv_b"]))
+    xq = conv_out[:, 0, :d_inner].reshape(b, h, hd).float()
+    bq = conv_out[:, 0, d_inner:d_inner + ds].float()
+    cq = conv_out[:, 0, d_inner + ds:].float()
+    delta = softplus(dt[:, 0].float() + params["dt_bias"])    # (B,H)
+    decay = torch.exp(delta * -torch.exp(params["A_log"].float()))
+    h_new = state.ssm * decay[..., None, None] \
+        + (xq * delta[..., None])[..., None] * bq[:, None, None, :]
+    y = torch.einsum("bhpd,bd->bhp", h_new, cq)
+    y = (y + params["D"].float()[:, None] * xq).reshape(b, 1, d_inner)
+    y = _gated_norm(y, z, params["norm_scale"]).to(x.dtype)
+    state.conv.copy_(window[:, 1:])
+    state.ssm.copy_(h_new)
+    return y @ params["out_proj"], state

@@ -18,13 +18,16 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: (b, seq, heads, head_dim); cos/sin: (seq, head_dim/2). Rotates
-    in f32 and returns x's dtype."""
+    """x: (..., seq, heads, head_dim); cos/sin: (..., seq, head_dim/2),
+    any leading position shape that broadcasts against x's: (seq,
+    head_dim/2) for one row of positions shared by the batch, (b, 1,
+    head_dim/2) for each row's decode position. Rotates in f32 and
+    returns x's dtype."""
     d2 = x.shape[-1] // 2
     x1 = x[..., :d2].float()
     x2 = x[..., d2:].float()
-    c = cos[:, None, :]
-    s = sin[:, None, :]
+    c = cos[..., None, :]  # broadcast over heads
+    s = sin[..., None, :]
     y1 = x1 * c - x2 * s
     y2 = x2 * c + x1 * s
     return torch.cat([y1, y2], dim=-1).to(x.dtype)

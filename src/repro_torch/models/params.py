@@ -9,6 +9,10 @@ billions of parameters (the CPU draw takes ~10 s a billion), but the
 bits are that device's generator's. The generator's bits are not
 ``jax.random``'s: tests that compare the two packages carry weights
 across with ``repro_torch.convert``.
+
+A serving cache is declared the same way, as (shape, dtype) pairs in its
+NamedTuples (``stack_abstract`` adds the layer axes, ``zeros_of``
+materialises it, ``index_struct`` takes one layer's views).
 """
 from __future__ import annotations
 
@@ -87,3 +91,32 @@ def init_params(specs: Dict[str, Any], seed: int, device: torch.device,
 
 def param_shapes(specs: Dict[str, Any]) -> Dict[str, Any]:
     return map_specs(lambda s: s.shape, specs)
+
+
+def _is_struct(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def stack_abstract(tree: Any, lead: Tuple[int, ...]) -> Any:
+    """A cache's (shape, dtype) pairs, nested in its NamedTuples, with
+    ``lead`` prepended to every shape (the layer axes)."""
+    if _is_struct(tree):
+        return type(tree)(*(stack_abstract(t, lead) for t in tree))
+    shape, dtype = tree
+    return (lead + tuple(shape), dtype)
+
+
+def zeros_of(tree: Any, device: torch.device) -> Any:
+    """Zero tensors for a cache's (shape, dtype) pairs, in its
+    NamedTuples."""
+    if _is_struct(tree):
+        return type(tree)(*(zeros_of(t, device) for t in tree))
+    shape, dtype = tree
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def index_struct(tree: Any, i: int) -> Any:
+    """Entry i of a stacked cache: views, so writes land in the stack."""
+    if _is_struct(tree):
+        return type(tree)(*(index_struct(t, i) for t in tree))
+    return tree[i]

@@ -1,7 +1,13 @@
-"""Attention-free Mamba-1 LM (the ssm family: falcon-mamba), the
-training path: embedding, ``num_layers`` pre-norm residual Mamba-1
-blocks (stacked along a leading L axis, the JAX package's layout), the
-final norm and the head."""
+"""Attention-free Mamba-1 LM (the ssm family: falcon-mamba): embedding,
+``num_layers`` pre-norm residual Mamba-1 blocks (stacked along a leading
+L axis, the JAX package's layout), the final norm and the head.
+
+Serving: the decode state is O(1) a layer (the conv window and the SSM
+state, ``mamba.MambaState`` stacked along L), whatever the context's
+length. The prefill runs the training path over the prompt and leaves
+the states as they were passed in, as the JAX package's does: decoding
+after it starts the recurrences from those states, not from the
+prompt's."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -10,6 +16,7 @@ import torch
 
 from repro_torch.models import params as params_mod
 from repro_torch.models.layers import embedding, mamba, norms
+from repro_torch.models.params import index_struct, stack_abstract
 from repro_torch.models.transformer import (LanguageModel, checkpointed,
                                             unstack, xent)
 
@@ -61,3 +68,42 @@ class MambaLM(LanguageModel):
         loss = xent(lg, batch["labels"], batch.get("loss_mask"))
         return loss, {"loss": loss, "aux_loss": torch.zeros(
             (), dtype=torch.float32, device=loss.device)}
+
+    # -- serving ------------------------------------------------------------
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype: torch.dtype = torch.bfloat16
+                       ) -> mamba.MambaState:
+        """conv (L, B, d_conv - 1, d_inner) in ``dtype``, ssm (L, B,
+        d_inner, d_state) f32; ``max_len`` does not enter."""
+        del max_len
+        return stack_abstract(mamba.abstract_state(self.cfg, batch, dtype),
+                              (self.cfg.num_layers,))
+
+    @torch.no_grad()
+    def serve_step(self, params: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor],
+                   cache: mamba.MambaState, *, mode: str = "decode",
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   split_combine: bool = False
+                   ) -> Tuple[torch.Tensor, mamba.MambaState]:
+        """'prefill': the training path over batch['tokens'] (B, S),
+        the cache returned untouched; 'decode': one token (B, 1) a row,
+        each layer's state advanced in place. ``split_combine`` has no
+        attention to act on. Returns (logits, the cache passed in)."""
+        del split_combine
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        cfg = self.cfg
+        x = embedding.embed(params["embed"], batch["tokens"], cfg,
+                            compute_dtype)
+        for i, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
+            y = norms.apply(lp["norm"], x, cfg.norm)
+            if mode == "prefill":
+                y = mamba.apply_train(lp["mixer"], y, cfg)
+            else:
+                y, _ = mamba.apply_decode(lp["mixer"], y, cfg,
+                                          index_struct(cache, i))
+            x = x + y
+        x = norms.apply(params["final_norm"], x, cfg.norm)
+        return embedding.logits(self._head_params(params), x, cfg), cache

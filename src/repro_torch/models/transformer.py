@@ -13,10 +13,15 @@ pool has the JAX package's 11-leaf table for smollm-135m), matrices
 stored (in, out) and used as ``x @ W``, the tied head ``embed.T``. The
 layer loop indexes the stacks (``unbind``) and wraps each layer in
 ``torch.utils.checkpoint`` when ``remat='layer'``.
+
+Serving (``serve_step``): a prefill of the prompt, then one-token decode
+steps, against a KV cache stacked along the layer axis (one index a
+layer), under ``torch.no_grad``; the cache passed in is updated in
+place and returned.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -121,9 +126,36 @@ def xent(logits: torch.Tensor, labels: torch.Tensor,
 
 class LanguageModel:
     """What the families' LMs share. Functional: parameters are passed
-    in, not held; a subclass gives ``param_specs`` and ``loss_fn``."""
+    in, not held; a subclass gives ``param_specs``, ``loss_fn``, and for
+    serving ``abstract_cache`` and ``serve_step``."""
 
     def param_specs(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype: torch.dtype = torch.bfloat16) -> Any:
+        """The serving cache as (shape, dtype) pairs in its NamedTuples;
+        nothing allocated."""
+        raise NotImplementedError
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Any:
+        """An empty serving cache (every field zero, as in JAX) on
+        ``device`` (CUDA unless given)."""
+        from repro_torch import resolve_device
+        return params_mod.zeros_of(self.abstract_cache(batch, max_len,
+                                                       dtype),
+                                   resolve_device(device))
+
+    def serve_step(self, params: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor], cache: Any, *,
+                   mode: str = "decode",
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   split_combine: bool = False) -> Tuple[torch.Tensor, Any]:
+        """(logits, cache): a prefill of batch['tokens'] (B, S) or one
+        decode step of (B, 1); the cache is updated in place."""
         raise NotImplementedError
 
     def param_shapes(self) -> Dict[str, Any]:
@@ -185,3 +217,68 @@ class TransformerLM(LanguageModel):
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}
+
+    # -- serving ------------------------------------------------------------
+
+    def _embed_inputs(self, params: Dict[str, Any],
+                      batch: Dict[str, torch.Tensor],
+                      compute_dtype: torch.dtype) -> torch.Tensor:
+        """Token embeddings; a vlm batch's 'vision_embeds' prepended when
+        it has them (a serving batch may be text only)."""
+        cfg = self.cfg
+        x = embedding.embed(params["embed"], batch["tokens"], cfg,
+                            compute_dtype)
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            x = torch.cat([batch["vision_embeds"].to(compute_dtype), x],
+                          dim=1)
+        return x
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype: torch.dtype = torch.bfloat16
+                       ) -> attention.KVCache:
+        """k and v (L, B, max_len, KV, hd), index (L,) int32."""
+        return params_mod.stack_abstract(attention.abstract_cache(
+            self.cfg, batch, max_len, dtype), (self.cfg.num_layers,))
+
+    def _serve_block(self, layer_params: Dict[str, Any], x: torch.Tensor,
+                     cache_slice: attention.KVCache, mode: str,
+                     split_combine: bool = False
+                     ) -> Tuple[torch.Tensor, attention.KVCache]:
+        cfg = self.cfg
+        h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
+        if mode == "decode":
+            h, cache_slice = attention.apply_decode(
+                layer_params["attn"], h, cfg, cache_slice,
+                split_combine=split_combine)
+        else:
+            h, cache_slice = attention.apply_prefill(
+                layer_params["attn"], h, cfg, cache_slice, attn_chunk=2048)
+        x = x + h
+        h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
+        if cfg.moe is not None:
+            h, _ = moe.apply(layer_params["ffn"], h, cfg)  # aux dropped
+        else:
+            h = mlp.apply(layer_params["ffn"], h, cfg)
+        return x + h, cache_slice
+
+    @torch.no_grad()
+    def serve_step(self, params: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor],
+                   cache: attention.KVCache, *, mode: str = "decode",
+                   compute_dtype: torch.dtype = torch.bfloat16,
+                   split_combine: bool = False
+                   ) -> Tuple[torch.Tensor, attention.KVCache]:
+        """mode 'prefill': batch['tokens'] (B, S) (audio (B, S, K); a vlm
+        may add 'vision_embeds', which take the first cache positions)
+        through every layer, each writing its cache; 'decode': one token
+        (B, 1) a row. Returns (logits (B, S, V), or (B, S, K, V) for
+        audio, the cache passed in, updated in place)."""
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch, compute_dtype)
+        for i, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
+            x, _ = self._serve_block(lp, x, params_mod.index_struct(cache, i),
+                                     mode, split_combine=split_combine)
+        x = norms.apply(params["final_norm"], x, cfg.norm)
+        return embedding.logits(self._head_params(params), x, cfg), cache
