@@ -354,6 +354,34 @@
    Serving launches none of the six kernels: the counts, set to 0 before
    the group, are read after it (``launches_serving`` in each kernel's
    entry).
+   The timeline and the soak, after serving:
+   (an) ``launch.dryrun --timeline`` in dense, lazy and CSC (each table's
+       summary line), then the elastic soak (``runtime.soak``) at its
+       defaults (300 simulated steps on 64 x 8 GPUs, a 24-step guard
+       lane) with the lane on the card against the same run with the
+       lane on the CPU: the whole trace equal (its records are integers,
+       booleans and powers of two); ``dryrun --soak`` prints the card
+       trace's table; the lane's launches by kernel (pack, update,
+       census, gather: ``launches_soak_lane``) and the phase's seconds.
+   The model axis (tensor parallelism, ``Trainer(cfg, device, mesh)``):
+   (ao) olmo-1b at its published widths and whole depth (16 layers,
+       d_model 2048, 16 heads, d_ff 8192, vocab 50304, tied), 1 x 4096
+       tokens, blockwise attention beyond 1024, lazy, bf16 wire, momentum
+       SGD, kernels on, 3 steps on one repeated batch and one more with
+       the model group's all-reduces timed: first at (1, 1) in this
+       process, then at mesh (1, 2) as two processes on this card (the
+       model group over gloo, through pinned host memory; the two
+       contexts time-sliced), the weights drawn on the card from the
+       seed and cut per rank. The losses within 6e-3 relative of the
+       (1, 1) run's (JAX's own bound for this comparison), each leaf
+       block's update norm within 2^-4 of the (1, 1) block's, the local
+       pool half the (1, 1) pool, the model group's all-reduces a step
+       as Megatron's form with remat counts them (5 x layers + 5), the
+       pool kernels' launches the step plans'; each rank's step ms and
+       peak memory, the all-reduces' bytes and seconds. Then olmo-smoke
+       in CSC through the CLI at ``--mesh 1x2``, 3 steps (the census and
+       the gather on each rank's local pool). ``launches_model_axis``:
+       both ranks' launches.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -363,8 +391,9 @@
 Prints one JSON line per kernel, one for the NaN words, one for the
 optimizer ops, one for the quantized ring, the MoE layer's card-against-
 CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
-timings' line, the serving line, one per train run (the long sequences'
-and the families' runs too), the attention line, the windowed GuardLane's, the host seconds of
+timings' line, the serving line, the timeline and soak line, the model
+axis line, one per train run (the long sequences' and the families' runs
+too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
 captured window launched it, and ``launches_by_run``), then ``{"ok":
@@ -5320,6 +5349,339 @@ def ring_train_phase(torch, dev):
               for label in ("int8_lazy", "int8_csc")))
 
 
+# -- (an) the timeline and the soak, (ao) the model axis ---------------------
+
+SOAK_LANE_KERNELS = ("pool_pack.kernel", "pool_unpack_update.kernel",
+                     "chunk_l1norm.kernel", "csc_compact.kernel")
+
+
+def soak_phase(torch, ops, dev) -> dict:
+    """(an): ``launch.dryrun --timeline`` in each mode, then the soak at
+    its defaults (300 steps, a 24-step guard lane) with the lane on the
+    card against the same run with the lane on the CPU: the whole trace
+    equal; ``dryrun --soak`` prints the card trace's table. The kernels'
+    counts are set to 0 before the card run and read after it."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime import soak
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun.main(argv)
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    timelines = {}
+    for mode in ("dense", "lazy", "csc"):
+        text = cli(["--timeline", "--timeline-mode", mode])
+        check(text.startswith("[timeline] AlexNet-class pool")
+              and "overlap efficiency" in text,
+              f"(an) dryrun --timeline --timeline-mode {mode}: {text[:300]}")
+        timelines[mode] = [ln for ln in text.splitlines()
+                           if ln.startswith("backward ")][0]
+    cfg = soak.SoakConfig()
+    ops.reset_counts()
+    t1 = time.perf_counter()
+    card = soak.SoakHarness(cfg, ckpt_dir("an_card"), device=dev).run()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    counts = dict(ops.dispatch_counts)
+    t1 = time.perf_counter()
+    cpu = soak.SoakHarness(cfg, ckpt_dir("an_cpu"), device="cpu").run()
+    cpu_s = time.perf_counter() - t1
+    check(card == cpu, "(an) the soak trace with the lane on the card != "
+          "the trace with the lane on the CPU")
+    table = cli(["--soak"])
+    check(table.rstrip("\n") == soak.render_trace(card),
+          f"(an) dryrun --soak printed {table[-400:]}")
+    clear_checkpoints()
+    fin = card["final"]
+    check(fin["aborted"] is None and fin["completed_steps"] == cfg.num_steps
+          and fin["elastic_events"] == 2,
+          f"(an) soak final {fin}")
+    for mode in ("lazy", "csc"):
+        tt = card["guard"][mode]["truth_table"]
+        check(tt["false_trips"] == 0 and all(
+            r["caught"] == r["injected"] for r in tt["classes"].values()),
+              f"(an) guard lane {mode}: {tt}")
+    check(all(counts.get(k, 0) > 0 for k in SOAK_LANE_KERNELS)
+          and not any(v for k, v in counts.items() if k.endswith(".plain")),
+          f"(an) the lane's launches {counts}")
+    return dict(timelines=timelines, lane_launches=counts,
+                soak_card_lane_s=card_s, soak_cpu_lane_s=cpu_s,
+                final=fin, seconds=time.perf_counter() - t0)
+
+
+# (ao): olmo-1b at its published widths and whole depth, 1 x 4096 tokens,
+# blockwise attention beyond 1024, lazy, bf16 wire, momentum SGD, kernels
+# on; TP_STEPS timed steps on one repeated batch, then one step with the
+# model group's all-reduces timed (a device sync on each side of each).
+TP_LAYERS = 16
+TP_STEPS = 3
+TP_ARGV = ["--arch", "olmo-1b", "--seq-len", "4096", "--batch", "1",
+           "--attn-chunk", "1024", "--gf-mode", "lazy", "--use-kernels",
+           "--window-steps", "1", "--steps", str(TP_STEPS)]
+# Then olmo-smoke in CSC through the CLI at --mesh 1x2: step 0 at the
+# ramp's first sparse stage, steps 1-2 at the steady k.
+TP_SMOKE_ARGV = ["--arch", "olmo-1b", "--reduced", "--gf-mode", "csc",
+                 "--csc-warmup", "1", "--chunk-elems", "2048", "--batch", "2",
+                 "--seq-len", "128", "--use-kernels", "--window-steps", "1",
+                 "--steps", "3"]
+# JAX's own bound for a (2, 2) against a (1, 1) bf16 loss stream
+# (tests/test_distributed.py), and each leaf block's update norm against
+# the (1, 1) run's.
+TP_LOSS_RTOL = 6e-3
+TP_UPDATE_RTOL = 2.0 ** -4
+
+
+def tp_trainer(train_mod, argv):
+    """The (ao) trainer: ``train.build`` of ``argv``, olmo-1b cut to
+    TP_LAYERS layers when that is below its depth."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.trainer import Trainer
+
+    args = train_mod.parse_args(argv)
+    _, cfg = train_mod.build(args)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                num_layers=TP_LAYERS))
+    d, m = args.mesh_shape
+    return args, cfg, Trainer(cfg, device=args.device, mesh=make_mesh(
+        (d, m)) if m > 1 else None)
+
+
+def update_norms(torch, trainer, init, final, blocks: int) -> dict:
+    """{leaf: [|final - initial| of each of the ``blocks`` model ranks'
+    blocks]}: the whole tree's leaves cut by the architecture's rules
+    (the (1, 1) run), or one entry, this rank's own block."""
+    from repro_torch.configs import rules_for
+    from repro_torch.core.pool import flatten_tree
+    from repro_torch.parallel import sharding
+
+    rules = rules_for(trainer.cfg.model)
+    out = {}
+    for (path, spec), (_, a), (_, b) in zip(flatten_tree(trainer.specs),
+                                            flatten_tree(init),
+                                            flatten_tree(final)):
+        d = (b - a).float()
+        parts = [sharding.shard_tree(d, spec, rules, blocks, r)
+                 for r in range(blocks)] if blocks > 1 else [d]
+        out["/".join(path)] = [float(torch.linalg.vector_norm(x))
+                               for x in parts]
+    return out
+
+
+def tp_run(torch, ops, train_mod, synthetic, argv, blocks):
+    """One process's (ao) run on one repeated batch: weights drawn on the
+    card from the seed (the whole tree, then this rank's blocks), the
+    counts set to 0 before the timed steps and read after them, step ms,
+    peak memory, the model group's all-reduces a step (count and bytes;
+    their seconds on one more step with them timed), each leaf block's
+    update norm (``update_norms`` over ``blocks`` blocks)."""
+    args, cfg, trainer = tp_trainer(train_mod, argv)
+    params = trainer.shard_params(trainer.model.init_params(
+        args.seed, trainer.device, on_device=True))
+    init = _tree_clone(params)
+    state = trainer.init_state(params=params)
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch, cfg.seq_len)
+    step = trainer.build_train_step()
+    axis = trainer.model_axis
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, seconds, per_step = [], [], []
+    for _ in range(TP_STEPS):
+        if axis is not None:
+            axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if axis is not None:
+            per_step.append(dict(axis.stats))
+    counts = dict(ops.dispatch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_counts(trainer, TP_STEPS)
+    check(counts == want, f"(ao) dispatch counts {counts}, expected {want}")
+    norms = update_norms(torch, trainer, init, state.params, blocks)
+    timed = None
+    if axis is not None:
+        axis.reset_stats()
+        axis.timing = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        timed = dict(axis.stats, step_s=time.perf_counter() - t0)
+        axis.timing = False
+    out = dict(losses=losses, step_ms=[s * 1e3 for s in seconds],
+               steady_step_ms=statistics.median(seconds[1:]) * 1e3,
+               peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+               local_pool_elems=trainer.pool.size,
+               global_pool_elems=trainer.global_pool, update_norms=norms,
+               model_all_reduces=per_step, timed_step=timed)
+    return trainer, out
+
+
+def _tree_clone(tree):
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def tp_expected_all_reduces(layers: int) -> int:
+    """The model group's all-reduces a step of olmo-1b's Megatron form
+    with per-layer remat: the embedding's sum; per layer the attention's
+    and the MLP's output sums, their input gradients' sums, and the
+    attention's output sum again in the recompute (which stops once the
+    backward has every tensor it saved, before the MLP's output sum:
+    ``torch.utils.checkpoint``'s early stop); the head's input gradient;
+    the vocab-parallel cross-entropy's max, sum of exponentials and
+    target logit."""
+    return 1 + 5 * layers + 1 + 3
+
+
+def tp_worker(rank: int, port: int, out: str) -> None:
+    """One rank of (ao) at mesh (1, 2): two processes on this card, the
+    model group over gloo. The olmo-1b run (``tp_run``), then olmo-smoke
+    in CSC through the CLI (``train.train``), each with the counts set to
+    0 before and read after. Writes its findings to ``out`` as JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        trainer, run = tp_run(torch, ops, train_mod, synthetic,
+                              TP_ARGV + ["--mesh", "1x2"], 1)
+        run["rank"], run["model_index"] = rank, trainer.mesh.model_index
+        del trainer
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        args = train_mod.parse_args(TP_SMOKE_ARGV + ["--mesh", "1x2"])
+        smoke_trainer, losses, _, stats = train_mod.train(args)
+        run["smoke_csc"] = dict(
+            losses=losses, dispatch_counts=dict(ops.dispatch_counts),
+            num_selected=[smoke_trainer.gf.stage_for_step(s).num_selected
+                          for s in range(args.steps)],
+            num_chunks=smoke_trainer.gf.num_chunks,
+            local_pool_elems=smoke_trainer.pool.size,
+            global_pool_elems=smoke_trainer.global_pool,
+            expected_counts=expected_counts(smoke_trainer, args.steps))
+        with open(out, "w") as f:
+            json.dump(run, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
+    """(ao): the (1, 1) run in this process, then the two (1, 2) ranks
+    (``tp_worker``) on the same weights; the losses within TP_LOSS_RTOL
+    of the (1, 1) run's, each leaf block's update norm within
+    TP_UPDATE_RTOL, the model group's all-reduces a step as the Megatron
+    form counts them, the local pool half the (1, 1) pool."""
+    t0 = time.perf_counter()
+    ref_trainer, ref = tp_run(torch, ops, train_mod, synthetic, TP_ARGV, 2)
+    ref_norms = ref.pop("update_norms")
+    del ref_trainer
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    port = free_port()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"tp_rank{r}.json") for r in range(2)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), "--port", str(port),
+                               "--out", outs[r]]) for r in range(2)]
+    try:
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        fail("(ao): the ranks did not finish within 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"(ao): rank exit codes {[p.returncode for p in procs]}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    want_ar = tp_expected_all_reduces(TP_LAYERS)
+    for r in ranks:
+        lab = f"(ao) rank {r['rank']}"
+        check(r["losses"] == ranks[0]["losses"],
+              f"{lab}: losses {r['losses']} != rank 0's")
+        err = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                      ref["losses"]))
+        check(err <= TP_LOSS_RTOL and all(math.isfinite(x)
+                                          for x in r["losses"]),
+              f"{lab}: losses {r['losses']} against (1, 1) {ref['losses']}")
+        r["loss_rel_err_vs_1x1"] = err
+        check(2 * r["local_pool_elems"] == ref["local_pool_elems"]
+              == r["global_pool_elems"],
+              f"{lab}: local pool {r['local_pool_elems']}, (1, 1) pool "
+              f"{ref['local_pool_elems']}")
+        check(all(s["all_reduces"] == want_ar
+                  for s in r["model_all_reduces"]),
+              f"{lab}: model all-reduces a step {r['model_all_reduces']}, "
+              f"expected {want_ar}")
+        worst = 0.0
+        for name, (got,) in r["update_norms"].items():
+            want = ref_norms[name][r["model_index"]]
+            if want:
+                worst = max(worst, abs(got - want) / want)
+        check(worst <= TP_UPDATE_RTOL,
+              f"{lab}: update norms off by {worst} relative")
+        r["update_norm_rel_err_vs_1x1"] = worst
+        sm = r["smoke_csc"]
+        check(sm["dispatch_counts"] == sm["expected_counts"]
+              and sm["dispatch_counts"].get("csc_compact.kernel", 0) > 0
+              and all(math.isfinite(x) for x in sm["losses"]),
+              f"{lab} smoke CSC: {sm}")
+        del r["update_norms"]
+    note = ("mesh (1, 2) as two processes on one card: the ranks take "
+            "turns on the device (time-sliced), and the model group's "
+            "all-reduces go through pinned host memory and gloo; a step "
+            "time is no NVLink's")
+    counts = {}
+    for r in ranks:
+        for src in (r["dispatch_counts"], r["smoke_csc"]["dispatch_counts"]):
+            for k, v in src.items():
+                counts[k] = counts.get(k, 0) + v
+    return dict(
+        arch="olmo-1b", mesh=[1, 2], layers=TP_LAYERS,
+        reduced=({} if TP_LAYERS == 16 else {"num_layers": [16, TP_LAYERS]}),
+        tokens=4096, reference_1x1=dict(
+            losses=ref["losses"], steady_step_ms=ref["steady_step_ms"],
+            peak_mem_gib=ref["peak_mem_gib"],
+            pool_elems=ref["local_pool_elems"],
+            dispatch_counts=ref["dispatch_counts"], seconds=ref_s),
+        ranks=ranks, expected_model_all_reduces_per_step=want_ar,
+        loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
+        dispatch_counts_both_ranks=counts, note=note,
+        seconds=time.perf_counter() - t0)
+
+
 _PHASE_T = [T_START]
 
 
@@ -5347,6 +5709,12 @@ def main() -> None:
                           int(argv[argv.index("--port") + 1]),
                           argv[argv.index("--out") + 1],
                           argv[argv.index("--elastic-dir") + 1])
+        return
+    if "--tp-rank" in sys.argv:
+        argv = sys.argv[1:]
+        tp_worker(int(argv[argv.index("--tp-rank") + 1]),
+                  int(argv[argv.index("--port") + 1]),
+                  argv[argv.index("--out") + 1])
         return
     if "--cli-train" in sys.argv:
         argv = sys.argv[1:]
@@ -5506,6 +5874,14 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     phase_seconds("serving")
     print(json.dumps(dict(serving=serving, gpu=name, power_limit=power)),
           flush=True)
+    soak_run = soak_phase(torch, ops, dev)
+    print(json.dumps(dict(soak_and_timeline=soak_run, gpu=name,
+                          power_limit=power)), flush=True)
+    phase_seconds("timeline and soak (an)")
+    tp = model_axis_phase(torch, ops, train_mod, synthetic)
+    print(json.dumps(dict(model_axis=tp, gpu=name, power_limit=power)),
+          flush=True)
+    phase_seconds("model axis (ao)")
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})
@@ -5532,8 +5908,18 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
                 + list(long_runs.items()) if "pallas" not in label
                 and "dispatch_counts" in run}
     for e in entries:
-        e["launches_serving"] = serving["dispatch_counts"].get(
-            f"{e['name']}.kernel", 0)
+        key = f"{e['name']}.kernel"
+        e["launches_serving"] = serving["dispatch_counts"].get(key, 0)
+        # (an) the soak's guard lane; (ao) both model-axis ranks, the
+        # olmo-1b run and the smoke CSC run.
+        e["launches_soak_lane"] = soak_run["lane_launches"].get(key, 0)
+        e["launches_model_axis"] = tp["dispatch_counts_both_ranks"].get(
+            key, 0)
+    check(all(soak_run["lane_launches"].get(k, 0) > 0
+              and tp["dispatch_counts_both_ranks"].get(k, 0) > 0
+              for k in SOAK_LANE_KERNELS),
+          f"(an)/(ao) launches: lane {soak_run['lane_launches']}, model "
+          f"axis {tp['dispatch_counts_both_ranks']}")
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     # Which kernels a captured window launched: (q)'s lazy path, (s)'s

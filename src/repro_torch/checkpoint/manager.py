@@ -223,9 +223,15 @@ def _savez(path: str, arrays: List[Tuple[np.ndarray, str]]) -> None:
 class CheckpointManager:
     """``writes`` holds one record a checkpoint this rank wrote: its step,
     the writer's seconds (hash and write) and the bytes of its
-    ``arrays.npz``."""
+    ``arrays.npz``. In a process whose mesh has a model axis
+    (``launch.mesh.make_mesh``) it refuses to be built (ROADMAP.md
+    A.23)."""
 
     def __init__(self, directory: str, keep: int = 3):
+        from repro_torch.parallel import collectives
+        if collectives.data_group() is not None:
+            raise ValueError("checkpoints under a model axis are not "
+                             "ported yet; see ROADMAP.md A.23")
         self.directory = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)

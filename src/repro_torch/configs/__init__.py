@@ -1,7 +1,7 @@
 """Architecture registry of the port: --arch <id> resolves here."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs import (arctic_480b, falcon_mamba_7b, grok1_314b,
                                  internvl2_26b, musicgen_large, olmo_1b,
@@ -39,17 +39,29 @@ def _module(arch_id: str):
             f"see ROADMAP.md queue A") from None
 
 
-def get_arch(arch_id: str) -> Tuple[ModelConfig, None]:
-    """(full config, rules). The port has no tensor-parallel rule table,
-    so the second entry is None."""
-    return _module(arch_id).CONFIG, None
+def get_arch(arch_id: str) -> Tuple[ModelConfig, Dict[str, Optional[str]]]:
+    """(full config, its rule table: logical axis -> 'model' or None;
+    ``parallel.sharding``)."""
+    mod = _module(arch_id)
+    return mod.CONFIG, dict(mod.RULES)
 
 
-def get_smoke(arch_id: str) -> Tuple[ModelConfig, None]:
-    return _module(arch_id).SMOKE, None
+def get_smoke(arch_id: str) -> Tuple[ModelConfig, Dict[str, Optional[str]]]:
+    mod = _module(arch_id)
+    return mod.SMOKE, dict(mod.RULES)
+
+
+def rules_for(model_cfg: ModelConfig) -> Dict[str, Optional[str]]:
+    """The rule table of the architecture whose full or smoke config has
+    ``model_cfg``'s name."""
+    for mod in _MODULES.values():
+        if model_cfg.name in (mod.CONFIG.name, mod.SMOKE.name):
+            return dict(mod.RULES)
+    raise KeyError(f"no architecture has a config named "
+                   f"{model_cfg.name!r}; pass the rules explicitly")
 
 
 __all__ = ["ARCH_IDS", "GradientFlowConfig", "MeshConfig", "ModelConfig",
            "MoEConfig", "OptimizerConfig", "SHAPES", "SSMConfig",
-           "ShapeConfig", "TrainConfig", "get_arch", "get_smoke",
+           "ShapeConfig", "TrainConfig", "get_arch", "get_smoke", "rules_for",
            "shapes_for"]

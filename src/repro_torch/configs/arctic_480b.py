@@ -2,6 +2,7 @@
 vocab=32000, MoE 128 experts top-2 + dense residual MLP
 [hf:Snowflake/snowflake-arctic-base; hf]."""
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="arctic-480b", family="moe",
@@ -12,6 +13,9 @@ CONFIG = ModelConfig(
                   residual_d_ff=4864, capacity_factor=1.25),
     max_seq_len=32768,
 )
+
+RULES = make_rules(heads=None, kv_heads=None, qkv=None,
+                   expert="model", expert_mlp=None)
 
 SMOKE = ModelConfig(
     name="arctic-smoke", family="moe",

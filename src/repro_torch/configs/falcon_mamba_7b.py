@@ -2,6 +2,7 @@
 ssm_state=16, vocab=65024 [arXiv:2410.05355; unverified].
 Runs long_500k (recurrent O(1)-state decode)."""
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="falcon-mamba-7b", family="ssm",
@@ -11,6 +12,8 @@ CONFIG = ModelConfig(
     ssm=SSMConfig(d_state=16, d_conv=4, expand=2, version=1),
     max_seq_len=524288,
 )
+
+RULES = make_rules()
 
 SMOKE = ModelConfig(
     name="falcon-mamba-smoke", family="ssm",

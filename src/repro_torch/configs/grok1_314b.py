@@ -1,6 +1,7 @@
 """grok-1-314b [moe] — 64L d_model=6144 48H (GQA kv=8) d_ff=32768
 vocab=131072, MoE 8 experts top-2 [hf:xai-org/grok-1; unverified]."""
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="grok-1-314b", family="moe",
@@ -10,6 +11,8 @@ CONFIG = ModelConfig(
     moe=MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25),
     max_seq_len=32768,
 )
+
+RULES = make_rules(kv_heads=None, expert=None, expert_mlp="model")
 
 SMOKE = ModelConfig(
     name="grok1-smoke", family="moe",

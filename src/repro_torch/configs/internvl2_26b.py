@@ -5,6 +5,7 @@ d_ff=16384 vocab=92553 [arXiv:2404.16821; hf].
 vocab padded 92553 -> 92672 (a multiple of 128), as in the JAX package;
 the pad rows are never addressed."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="internvl2-26b", family="vlm",
@@ -14,6 +15,8 @@ CONFIG = ModelConfig(
     num_vision_tokens=256,
     max_seq_len=32768,
 )
+
+RULES = make_rules(kv_heads=None)
 
 SMOKE = ModelConfig(
     name="internvl2-smoke", family="vlm",

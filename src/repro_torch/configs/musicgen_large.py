@@ -3,6 +3,7 @@
 [arXiv:2306.05284; hf]. Frontend (EnCodec) is stubbed: the backbone
 consumes codec token ids; 4 codebook embeddings summed, 4 output heads."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="musicgen-large", family="audio",
@@ -11,6 +12,8 @@ CONFIG = ModelConfig(
     norm="layernorm", activation="gelu", qk_norm=False,
     max_seq_len=32768,
 )
+
+RULES = make_rules()
 
 SMOKE = ModelConfig(
     name="musicgen-smoke", family="audio",

@@ -1,6 +1,7 @@
 """smollm-135m [dense] — 30L d_model=576 9H (GQA kv=3) d_ff=1536
 vocab=49152, llama arch [hf:HuggingFaceTB/SmolLM-135M]."""
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="smollm-135m", family="dense",
@@ -9,6 +10,8 @@ CONFIG = ModelConfig(
     norm="rmsnorm", activation="swiglu", tie_embeddings=True,
     max_seq_len=32768,
 )
+
+RULES = make_rules(heads=None, kv_heads=None, qkv=None)
 
 SMOKE = ModelConfig(
     name="smollm-smoke", family="dense",

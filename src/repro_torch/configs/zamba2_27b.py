@@ -3,6 +3,7 @@ head_dim=64) + one shared attention block (32H MHA + MLP d_ff=10240)
 applied every 6 layers [arXiv:2411.15242; hf].
 Runs long_500k (hybrid recurrent decode)."""
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.parallel.sharding import make_rules
 
 CONFIG = ModelConfig(
     name="zamba2-2.7b", family="hybrid",
@@ -13,6 +14,8 @@ CONFIG = ModelConfig(
     hybrid_attn_every=6,
     max_seq_len=524288,
 )
+
+RULES = make_rules()
 
 SMOKE = ModelConfig(
     name="zamba2-smoke", family="hybrid",

@@ -4,7 +4,9 @@ serving caches between the JAX package and the port.
 The port keeps the JAX package's layout (same nested keys, stacked layer
 weights, (in, out) matrices, pool-shaped optimizer state fields of the
 same names), so conversion is a key-for-key (field-for-field) copy through
-numpy with no transposes.
+numpy with no transposes. ``shard_params`` and ``unshard_params`` cut a
+full tree into one model rank's blocks and put the blocks back together
+(``parallel.sharding``).
 """
 from __future__ import annotations
 
@@ -151,3 +153,33 @@ def cache_to_numpy(cache: Any) -> Any:
         import ml_dtypes
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def shard_params(full: Dict[str, Any], rules, model_size: int,
+                 model_rank: int, *, specs: Dict[str, Any]
+                 ) -> Dict[str, Any]:
+    """One model rank's local leaves (numpy) of a full parameter tree
+    (the JAX package's, as numpy): every leaf that ``rules`` put on the
+    model axis (through its logical axes in ``specs``, the model's
+    ``param_specs``) cut to the rank's contiguous block, the rest whole.
+    Carry the result to the port with ``params_from_numpy``."""
+    from repro_torch.parallel import sharding
+    return sharding.shard_tree(_numpy_tree(full), specs, rules, model_size,
+                               model_rank)
+
+
+def unshard_params(parts, rules, *, specs: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """The full parameter tree (numpy) from every model rank's local
+    leaves (``parts`` in model-rank order; torch tensors or numpy): the
+    inverse of ``shard_params``."""
+    from repro_torch.parallel import sharding
+    return sharding.unshard_tree(
+        [_numpy_tree(p) for p in parts], specs, rules,
+        lambda blocks, dim: np.concatenate(blocks, axis=dim))
+
+
+def _numpy_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _numpy_tree(v) if isinstance(v, dict)
+            else (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                  else np.asarray(v)) for k, v in tree.items()}

@@ -54,6 +54,12 @@ updates are in place already, and they are not ported.
 The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
 fence.
+
+The analytic twin (``simulate_plan``, ``render_timeline``,
+``simulate_plan_pipelined``, ``render_cross_step_timeline``) prices a
+plan on a ``Topology`` with the cost model's two-engine timeline: no
+pool, no device. ``launch.dryrun --timeline`` and the elastic soak
+(``runtime.soak``) read it.
 """
 from __future__ import annotations
 
@@ -803,3 +809,147 @@ class OverlapEngine:
         assert len(all_leaves) == self.pool.num_tensors, (
             len(all_leaves), self.pool.num_tensors)
         return self.pool.unflatten(all_leaves)
+
+
+# -- the analytic twin (timeline simulation) ---------------------------------
+#
+# Pure cost-model arithmetic on a StepPlan and a Topology: no pool is
+# allocated and nothing runs on a device, so a wire dtype the pool refuses
+# on the card (the paper's float16) prices here all the same. The formulas
+# and their order are the JAX package's, so the floats are its floats.
+
+
+def wire_itemsize(wire_dtype: str) -> int:
+    """Bytes of one wire element, from the dtype's name."""
+    return getattr(torch, str(wire_dtype)).itemsize
+
+
+def simulate_plan(plan: StepPlan, topo, *,
+                  backward_s: Optional[float] = None,
+                  hbm_bw: float = cost_model.HBM_BW) -> dict:
+    """Price a StepPlan on a Topology with the cost model's two-engine
+    timeline: per-bucket comm times from each task's own algorithm,
+    releases at the uniform backward rate, update times from the HBM
+    sweep model. Returns {rows, summary, backward_s, monolithic_finish_s}:
+    ``monolithic_finish_s`` is the same buckets without the staged update
+    (comm finishes, then one barrier update sweep), the number the
+    pipeline must beat."""
+    elt = wire_itemsize(plan.wire_dtype)
+    sizes = [t.size * elt for t in plan.tasks]
+    if backward_s is None:
+        backward_s = cost_model.ring_allreduce_time(
+            plan.payload_elems * elt, topo.num_devices, topo.slowest_fabric)
+    comm = [t.algo.predicted_time(b, topo) for t, b in zip(plan.tasks,
+                                                           sizes)]
+    rel = cost_model.bucket_release_times(sizes, backward_s)
+    if plan.mode == "csc" and not plan.warmup:
+        # The update side is its own segmented pass (spans != tasks):
+        # charge it as one post-comm sweep of the pool.
+        upd = [0.0] * len(plan.tasks)
+        rows = cost_model.staged_timeline(comm, rel, upd)
+        tail = cost_model.update_time(plan.pool_size, hbm_bw)
+        finish = rows[-1].update_end_s + tail if rows else backward_s
+        summary = cost_model.timeline_summary(rows, backward_s)
+        summary["finish_s"] = finish
+        mono = finish
+    else:
+        upd = [cost_model.update_time(t.size, hbm_bw) for t in plan.tasks]
+        rows = cost_model.staged_timeline(comm, rel, upd)
+        summary = cost_model.timeline_summary(rows, backward_s)
+        mono = cost_model.overlapped_finish_time(comm, rel) + sum(upd)
+    return {"rows": rows, "summary": summary, "backward_s": backward_s,
+            "monolithic_finish_s": mono}
+
+
+def render_timeline(plan: StepPlan, topo, *,
+                    backward_s: Optional[float] = None) -> str:
+    """The plan's compute/comm timeline as text (``dryrun --timeline``):
+    per-bucket comm and update start and end in ms, each bucket's exposed
+    comm, and the overlap-efficiency summary."""
+    sim = simulate_plan(plan, topo, backward_s=backward_s)
+    rows, summary = sim["rows"], sim["summary"]
+    bw = sim["backward_s"]
+    ms = 1e3
+    lines = [
+        f"StepPlan[{plan.mode}{' warmup' if plan.warmup else ''}] "
+        f"{len(plan.tasks)} buckets, payload "
+        f"{plan.payload_elems * wire_itemsize(plan.wire_dtype) / 2**20:.1f}"
+        f" MiB ({plan.wire_dtype}) over {topo.num_devices} devices",
+        f"{'bkt':>3} {'elems':>10} {'algo':>11} {'rel':>8} "
+        f"{'comm_start':>10} {'comm_end':>9} {'upd_start':>9} "
+        f"{'upd_end':>8} {'exposed':>8}   (ms)",
+    ]
+    for t, r in zip(plan.tasks, rows):
+        lines.append(
+            f"{r.index:>3} {t.size:>10} {t.algo.name:>11} "
+            f"{r.release_s * ms:>8.2f} {r.comm_start_s * ms:>10.2f} "
+            f"{r.comm_end_s * ms:>9.2f} {r.update_start_s * ms:>9.2f} "
+            f"{r.update_end_s * ms:>8.2f} "
+            f"{r.exposed_comm_s(bw) * ms:>8.2f}")
+    lines.append(
+        f"backward {bw * ms:.2f} ms | finish {summary['finish_s'] * ms:.2f}"
+        f" ms (monolithic {sim['monolithic_finish_s'] * ms:.2f} ms) | "
+        f"comm busy {summary['comm_busy_s'] * ms:.2f} ms | exposed comm "
+        f"{summary['exposed_comm_s'] * ms:.2f} ms | overlap efficiency "
+        f"{summary['overlap_efficiency'] * 100:.1f}%")
+    return "\n".join(lines)
+
+
+def simulate_plan_pipelined(plan: StepPlan, topo, *,
+                            tail: Optional[int] = None,
+                            backward_s: Optional[float] = None,
+                            hbm_bw: float = cost_model.HBM_BW) -> dict:
+    """Price the cross-step pipelined execution of a dense or lazy plan:
+    the cost model's two-row timeline where the last ``tail`` buckets'
+    updates retire during the next step's forward window, each gated by
+    its span's forward need-time. ``tail`` defaults to the plan's own
+    ``pipeline_tail`` (picked by the cost model when that is 0: the
+    what-if the dryrun table shows). Returns ``cross_step_timeline``'s
+    dict plus the staged (within-step) baseline."""
+    assert plan.mode in ("dense", "lazy") or plan.warmup, plan.mode
+    elt = wire_itemsize(plan.wire_dtype)
+    sizes = [t.size * elt for t in plan.tasks]
+    if backward_s is None:
+        backward_s = cost_model.ring_allreduce_time(
+            plan.payload_elems * elt, topo.num_devices, topo.slowest_fabric)
+    comm = [t.algo.predicted_time(b, topo) for t, b in zip(plan.tasks,
+                                                           sizes)]
+    rel = cost_model.bucket_release_times(sizes, backward_s)
+    upd = [cost_model.update_time(t.size, hbm_bw) for t in plan.tasks]
+    if tail is None:
+        tail = plan.pipeline_tail or cost_model.select_pipeline_tail(
+            comm, rel, upd, backward_s)
+    sim = cost_model.cross_step_timeline(comm, rel, upd, tail, backward_s)
+    sim["backward_s"] = backward_s
+    sim["staged_finish_s"] = cost_model.staged_finish_time(comm, rel, upd)
+    rows = cost_model.staged_timeline(comm, rel, upd)
+    sim["staged_exposed_comm_s"] = cost_model.timeline_summary(
+        rows, backward_s)["exposed_comm_s"]
+    return sim
+
+
+def render_cross_step_timeline(plan: StepPlan, topo, *,
+                               backward_s: Optional[float] = None) -> str:
+    """The cross-step (two-row) schedule as text: one steady-state step
+    with the carried tail applied up front, the head buckets committing
+    in the step, and the new tail handed to step t+1 (the second table
+    ``launch/dryrun.py --timeline`` prints for pipelineable plans)."""
+    sim = simulate_plan_pipelined(plan, topo, backward_s=backward_s)
+    ms = 1e3
+    lines = [
+        f"cross-step pipeline: tail={sim['tail']} of {len(plan.tasks)} "
+        f"buckets deferred into the scan carry",
+        f"{'bkt':>3} {'lane':>8} {'comm_start':>10} {'comm_end':>9} "
+        f"{'retire':>8}   (ms)",
+    ]
+    for idx, deferred, cs, ce, retire in sim["rows"]:
+        lane = "carry" if deferred else "in-step"
+        lines.append(f"{idx:>3} {lane:>8} {cs * ms:>10.2f} "
+                     f"{ce * ms:>9.2f} {retire * ms:>8.2f}")
+    lines.append(
+        f"steady-state period {sim['period_s'] * ms:.2f} ms vs staged "
+        f"{sim['staged_finish_s'] * ms:.2f} ms | exposed comm "
+        f"{sim['exposed_comm_s'] * ms:.2f} ms vs staged "
+        f"{sim['staged_exposed_comm_s'] * ms:.2f} ms | window prologue "
+        f"{sim['prologue_s'] * ms:.2f} ms")
+    return "\n".join(lines)

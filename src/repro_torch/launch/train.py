@@ -30,7 +30,14 @@ words with per-chunk scales and error feedback, ``core.wire``;
 accumulation has no flag, as in the JAX CLI: set
 ``TrainConfig.microbatches``. Inside an
 initialised ``torch.distributed`` group each rank trains on its own shard
-of the global batch.
+of the global batch. ``--mesh DxM``, the JAX CLI's flag, lays the D x M
+ranks out as a ('data', 'model') grid (``launch.mesh.make_mesh``; D x M
+must be the world size, default world x 1): M > 1 trains the dense family
+tensor-parallel (``Trainer``'s model axis), each data index's M ranks on
+the same batch shard. Under M > 1 the steps run one at a time
+(``--window-steps 1``) and without checkpoints (no supervisor, no
+``--ckpt-dir``): windows and checkpoints under a model axis are
+ROADMAP.md A.23, and asking for them raises.
 
 The loop runs under ``runtime.TrainSupervisor.run_windows`` with a
 ``checkpoint.CheckpointManager(keep=3)`` in ``--ckpt-dir`` (default: a
@@ -71,8 +78,8 @@ from repro_torch.core.schedule import (snap_stages_to_window, stage_at,
                                        stage_first_steps)
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import SyntheticLM
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.trainer import Trainer
-from repro_torch.parallel import collectives
 from repro_torch.runtime.fault_tolerance import (Preempted,
                                                  SupervisorConfig,
                                                  TrainSupervisor)
@@ -139,6 +146,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="default: a fresh temp dir (pass a path to resume)")
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mesh", default=None,
+                   help="DxM: data x model ranks (default: world x 1)")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None,
                    help="torch device; default: the first CUDA card")
@@ -150,7 +159,33 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.window_steps < 1:
         raise ValueError(f"--window-steps must be >= 1, got "
                          f"{args.window_steps}")
+    args.mesh_shape = mesh_shape(args.mesh)
+    if args.mesh_shape[1] > 1:
+        if args.window_steps != 1:
+            raise ValueError("--mesh with a model axis needs "
+                             "--window-steps 1: windows under a model axis "
+                             "are not ported yet; see ROADMAP.md A.23")
+        if args.ckpt_dir is not None:
+            raise ValueError("--ckpt-dir with a model axis: checkpoints "
+                             "under a model axis are not ported yet; see "
+                             "ROADMAP.md A.23")
     return args
+
+
+def mesh_shape(spec: Optional[str]) -> Tuple[int, int]:
+    """``--mesh DxM`` as (D, M); None: (world size, 1)."""
+    world = torch.distributed.get_world_size() \
+        if torch.distributed.is_initialized() else 1
+    if spec is None:
+        return world, 1
+    try:
+        d, m = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DxM, got {spec!r}") from None
+    if d * m != world:
+        raise ValueError(f"--mesh {spec}: {d * m} ranks, the world has "
+                         f"{world}")
+    return d, m
 
 
 def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
@@ -170,7 +205,9 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
                       seq_len=args.seq_len, global_batch=args.batch,
                       attn_chunk=args.attn_chunk, seed=args.seed,
                       window_steps=args.window_steps)
-    return Trainer(cfg, device=args.device), cfg
+    d, m = args.mesh_shape
+    mesh = make_mesh((d, m)) if m > 1 else None
+    return Trainer(cfg, device=args.device, mesh=mesh), cfg
 
 
 def _ckpt_dir(args: argparse.Namespace, n: int) -> str:
@@ -208,20 +245,19 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
             f"--arch {args.arch}: the CLI's synthetic stream has no "
             f"vision_embeds, which a vlm batch needs; train it through the "
             f"Trainer with models.registry.make_batch batches")
-    n = collectives.data_world_size()
+    n = trainer.num_data
     if cfg.global_batch % n:
         raise ValueError(f"--batch {cfg.global_batch} does not split over "
                          f"{n} ranks")
-    rank = torch.distributed.get_rank() if n > 1 else 0
+    tp = trainer.model_size > 1
+    rank = trainer.mesh.data_index if tp else \
+        (torch.distributed.get_rank() if n > 1 else 0)
     # No prefetch thread: its batch making would take the interpreter
     # lock from the host-bound step (data.pipeline).
     pipe = DataPipeline(SyntheticLM(cfg.model.vocab_size, seed=args.seed,
                                     num_codebooks=cfg.model.num_codebooks),
                         cfg.global_batch // n, cfg.seq_len, shard=rank,
                         prefetch=0)
-    ckpt = CheckpointManager(_ckpt_dir(args, n), keep=3)
-    sup = TrainSupervisor(ckpt, SupervisorConfig(
-        checkpoint_every=args.ckpt_every))
     state = trainer.init_state(args.seed)
     cuda = trainer.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -275,6 +311,15 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
                       flush=True)
         return state
 
+    if tp:
+        # One eager step at a time, no checkpoints (see the docstring).
+        for s in range(args.steps):
+            state = window_fn(s, 1, state)
+        return trainer, losses, seconds, dict(
+            restarts=0, restart_causes=[], backoffs_s=[], preempted=None)
+    ckpt = CheckpointManager(_ckpt_dir(args, n), keep=3)
+    sup = TrainSupervisor(ckpt, SupervisorConfig(
+        checkpoint_every=args.ckpt_every))
     # `is not None`: a checkpoint saved at step 0 is a real checkpoint.
     first = ckpt.latest_step()
     if first is not None:

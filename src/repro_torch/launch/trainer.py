@@ -22,7 +22,7 @@ The optimizer is momentum SGD, LARS (momentum SGD scaled by per-tensor
 trust ratios: per span when staged, over the whole pool when monolithic)
 or AdamW (plain PyTorch ops, no kernel, as in the JAX package).
 
-The data-parallel topology comes from the world size (one ``('data', N)``
+The data-parallel topology comes from the data degree (one ``('data', N)``
 level) unless the config names one covering the same ranks; its level
 groups, and on the card the ring workspace of each level group that a
 ``pallas_ring`` bucket may run over, are created when the trainer is.
@@ -33,8 +33,9 @@ each step with ``gf.stage_for_step``. With ``use_kernels`` the packs, the
 updates of SGD and LARS and CSC's gather and census go through
 ``kernels.ops``: the CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors. The data-parallel group is the default
-``torch.distributed`` group when one is initialised (each rank passes its
-own batch shard to ``step``); with none, the step is one shard's.
+``torch.distributed`` group when one is initialised, or a mesh's data
+group (each rank passes its own batch shard to ``step``); with none, the
+step is one shard's.
 
 With ``GradientFlowConfig.guard`` (the numeric guard rail, ``core.guard``)
 the loss is multiplied by the live loss scale (``TrainState.guard``, an
@@ -70,6 +71,23 @@ so a state outside a window is always flushed (``assert_flushed``).
 over the same ranks (an elastic event); steps and windows built before it
 refuse to run. A checkpoint restore (``checkpoint``) writes into the
 state's tensors in place, so a captured window replays on it.
+
+``Trainer(cfg, device, mesh)`` with a ('data', 'model') mesh
+(``launch.mesh.make_mesh``) whose model axis has M > 1 ranks trains the
+dense family tensor-parallel, as the JAX Trainer does on such a mesh: the
+architecture's rule table (``configs.rules_for``) shards
+each weight (``parallel.sharding``); each rank holds its blocks, runs
+Megatron's forward and backward (``parallel.model_axis``, over the
+mesh's model group) and keeps a local gradient pool over its own blocks
+(``sharding.localize_specs``), reduced over its data group only; the
+optimizer steps its local pool. ``global_pool`` and
+``num_chunks_global`` are the JAX Trainer's. Dense, lazy and CSC,
+momentum SGD, staged overlap, an f32 or bf16 wire, with or without
+kernels, one eager step at a time: everything else under M > 1 (windows,
+the guard, the low-bit wires, LARS, AdamW, microbatches, monolithic
+overlap, a data topology of more than one level, checkpoints, a replan
+to another model degree, the other families, serving) raises, naming
+ROADMAP.md A.23.
 """
 from __future__ import annotations
 
@@ -90,11 +108,15 @@ from repro_torch.core.schedule import SparsityStage
 from repro_torch.core.wire import chunk_l1 as wire_chunk_l1
 from repro_torch.kernels import ops as kops
 from repro_torch.models import build_model
+from repro_torch.models import params as params_mod
 from repro_torch.optim import lr_at
 from repro_torch.optim import scaler as scaler_mod
 from repro_torch.optim.lars import LARSScaler
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, sharding
+from repro_torch.parallel.model_axis import ModelAxis
 from repro_torch.parallel.topology import mesh_topology
+
+_A23 = "is not ported under a model axis yet; see ROADMAP.md A.23"
 
 
 class TrainState(NamedTuple):
@@ -127,9 +149,38 @@ def assert_flushed(state: TrainState, what: str = "checkpoint") -> None:
             f"taken between its step bodies)")
 
 
+def refuse_model_axis(cfg: TrainConfig, model_size: int) -> None:
+    """Raise, naming ROADMAP.md A.23, for what the port does not run
+    under a model axis of ``model_size`` > 1 ranks."""
+    gf = cfg.gradientflow
+    refused = [
+        (cfg.model.family != "dense",
+         f"the {cfg.model.family} family"),
+        (gf.overlap != "staged", f"overlap={gf.overlap!r}"),
+        (gf.quantized, f"the {gf.wire_format} wire"),
+        (gf.wire_dtype not in ("float32", "bfloat16"),
+         f"a {gf.wire_dtype} wire"),
+        (gf.guarded, "the numeric guard"),
+        (cfg.optimizer.name != "momentum_sgd", cfg.optimizer.name),
+        (cfg.microbatches > 1, "microbatches > 1"),
+        (gf.collective_algo not in ("flat", "auto"),
+         f"collective_algo={gf.collective_algo!r}"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise ValueError(f"{what} {_A23}")
+    m = cfg.model
+    if m.num_heads % model_size or m.num_kv_heads % model_size:
+        raise ValueError(
+            f"{m.num_heads} query and {m.num_kv_heads} KV heads do not "
+            f"split over {model_size} model ranks: each rank's query heads "
+            f"must map onto its own KV heads")
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         gf_cfg = cfg.gradientflow
         if gf_cfg.overlap not in ("staged", "monolithic"):
             raise ValueError(f"unknown overlap {gf_cfg.overlap!r}")
@@ -139,16 +190,40 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = build_model(cfg.model)
-        self.num_data = collectives.data_world_size()
+        self.specs = self.model.param_specs()
+        self.mesh = mesh
+        self.model_size = mesh.model_size if mesh is not None else 1
+        self.data_axes = ("data",)
+        self.rules = None
+        self.model_axis = None
+        self.local_specs = self.specs
+        if self.model_size > 1:
+            from repro_torch.configs import rules_for
+            refuse_model_axis(cfg, self.model_size)
+            self.rules = rules_for(cfg.model)
+            self.model_axis = ModelAxis(mesh.model_group.group,
+                                        self.model_size, mesh.model_index,
+                                        self.rules)
+            self.local_specs = sharding.localize_specs(
+                self.specs, self.rules, self.model_size)
+        self.num_data = mesh.num_data if mesh is not None \
+            else collectives.data_world_size()
         gf_cfg = dataclasses.replace(gf_cfg, topology=mesh_topology(
             self.num_data, gf_cfg.topology))
+        if self.model_size > 1 and len(gf_cfg.topology.levels) > 1:
+            raise ValueError(f"a data topology of more than one level "
+                             f"{_A23}")
         self._prepare_groups(gf_cfg)
         # CSC chunking and the low-bit wires' per-chunk scales both key
         # off whole chunks: pad the pool to a chunk multiple for either.
         pad = gf_cfg.chunk_elems \
             if (gf_cfg.csc_enabled or gf_cfg.quantized) else 1
-        self.pool = GradientPool(self.model.param_shapes(), pad_to=pad)
+        self.pool = GradientPool(params_mod.param_shapes(self.local_specs),
+                                 pad_to=pad)
         self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
+        # The model-sharded totals, as the JAX Trainer keeps them.
+        self.global_pool = self.pool.size * self.model_size
+        self.num_chunks_global = self.gf.num_chunks * self.model_size
         self.gf_cfg = gf_cfg
         # Steps and windows remember the count they were built at: one
         # built before a replan holds the old plan and refuses to run.
@@ -172,7 +247,7 @@ class Trainer:
             kops.ring_prepare(collectives.ring_levels(gf_cfg.topology),
                               self.device)
 
-    def replan(self, topology=None) -> None:
+    def replan(self, topology=None, mesh=None) -> None:
         """Re-resolve the collective layer for a new topology over the
         same ranks (an elastic event): the data degree from the world
         size and ``topology`` (``mesh_topology``: one ('data', N) level
@@ -181,7 +256,13 @@ class Trainer:
         ``OverlapEngine.replan`` (θ re-tuned, algorithms re-selected, the
         plan cache cleared). Steps and windows built before hold the old
         plan and refuse to run: release the windows and build new ones.
-        A new world size is a relaunch (``checkpoint.reshard``)."""
+        A new world size is a relaunch (``checkpoint.reshard``). ``mesh``
+        must keep the model degree: an elastic event changes only the
+        data degree (a new model degree is ROADMAP.md A.23)."""
+        if mesh is not None and mesh.model_size != self.model_size:
+            raise ValueError(f"a replan from model degree "
+                             f"{self.model_size} to {mesh.model_size} "
+                             f"{_A23}")
         self.num_data = collectives.data_world_size()
         topo = mesh_topology(self.num_data, topology)
         self._prepare_groups(dataclasses.replace(self.gf_cfg, topology=topo))
@@ -220,6 +301,8 @@ class Trainer:
         scaler's initial state when guarded, zero staging buffer."""
         if params is None:
             params = self.model.init_params(seed, self.device)
+            if self.model_size > 1:
+                params = self.shard_params(params)
         else:
             self.pool.flat_leaves(params)  # shape check
         return TrainState(
@@ -230,6 +313,17 @@ class Trainer:
             if self.gf_cfg.guarded else (),
             staging=torch.zeros((self.pool.size,), dtype=self._pack_dtype,
                                 device=self.device))
+
+    def shard_params(self, full: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's blocks of a full f32 parameter tree (tensors), as
+        contiguous tensors of their own on the trainer's device; the tree
+        itself under no model axis."""
+        if self.model_size == 1:
+            return full
+        local = sharding.shard_tree(full, self.specs, self.rules,
+                                    self.model_size, self.mesh.model_index)
+        return _tree_map(lambda x: x.to(self.device).contiguous().clone(),
+                         local)
 
     def build_train_step(self, stage: Optional[SparsityStage] = None,
                          fault_hook: Optional[Callable] = None):
@@ -278,6 +372,8 @@ class Trainer:
         raises here (``launch.window.host_collectives``)."""
         from repro_torch.launch.window import TrainWindow
 
+        if self.model_size > 1:
+            raise ValueError(f"a train window {_A23}")
         if window_steps < 1:
             raise ValueError(f"window_steps must be >= 1, got {window_steps}")
         plan = self._pipeline_plan(stage) if window_steps > 1 else None
@@ -294,9 +390,12 @@ class Trainer:
         serving weights (the CLI's are bf16); the cache is consumed: the
         returned one shares its tensors, updated in place. No training
         state is allocated. JAX's second value is its serving sharding
-        rules; one device has none (as ``configs.get_arch``'s rules), so
-        ``shape``, which picks them in JAX, is unused."""
+        rules; serving runs on one device (serving under a model axis is
+        ROADMAP.md A.23), so it is None and ``shape``, which picks them
+        in JAX, is unused."""
         del shape
+        if self.model_size > 1:
+            raise ValueError(f"serving {_A23}")
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
         model, dtype, dev = self.model, self.compute_dtype, self.device
@@ -442,9 +541,11 @@ class Trainer:
         leaves = [p.detach().requires_grad_(True) for p in flat]
         cp = _tree_map(lambda p: p.to(self.compute_dtype),
                        self.pool.unflatten(leaves))
+        tp = {"model_axis": self.model_axis} if self.model_size > 1 else {}
         loss, metrics = self.model.loss_fn(
             cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
-            causal_skip=cfg.causal_skip, compute_dtype=self.compute_dtype)
+            causal_skip=cfg.causal_skip, compute_dtype=self.compute_dtype,
+            **tp)
         if scale is not None:
             loss = loss * scale
         # A leaf the loss does not read (the audio family's unused

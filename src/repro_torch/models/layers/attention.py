@@ -18,6 +18,18 @@ and ``apply_decode`` of one token against the whole cache, naive or
 ``split_combine``, as the JAX package writes them. The cache's index is
 a device tensor, and every write lands at a device offset: a decode
 step reads nothing back to the host.
+
+The weights carry the JAX package's logical axes ('embed', 'qkv');
+``parallel.sharding`` alone maps them to a mesh. When the rules shard
+'qkv' over a model axis (``parallel.model_axis``) the block is
+Megatron's: ``wq``, ``wk`` and ``wv`` column-parallel (each rank holds
+a contiguous block of the query heads and of the KV heads, so its query
+heads map onto its own KV heads), attention on the local heads (QK-norm
+and rotary are per head; the replicated QK-norm scales' gradients are
+summed over the model group), ``wo`` row-parallel, its partial sum
+all-reduced over the model group. The head counts come from the weights'
+shapes, so the same code runs on the whole model and on one rank's
+shard.
 """
 from __future__ import annotations
 
@@ -45,13 +57,13 @@ class KVCache(NamedTuple):
 def spec(cfg) -> Dict[str, ParamSpec]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    p = {"wq": ParamSpec((d, h * hd), fan_in_init(0)),
-         "wk": ParamSpec((d, kv * hd), fan_in_init(0)),
-         "wv": ParamSpec((d, kv * hd), fan_in_init(0)),
-         "wo": ParamSpec((h * hd, d), fan_in_init(0))}
+    p = {"wq": ParamSpec((d, h * hd), ("embed", "qkv"), fan_in_init(0)),
+         "wk": ParamSpec((d, kv * hd), ("embed", "qkv"), fan_in_init(0)),
+         "wv": ParamSpec((d, kv * hd), ("embed", "qkv"), fan_in_init(0)),
+         "wo": ParamSpec((h * hd, d), ("qkv", "embed"), fan_in_init(0))}
     if cfg.qk_norm:
-        p["q_norm"] = ParamSpec((hd,), ones_init)
-        p["k_norm"] = ParamSpec((hd,), ones_init)
+        p["q_norm"] = ParamSpec((hd,), (None,), ones_init)
+        p["k_norm"] = ParamSpec((hd,), (None,), ones_init)
     return p
 
 
@@ -62,7 +74,8 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     ``positions`` (None: 0..s-1 for every row; a decode step passes its
     (b, 1) device positions)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    h, kv = _heads(params, cfg)
     q = (x @ params["wq"]).view(b, s, h, hd)
     k = (x @ params["wk"]).view(b, s, kv, hd)
     v = (x @ params["wv"]).view(b, s, kv, hd)
@@ -73,6 +86,13 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         positions = torch.arange(s, device=x.device)
     cos, sin = rotary.rope_tables(positions, hd, cfg.rope_theta)
     return rotary.apply_rope(q, cos, sin), rotary.apply_rope(k, cos, sin), v
+
+
+def _heads(params: Dict[str, torch.Tensor], cfg) -> Tuple[int, int]:
+    """(query heads, KV heads) of these weights: the config's on the
+    whole model, a model rank's share of them on its shard."""
+    hd = cfg.resolved_head_dim
+    return params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -194,15 +214,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
-                attn_chunk: int = 0, causal_skip: bool = True
-                ) -> torch.Tensor:
-    """Full-sequence causal attention for training."""
+                attn_chunk: int = 0, causal_skip: bool = True,
+                model_axis=None) -> torch.Tensor:
+    """Full-sequence causal attention for training; on the local heads
+    under a model axis that shards 'qkv'."""
+    tp = model_axis is not None and model_axis.sharded("qkv")
+    if tp:
+        x = model_axis.copy_in(x)
+        # The QK-norm scales are replicated but meet only this rank's
+        # heads: their gradient is the sum over the model ranks.
+        params = {k: model_axis.copy_in(v) if k.endswith("_norm") else v
+                  for k, v in params.items()}
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
-    groups = cfg.num_heads // cfg.num_kv_heads
+    groups = q.shape[2] // k.shape[2]
     out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                  causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip)
-    return out.reshape(b, s, -1) @ params["wo"]
+    y = out.reshape(b, s, -1) @ params["wo"]
+    return model_axis.reduce_out(y) if tp else y
 
 
 def abstract_cache(cfg, batch: int, max_len: int,

@@ -1,7 +1,14 @@
 """Token embeddings and the LM head. The audio family (musicgen) has one
 embedding table a codebook, whose lookups are summed, and one head a
 codebook; its spec keeps the unused ``tokens`` table, as the JAX
-package's does, so the leaf table and the pool are the same."""
+package's does, so the leaf table and the pool are the same.
+
+Each weight carries the JAX package's logical axes ('vocab', 'embed');
+``parallel.sharding`` alone maps them to a mesh. Under a model axis
+(``parallel.model_axis``) whose rules shard 'vocab' the table holds one
+contiguous block of the vocabulary: a lookup is masked to the block and
+summed over the model group, and the head's logits are that block's
+(``transformer.xent`` then takes the vocab-parallel cross-entropy)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -19,9 +26,10 @@ def _codebooks(cfg) -> int:
 
 def spec(cfg) -> Dict[str, ParamSpec]:
     v, d = cfg.vocab_size, cfg.d_model
-    p = {"tokens": ParamSpec((v, d), normal_init(0.02))}
+    p = {"tokens": ParamSpec((v, d), ("vocab", "embed"), normal_init(0.02))}
     if _codebooks(cfg):
         p["codebooks"] = ParamSpec((cfg.num_codebooks, v, d),
+                                   (None, "vocab", "embed"),
                                    normal_init(0.02))
     return p
 
@@ -29,15 +37,26 @@ def spec(cfg) -> Dict[str, ParamSpec]:
 def head_spec(cfg) -> Dict[str, ParamSpec]:
     v, d = cfg.vocab_size, cfg.d_model
     if _codebooks(cfg):
-        return {"w": ParamSpec((cfg.num_codebooks, d, v), normal_init(0.02))}
-    return {"w": ParamSpec((d, v), normal_init(0.02))}
+        return {"w": ParamSpec((cfg.num_codebooks, d, v),
+                               (None, "embed", "vocab"), normal_init(0.02))}
+    return {"w": ParamSpec((d, v), ("embed", "vocab"), normal_init(0.02))}
 
 
 def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
-          compute_dtype: torch.dtype) -> torch.Tensor:
+          compute_dtype: torch.dtype, model_axis=None) -> torch.Tensor:
     """tokens: (B, S) integer, or (B, S, K) for multi-codebook audio ->
     (B, S, D) in ``compute_dtype``. The K lookups are summed in codebook
-    order from 0, as the JAX package's ``sum`` does."""
+    order from 0, as the JAX package's ``sum`` does. A vocab-sharded
+    table: each rank looks up the tokens of its block (zeros elsewhere)
+    and the rows are summed over the model group, one nonzero term each,
+    so the sum is exact."""
+    if model_axis is not None and model_axis.sharded("vocab"):
+        table = params["tokens"]
+        n = table.shape[0]
+        local = tokens - model_axis.index * n
+        mine = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)].masked_fill(~mine[..., None], 0)
+        return model_axis.reduce_out(x.to(compute_dtype))
     k = _codebooks(cfg)
     if k:
         x = sum(params["codebooks"][i][tokens[..., i]] for i in range(k))
@@ -47,8 +66,11 @@ def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
 
 
 def logits(head_params: Dict[str, torch.Tensor], x: torch.Tensor,
-           cfg) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, V), or (B, S, K, V) for audio."""
+           cfg, model_axis=None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, V), or (B, S, K, V) for audio. A
+    vocab-sharded head gives this rank's block of the vocabulary."""
+    if model_axis is not None and model_axis.sharded("vocab"):
+        return model_axis.copy_in(x) @ head_params["w"]
     if _codebooks(cfg):
         return torch.einsum("bsd,kdv->bskv", x, head_params["w"])
     return x @ head_params["w"]

@@ -20,6 +20,10 @@ The scan is elementwise work (no matmul): the JAX package writes it in
 Decode (``apply_decode``): one token a step against a ``MambaState``,
 the conv's trailing window (in the cache dtype) and the f32 SSM state,
 both O(1) in the sequence length and updated in place.
+
+Each weight carries the JAX package's logical axes ('embed', 'dinner',
+'conv', 'state'); only ``parallel.sharding`` maps them to a mesh (the ssm
+family under a model axis is ROADMAP.md A.23).
 """
 from __future__ import annotations
 
@@ -65,17 +69,21 @@ def spec(cfg) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     d_inner, dt_rank, d_state, d_conv = dims(cfg)
     return {
-        "in_proj": ParamSpec((d, 2 * d_inner), fan_in_init(0)),
-        "conv_w": ParamSpec((d_conv, d_inner), normal_init(0.02)),
-        "conv_b": ParamSpec((d_inner,), zeros_init),
+        "in_proj": ParamSpec((d, 2 * d_inner), ("embed", "dinner"),
+                             fan_in_init(0)),
+        "conv_w": ParamSpec((d_conv, d_inner), ("conv", "dinner"),
+                            normal_init(0.02)),
+        "conv_b": ParamSpec((d_inner,), ("dinner",), zeros_init),
         "x_proj": ParamSpec((d_inner, dt_rank + 2 * d_state),
-                            fan_in_init(0)),
-        "dt_proj": ParamSpec((dt_rank, d_inner),
+                            ("dinner", None), fan_in_init(0)),
+        "dt_proj": ParamSpec((dt_rank, d_inner), (None, "dinner"),
                              normal_init(1.0 / math.sqrt(16))),
-        "dt_bias": ParamSpec((d_inner,), full_init(-4.6)),
-        "A_log": ParamSpec((d_inner, d_state), _a_log_init),
-        "D": ParamSpec((d_inner,), ones_init),
-        "out_proj": ParamSpec((d_inner, d), fan_in_init(0)),
+        "dt_bias": ParamSpec((d_inner,), ("dinner",), full_init(-4.6)),
+        "A_log": ParamSpec((d_inner, d_state), ("dinner", "state"),
+                           _a_log_init),
+        "D": ParamSpec((d_inner,), ("dinner",), ones_init),
+        "out_proj": ParamSpec((d_inner, d), ("dinner", "embed"),
+                              fan_in_init(0)),
     }
 
 

@@ -16,6 +16,10 @@ kernel; the port writes it in PyTorch ops.
 Decode (``apply_decode``): one token a step, the scalar-decay state
 update against a ``Mamba2State`` (the conv window of x, B and C in the
 cache dtype, the f32 (B, H, head_dim, d_state) state), in place.
+
+Each weight carries the JAX package's logical axes ('embed', 'dinner',
+'conv'); only ``parallel.sharding`` maps them to a mesh (the hybrid
+family under a model axis is ROADMAP.md A.23).
 """
 from __future__ import annotations
 
@@ -60,14 +64,17 @@ def spec(cfg) -> Dict[str, ParamSpec]:
     conv_ch = d_inner + 2 * ds  # x, B and C all pass the causal conv
     return {
         # order: [z (d_inner), x (d_inner), B (ds), C (ds), dt (h)]
-        "in_proj": ParamSpec((d, 2 * d_inner + 2 * ds + h), fan_in_init(0)),
-        "conv_w": ParamSpec((dc, conv_ch), normal_init(0.02)),
-        "conv_b": ParamSpec((conv_ch,), zeros_init),
-        "A_log": ParamSpec((h,), _a_log_init),
-        "D": ParamSpec((h,), ones_init),
-        "dt_bias": ParamSpec((h,), full_init(-4.6)),
-        "norm_scale": ParamSpec((d_inner,), ones_init),
-        "out_proj": ParamSpec((d_inner, d), fan_in_init(0)),
+        "in_proj": ParamSpec((d, 2 * d_inner + 2 * ds + h),
+                             ("embed", "dinner"), fan_in_init(0)),
+        "conv_w": ParamSpec((dc, conv_ch), ("conv", "dinner"),
+                            normal_init(0.02)),
+        "conv_b": ParamSpec((conv_ch,), ("dinner",), zeros_init),
+        "A_log": ParamSpec((h,), (None,), _a_log_init),
+        "D": ParamSpec((h,), (None,), ones_init),
+        "dt_bias": ParamSpec((h,), (None,), full_init(-4.6)),
+        "norm_scale": ParamSpec((d_inner,), ("dinner",), ones_init),
+        "out_proj": ParamSpec((d_inner, d), ("dinner", "embed"),
+                              fan_in_init(0)),
     }
 
 

@@ -15,6 +15,10 @@ order among equal values, and equal router logits are not rare: a zero
 hidden state gives them for every expert).
 
 The Switch-style load-balance loss is returned beside the output.
+
+Each weight carries the JAX package's logical axes ('embed', 'expert',
+'expert_mlp'); only ``parallel.sharding`` maps them to a mesh (the MoE
+layer under a model axis is ROADMAP.md A.23).
 """
 from __future__ import annotations
 
@@ -31,10 +35,13 @@ def spec(cfg) -> Dict[str, Any]:
     assert cfg.moe is not None
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     p: Dict[str, Any] = {
-        "router": ParamSpec((d, e), fan_in_init(0)),
-        "wi_gate": ParamSpec((e, d, f), fan_in_init(1)),
-        "wi_up": ParamSpec((e, d, f), fan_in_init(1)),
-        "wo": ParamSpec((e, f, d), fan_in_init(1)),
+        "router": ParamSpec((d, e), ("embed", None), fan_in_init(0)),
+        "wi_gate": ParamSpec((e, d, f), ("expert", "embed", "expert_mlp"),
+                             fan_in_init(1)),
+        "wi_up": ParamSpec((e, d, f), ("expert", "embed", "expert_mlp"),
+                           fan_in_init(1)),
+        "wo": ParamSpec((e, f, d), ("expert", "expert_mlp", "embed"),
+                        fan_in_init(1)),
     }
     if cfg.moe.dense_residual:
         # Arctic: a small dense MLP runs in parallel with the MoE FFN.

@@ -1,6 +1,8 @@
 """Normalization layers: RMSNorm, LayerNorm, the non-parametric LayerNorm
 of OLMo (no scale, no bias), and qwen3's per-head RMS QK-norm. Each
-normalises in f32 and returns the input dtype."""
+normalises in f32 and returns the input dtype. The scales and biases
+carry the JAX package's logical axis ('embed'), which no rule table puts
+on a mesh: they are replicated on every model rank."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -14,10 +16,10 @@ def spec(cfg, kind: Optional[str] = None) -> Dict[str, ParamSpec]:
     kind = kind or cfg.norm
     d = cfg.d_model
     if kind == "rmsnorm":
-        return {"scale": ParamSpec((d,), ones_init)}
+        return {"scale": ParamSpec((d,), ("embed",), ones_init)}
     if kind == "layernorm":
-        return {"scale": ParamSpec((d,), ones_init),
-                "bias": ParamSpec((d,), zeros_init)}
+        return {"scale": ParamSpec((d,), ("embed",), ones_init),
+                "bias": ParamSpec((d,), ("embed",), zeros_init)}
     if kind == "nonparametric_ln":  # OLMo: LN without affine parameters
         return {}
     raise ValueError(f"unknown norm {kind}")

@@ -1,7 +1,12 @@
 """Parameter declarations and initialisers.
 
-Every parameter is declared as a ``ParamSpec`` (shape + initialiser), as
-in the JAX package; ``init_params`` materialises a nested dict of f32
+Every parameter is declared as a ``ParamSpec`` (shape, logical axes,
+initialiser), as in the JAX package. The axes are the JAX package's
+logical names ('vocab', 'embed', 'qkv', 'mlp', 'expert', 'dinner', ...;
+'layers' for a stacked layer axis, None for an unnamed one), leaf for
+leaf; they say nothing of a mesh by themselves: only
+``parallel.sharding`` maps them, through an architecture's rule table,
+to the model axis. ``init_params`` materialises a nested dict of f32
 tensors from a seeded ``torch.Generator`` on the CPU and moves them to the
 device, so the same seed gives the same weights on every device. With
 ``on_device=True`` it draws on the target device instead: much faster at
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -55,8 +60,15 @@ def fan_in_init(fan_axis: int = 0) -> Init:
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
+    """One parameter: its shape, one logical axis name (or None) a
+    dimension, and its initialiser."""
+
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: Init = fan_in_init(0)
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def map_specs(fn: Callable[[ParamSpec], Any], tree: Dict[str, Any]
@@ -66,12 +78,12 @@ def map_specs(fn: Callable[[ParamSpec], Any], tree: Dict[str, Any]
 
 
 def stack_spec(tree: Dict[str, Any], n: int) -> Dict[str, Any]:
-    """Add a leading (n,) layers axis; each layer is initialised as its
+    """Add a leading (n,) 'layers' axis; each layer is initialised as its
     own unstacked tensor."""
     def wrap(s: ParamSpec) -> ParamSpec:
         def stacked(gen, shape, base=s.init):
             return torch.stack([base(gen, shape[1:]) for _ in range(shape[0])])
-        return ParamSpec((n,) + s.shape, stacked)
+        return ParamSpec((n,) + s.shape, ("layers",) + s.axes, stacked)
     return map_specs(wrap, tree)
 
 

@@ -51,18 +51,21 @@ def param_specs(cfg) -> Dict[str, Any]:
 
 
 def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
-                attn_chunk: int = 0, causal_skip: bool = False
+                attn_chunk: int = 0, causal_skip: bool = False,
+                model_axis=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(x, the MoE block's f32 aux loss, or None for a dense FFN)."""
     h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
     x = x + attention.apply_train(layer_params["attn"], h, cfg,
                                   attn_chunk=attn_chunk,
-                                  causal_skip=causal_skip)
+                                  causal_skip=causal_skip,
+                                  model_axis=model_axis)
     h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
     if cfg.moe is not None:
         h, aux = moe.apply(layer_params["ffn"], h, cfg)
         return x + h, aux
-    return x + mlp.apply(layer_params["ffn"], h, cfg), None
+    return x + mlp.apply(layer_params["ffn"], h, cfg,
+                         model_axis=model_axis), None
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -93,32 +96,51 @@ def checkpointed(fn, x: torch.Tensor):
 
 def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
              remat: str = "layer", attn_chunk: int = 0,
-             causal_skip: bool = False
+             causal_skip: bool = False, model_axis=None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run all layers: (hidden, the aux losses summed in layer order from
-    zero, or None without MoE)."""
+    zero, or None without MoE). Under ``model_axis`` a layer's recompute
+    issues its forward all-reduces again, in the same order on every
+    rank."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.moe is not None else None
     for lp in unstack(params["layers"], cfg.num_layers):
         if remat == "layer":
             x, a = checkpointed(lambda h, lp=lp: block_apply(
-                lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip),
-                x)
+                lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip,
+                model_axis=model_axis), x)
         else:
             x, a = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
-                               causal_skip=causal_skip)
+                               causal_skip=causal_skip,
+                               model_axis=model_axis)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 def xent(logits: torch.Tensor, labels: torch.Tensor,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy with f32 accumulation."""
+         mask: Optional[torch.Tensor] = None, model_axis=None
+         ) -> torch.Tensor:
+    """Mean next-token cross-entropy with f32 accumulation. Under a model
+    axis that shards 'vocab' ``logits`` are this rank's block of the
+    vocabulary and the cross-entropy is vocab-parallel: the max, the sum
+    of exponentials and the target logit each all-reduced over the model
+    group, the log-sum-exp then the JAX package's formula (the max plus
+    the log of the shifted sum)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    if model_axis is not None and model_axis.sharded("vocab"):
+        n = lf.shape[-1]
+        m = model_axis.max_(lf.detach().amax(dim=-1))
+        sumexp = model_axis.reduce_out(torch.exp(lf - m[..., None]).sum(-1))
+        local = labels.long() - model_axis.index * n
+        mine = (local >= 0) & (local < n)
+        gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = model_axis.reduce_out(gold.masked_fill(~mine, 0.0))
+        nll = torch.log(sumexp) + m - gold
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
@@ -190,15 +212,19 @@ class TransformerLM(LanguageModel):
                 *, remat: str = "layer", attn_chunk: int = 0,
                 causal_skip: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
+                model_axis=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'tokens': (B, S) int, or (B, S, K) for audio, 'labels':
         the same}, and for the vlm 'vision_embeds' (B, V, D) float,
         prepended to the token embeddings and dropped before the head.
         ``params`` are already in the compute dtype (the trainer casts the
-        f32 masters). Returns (loss + aux, {'loss', 'aux_loss'})."""
+        f32 masters). Returns (loss + aux, {'loss', 'aux_loss'}). Under
+        ``model_axis`` (``parallel.model_axis``; the dense family)
+        ``params`` are this rank's shards and every rank returns the same
+        loss."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
         vision = 0
         if cfg.family == "vlm":
             if "vision_embeds" not in batch:
@@ -208,12 +234,14 @@ class TransformerLM(LanguageModel):
             vision = vis.shape[1]
             x = torch.cat([vis, x], dim=1)
         x, aux = backbone(params, x, cfg, remat=remat, attn_chunk=attn_chunk,
-                          causal_skip=causal_skip)
+                          causal_skip=causal_skip, model_axis=model_axis)
         x = norms.apply(params["final_norm"], x, cfg.norm)
         if vision:
             x = x[:, vision:, :]
-        lg = embedding.logits(self._head_params(params), x, cfg)
-        loss = xent(lg, batch["labels"], batch.get("loss_mask"))
+        lg = embedding.logits(self._head_params(params), x, cfg,
+                              model_axis=model_axis)
+        loss = xent(lg, batch["labels"], batch.get("loss_mask"),
+                    model_axis=model_axis)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux}

@@ -8,6 +8,13 @@ the identity — exactly what a psum over a size-1 axis gives. The default
 group is the caller's to create (``torch.distributed.init_process_group``
 with an explicit address, world size and rank).
 
+A mesh with a model axis (``launch.mesh.make_mesh``) registers its data
+group here (``set_data_group``): the data-parallel reductions then run
+over that group, ``data_world_size`` is its size, and a one-level
+topology's level group is that group (a data topology of more levels
+under a model axis is ROADMAP.md A.23). Without one, the data group is
+the default group, as before.
+
 Ranks map onto a topology's levels (slowest first) in row-major order:
 ``rank = Σ coord_l · stride_l``. ``level_groups`` creates, once per
 topology shape and on every rank in one order, a group per level and per
@@ -28,20 +35,44 @@ def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+# The data group of a mesh with a model axis (a LevelGroup), or None: the
+# default group.
+_DATA: Optional["LevelGroup"] = None
+
+
+def set_data_group(lg: Optional["LevelGroup"]) -> None:
+    """Make ``lg`` the data-parallel group of this process (None: the
+    default group). ``launch.mesh.make_mesh`` calls this."""
+    global _DATA
+    _DATA = lg
+
+
+def data_group() -> Optional["LevelGroup"]:
+    """The registered data group, or None (the default group)."""
+    return _DATA
+
+
 def data_world_size() -> int:
-    """Number of data-parallel shards: the default group's size, or 1."""
+    """Number of data-parallel shards: the registered data group's size,
+    else the default group's, or 1."""
+    if _DATA is not None:
+        return _DATA.size
     return dist.get_world_size() if _initialized() else 1
 
 
 def all_reduce_sum(x: torch.Tensor, *, async_op: bool = False, group=None
                    ) -> Tuple[torch.Tensor, Optional[object]]:
-    """Sum ``x`` in place across ``group`` (default: the default group).
+    """Sum ``x`` in place across ``group`` (default: the data group).
 
     Returns ``(x, work)``: ``work`` is the async handle to ``wait()`` on
     when ``async_op`` is set and a group exists, else None (the sum is
     complete on return, or there was nothing to sum)."""
     if not _initialized():
         return x, None
+    if group is None and _DATA is not None:
+        if _DATA.size == 1:
+            return x, None
+        group = _DATA.group
     work = dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
                            async_op=async_op)
     return x, (work if async_op else None)
@@ -134,6 +165,14 @@ def level_groups(topo) -> LevelGroups:
     alone."""
     sizes = tuple(lv.size for lv in topo.levels) if topo is not None \
         else (data_world_size(),)
+    if _DATA is not None:
+        if sizes != (_DATA.size,):
+            raise ValueError(
+                f"a data topology of {sizes} ranks under a model axis: "
+                f"one level over the mesh's {_DATA.size} data ranks is "
+                f"ported, more levels are ROADMAP.md A.23")
+        solo = _DATA if _DATA.size > 1 else _SOLO
+        return LevelGroups(levels=(solo,), outer=None)
     if not _initialized():
         assert all(s == 1 for s in sizes), (
             f"a topology of {sizes} ranks needs a process group")

@@ -1,0 +1,118 @@
+"""The model axis (tensor parallelism) as the model sees it.
+
+The JAX package shards a dense model over its mesh's 'model' axis by
+declaring each weight's logical axes and letting GSPMD place the
+collectives. The port writes Megatron's form by hand: ``ModelAxis`` holds
+this rank's model group, its size and index, and the architecture's rule
+table; the layers ask it which weights are sharded (``sharded``) and put
+its two conjugate operators around each parallel region:
+
+* ``copy_in`` (Megatron's f): identity forward, all-reduce of the
+  gradient backward; the entry of a column-parallel product, whose input
+  every model rank holds whole;
+* ``reduce_out`` (Megatron's g): all-reduce forward, identity backward;
+  the exit of a row-parallel product, or of any per-rank partial sum.
+
+Both are ``torch.autograd.Function``s, so a per-layer remat
+(``torch.utils.checkpoint``) issues a region's forward all-reduces again
+in the recompute, in the same order on every rank.
+
+On the card the model group is a gloo group: NCCL refuses two ranks on
+one device, and the mesh's model ranks share the card. A CUDA tensor is
+staged through a pinned host buffer (a device-to-host copy, the stream
+synchronised, gloo's sum on the host, the copy back); that is the
+transport, not a fallback. ``stats`` counts the all-reduces, their bytes
+and, with ``timing`` on, their seconds (a device sync on each side).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+class ModelAxis:
+    def __init__(self, group, size: int, index: int,
+                 rules: Mapping[str, Optional[str]]):
+        self.group = group
+        self.size = int(size)
+        self.index = int(index)
+        self.rules = dict(rules)
+        self.timing = False
+        self.stats = {"all_reduces": 0, "bytes": 0, "seconds": 0.0}
+        self._host: Dict[Tuple[torch.dtype, int], torch.Tensor] = {}
+
+    def sharded(self, axis: str) -> bool:
+        """Does the rule table put logical axis ``axis`` on the model
+        axis (and does the axis have more than one rank)?"""
+        return self.size > 1 and self.rules.get(axis) == "model"
+
+    def reset_stats(self) -> None:
+        self.stats = {"all_reduces": 0, "bytes": 0, "seconds": 0.0}
+
+    def all_reduce_(self, x: torch.Tensor, op=dist.ReduceOp.SUM
+                    ) -> torch.Tensor:
+        """Reduce ``x`` (contiguous) in place over the model group."""
+        if self.size == 1:
+            return x
+        sync = x.is_cuda and self.timing
+        if sync:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        if x.is_cuda and dist.get_backend(self.group) != "nccl":
+            key = (x.dtype, x.numel())
+            host = self._host.get(key)
+            if host is None:
+                host = self._host[key] = torch.empty(
+                    (x.numel(),), dtype=x.dtype, pin_memory=True)
+            flat = x.view(-1)
+            host.copy_(flat, non_blocking=True)
+            torch.cuda.current_stream(x.device).synchronize()
+            dist.all_reduce(host, op=op, group=self.group)
+            # Ordered on the stream before the next call's copy into
+            # ``host``, which waits for that stream before gloo writes.
+            flat.copy_(host, non_blocking=True)
+        else:
+            dist.all_reduce(x, op=op, group=self.group)
+        if sync:
+            torch.cuda.synchronize(x.device)
+        self.stats["all_reduces"] += 1
+        self.stats["bytes"] += x.numel() * x.element_size()
+        self.stats["seconds"] += time.perf_counter() - t0
+        return x
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: identity forward, gradient all-reduced backward."""
+        return _CopyIn.apply(x, self) if self.size > 1 else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: all-reduce forward, identity backward."""
+        return _ReduceOut.apply(x, self) if self.size > 1 else x
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the model group, in place (no
+        gradient)."""
+        return self.all_reduce_(x, op=dist.ReduceOp.MAX)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce_(grad.contiguous().clone()), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None

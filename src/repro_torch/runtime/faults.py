@@ -155,7 +155,11 @@ class GuardLane:
       scale        — the loss scale after the step (a power of two);
       skipped      — rejected steps so far.
 
-    ``device``: the lane's device (the first CUDA card unless given)."""
+    ``device``: the lane's device (the first CUDA card unless given). The
+    packs, the updates and CSC's census and gather go through
+    ``kernels.ops``: the CUDA kernels on the card, their plain versions
+    on the CPU (the JAX lane runs its plain versions; the records are the
+    same)."""
 
     POOL_SIZES = ((96,), (32,))
     CHUNK = 32
@@ -176,7 +180,8 @@ class GuardLane:
             mode=mode, bucket_elems=64, chunk_elems=self.CHUNK,
             sparsity=0.5, warmup_steps=0, wire_dtype=wire_dtype,
             reduce_axes=("data",), collective_algo="flat",
-            overlap="staged", wire_format=wire_format, guard=self.guard)
+            overlap="staged", wire_format=wire_format, guard=self.guard,
+            use_kernels=True)
         rng = np.random.default_rng(seed)
         self.params = {
             f"t{i}": torch.from_numpy(

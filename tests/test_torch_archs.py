@@ -60,8 +60,8 @@ def test_registry_holds_every_dense_architecture():
 def test_configs_match_jax(arch):
     for get_t, get_j in ((get_arch, j_get_arch), (get_smoke, j_get_smoke)):
         t_cfg, rules = get_t(arch)
-        j_cfg = get_j(arch)[0]
-        assert rules is None  # the port has no tensor-parallel rule table
+        j_cfg, j_rules = get_j(arch)
+        assert rules == dict(j_rules)  # the JAX package's rule table
         got = _fields(t_cfg)
         assert got == {k: getattr(j_cfg, k) for k in got}, arch
         # The port carries every field of the JAX config.

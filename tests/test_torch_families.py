@@ -86,8 +86,8 @@ def test_registry_follows_jax_order():
 def test_configs_match_jax(arch):
     for get_t, get_j in ((get_arch, j_get_arch), (get_smoke, j_get_smoke)):
         t_cfg, rules = get_t(arch)
-        j_cfg = get_j(arch)[0]
-        assert rules is None
+        j_cfg, j_rules = get_j(arch)
+        assert rules == dict(j_rules)  # the JAX package's rule table
         got, want = _fields(t_cfg), _fields(j_cfg)
         assert set(got) == set(want)
         t_moe, j_moe = got.pop("moe"), want.pop("moe")

@@ -41,7 +41,12 @@ _SCRIPT = textwrap.dedent("""
                    "repro_torch.models.layers.mamba",
                    "repro_torch.models.layers.mamba2",
                    "repro_torch.models.ssm_lm",
-                   "repro_torch.models.hybrid_lm"):
+                   "repro_torch.models.hybrid_lm",
+                   "repro_torch.runtime.soak",
+                   "repro_torch.launch.dryrun",
+                   "repro_torch.launch.mesh",
+                   "repro_torch.parallel.sharding",
+                   "repro_torch.parallel.model_axis"):
         assert needed in names, needed
     print(len(names))
 """)

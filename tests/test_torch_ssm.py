@@ -90,8 +90,8 @@ def _close(got, want, tol, name):
 def test_configs_match_jax(arch):
     for get_t, get_j in ((get_arch, j_get_arch), (get_smoke, j_get_smoke)):
         t_cfg, rules = get_t(arch)
-        j_cfg = get_j(arch)[0]
-        assert rules is None
+        j_cfg, j_rules = get_j(arch)
+        assert rules == dict(j_rules)  # the JAX package's rule table
         got, want = _fields(t_cfg), _fields(j_cfg)
         assert set(got) == set(want)
         t_ssm, j_ssm = got.pop("ssm"), want.pop("ssm")
