@@ -382,6 +382,24 @@
        in CSC through the CLI at ``--mesh 1x2``, 3 steps (the census and
        the gather on each rank's local pool). ``launches_model_axis``:
        both ranks' launches.
+   (ap) the other families under the model axis, the same way: arctic-
+       480b at (ac)'s cut (its published widths, 1 of 35 layers, 16 of
+       128 experts), 1 x 4096 tokens, lazy, bf16 wire, 2 steps on one
+       repeated batch and one with the all-reduces timed, at (1, 1) here
+       and at (1, 2) in two processes: its rules shard the experts (8 a
+       rank), the vocabulary and the dense residual's hidden units and
+       leave attention and the router replicated. (ao)'s bounds on the
+       losses and each leaf block's update norm; the first step's routing
+       (slots per expert, dropped share) the same at both meshes; the
+       model group's all-reduces a step 1 + 3 x layers + 4; each rank's
+       parameters its blocks and the replicated leaves whole; each rank's
+       step ms, peak memory, the all-reduces' bytes and seconds. Then the
+       smoke configurations of arctic-480b, grok-1-314b, internvl2-26b
+       (on ``make_batch`` batches), musicgen-large, falcon-mamba-7b and
+       zamba2-2.7b in f32 (TF32 off), 2 lazy steps, and falcon-mamba-smoke
+       in CSC, each at (1, 1) and (1, 2): losses and update norms within
+       1e-4 (CSC: its first loss). ``launches_model_axis_families``: both
+       ranks' launches.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -392,8 +410,8 @@ Prints one JSON line per kernel, one for the NaN words, one for the
 optimizer ops, one for the quantized ring, the MoE layer's card-against-
 CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
 timings' line, the serving line, the timeline and soak line, the model
-axis line, one per train run (the long sequences' and the families' runs
-too), the attention line, the windowed GuardLane's, the host seconds of
+axis line, the other families' model axis line, one per train run (the
+long sequences' and the families' runs too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
 captured window launched it, and ``launches_by_run``), then ``{"ok":
@@ -5420,6 +5438,7 @@ def soak_phase(torch, ops, dev) -> dict:
 # on; TP_STEPS timed steps on one repeated batch, then one step with the
 # model group's all-reduces timed (a device sync on each side of each).
 TP_LAYERS = 16
+TP_CUT = {"num_layers": TP_LAYERS}
 TP_STEPS = 3
 TP_ARGV = ["--arch", "olmo-1b", "--seq-len", "4096", "--batch", "1",
            "--attn-chunk", "1024", "--gf-mode", "lazy", "--use-kernels",
@@ -5437,20 +5456,27 @@ TP_LOSS_RTOL = 6e-3
 TP_UPDATE_RTOL = 2.0 ** -4
 
 
-def tp_trainer(train_mod, argv):
-    """The (ao) trainer: ``train.build`` of ``argv``, olmo-1b cut to
-    TP_LAYERS layers when that is below its depth."""
+def axis_trainer(train_mod, argv, cut=None, f32=False):
+    """An (ao) or (ap) trainer: ``train.build`` of ``argv`` (its
+    ``--mesh``), the ModelConfig fields in ``cut`` replaced (``num_layers``,
+    or ``num_experts`` of its MoEConfig), in f32 when ``f32``."""
     import dataclasses
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.trainer import Trainer
 
     args = train_mod.parse_args(argv)
     _, cfg = train_mod.build(args)
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                num_layers=TP_LAYERS))
-    d, m = args.mesh_shape
+    m = cfg.model
+    for field, value in (cut or {}).items():
+        m = dataclasses.replace(m, moe=dataclasses.replace(
+            m.moe, num_experts=value)) if field == "num_experts" \
+            else dataclasses.replace(m, **{field: value})
+    if f32:
+        m = dataclasses.replace(m, compute_dtype="float32")
+    cfg = cfg.replace(model=m)
+    d, mm = args.mesh_shape
     return args, cfg, Trainer(cfg, device=args.device, mesh=make_mesh(
-        (d, m)) if m > 1 else None)
+        (d, mm)) if mm > 1 else None)
 
 
 def update_norms(torch, trainer, init, final, blocks: int) -> dict:
@@ -5474,62 +5500,6 @@ def update_norms(torch, trainer, init, final, blocks: int) -> dict:
     return out
 
 
-def tp_run(torch, ops, train_mod, synthetic, argv, blocks):
-    """One process's (ao) run on one repeated batch: weights drawn on the
-    card from the seed (the whole tree, then this rank's blocks), the
-    counts set to 0 before the timed steps and read after them, step ms,
-    peak memory, the model group's all-reduces a step (count and bytes;
-    their seconds on one more step with them timed), each leaf block's
-    update norm (``update_norms`` over ``blocks`` blocks)."""
-    args, cfg, trainer = tp_trainer(train_mod, argv)
-    params = trainer.shard_params(trainer.model.init_params(
-        args.seed, trainer.device, on_device=True))
-    init = _tree_clone(params)
-    state = trainer.init_state(params=params)
-    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
-        .batch(0, cfg.global_batch, cfg.seq_len)
-    step = trainer.build_train_step()
-    axis = trainer.model_axis
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_counts()
-    losses, seconds, per_step = [], [], []
-    for _ in range(TP_STEPS):
-        if axis is not None:
-            axis.reset_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        if axis is not None:
-            per_step.append(dict(axis.stats))
-    counts = dict(ops.dispatch_counts)
-    peak = torch.cuda.max_memory_allocated()
-    want = expected_counts(trainer, TP_STEPS)
-    check(counts == want, f"(ao) dispatch counts {counts}, expected {want}")
-    norms = update_norms(torch, trainer, init, state.params, blocks)
-    timed = None
-    if axis is not None:
-        axis.reset_stats()
-        axis.timing = True
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        timed = dict(axis.stats, step_s=time.perf_counter() - t0)
-        axis.timing = False
-    out = dict(losses=losses, step_ms=[s * 1e3 for s in seconds],
-               steady_step_ms=statistics.median(seconds[1:]) * 1e3,
-               peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
-               local_pool_elems=trainer.pool.size,
-               global_pool_elems=trainer.global_pool, update_norms=norms,
-               model_all_reduces=per_step, timed_step=timed)
-    return trainer, out
-
-
 def _tree_clone(tree):
     return {k: _tree_clone(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
@@ -5549,7 +5519,7 @@ def tp_expected_all_reduces(layers: int) -> int:
 
 def tp_worker(rank: int, port: int, out: str) -> None:
     """One rank of (ao) at mesh (1, 2): two processes on this card, the
-    model group over gloo. The olmo-1b run (``tp_run``), then olmo-smoke
+    model group over gloo. The olmo-1b run (``axis_run``), then olmo-smoke
     in CSC through the CLI (``train.train``), each with the counts set to
     0 before and read after. Writes its findings to ``out`` as JSON."""
     import torch
@@ -5565,11 +5535,9 @@ def tp_worker(rank: int, port: int, out: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
     try:
-        trainer, run = tp_run(torch, ops, train_mod, synthetic,
-                              TP_ARGV + ["--mesh", "1x2"], 1)
-        run["rank"], run["model_index"] = rank, trainer.mesh.model_index
-        del trainer
-        torch.cuda.empty_cache()
+        run = axis_run(torch, ops, train_mod, synthetic, "(ao)",
+                       TP_ARGV + ["--mesh", "1x2"], 1, cut=TP_CUT)
+        run["rank"] = rank
         ops.reset_counts()
         args = train_mod.parse_args(TP_SMOKE_ARGV + ["--mesh", "1x2"])
         smoke_trainer, losses, _, stats = train_mod.train(args)
@@ -5594,10 +5562,9 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
     TP_UPDATE_RTOL, the model group's all-reduces a step as the Megatron
     form counts them, the local pool half the (1, 1) pool."""
     t0 = time.perf_counter()
-    ref_trainer, ref = tp_run(torch, ops, train_mod, synthetic, TP_ARGV, 2)
+    ref = axis_run(torch, ops, train_mod, synthetic, "(ao)", TP_ARGV, 2,
+                   cut=TP_CUT)
     ref_norms = ref.pop("update_norms")
-    del ref_trainer
-    torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
     port = free_port()
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -5682,6 +5649,298 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
         seconds=time.perf_counter() - t0)
 
 
+# -- (ap) the model axis for the other families ------------------------------
+
+# (ap): arctic-480b at (ac)'s cut (its published widths, 1 of 35 layers,
+# 16 of 128 experts: 2,354,451,456 parameters) at 1 x 4096 tokens,
+# blockwise attention beyond 1024, lazy, bf16 wire, momentum SGD, kernels
+# on; AP_STEPS timed steps on one repeated batch and one more with the
+# model group's all-reduces timed, at (1, 1) in this process and at mesh
+# (1, 2) as two processes on this card. Its rules shard the experts
+# (expert parallelism: each rank holds 8 of the 16) and leave attention
+# replicated. Held to (ao)'s bounds.
+AP_STEPS = 2
+AP_ARGV = ["--arch", "arctic-480b", "--seq-len", str(OLMO_SEQ), "--batch",
+           "1", "--attn-chunk", str(OLMO_CHUNK), "--gf-mode", "lazy",
+           "--use-kernels", "--window-steps", "1", "--steps", str(AP_STEPS)]
+# Embedding sum; the MoE layer's output sum (its dense residual's with
+# it), its input's and its gates' gradient sums (the recompute stops
+# before the output sum, as (ao)'s does); the head's input gradient; the
+# cross-entropy's max, sum of exponentials and target logit.
+AP_ALL_REDUCES = 1 + 3 * ARCTIC_CUT["num_layers"] + 1 + 3
+# Then every other family's smoke configuration in f32 compute (TF32
+# off), AP_SMOKE_STEPS lazy steps on one batch at (1, 1) and at (1, 2)
+# from the same seed, and falcon-mamba-smoke in CSC (the ramp's first
+# sparse stage, then the next: the census and the gather on each rank's
+# local pool). f32 sums in other orders: the losses and each leaf
+# block's update norm within AP_SMOKE_RTOL; CSC's ranks select their
+# chunks on their own pools, so only its first loss (before any update)
+# is held to the (1, 1) run's.
+AP_SMOKE = ("arctic-480b", "grok-1-314b", "internvl2-26b", "musicgen-large",
+            "falcon-mamba-7b", "zamba2-2.7b")
+AP_SMOKE_STEPS = 2
+AP_SMOKE_ARGV = ["--reduced", "--use-kernels", "--batch", "2", "--seq-len",
+                 "128", "--window-steps", "1", "--steps",
+                 str(AP_SMOKE_STEPS)]
+AP_CSC_ARGV = ["--gf-mode", "csc", "--csc-warmup", "1", "--chunk-elems",
+               "2048"]
+AP_SMOKE_RTOL = 1e-4
+
+
+def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
+             cut=None, timed=True, f32=False):
+    """One process's (ao) or (ap) run (``axis_trainer``) on one repeated
+    batch (the synthetic stream's first; the vlm's from ``make_batch``):
+    weights drawn on the card from the seed (the whole tree, then this
+    rank's blocks), the counts set to 0 before the steps and read after
+    them, the dispatch counts the step plans', step ms, peak memory, the
+    model group's all-reduces a step, the routing of the first step (the
+    MoE), each leaf block's update norm (``update_norms`` over ``blocks``
+    blocks); ``timed``: one more step with the all-reduces timed."""
+    args, cfg, trainer = axis_trainer(train_mod, argv, cut, f32)
+    m = cfg.model
+    params = trainer.shard_params(trainer.model.init_params(
+        args.seed, trainer.device, on_device=True))
+    init = _tree_clone(params)
+    state = trainer.init_state(params=params)
+    if m.family == "vlm":
+        batch = vlm_batch_fn(torch, args.seed)(cfg, 0)
+    else:
+        batch = synthetic.SyntheticLM(
+            m.vocab_size, seed=args.seed, num_codebooks=m.num_codebooks) \
+            .batch(0, cfg.global_batch, cfg.seq_len)
+    axis = trainer.model_axis
+    steps = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, seconds, per_step, routing = [], [], [], None
+    for t in range(args.steps):
+        stage = trainer.gf.stage_for_step(t)
+        if stage.index not in steps:
+            steps[stage.index] = trainer.build_train_step(stage)
+        if axis is not None:
+            axis.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == 0 and m.moe is not None:
+            with MoERouting(torch) as probe:
+                state, metrics = steps[stage.index](state, batch)
+                losses.append(float(metrics["loss"]))
+            routing = probe.summary(cfg.remat == "layer")
+        else:
+            state, metrics = steps[stage.index](state, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if axis is not None:
+            per_step.append(dict(axis.stats))
+    counts = dict(ops.dispatch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_counts(trainer, args.steps)
+    lab = f"{label} {args.arch} at {args.mesh_shape}"
+    check(counts == want, f"{lab}: dispatch counts {counts}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"{lab}: losses {losses}")
+    norms = update_norms(torch, trainer, init, state.params, blocks)
+    timed_step = None
+    if timed and axis is not None:
+        axis.reset_stats()
+        axis.timing = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = steps[trainer.gf.stage_for_step(
+            args.steps).index](state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        timed_step = dict(axis.stats, step_s=time.perf_counter() - t0)
+        axis.timing = False
+    from repro_torch.configs import rules_for
+    from repro_torch.parallel import sharding
+    out = dict(arch=args.arch, config="SMOKE" if args.reduced else "CONFIG",
+               family=m.family, mesh=list(args.mesh_shape),
+               mode=cfg.gradientflow.mode, compute_dtype=m.compute_dtype,
+               losses=losses, step_ms=[x * 1e3 for x in seconds],
+               steady_step_ms=statistics.median(seconds[1:]) * 1e3,
+               peak_mem_gib=peak / 2 ** 30, dispatch_counts=counts,
+               model_index=trainer.mesh.model_index if trainer.mesh else 0,
+               params=sharding.count_params(trainer.specs),
+               local_params=sharding.count_params(trainer.local_specs),
+               local_params_at_2=sharding.count_params(
+                   sharding.localize_specs(trainer.specs,
+                                           rules_for(m), 2)),
+               local_pool_elems=trainer.pool.size,
+               global_pool_elems=trainer.global_pool, update_norms=norms,
+               model_all_reduces=per_step, timed_step=timed_step)
+    if routing is not None:
+        out["routing"] = routing
+    del state, steps, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ap_smoke_argv(arch, csc=False):
+    return ["--arch", arch] + AP_SMOKE_ARGV + (
+        AP_CSC_ARGV if csc else ["--gf-mode", "lazy"])
+
+
+def ap_runs(torch, ops, train_mod, synthetic, mesh):
+    """The (ap) runs of one process at ``mesh`` (a ``--mesh`` value, or
+    None for (1, 1)): arctic-480b, then the smoke configurations, then
+    falcon-mamba-smoke in CSC."""
+    extra = ["--mesh", mesh] if mesh else []
+    blocks = 1 if mesh else 2
+    runs = {"arctic-480b": axis_run(torch, ops, train_mod, synthetic,
+                                    "(ap)", AP_ARGV + extra, blocks,
+                                    cut=ARCTIC_CUT)}
+    for arch in AP_SMOKE:
+        runs[f"{arch}-smoke lazy"] = axis_run(
+            torch, ops, train_mod, synthetic, "(ap)",
+            ap_smoke_argv(arch) + extra, blocks, timed=False, f32=True)
+    runs["falcon-mamba-7b-smoke csc"] = axis_run(
+        torch, ops, train_mod, synthetic, "(ap)",
+        ap_smoke_argv("falcon-mamba-7b", csc=True) + extra, blocks,
+        timed=False, f32=True)
+    return runs
+
+
+def ap_worker(rank: int, port: int, out: str) -> None:
+    """One rank of (ap) at mesh (1, 2): two processes on this card, the
+    model group over gloo (``ap_runs``). Writes its runs to ``out`` as
+    JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        runs = ap_runs(torch, ops, train_mod, synthetic, "1x2")
+        with open(out, "w") as f:
+            json.dump(dict(rank=rank, runs=runs), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def model_axis_families_phase(torch, ops, train_mod, synthetic) -> dict:
+    """(ap): the (1, 1) runs in this process, then the two (1, 2) ranks
+    (``ap_worker``) on the same weights. Every run: the ranks' losses
+    equal, each rank's update norms those of its blocks in the (1, 1)
+    run, its local parameters the rules' blocks and every replicated
+    leaf whole. arctic-480b: (ao)'s bounds, the model group's
+    all-reduces a step AP_ALL_REDUCES, the first step's routing (slots
+    per expert, dropped share: its one layer sees the same input at
+    both meshes) the (1, 1) run's; the smoke runs AP_SMOKE_RTOL (CSC:
+    its first loss)."""
+    t0 = time.perf_counter()
+    ref = ap_runs(torch, ops, train_mod, synthetic, None)
+    ref_s = time.perf_counter() - t0
+    import shutil
+    import tempfile
+
+    port = free_port()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ap_")
+    outs = [os.path.join(out_dir, f"ap_rank{r}.json") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ap-rank", str(r), "--port", str(port),
+                               "--out", outs[r]]) for r in range(2)]
+    try:
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        check(all(p.returncode == 0 for p in procs),
+              f"(ap): rank exit codes {[p.returncode for p in procs]}")
+        ranks = []
+        for o in outs:
+            with open(o) as f:
+                ranks.append(json.load(f))
+    except subprocess.TimeoutExpired:
+        fail("(ap): the ranks did not finish within 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counts = {}
+    for r in ranks:
+        for label, run in r["runs"].items():
+            lab = f"(ap) rank {r['rank']} {label}"
+            want = ref[label]
+            first = ranks[0]["runs"][label]
+            check(run["losses"] == first["losses"],
+                  f"{lab}: losses {run['losses']} != rank 0's")
+            wide = label == "arctic-480b"
+            csc = run["mode"] == "csc"
+            # CSC: the first loss only (each rank's sparse steps select
+            # on its own pool, from the first step on).
+            n = 1 if csc else len(want["losses"])
+            err = max(rel(a, b) for a, b in zip(run["losses"][:n],
+                                                want["losses"][:n]))
+            bound = TP_LOSS_RTOL if wide else AP_SMOKE_RTOL
+            check(err <= bound, f"{lab}: losses {run['losses']} against "
+                  f"(1, 1) {want['losses']}")
+            run["loss_rel_err_vs_1x1"] = err
+            # A rank holds its blocks and every replicated leaf whole.
+            check(run["local_params"] == want["local_params_at_2"]
+                  and run["global_pool_elems"]
+                  == 2 * run["local_pool_elems"],
+                  f"{lab}: local parameters {run['local_params']}, (1, 1) "
+                  f"cut at 2 {want['local_params_at_2']}")
+            per = [(s["all_reduces"], s["bytes"])
+                   for s in run["model_all_reduces"]]
+            check(per[0][0] > 0 and all(x == per[0] for x in per),
+                  f"{lab}: model all-reduces a step "
+                  f"{run['model_all_reduces']}")
+            if not csc:
+                idx = 0 if r["rank"] == 0 else 1
+                worst = 0.0
+                for name, (got,) in run["update_norms"].items():
+                    w = want["update_norms"][name][idx]
+                    if w:
+                        worst = max(worst, rel(got, w))
+                check(worst <= (TP_UPDATE_RTOL if wide else AP_SMOKE_RTOL),
+                      f"{lab}: update norms off by {worst} relative")
+                run["update_norm_rel_err_vs_1x1"] = worst
+            else:
+                check(run["dispatch_counts"].get("csc_compact.kernel", 0)
+                      > 0, f"{lab}: no gather launched")
+            if "routing" in run:
+                check(run["routing"] == want["routing"],
+                      f"{lab}: routing {run['routing']} against (1, 1) "
+                      f"{want['routing']}")
+            if wide:
+                check(run["model_all_reduces"][0]["all_reduces"]
+                      == AP_ALL_REDUCES, f"{lab}: "
+                      f"{run['model_all_reduces'][0]['all_reduces']} model "
+                      f"all-reduces a step, expected {AP_ALL_REDUCES}")
+            del run["update_norms"]
+            for k, v in run["dispatch_counts"].items():
+                counts[k] = counts.get(k, 0) + v
+    for run in ref.values():
+        del run["update_norms"]
+    note = ("mesh (1, 2) as two processes on one card: the ranks take "
+            "turns on the device (time-sliced), and the model group's "
+            "all-reduces go through pinned host memory and gloo; a step "
+            "time is no NVLink's")
+    return dict(reference_1x1=ref, reference_seconds=ref_s, ranks=ranks,
+                expected_model_all_reduces_per_step_arctic=AP_ALL_REDUCES,
+                loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
+                smoke_rtol=AP_SMOKE_RTOL, dispatch_counts_both_ranks=counts,
+                note=note, seconds=time.perf_counter() - t0)
+
+
 _PHASE_T = [T_START]
 
 
@@ -5713,6 +5972,12 @@ def main() -> None:
     if "--tp-rank" in sys.argv:
         argv = sys.argv[1:]
         tp_worker(int(argv[argv.index("--tp-rank") + 1]),
+                  int(argv[argv.index("--port") + 1]),
+                  argv[argv.index("--out") + 1])
+        return
+    if "--ap-rank" in sys.argv:
+        argv = sys.argv[1:]
+        ap_worker(int(argv[argv.index("--ap-rank") + 1]),
                   int(argv[argv.index("--port") + 1]),
                   argv[argv.index("--out") + 1])
         return
@@ -5882,6 +6147,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(model_axis=tp, gpu=name, power_limit=power)),
           flush=True)
     phase_seconds("model axis (ao)")
+    ap = model_axis_families_phase(torch, ops, train_mod, synthetic)
+    print(json.dumps(dict(model_axis_families=ap, gpu=name,
+                          power_limit=power)), flush=True)
+    phase_seconds("model axis, the other families (ap)")
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})
@@ -5915,11 +6184,16 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
         e["launches_soak_lane"] = soak_run["lane_launches"].get(key, 0)
         e["launches_model_axis"] = tp["dispatch_counts_both_ranks"].get(
             key, 0)
+        # (ap) both ranks: arctic-480b, the smoke families, CSC.
+        e["launches_model_axis_families"] = \
+            ap["dispatch_counts_both_ranks"].get(key, 0)
     check(all(soak_run["lane_launches"].get(k, 0) > 0
               and tp["dispatch_counts_both_ranks"].get(k, 0) > 0
+              and ap["dispatch_counts_both_ranks"].get(k, 0) > 0
               for k in SOAK_LANE_KERNELS),
-          f"(an)/(ao) launches: lane {soak_run['lane_launches']}, model "
-          f"axis {tp['dispatch_counts_both_ranks']}")
+          f"(an)/(ao)/(ap) launches: lane {soak_run['lane_launches']}, "
+          f"model axis {tp['dispatch_counts_both_ranks']}, families "
+          f"{ap['dispatch_counts_both_ranks']}")
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     # Which kernels a captured window launched: (q)'s lazy path, (s)'s

@@ -4,8 +4,9 @@ port supports.
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 --batch 8 --seq-len 256 --use-kernels
 
-``--arch`` takes every id of ``configs.ARCH_IDS`` (the dense, moe and
-audio families; ``--reduced`` their smoke configurations); a vlm
+``--arch`` takes every id of ``configs.ARCH_IDS`` (the dense, moe,
+audio, ssm and hybrid families; ``--reduced`` their smoke
+configurations); a vlm
 (internvl2-26b) is refused before any step, as the JAX CLI fails on it:
 the synthetic stream has no vision embeddings (train it through the
 ``Trainer`` on ``models.registry.make_batch`` batches). An audio model's
@@ -32,9 +33,10 @@ accumulation has no flag, as in the JAX CLI: set
 initialised ``torch.distributed`` group each rank trains on its own shard
 of the global batch. ``--mesh DxM``, the JAX CLI's flag, lays the D x M
 ranks out as a ('data', 'model') grid (``launch.mesh.make_mesh``; D x M
-must be the world size, default world x 1): M > 1 trains the dense family
-tensor-parallel (``Trainer``'s model axis), each data index's M ranks on
-the same batch shard. Under M > 1 the steps run one at a time
+must be the world size, default world x 1): M > 1 trains the model
+sharded over its model axis (``Trainer``'s, each architecture's rule
+table; every family the CLI trains), each data index's M ranks on the
+same batch shard. Under M > 1 the steps run one at a time
 (``--window-steps 1``) and without checkpoints (no supervisor, no
 ``--ckpt-dir``): windows and checkpoints under a model axis are
 ROADMAP.md A.23, and asking for them raises.

@@ -73,11 +73,13 @@ refuse to run. A checkpoint restore (``checkpoint``) writes into the
 state's tensors in place, so a captured window replays on it.
 
 ``Trainer(cfg, device, mesh)`` with a ('data', 'model') mesh
-(``launch.mesh.make_mesh``) whose model axis has M > 1 ranks trains the
-dense family tensor-parallel, as the JAX Trainer does on such a mesh: the
-architecture's rule table (``configs.rules_for``) shards
-each weight (``parallel.sharding``); each rank holds its blocks, runs
-Megatron's forward and backward (``parallel.model_axis``, over the
+(``launch.mesh.make_mesh``) whose model axis has M > 1 ranks trains
+every family sharded over it, as the JAX Trainer does on such a mesh:
+the architecture's rule table (``configs.rules_for``) shards each weight
+(``parallel.sharding``); each rank holds its blocks, runs the model's
+sharded forward and backward (Megatron's attention and MLPs, expert- or
+expert-tensor-parallel MoE, channel-parallel Mamba blocks,
+vocab-parallel embeddings and heads: ``parallel.model_axis``, over the
 mesh's model group) and keeps a local gradient pool over its own blocks
 (``sharding.localize_specs``), reduced over its data group only; the
 optimizer steps its local pool. ``global_pool`` and
@@ -86,8 +88,7 @@ momentum SGD, staged overlap, an f32 or bf16 wire, with or without
 kernels, one eager step at a time: everything else under M > 1 (windows,
 the guard, the low-bit wires, LARS, AdamW, microbatches, monolithic
 overlap, a data topology of more than one level, checkpoints, a replan
-to another model degree, the other families, serving) raises, naming
-ROADMAP.md A.23.
+to another model degree, serving) raises, naming ROADMAP.md A.23.
 """
 from __future__ import annotations
 
@@ -149,13 +150,14 @@ def assert_flushed(state: TrainState, what: str = "checkpoint") -> None:
             f"taken between its step bodies)")
 
 
-def refuse_model_axis(cfg: TrainConfig, model_size: int) -> None:
+def refuse_model_axis(cfg: TrainConfig, model_size: int,
+                      rules: Dict[str, Optional[str]]) -> None:
     """Raise, naming ROADMAP.md A.23, for what the port does not run
-    under a model axis of ``model_size`` > 1 ranks."""
+    under a model axis of ``model_size`` > 1 ranks with the rule table
+    ``rules``; and for heads that the rules split but that do not split
+    over ``model_size`` ranks."""
     gf = cfg.gradientflow
     refused = [
-        (cfg.model.family != "dense",
-         f"the {cfg.model.family} family"),
         (gf.overlap != "staged", f"overlap={gf.overlap!r}"),
         (gf.quantized, f"the {gf.wire_format} wire"),
         (gf.wire_dtype not in ("float32", "bfloat16"),
@@ -170,11 +172,29 @@ def refuse_model_axis(cfg: TrainConfig, model_size: int) -> None:
         if bad:
             raise ValueError(f"{what} {_A23}")
     m = cfg.model
-    if m.num_heads % model_size or m.num_kv_heads % model_size:
+
+    def split(axis):
+        return rules.get(axis) == "model"
+
+    # The query heads split when the rules shard the projections or the
+    # heads; the KV heads only when 'kv_heads' is sharded (otherwise a
+    # rank gathers them, attention.apply_train). The ssm family has no
+    # attention.
+    heads_split = m.family != "ssm" and (split("heads") or split("qkv"))
+    if (heads_split and m.num_heads % model_size) or (
+            heads_split and split("kv_heads")
+            and m.num_kv_heads % model_size):
         raise ValueError(
             f"{m.num_heads} query and {m.num_kv_heads} KV heads do not "
-            f"split over {model_size} model ranks: each rank's query heads "
-            f"must map onto its own KV heads")
+            f"split over {model_size} model ranks as the rules shard them: "
+            f"each rank's query heads must be whole, and with 'kv_heads' "
+            f"sharded map onto its own KV heads")
+    if m.family == "hybrid" and split("dinner"):
+        from repro_torch.models.layers import mamba2
+        heads = mamba2.dims(m)[1]
+        if heads % model_size:
+            raise ValueError(f"{heads} Mamba-2 heads do not split over "
+                             f"{model_size} model ranks")
 
 
 class Trainer:
@@ -199,8 +219,8 @@ class Trainer:
         self.local_specs = self.specs
         if self.model_size > 1:
             from repro_torch.configs import rules_for
-            refuse_model_axis(cfg, self.model_size)
             self.rules = rules_for(cfg.model)
+            refuse_model_axis(cfg, self.model_size, self.rules)
             self.model_axis = ModelAxis(mesh.model_group.group,
                                         self.model_size, mesh.model_index,
                                         self.rules)

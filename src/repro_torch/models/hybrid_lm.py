@@ -74,48 +74,57 @@ class HybridLM(LanguageModel):
         return p
 
     def _shared_attn_apply(self, shared: Dict[str, Any], x: torch.Tensor,
-                           attn_chunk: int, causal_skip: bool
-                           ) -> torch.Tensor:
+                           attn_chunk: int, causal_skip: bool,
+                           model_axis=None) -> torch.Tensor:
         cfg = self.cfg
         h = norms.apply(shared["attn_norm"], x, cfg.norm)
         x = x + attention.apply_train(shared["attn"], h, cfg,
                                       attn_chunk=attn_chunk,
-                                      causal_skip=causal_skip)
+                                      causal_skip=causal_skip,
+                                      model_axis=model_axis)
         h = norms.apply(shared["mlp_norm"], x, cfg.norm)
-        return x + mlp.apply(shared["mlp"], h, cfg)
+        return x + mlp.apply(shared["mlp"], h, cfg, model_axis=model_axis)
 
     def loss_fn(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 *, remat: str = "layer", attn_chunk: int = 0,
                 causal_skip: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
+                model_axis=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'tokens', 'labels'} (B, S) int; ``attn_chunk`` and
-        ``causal_skip`` reach the shared block's attention. Returns
+        ``causal_skip`` reach the shared block's attention. Under
+        ``model_axis`` (``parallel.model_axis``) ``params`` are this
+        rank's shards (the shared block's too: its gradient sums over its
+        applications on each rank, its replicated norm scales see the
+        whole activations) and every rank returns the same loss. Returns
         (loss, {'loss', 'aux_loss': 0})."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
         shared = params["shared_attn"]
         remat_on = remat == "layer"
 
         def mamba_block(lp, h):
             return h + mamba2.apply_train(
-                lp["mixer"], norms.apply(lp["norm"], h, cfg.norm), cfg)
+                lp["mixer"], norms.apply(lp["norm"], h, cfg.norm), cfg,
+                model_axis=model_axis)
 
         def group(blocks, h):
             for lp in blocks:
                 h = checkpointed(lambda hh, lp=lp: mamba_block(lp, hh), h) \
                     if remat_on else mamba_block(lp, h)
             return self._shared_attn_apply(shared, h, attn_chunk,
-                                           causal_skip)
+                                           causal_skip, model_axis)
 
         for gp in unstack(params["mamba_layers"], self.groups):
             blocks = unstack(gp, self.every)
             x = checkpointed(lambda h, b=blocks: group(b, h), x) \
                 if remat_on else group(blocks, x)
         x = norms.apply(params["final_norm"], x, cfg.norm)
-        lg = embedding.logits(self._head_params(params), x, cfg)
-        loss = xent(lg, batch["labels"], batch.get("loss_mask"))
+        lg = embedding.logits(self._head_params(params), x, cfg,
+                              model_axis=model_axis)
+        loss = xent(lg, batch["labels"], batch.get("loss_mask"),
+                    model_axis=model_axis)
         return loss, {"loss": loss, "aux_loss": torch.zeros(
             (), dtype=torch.float32, device=loss.device)}
 

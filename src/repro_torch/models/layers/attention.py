@@ -23,13 +23,16 @@ The weights carry the JAX package's logical axes ('embed', 'qkv');
 ``parallel.sharding`` alone maps them to a mesh. When the rules shard
 'qkv' over a model axis (``parallel.model_axis``) the block is
 Megatron's: ``wq``, ``wk`` and ``wv`` column-parallel (each rank holds
-a contiguous block of the query heads and of the KV heads, so its query
-heads map onto its own KV heads), attention on the local heads (QK-norm
-and rotary are per head; the replicated QK-norm scales' gradients are
-summed over the model group), ``wo`` row-parallel, its partial sum
-all-reduced over the model group. The head counts come from the weights'
-shapes, so the same code runs on the whole model and on one rank's
-shard.
+a contiguous block of the query heads and of the KV heads; when the KV
+heads split whole, a rank's query heads map onto its own KV heads, and
+when they do not, as the rules allow where they leave 'kv_heads'
+replicated, every rank gathers the k and v projections and its query
+heads read their global KV groups), attention on the local heads
+(QK-norm and rotary are per head; the replicated QK-norm scales'
+gradients are summed over the model group), ``wo`` row-parallel, its
+partial sum all-reduced over the model group. The head counts come from
+the weights' shapes, so the same code runs on the whole model and on
+one rank's shard.
 """
 from __future__ import annotations
 
@@ -68,17 +71,23 @@ def spec(cfg) -> Dict[str, ParamSpec]:
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                 positions: Optional[torch.Tensor] = None
+                 positions: Optional[torch.Tensor] = None, kv_gather=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (b, s, h, hd), k and v (b, s, kv, hd); QK-norm before RoPE at
     ``positions`` (None: 0..s-1 for every row; a decode step passes its
-    (b, 1) device positions)."""
+    (b, 1) device positions). ``kv_gather`` (a model axis's ``gather``)
+    joins the ranks' blocks of the k and v projections first: k and v
+    then have every KV head."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv = _heads(params, cfg)
-    q = (x @ params["wq"]).view(b, s, h, hd)
-    k = (x @ params["wk"]).view(b, s, kv, hd)
-    v = (x @ params["wv"]).view(b, s, kv, hd)
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if kv_gather is not None:
+        k, v = kv_gather(torch.stack([k, v]), -1).unbind(0)
+    q = q.view(b, s, -1, hd)
+    k = k.view(b, s, -1, hd)
+    v = v.view(b, s, -1, hd)
     if cfg.qk_norm:
         q = norms.rms_head_norm(params["q_norm"], q)
         k = norms.rms_head_norm(params["k_norm"], k)
@@ -86,13 +95,6 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         positions = torch.arange(s, device=x.device)
     cos, sin = rotary.rope_tables(positions, hd, cfg.rope_theta)
     return rotary.apply_rope(q, cos, sin), rotary.apply_rope(k, cos, sin), v
-
-
-def _heads(params: Dict[str, torch.Tensor], cfg) -> Tuple[int, int]:
-    """(query heads, KV heads) of these weights: the config's on the
-    whole model, a model rank's share of them on its shard."""
-    hd = cfg.resolved_head_dim
-    return params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -219,14 +221,27 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     """Full-sequence causal attention for training; on the local heads
     under a model axis that shards 'qkv'."""
     tp = model_axis is not None and model_axis.sharded("qkv")
+    gather = None
     if tp:
         x = model_axis.copy_in(x)
         # The QK-norm scales are replicated but meet only this rank's
         # heads: their gradient is the sum over the model ranks.
         params = {k: model_axis.copy_in(v) if k.endswith("_norm") else v
                   for k, v in params.items()}
+        # KV heads that do not split whole over the ranks (the rules
+        # leave 'kv_heads' replicated then): every rank gathers them all.
+        if cfg.num_kv_heads % model_axis.size:
+            gather = model_axis.gather
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
+    q, k, v = _project_qkv(params, x, cfg, kv_gather=gather)
+    if gather is not None:
+        # Global query head j reads KV head j // (H / KV).
+        first = model_axis.index * q.shape[2]
+        kv_of = torch.div(torch.arange(first, first + q.shape[2],
+                                       device=x.device),
+                          cfg.num_heads // cfg.num_kv_heads,
+                          rounding_mode="floor")
+        k, v = k[:, :, kv_of], v[:, :, kv_of]
     groups = q.shape[2] // k.shape[2]
     out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                  causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip)

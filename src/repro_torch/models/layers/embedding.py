@@ -8,7 +8,8 @@ Each weight carries the JAX package's logical axes ('vocab', 'embed');
 (``parallel.model_axis``) whose rules shard 'vocab' the table holds one
 contiguous block of the vocabulary: a lookup is masked to the block and
 summed over the model group, and the head's logits are that block's
-(``transformer.xent`` then takes the vocab-parallel cross-entropy)."""
+(``transformer.xent`` then takes the vocab-parallel cross-entropy, over
+each of the audio family's K heads alike)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -47,17 +48,18 @@ def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
     """tokens: (B, S) integer, or (B, S, K) for multi-codebook audio ->
     (B, S, D) in ``compute_dtype``. The K lookups are summed in codebook
     order from 0, as the JAX package's ``sum`` does. A vocab-sharded
-    table: each rank looks up the tokens of its block (zeros elsewhere)
-    and the rows are summed over the model group, one nonzero term each,
-    so the sum is exact."""
-    if model_axis is not None and model_axis.sharded("vocab"):
-        table = params["tokens"]
-        n = table.shape[0]
-        local = tokens - model_axis.index * n
-        mine = (local >= 0) & (local < n)
-        x = table[local.clamp(0, n - 1)].masked_fill(~mine[..., None], 0)
-        return model_axis.reduce_out(x.to(compute_dtype))
+    table: each rank looks up the tokens of its block (zeros elsewhere),
+    the audio family sums its K codebooks' lookups so, and the rows are
+    summed over the model group: one nonzero term each for one table, so
+    the sum is exact."""
     k = _codebooks(cfg)
+    if model_axis is not None and model_axis.sharded("vocab"):
+        if k:
+            x = sum(_local_lookup(params["codebooks"][i], tokens[..., i],
+                                  model_axis) for i in range(k))
+        else:
+            x = _local_lookup(params["tokens"], tokens, model_axis)
+        return model_axis.reduce_out(x.to(compute_dtype))
     if k:
         x = sum(params["codebooks"][i][tokens[..., i]] for i in range(k))
     else:
@@ -65,12 +67,22 @@ def embed(params: Dict[str, torch.Tensor], tokens: torch.Tensor, cfg,
     return x.to(compute_dtype)
 
 
+def _local_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                  model_axis) -> torch.Tensor:
+    """The rows of this rank's vocabulary block ``table`` for the tokens
+    in it, zeros for the others."""
+    n = table.shape[0]
+    local = tokens - model_axis.index * n
+    mine = (local >= 0) & (local < n)
+    return table[local.clamp(0, n - 1)].masked_fill(~mine[..., None], 0)
+
+
 def logits(head_params: Dict[str, torch.Tensor], x: torch.Tensor,
            cfg, model_axis=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, V), or (B, S, K, V) for audio. A
     vocab-sharded head gives this rank's block of the vocabulary."""
     if model_axis is not None and model_axis.sharded("vocab"):
-        return model_axis.copy_in(x) @ head_params["w"]
+        x = model_axis.copy_in(x)
     if _codebooks(cfg):
         return torch.einsum("bsd,kdv->bskv", x, head_params["w"])
     return x @ head_params["w"]

@@ -22,8 +22,17 @@ the conv's trailing window (in the cache dtype) and the f32 SSM state,
 both O(1) in the sequence length and updated in place.
 
 Each weight carries the JAX package's logical axes ('embed', 'dinner',
-'conv', 'state'); only ``parallel.sharding`` maps them to a mesh (the ssm
-family under a model axis is ROADMAP.md A.23).
+'conv', 'state'); only ``parallel.sharding`` maps them to a mesh. Under a
+model axis whose rules shard 'dinner' (``parallel.model_axis``) a rank
+runs its contiguous block of the inner channels: the conv, Δ's
+projection and bias, A, D and the scan are per channel and stay local;
+``x_proj`` contracts over the channels, so its partial product is summed
+over the group (``all_sum``) before Δ, B and C; ``out_proj`` is
+row-parallel, its partial sum all-reduced. ``in_proj``'s 2·d_inner
+columns hold x's then z's: a rank's contiguous block of them (the JAX
+package's shard) is not its channels' columns, so the weight is
+gathered (``gather``; backward its gradient summed and the block kept)
+and the rank multiplies by its channels' x and z columns.
 """
 from __future__ import annotations
 
@@ -106,12 +115,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssm_params(params: Dict[str, torch.Tensor], xz: torch.Tensor, cfg
+def _ssm_params(params: Dict[str, torch.Tensor], xz: torch.Tensor, cfg,
+                model_axis=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The input-dependent half: Δ (f32, softplus of the bias-shifted
-    projection computed in the input dtype), B and C (f32)."""
+    projection computed in the input dtype), B and C (f32). ``x_proj``
+    contracts over the inner channels: on a rank's block of them
+    (``model_axis``) its product is a partial sum, summed over the
+    group."""
     _, dt_rank, d_state, _ = dims(cfg)
     dbc = xz @ params["x_proj"]
+    if model_axis is not None:
+        dbc = model_axis.all_sum(dbc)
     dt = dbc[..., :dt_rank] @ params["dt_proj"] + params["dt_bias"]
     delta = softplus(dt.float())
     b_mat = dbc[..., dt_rank:dt_rank + d_state].float()
@@ -141,15 +156,30 @@ def _scan_chunk(x_f32: torch.Tensor, delta: torch.Tensor,
 
 
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
-                scan_chunk: int = SCAN_CHUNK) -> torch.Tensor:
-    """x: (B, L, D) -> (B, L, D), in x's dtype; the scan in f32."""
+                scan_chunk: int = SCAN_CHUNK, model_axis=None
+                ) -> torch.Tensor:
+    """x: (B, L, D) -> (B, L, D), in x's dtype; the scan in f32. Under a
+    model axis that shards 'dinner', on this rank's block of the inner
+    channels (see the module docstring)."""
     b, n, _ = x.shape
     d_inner, _, d_state, _ = dims(cfg)
-    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    tp = model_axis is not None and model_axis.sharded("dinner")
+    w = params["in_proj"]
+    if tp:
+        x = model_axis.copy_in(x)
+        # The rank's block of in_proj's 2·d_inner columns is not its
+        # channels' x and z columns: gather the weight, take those.
+        full, mine = model_axis.gather(w, 1), model_axis.block(d_inner)
+        w = torch.cat([full[:, mine],
+                       full[:, d_inner + mine.start:d_inner + mine.stop]],
+                      dim=1)
+        d_inner //= model_axis.size
+    xs, z = (x @ w).chunk(2, dim=-1)
     q = min(scan_chunk, n)
     assert n % q == 0, (n, q)
     x_act = F.silu(_causal_conv(xs, params["conv_w"], params["conv_b"]))
-    delta, b_mat, c_mat = _ssm_params(params, x_act, cfg)
+    delta, b_mat, c_mat = _ssm_params(params, x_act, cfg,
+                                      model_axis if tp else None)
     xf = x_act.float()
     a = -torch.exp(params["A_log"].float())
     h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
@@ -161,7 +191,8 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                            a, h)
         ys.append(y)
     y = torch.cat(ys, dim=1) + params["D"].float() * xf
-    return (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    return model_axis.reduce_out(out) if tp else out
 
 
 def abstract_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16

@@ -18,8 +18,14 @@ update against a ``Mamba2State`` (the conv window of x, B and C in the
 cache dtype, the f32 (B, H, head_dim, d_state) state), in place.
 
 Each weight carries the JAX package's logical axes ('embed', 'dinner',
-'conv'); only ``parallel.sharding`` maps them to a mesh (the hybrid
-family under a model axis is ROADMAP.md A.23).
+'conv'); only ``parallel.sharding`` maps them to a mesh. Under a model
+axis whose rules shard 'dinner' (``parallel.model_axis``) a rank runs a
+contiguous block of the heads and of the inner channels
+(``_local_params``): B and C, shared by every head, are computed whole
+on every rank (their gradients, partial on each, are summed through the
+gathered weights'); the gated norm's mean of squares is summed over the
+group (``all_sum``), the reduce GSPMD inserts in the JAX package's
+sharded program; ``out_proj`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -85,10 +91,18 @@ def _split_proj(proj: torch.Tensor, cfg):
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
-    """Mamba-2's gated RMSNorm before out_proj, in f32."""
+                eps: float = 1e-6, model_axis=None) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm before out_proj, in f32. On a rank's
+    block of the inner channels (``model_axis``) the mean of squares is
+    over every channel: the block's sum of squares summed over the
+    group, over the whole width."""
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if model_axis is None:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    else:
+        var = model_axis.all_sum(torch.sum(torch.square(yf), dim=-1,
+                                           keepdim=True)) \
+            / (yf.shape[-1] * model_axis.size)
     return yf * torch.rsqrt(var + eps) * scale.float()
 
 
@@ -131,13 +145,48 @@ def _ssd_chunks(xh: torch.Tensor, bq: torch.Tensor, cq: torch.Tensor,
                             torch.stack(h_in, dim=1), torch.exp(cum))
 
 
+def _local_params(params: Dict[str, torch.Tensor], cfg, model_axis
+                  ) -> Dict[str, torch.Tensor]:
+    """This rank's view of a block's weights for its block of the heads
+    and inner channels: ``in_proj`` and the conv gathered (their
+    contiguous blocks cut across their fused parts) and the rank's
+    columns of each part taken, B's and C's whole; its heads' entries of
+    the replicated per-head A_log, D and Δ bias, whose gradients are
+    then summed over the group; ``norm_scale`` and ``out_proj`` as they
+    are (their blocks are the rank's channels)."""
+    d_inner, h, _, ds, _ = dims(cfg)
+    ch, hs = model_axis.block(d_inner), model_axis.block(h)
+    w = model_axis.gather(params["in_proj"], 1)
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * ds)
+    p = dict(params)
+    p["in_proj"] = torch.cat(
+        [w[:, ch], w[:, d_inner + ch.start:d_inner + ch.stop], w[:, bc],
+         w[:, 2 * d_inner + 2 * ds + hs.start:2 * d_inner + 2 * ds
+           + hs.stop]], dim=1)
+    conv_w = model_axis.gather(params["conv_w"], 1)
+    conv_b = model_axis.gather(params["conv_b"], 0)
+    p["conv_w"] = torch.cat([conv_w[:, ch], conv_w[:, d_inner:]], dim=1)
+    p["conv_b"] = torch.cat([conv_b[ch], conv_b[d_inner:]])
+    for k in ("A_log", "D", "dt_bias"):
+        p[k] = model_axis.copy_in(params[k])[hs]
+    return p
+
+
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
-                scan_chunk: int = SCAN_CHUNK) -> torch.Tensor:
+                scan_chunk: int = SCAN_CHUNK, model_axis=None
+                ) -> torch.Tensor:
     """x: (B, L, D) -> (B, L, D), in x's dtype; the SSD and the gated
-    norm in f32."""
+    norm in f32. Under a model axis that shards 'dinner', on this rank's
+    block of the heads (see the module docstring)."""
     b, n, _ = x.shape
     d_inner, h, hd, ds, _ = dims(cfg)
-    z, xs, b_raw, c_raw, dt = _split_proj(x @ params["in_proj"], cfg)
+    tp = model_axis is not None and model_axis.sharded("dinner")
+    if tp:
+        x = model_axis.copy_in(x)
+        params = _local_params(params, cfg, model_axis)
+        d_inner, h = d_inner // model_axis.size, h // model_axis.size
+    z, xs, b_raw, c_raw, dt = torch.split(
+        x @ params["in_proj"], [d_inner, d_inner, ds, ds, h], dim=-1)
     q = min(scan_chunk, n)
     assert n % q == 0, (n, q)
     chunks = (b, n // q, q)
@@ -150,8 +199,10 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     a = -torch.exp(params["A_log"].float())            # (H,)
     y = _ssd_chunks(xq * delta[..., None], bq, cq, delta * a)
     y = y + params["D"].float()[:, None] * xq
-    y = _gated_norm(y.reshape(b, n, d_inner), z, params["norm_scale"])
-    return y.to(x.dtype) @ params["out_proj"]
+    y = _gated_norm(y.reshape(b, n, d_inner), z, params["norm_scale"],
+                    model_axis=model_axis if tp else None)
+    out = y.to(x.dtype) @ params["out_proj"]
+    return model_axis.reduce_out(out) if tp else out
 
 
 def abstract_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16

@@ -34,12 +34,14 @@ def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
           cfg, model_axis=None) -> torch.Tensor:
     if model_axis is not None and model_axis.sharded("mlp"):
         x = model_axis.copy_in(x)
-        return model_axis.reduce_out(_apply(params, x, cfg))
-    return _apply(params, x, cfg)
+        return model_axis.reduce_out(partial(params, x, cfg))
+    return partial(params, x, cfg)
 
 
-def _apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-           cfg) -> torch.Tensor:
+def partial(params: Dict[str, torch.Tensor], x: torch.Tensor,
+            cfg) -> torch.Tensor:
+    """The block on the weights given: the whole output on whole
+    weights, a rank's partial sum of it on its column and row blocks."""
     if cfg.activation in ("swiglu", "geglu"):
         gate = x @ params["wi_gate"]
         up = x @ params["wi_up"]

@@ -17,12 +17,21 @@ hidden state gives them for every expert).
 The Switch-style load-balance loss is returned beside the output.
 
 Each weight carries the JAX package's logical axes ('embed', 'expert',
-'expert_mlp'); only ``parallel.sharding`` maps them to a mesh (the MoE
-layer under a model axis is ROADMAP.md A.23).
+'expert_mlp'); only ``parallel.sharding`` maps them to a mesh. Under a
+model axis (``parallel.model_axis``) every rank holds the whole input and
+routes every token, replicated: the router, the softmax, top-k and the
+aux loss, and the slot positions, so capacity and drops are the whole
+routing's. With 'expert' sharded (arctic) a rank holds E/M whole experts
+and dispatches only the slots routed to them; with 'expert_mlp' sharded
+(grok) it holds every expert's block of hidden units (the up and gate
+products column-parallel, ``wo`` row-parallel). Either way its combine
+is a partial sum of the output, all-reduced over the group with a dense
+residual's partial when the rules shard its 'mlp' too; the input's and
+the gates' gradients, each partial on a rank, are all-reduced.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,12 +115,22 @@ def gate(params: Dict[str, Any], xt: torch.Tensor, cfg
 
 
 def dispatch(xt: torch.Tensor, idx: torch.Tensor, num_experts: int,
-             cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             cap: int, experts: Optional[slice] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(the experts' buffer (E, cap, D), each slot's row, kept): the
     slots' tokens scattered into an (E·cap + 1, D) buffer whose last row
-    takes the dropped slots and is cut off."""
+    takes the dropped slots and is cut off. ``experts``: only the buffer
+    of that contiguous range of experts (a rank's under expert
+    parallelism), whose rows start at 0; a slot routed elsewhere counts
+    as not kept here. Positions and drops are the whole routing's."""
     (t, d), k = xt.shape, idx.shape[1]
     dst, kept = slots(idx, num_experts, cap)
+    if experts is not None:
+        rows = (experts.stop - experts.start) * cap
+        dst = dst - experts.start * cap
+        kept = kept & (dst >= 0) & (dst < rows)
+        dst = torch.where(kept, dst, torch.full_like(dst, rows))
+        num_experts = experts.stop - experts.start
     src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
     buf = torch.zeros((num_experts * cap + 1, d), dtype=xt.dtype,
                       device=xt.device)
@@ -148,15 +167,43 @@ def combine(out: torch.Tensor, dst: torch.Tensor, kept: torch.Tensor,
     return y
 
 
-def apply(params: Dict[str, Any], x: torch.Tensor, cfg
+def apply(params: Dict[str, Any], x: torch.Tensor, cfg, model_axis=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (output (B, S, D), f32 aux loss)."""
+    """x: (B, S, D) -> (output (B, S, D), f32 aux loss). Under a model
+    axis (see the module docstring) every rank holds the whole x and
+    returns the whole output."""
     m = cfg.moe
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, idx, aux = gate(params, xt, cfg)
-    buf, dst, kept = dispatch(xt, idx, m.num_experts, capacity(cfg, b * s))
+    cap = capacity(cfg, b * s)
+    axis = model_axis
+
+    def sharded(name):
+        return axis is not None and axis.sharded(name)
+
+    ep, split_res = sharded("expert"), m.dense_residual and sharded("mlp")
+    split = ep or sharded("expert_mlp")
+    xin = axis.copy_in(xt) if split or split_res else xt
+    if split:
+        # Each rank's combine sees only its experts' (or hidden units')
+        # share: the gates' gradient is summed over the group.
+        gates = axis.copy_in(gates)
+    mine = axis.block(m.num_experts) if ep else None
+    buf, dst, kept = dispatch(xin if split else xt, idx, m.num_experts,
+                              cap, mine)
     y = combine(experts(params, buf), dst, kept, gates)
+    res = None
     if m.dense_residual:
-        y = y + mlp_mod.apply(params["residual"], xt, cfg)
+        res = mlp_mod.partial(params["residual"], xin, cfg) if split_res \
+            else mlp_mod.apply(params["residual"], xt, cfg)
+    if split and split_res:  # one all-reduce joins both partial sums
+        y = axis.reduce_out(y + res)
+    else:
+        if split:
+            y = axis.reduce_out(y)
+        if split_res:
+            res = axis.reduce_out(res)
+        if res is not None:
+            y = y + res
     return y.reshape(b, s, d), aux

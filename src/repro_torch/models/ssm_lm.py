@@ -47,25 +47,31 @@ class MambaLM(LanguageModel):
                 *, remat: str = "layer", attn_chunk: int = 0,
                 causal_skip: bool = False,
                 compute_dtype: torch.dtype = torch.bfloat16,
+                model_axis=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'tokens', 'labels'} (B, S) int. ``attn_chunk`` and
         ``causal_skip`` are the Trainer's and have no attention to act on.
-        Returns (loss, {'loss', 'aux_loss': 0})."""
+        Under ``model_axis`` (``parallel.model_axis``) ``params`` are this
+        rank's shards and every rank returns the same loss. Returns (loss,
+        {'loss', 'aux_loss': 0})."""
         del attn_chunk, causal_skip
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
 
         def block(lp, h):
             return h + mamba.apply_train(
-                lp["mixer"], norms.apply(lp["norm"], h, cfg.norm), cfg)
+                lp["mixer"], norms.apply(lp["norm"], h, cfg.norm), cfg,
+                model_axis=model_axis)
 
         for lp in unstack(params["layers"], cfg.num_layers):
             x = checkpointed(lambda h, lp=lp: block(lp, h), x) \
                 if remat == "layer" else block(lp, x)
         x = norms.apply(params["final_norm"], x, cfg.norm)
-        lg = embedding.logits(self._head_params(params), x, cfg)
-        loss = xent(lg, batch["labels"], batch.get("loss_mask"))
+        lg = embedding.logits(self._head_params(params), x, cfg,
+                              model_axis=model_axis)
+        loss = xent(lg, batch["labels"], batch.get("loss_mask"),
+                    model_axis=model_axis)
         return loss, {"loss": loss, "aux_loss": torch.zeros(
             (), dtype=torch.float32, device=loss.device)}
 

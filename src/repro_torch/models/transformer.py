@@ -62,7 +62,8 @@ def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
                                   model_axis=model_axis)
     h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
     if cfg.moe is not None:
-        h, aux = moe.apply(layer_params["ffn"], h, cfg)
+        h, aux = moe.apply(layer_params["ffn"], h, cfg,
+                           model_axis=model_axis)
         return x + h, aux
     return x + mlp.apply(layer_params["ffn"], h, cfg,
                          model_axis=model_axis), None
@@ -219,9 +220,9 @@ class TransformerLM(LanguageModel):
         prepended to the token embeddings and dropped before the head.
         ``params`` are already in the compute dtype (the trainer casts the
         f32 masters). Returns (loss + aux, {'loss', 'aux_loss'}). Under
-        ``model_axis`` (``parallel.model_axis``; the dense family)
-        ``params`` are this rank's shards and every rank returns the same
-        loss."""
+        ``model_axis`` (``parallel.model_axis``) ``params`` are this
+        rank's shards, every rank prepends the whole vision embeddings,
+        and every rank returns the same loss."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
                             compute_dtype, model_axis=model_axis)

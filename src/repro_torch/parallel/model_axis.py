@@ -13,6 +13,18 @@ its two conjugate operators around each parallel region:
 * ``reduce_out`` (Megatron's g): all-reduce forward, identity backward;
   the exit of a row-parallel product, or of any per-rank partial sum.
 
+and two more built on the same all-reduce:
+
+* ``all_sum`` (g then f): all-reduce forward and backward; a per-rank
+  partial sum that every rank then uses on its own share of the work
+  (Mamba-1's ``x_proj`` output, Mamba-2's sum of squares over the inner
+  width), so each rank's gradient of the sum is partial too;
+* ``gather``: the whole of a tensor held in contiguous blocks, one a
+  rank (each block placed in zeros and all-reduced); backward the
+  gradient all-reduced and this rank's block kept. For a leaf whose
+  block is not the slice of the work its rank does (a fused input
+  projection cut across its parts) and for KV heads that do not split.
+
 Both are ``torch.autograd.Function``s, so a per-layer remat
 (``torch.utils.checkpoint``) issues a region's forward all-reduces again
 in the recompute, in the same order on every rank.
@@ -91,6 +103,23 @@ class ModelAxis:
         """Megatron's g: all-reduce forward, identity backward."""
         return _ReduceOut.apply(x, self) if self.size > 1 else x
 
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The model-group sum of per-rank partials, used whole by every
+        rank on its share of the work: all-reduce forward, the gradient
+        all-reduced backward."""
+        return self.copy_in(self.reduce_out(x)) if self.size > 1 else x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor of which ``x`` is this rank's block along
+        ``dim`` (``size`` equal contiguous blocks, rank r's the r-th)."""
+        return _Gather.apply(x, self, dim % x.dim()) if self.size > 1 \
+            else x
+
+    def block(self, n: int) -> slice:
+        """This rank's block of ``n`` items split ``size`` ways."""
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
+
     def max_(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over the model group, in place (no
         gradient)."""
@@ -116,3 +145,19 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= axis.size
+        full = x.new_zeros(shape)
+        full.narrow(dim, axis.index * ctx.n, ctx.n).copy_(x)
+        return axis.all_reduce_(full)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.axis.all_reduce_(grad.contiguous().clone())
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None

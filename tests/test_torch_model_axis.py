@@ -19,7 +19,9 @@ package's Trainer.
 * On every rank the replicated leaves (norm weights, QK-norm scales)
   end bit for bit equal across the model ranks.
 * In one process: every combination the port does not run under a
-  model axis raises, naming ROADMAP.md A.23.
+  model axis raises, naming ROADMAP.md A.23, for every family; heads
+  that the rules split but that do not split over the model ranks
+  raise.
 
 The spawns and the JAX subprocess start together (``runs``) and the JAX
 (1, 1) references are computed while they run.
@@ -372,10 +374,15 @@ def _cfg(arch="olmo-1b", opt="momentum_sgd", micro=1, **gf):
                        global_batch=B, microbatches=micro)
 
 
+# The families train under a model axis; what stays refused for the
+# dense family stays refused for each of them.
 REFUSED = {
-    "moe": _cfg("arctic-480b"), "vlm": _cfg("internvl2-26b"),
-    "audio": _cfg("musicgen-large"), "ssm": _cfg("falcon-mamba-7b"),
-    "hybrid": _cfg("zamba2-2.7b"), "monolithic": _cfg(overlap="monolithic"),
+    "moe": _cfg("arctic-480b", guard=GuardConfig()),
+    "vlm": _cfg("internvl2-26b", opt="lars"),
+    "audio": _cfg("musicgen-large", micro=2),
+    "ssm": _cfg("falcon-mamba-7b", overlap="monolithic"),
+    "hybrid": _cfg("zamba2-2.7b", wire_format="int8"),
+    "monolithic": _cfg(overlap="monolithic"),
     "int8": _cfg(wire_format="int8"), "fp8": _cfg(wire_format="fp8_e4m3"),
     "float16_wire": _cfg(wire_dtype="float16"),
     "guard": _cfg(guard=GuardConfig()), "lars": _cfg(opt="lars"),
@@ -402,7 +409,8 @@ def test_model_axis_refusals_after_construction():
         with pytest.raises(ValueError, match="ROADMAP.md A.23"):
             call()
     trainer.replan(mesh=_fake_mesh(2))  # the same model degree
-    # Heads that do not split over the model ranks.
+    # Heads that the rules split but that do not split over the model
+    # ranks (olmo-smoke shards 'qkv' and 'kv_heads').
     with pytest.raises(ValueError, match="KV heads"):
         Trainer(_cfg(), device="cpu", mesh=_fake_mesh(3))
     # Checkpoints in a process whose mesh has a model axis.
@@ -413,3 +421,15 @@ def test_model_axis_refusals_after_construction():
             CheckpointManager("unused")
     finally:
         collectives.set_data_group(None)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "arctic-480b", "grok-1-314b",
+                                  "internvl2-26b", "musicgen-large",
+                                  "falcon-mamba-7b", "zamba2-2.7b"])
+def test_every_family_builds_under_a_model_axis(arch):
+    """The head check reads the rule table: smollm-smoke's 3 query heads
+    do not split over 2 ranks, but its rules shard no attention; the ssm
+    family has no attention (falcon-mamba-smoke's one head)."""
+    trainer = Trainer(_cfg(arch), device="cpu", mesh=_fake_mesh(2))
+    assert trainer.global_pool == 2 * trainer.pool.size
+    assert trainer.model_axis.size == 2

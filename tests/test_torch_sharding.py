@@ -1,10 +1,13 @@
 """The port's logical-axis sharding against the JAX package's, with no
-process and no parameter value: the ten rule tables, every leaf's logical
+process (and, but for the round trips, no parameter value): the ten rule tables, every leaf's logical
 axes through the spec trees of the ten full configurations,
 ``localize_specs`` and the local pool's segment table at model 2 (and
-the configurations both packages refuse at model 3), ``param_pspecs``,
-``count_params``, the shard/unshard round trip of ``convert``, and
-``launch.mesh``'s ``mesh_topology`` and one-process meshes."""
+the configurations both packages refuse at model 3), the ten smoke
+configurations' local specs at model 2, ``param_pspecs``,
+``count_params``, the shard/unshard round trip of ``convert`` (bitwise
+from JAX's initial weights for the expert, codebook and inner-width
+leaves of every family), and ``launch.mesh``'s ``mesh_topology`` and
+one-process meshes."""
 import types
 
 import jax
@@ -13,6 +16,7 @@ import pytest
 
 from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import get_arch as j_get_arch
+from repro.configs import get_smoke as j_get_smoke
 from repro.core.pool import GradientPool as JPool
 from repro.launch import mesh as j_mesh
 from repro.models import build_model as j_build
@@ -169,3 +173,50 @@ def test_mesh_topology_equals_jax():
         t_mesh.make_mesh((1, 2))
     with pytest.raises(ValueError, match="grids"):
         t_mesh.make_mesh((1, 1, 1), ("pod", "data", "model"))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_local_specs_equal_jax(arch):
+    """Each smoke configuration's local specs at model 2, the ones the
+    CPU tests train under a model axis, are JAX's ``localize_specs``."""
+    cfg, rules = get_smoke(arch)
+    j_loc = j_sh.localize_specs(j_build(j_get_smoke(arch)[0]).param_specs(),
+                                rules, 2)
+    t_loc = t_sh.localize_specs(t_build(cfg).param_specs(), rules, 2)
+    assert _specs(t_loc) == _specs(j_loc)
+
+
+@pytest.mark.parametrize("arch,leaves", [
+    ("arctic-480b", ("layers/ffn/wi_gate", "layers/ffn/wo")),
+    ("grok-1-314b", ("layers/ffn/wi_up", "layers/ffn/wo")),
+    ("musicgen-large", ("embed/codebooks", "head/w")),
+    ("falcon-mamba-7b", ("layers/mixer/in_proj", "layers/mixer/x_proj")),
+    ("zamba2-2.7b", ("mamba_layers/mixer/conv_w",
+                     "mamba_layers/mixer/out_proj"))])
+def test_family_shard_round_trip_is_bitwise(arch, leaves):
+    """JAX's global leaves (an f32 tree from its initialiser) cut into
+    the two ranks' local leaves and joined back, bit for bit; the named
+    expert, codebook and inner-width leaves are the blocks along the
+    dimension the rules put on the model axis."""
+    cfg, rules = get_smoke(arch)
+    full = jax.tree_util.tree_map(np.asarray, j_sh.init_params(
+        j_build(j_get_smoke(arch)[0]).param_specs(), jax.random.PRNGKey(0)))
+    specs = t_build(cfg).param_specs()
+    parts = [convert.shard_params(full, rules, 2, r, specs=specs)
+             for r in range(2)]
+    flat_specs = dict(_flat(specs))
+    flat_full = dict(_flat(full))
+    for name in leaves:
+        dim = t_sh.model_dim(flat_specs[name], rules)
+        assert dim is not None, name
+        n = flat_full[name].shape[dim] // 2
+        for r, part in enumerate(parts):
+            np.testing.assert_array_equal(
+                dict(_flat(part))[name],
+                np.take(flat_full[name], np.arange(r * n, (r + 1) * n),
+                        axis=dim), err_msg=name)
+    back = dict(_flat(convert.unshard_params(parts, rules, specs=specs)))
+    assert back.keys() == flat_full.keys()
+    for name, a in flat_full.items():
+        assert back[name].dtype == a.dtype
+        np.testing.assert_array_equal(back[name], a, err_msg=name)
