@@ -380,7 +380,9 @@
        pool kernels' launches the step plans'; each rank's step ms and
        peak memory, the all-reduces' bytes and seconds. Then olmo-smoke
        in CSC through the CLI at ``--mesh 1x2``, 3 steps (the census and
-       the gather on each rank's local pool). ``launches_model_axis``:
+       the gather on each rank's local pool, the selection on the model
+       group's summed norms; the replicated leaves' digests equal on both
+       ranks after every step: olmo has none). ``launches_model_axis``:
        both ranks' launches.
    (ap) the other families under the model axis, the same way: arctic-
        480b at (ac)'s cut (its published widths, 1 of 35 layers, 16 of
@@ -398,8 +400,33 @@
        (on ``make_batch`` batches), musicgen-large, falcon-mamba-7b and
        zamba2-2.7b in f32 (TF32 off), 2 lazy steps, and falcon-mamba-smoke
        in CSC, each at (1, 1) and (1, 2): losses and update norms within
-       1e-4 (CSC: its first loss). ``launches_model_axis_families``: both
+       1e-4 (CSC: its first loss), the replicated leaves' digests equal on
+       both ranks after every step. ``launches_model_axis_families``: both
        ranks' launches.
+   (aq) the update path under the model axis, in (ao)'s two rank
+       processes right after (ao) (its (1, 1) runs in this process before
+       them): olmo-1b at its published widths, 4 of its 16 layers, 2 x
+       4096 tokens in 2 microbatches, blockwise attention beyond 1024,
+       lazy, staged, kernels on, with the numeric guard (GuardConfig()),
+       the int8 wire with error feedback and LARS, 2 steps on one
+       repeated batch and one with the all-reduces timed, at (1, 1) and
+       (1, 2). The losses within 6e-3; no step trips; the model group's
+       all-reduces a step 2 x (5 x layers + 5) + 1 (each microbatch's
+       Megatron sums and the guard's group verdict); LARS's trust ratios
+       are per shard (a rank's local spans), so each leaf block's
+       first-step update norm over the ratio its update used is held
+       within 2^-4 of the (1, 1) block's over the whole leaf's ratio.
+       Then olmo-smoke with AdamW, monolithic, on the fp8 wire at both
+       meshes (losses within 6e-3, update norms within 2^-4); at (1, 2)
+       arctic-smoke in CSC through the CLI, 4 sparse steps, its
+       replicated attention and router the same bits on both ranks after
+       every step (ROADMAP.md C.1); and olmo-smoke guarded on the int8
+       wire with a NaN in rank 1's block of a sharded leaf at step 1: both
+       ranks trip there and only there, keep their parameters, momentum
+       and residual bit for bit (a digest before and after), halve the
+       scale, and commit the next step. ``launches_model_axis_update_path``:
+       both ranks' launches; pool_pack, pool_unpack_update, chunk_l1norm
+       and csc_compact must each have launched.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -410,7 +437,8 @@ Prints one JSON line per kernel, one for the NaN words, one for the
 optimizer ops, one for the quantized ring, the MoE layer's card-against-
 CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
 timings' line, the serving line, the timeline and soak line, the model
-axis line, the other families' model axis line, one per train run (the
+axis line, the model axis update path line, the other families' model
+axis line, one per train run (the
 long sequences' and the families' runs too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
@@ -5456,11 +5484,15 @@ TP_LOSS_RTOL = 6e-3
 TP_UPDATE_RTOL = 2.0 ** -4
 
 
-def axis_trainer(train_mod, argv, cut=None, f32=False):
-    """An (ao) or (ap) trainer: ``train.build`` of ``argv`` (its
+def axis_trainer(train_mod, argv, cut=None, f32=False, guard=False,
+                 microbatches=1, overlap=None):
+    """An (ao), (ap) or (aq) trainer: ``train.build`` of ``argv`` (its
     ``--mesh``), the ModelConfig fields in ``cut`` replaced (``num_layers``,
-    or ``num_experts`` of its MoEConfig), in f32 when ``f32``."""
+    or ``num_experts`` of its MoEConfig), in f32 when ``f32``; with the
+    numeric guard (``GuardConfig()``), ``microbatches`` and ``overlap``
+    set, which the CLI has no flags for."""
     import dataclasses
+    from repro_torch.configs.base import GuardConfig
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.trainer import Trainer
 
@@ -5473,7 +5505,12 @@ def axis_trainer(train_mod, argv, cut=None, f32=False):
             else dataclasses.replace(m, **{field: value})
     if f32:
         m = dataclasses.replace(m, compute_dtype="float32")
-    cfg = cfg.replace(model=m)
+    gf = cfg.gradientflow
+    if guard:
+        gf = dataclasses.replace(gf, guard=GuardConfig())
+    if overlap:
+        gf = dataclasses.replace(gf, overlap=overlap)
+    cfg = cfg.replace(model=m, gradientflow=gf, microbatches=microbatches)
     d, mm = args.mesh_shape
     return args, cfg, Trainer(cfg, device=args.device, mesh=make_mesh(
         (d, mm)) if mm > 1 else None)
@@ -5505,6 +5542,84 @@ def _tree_clone(tree):
             for k, v in tree.items()}
 
 
+def replicated_names(trainer):
+    """The leaves the trainer's rules replicate (none without a model
+    axis)."""
+    from repro_torch.core.pool import flatten_tree
+    from repro_torch.parallel import sharding
+
+    if trainer.rules is None:
+        return []
+    return ["/".join(path) for path, spec in flatten_tree(trainer.specs)
+            if sharding.model_dim(spec, trainer.rules) is None]
+
+
+def tensor_digest(tensors) -> str:
+    """sha256 of the tensors' bytes on the host, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def replica_digest(trainer, params) -> str:
+    """The digest of every leaf the rules replicate: the same string on
+    every rank of a model group when their copies hold the same bits."""
+    from repro_torch.core.pool import flatten_tree
+
+    names = set(replicated_names(trainer))
+    return tensor_digest([x for path, x in flatten_tree(params)
+                          if "/".join(path) in names])
+
+
+def state_digest(state) -> str:
+    """The digest of the parameters, the optimizer state and GradientFlow's
+    (hg, chunk norms, the low-bit residual): what a skipped step keeps."""
+    import torch
+    from repro_torch.core.pool import flatten_tree
+
+    return tensor_digest([x for _, x in flatten_tree(state.params)]
+                         + [x for part in (state.opt, state.gf)
+                            for x in part if isinstance(x, torch.Tensor)])
+
+
+class StepDigests:
+    """While entered, every train step that ``train_mod.build``'s trainers
+    build appends the replicated leaves' digest (``replica_digest``) after
+    it runs to ``digests``: the CLI's steps, which return no state."""
+
+    def __init__(self, train_mod, digests):
+        self.train_mod, self.digests = train_mod, digests
+
+    def __enter__(self):
+        self.real = real = self.train_mod.build
+        digests = self.digests
+
+        def build(args):
+            trainer, cfg = real(args)
+            inner = trainer.build_train_step
+
+            def build_step(*a, **k):
+                step = inner(*a, **k)
+
+                def run(state, batch):
+                    state, metrics = step(state, batch)
+                    digests.append(replica_digest(trainer, state.params))
+                    return state, metrics
+
+                return run
+
+            trainer.build_train_step = build_step
+            return trainer, cfg
+
+        self.train_mod.build = build
+        return self
+
+    def __exit__(self, *exc):
+        self.train_mod.build = self.real
+
+
 def tp_expected_all_reduces(layers: int) -> int:
     """The model group's all-reduces a step of olmo-1b's Megatron form
     with per-layer remat: the embedding's sum; per layer the attention's
@@ -5518,10 +5633,11 @@ def tp_expected_all_reduces(layers: int) -> int:
 
 
 def tp_worker(rank: int, port: int, out: str) -> None:
-    """One rank of (ao) at mesh (1, 2): two processes on this card, the
-    model group over gloo. The olmo-1b run (``axis_run``), then olmo-smoke
-    in CSC through the CLI (``train.train``), each with the counts set to
-    0 before and read after. Writes its findings to ``out`` as JSON."""
+    """One rank of (ao) and (aq) at mesh (1, 2): two processes on this
+    card, the model group over gloo. The olmo-1b run (``axis_run``), then
+    olmo-smoke in CSC through the CLI (``train.train``), then (aq)'s runs
+    (``aq_runs``), each with the counts set to 0 before and read after.
+    Writes its findings to ``out`` as JSON."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5540,32 +5656,44 @@ def tp_worker(rank: int, port: int, out: str) -> None:
         run["rank"] = rank
         ops.reset_counts()
         args = train_mod.parse_args(TP_SMOKE_ARGV + ["--mesh", "1x2"])
-        smoke_trainer, losses, _, stats = train_mod.train(args)
+        digests = []
+        with StepDigests(train_mod, digests):
+            smoke_trainer, losses, _, stats = train_mod.train(args)
         run["smoke_csc"] = dict(
             losses=losses, dispatch_counts=dict(ops.dispatch_counts),
+            replica_digests=digests,
+            replicated_leaves=len(replicated_names(smoke_trainer)),
             num_selected=[smoke_trainer.gf.stage_for_step(s).num_selected
                           for s in range(args.steps)],
             num_chunks=smoke_trainer.gf.num_chunks,
             local_pool_elems=smoke_trainer.pool.size,
             global_pool_elems=smoke_trainer.global_pool,
             expected_counts=expected_counts(smoke_trainer, args.steps))
+        t0 = time.perf_counter()
+        run["aq"] = dict(runs=aq_runs(torch, ops, train_mod, synthetic,
+                                      "1x2"))
+        run["aq"]["seconds"] = time.perf_counter() - t0
         with open(out, "w") as f:
             json.dump(run, f)
     finally:
         dist.destroy_process_group()
 
 
-def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
-    """(ao): the (1, 1) run in this process, then the two (1, 2) ranks
-    (``tp_worker``) on the same weights; the losses within TP_LOSS_RTOL
-    of the (1, 1) run's, each leaf block's update norm within
+def model_axis_phase(torch, ops, train_mod, synthetic):
+    """(ao) and (aq): the (1, 1) runs in this process, then the two (1, 2)
+    ranks (``tp_worker``) on the same weights. (ao): the losses within
+    TP_LOSS_RTOL of the (1, 1) run's, each leaf block's update norm within
     TP_UPDATE_RTOL, the model group's all-reduces a step as the Megatron
-    form counts them, the local pool half the (1, 1) pool."""
+    form counts them, the local pool half the (1, 1) pool; (aq): see
+    ``aq_checks``. Returns ((ao)'s record, (aq)'s)."""
     t0 = time.perf_counter()
     ref = axis_run(torch, ops, train_mod, synthetic, "(ao)", TP_ARGV, 2,
                    cut=TP_CUT)
     ref_norms = ref.pop("update_norms")
     ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    aq_ref = aq_runs(torch, ops, train_mod, synthetic, None)
+    aq_ref_s = time.perf_counter() - t1
     port = free_port()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5577,22 +5705,23 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
                                "--tp-rank", str(r), "--port", str(port),
                                "--out", outs[r]]) for r in range(2)]
     try:
-        deadline = time.monotonic() + 300
+        deadline = time.monotonic() + 400
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
-        fail("(ao): the ranks did not finish within 300 s")
+        fail("(ao)/(aq): the ranks did not finish within 400 s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     check(all(p.returncode == 0 for p in procs),
-          f"(ao): rank exit codes {[p.returncode for p in procs]}")
+          f"(ao)/(aq): rank exit codes {[p.returncode for p in procs]}")
     ranks = []
     for o in outs:
         with open(o) as f:
             ranks.append(json.load(f))
+    aq_ranks = [dict(r.pop("aq"), rank=r["rank"]) for r in ranks]
     want_ar = tp_expected_all_reduces(TP_LAYERS)
     for r in ranks:
         lab = f"(ao) rank {r['rank']}"
@@ -5625,6 +5754,13 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
               and sm["dispatch_counts"].get("csc_compact.kernel", 0) > 0
               and all(math.isfinite(x) for x in sm["losses"]),
               f"{lab} smoke CSC: {sm}")
+        # CSC's summed selection: the replicated leaves' copies the same
+        # bits on both ranks after every step (olmo has none: its norms
+        # are non-parametric; (aq) checks a family that has them).
+        check(sm["replica_digests"]
+              == ranks[0]["smoke_csc"]["replica_digests"]
+              and len(sm["replica_digests"]) == len(sm["losses"]),
+              f"{lab} smoke CSC: replicated leaves differ across ranks")
         del r["update_norms"]
     note = ("mesh (1, 2) as two processes on one card: the ranks take "
             "turns on the device (time-sliced), and the model group's "
@@ -5635,7 +5771,7 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
         for src in (r["dispatch_counts"], r["smoke_csc"]["dispatch_counts"]):
             for k, v in src.items():
                 counts[k] = counts.get(k, 0) + v
-    return dict(
+    tp = dict(
         arch="olmo-1b", mesh=[1, 2], layers=TP_LAYERS,
         reduced=({} if TP_LAYERS == 16 else {"num_layers": [16, TP_LAYERS]}),
         tokens=4096, reference_1x1=dict(
@@ -5647,6 +5783,245 @@ def model_axis_phase(torch, ops, train_mod, synthetic) -> dict:
         loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
         dispatch_counts_both_ranks=counts, note=note,
         seconds=time.perf_counter() - t0)
+    return tp, aq_checks(aq_ref, aq_ranks, aq_ref_s, note)
+
+
+# -- (aq) the update path under the model axis -------------------------------
+
+# (aq): olmo-1b at its published widths (d_model 2048, 16 heads, d_ff
+# 8192, vocab 50304) and AQ_LAYERS of its 16 layers, 2 x 4096 tokens in
+# AQ_MICROBATCHES microbatches, blockwise attention beyond 1024, lazy,
+# staged, kernels on, with the numeric guard (GuardConfig()), the int8
+# wire with error feedback and LARS: AQ_STEPS steps on one repeated batch
+# and one more with the model group's all-reduces timed, at (1, 1) in
+# this process and at mesh (1, 2) in (ao)'s two rank processes.
+AQ_LAYERS = 4
+AQ_CUT = {"num_layers": AQ_LAYERS}
+AQ_STEPS = 2
+AQ_MICROBATCHES = 2
+AQ_ARGV = ["--arch", "olmo-1b", "--seq-len", "4096", "--batch", "2",
+           "--attn-chunk", "1024", "--gf-mode", "lazy", "--use-kernels",
+           "--window-steps", "1", "--steps", str(AQ_STEPS), "--optimizer",
+           "lars", "--wire-format", "int8"]
+# Then at both meshes olmo-smoke with AdamW, monolithic, on the fp8 wire
+# (f32 compute, TF32 off).
+AQ_ADAMW_ARGV = ["--arch", "olmo-1b", "--reduced", "--use-kernels",
+                 "--batch", "2", "--seq-len", "128", "--window-steps", "1",
+                 "--steps", "2", "--gf-mode", "lazy", "--optimizer",
+                 "adamw", "--lr", "1e-3", "--wire-format", "fp8_e4m3"]
+# At (1, 2) only: arctic-smoke in CSC through the CLI, every step sparse
+# (the ramp's first stage, then the steady k): its attention and router
+# are replicated, the leaves whose copies parted before the summed
+# selection (ROADMAP.md C.1).
+AQ_CSC_STEPS = 4
+AQ_CSC_ARGV = ["--arch", "arctic-480b", "--reduced", "--gf-mode", "csc",
+               "--csc-warmup", "1", "--chunk-elems", "2048", "--batch", "2",
+               "--seq-len", "128", "--use-kernels", "--window-steps", "1",
+               "--steps", str(AQ_CSC_STEPS), "--mesh", "1x2"]
+# And olmo-smoke guarded on the int8 wire with error feedback, 3 steps
+# on one batch, a NaN written into rank 1's block of its first sharded
+# leaf at step 1 (rank 0's pool stays clean).
+AQ_FAULT_ARGV = ["--arch", "olmo-1b", "--reduced", "--use-kernels",
+                 "--batch", "2", "--seq-len", "128", "--window-steps", "1",
+                 "--steps", "3", "--gf-mode", "lazy", "--wire-format",
+                 "int8", "--mesh", "1x2"]
+AQ_FAULT_STEP = 1
+
+
+def aq_expected_all_reduces(layers: int, microbatches: int) -> int:
+    """(ao)'s Megatron count for each microbatch's forward and backward,
+    and the guard's one group verdict a step."""
+    return microbatches * tp_expected_all_reduces(layers) + 1
+
+
+def aq_runs(torch, ops, train_mod, synthetic, mesh):
+    """(aq)'s runs of one process at ``mesh`` (``--mesh`` 1x2, or None
+    for (1, 1)): the olmo-1b update path, the AdamW smoke run and, at
+    (1, 2), the CSC CLI run and the one-rank fault."""
+    extra = ["--mesh", mesh] if mesh else []
+    blocks = 1 if mesh else 2
+    runs = {"olmo-1b": axis_run(
+        torch, ops, train_mod, synthetic, "(aq)", AQ_ARGV + extra, blocks,
+        cut=AQ_CUT, guard=True, microbatches=AQ_MICROBATCHES,
+        lars_first=True)}
+    runs["olmo-1b-smoke adamw monolithic fp8"] = axis_run(
+        torch, ops, train_mod, synthetic, "(aq)", AQ_ADAMW_ARGV + extra,
+        blocks, timed=False, f32=True, overlap="monolithic")
+    if mesh:
+        runs["arctic-480b-smoke csc cli"] = aq_csc_cli(ops, train_mod)
+        runs["olmo-1b-smoke guarded int8 fault"] = aq_fault_run(
+            torch, ops, train_mod, synthetic)
+    return runs
+
+
+def aq_csc_cli(ops, train_mod) -> dict:
+    """The CSC CLI at ``--mesh 1x2`` with the replicated leaves' digest
+    taken after every step (``StepDigests``)."""
+    ops.reset_counts()
+    args = train_mod.parse_args(AQ_CSC_ARGV)
+    digests = []
+    with StepDigests(train_mod, digests):
+        trainer, losses, _, _ = train_mod.train(args)
+    counts = dict(ops.dispatch_counts)
+    return dict(losses=losses, dispatch_counts=counts,
+                expected_counts=expected_counts(trainer, args.steps),
+                num_selected=[trainer.gf.stage_for_step(s).num_selected
+                              for s in range(args.steps)],
+                num_chunks=trainer.gf.num_chunks, replica_digests=digests,
+                replicated_leaves=len(replicated_names(trainer)),
+                model_all_reduces=trainer.model_axis.stats["all_reduces"])
+
+
+def aq_fault_run(torch, ops, train_mod, synthetic) -> dict:
+    """AQ_FAULT_ARGV guarded at (1, 2) with a NaN in rank 1's block of the
+    first sharded leaf at step AQ_FAULT_STEP: each step's verdict, scale
+    and whether the whole state (parameters, momentum, residual) kept its
+    bits (``state_digest`` before and after)."""
+    from repro_torch.core.pool import flatten_tree
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import faults
+
+    args, cfg, trainer = axis_trainer(train_mod, AQ_FAULT_ARGV, guard=True)
+    params = trainer.shard_params(trainer.model.init_params(
+        args.seed, trainer.device, on_device=True))
+    state = trainer.init_state(params=params)
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch, cfg.seq_len)
+    leaf = next(i for i, (_, spec) in enumerate(flatten_tree(trainer.specs))
+                if sharding.model_dim(spec, trainer.rules) is not None)
+    events = [faults.FaultEvent(step=AQ_FAULT_STEP, kind="nan",
+                                offset=trainer.pool.offsets[leaf] + 3,
+                                width=4)] \
+        if trainer.mesh.model_index == 1 else []
+    step = trainer.build_train_step(fault_hook=faults.make_hook(events))
+    ops.reset_counts()
+    tripped, scales, kept, losses = [], [], [], []
+    for _ in range(args.steps):
+        before = state_digest(state)
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        tripped.append(float(metrics["guard_tripped"]))
+        scales.append(float(state.guard.scale))
+        kept.append(state_digest(state) == before)
+    counts = dict(ops.dispatch_counts)
+    want = expected_counts(trainer, args.steps)
+    check(counts == want, f"(aq) fault run: dispatch counts {counts}, "
+          f"expected {want}")
+    return dict(losses=losses, tripped=tripped, scales=scales, kept=kept,
+                injected=len(events), leaf=trainer.pool.specs[leaf].name,
+                dispatch_counts=counts, expected_counts=want)
+
+
+def aq_checks(ref, ranks, ref_s, note) -> dict:
+    """(aq)'s checks on the two ranks' runs against the (1, 1) runs:
+
+    * olmo-1b: the ranks' losses equal and within TP_LOSS_RTOL of (1, 1)'s,
+      no step tripped, the model group's all-reduces a step
+      ``aq_expected_all_reduces``. LARS's trust ratios are per shard in
+      both packages (a rank's local spans), so a sharded leaf's block
+      moves by its own ratio at (1, 2) and by the whole leaf's at (1, 1):
+      the update norms are compared with that ratio divided out. From the
+      zero momentum the first step moves a block by lr * ratio * |g + wd
+      w| over it, so each block's first-step update norm over the ratio
+      its update used is held within TP_UPDATE_RTOL of the (1, 1) block's
+      over the whole leaf's ratio;
+    * the AdamW smoke run: the ranks' losses equal and within TP_LOSS_RTOL
+      of (1, 1)'s, each leaf block's update norm within TP_UPDATE_RTOL;
+    * the CSC CLI: every step sparse, the ranks' losses equal and finite,
+      the replicated leaves' digests equal on both ranks after every step;
+    * the fault: only rank 1 injected; both ranks trip at AQ_FAULT_STEP
+      and only there, keep every bit of their state there, halve the
+      scale from GuardConfig().init_scale, and commit the other steps.
+    """
+    counts = {}
+    want_ar = aq_expected_all_reduces(AQ_LAYERS, AQ_MICROBATCHES)
+    spread = 0.0
+    for r in ranks:
+        idx = r["rank"]
+        for label, run in r["runs"].items():
+            lab = f"(aq) rank {idx} {label}"
+            first = ranks[0]["runs"][label]
+            check(run["losses"] == first["losses"]
+                  and all(math.isfinite(x) for x in run["losses"]),
+                  f"{lab}: losses {run['losses']} != rank 0's")
+            for k, v in run["dispatch_counts"].items():
+                counts[k] = counts.get(k, 0) + v
+            if label in ref:
+                want = ref[label]
+                err = max(rel(a, b) for a, b in zip(run["losses"],
+                                                    want["losses"]))
+                check(err <= TP_LOSS_RTOL, f"{lab}: losses {run['losses']} "
+                      f"against (1, 1) {want['losses']}")
+                run["loss_rel_err_vs_1x1"] = err
+                check(run["global_pool_elems"] == 2 * run["local_pool_elems"],
+                      f"{lab}: local pool {run['local_pool_elems']}")
+            if label == "olmo-1b":
+                check(not any(run["tripped"]) and not any(want["tripped"]),
+                      f"{lab}: tripped {run['tripped']}, (1, 1) "
+                      f"{want['tripped']}")
+                check(all(s["all_reduces"] == want_ar
+                          for s in run["model_all_reduces"]),
+                      f"{lab}: model all-reduces a step "
+                      f"{run['model_all_reduces']}, expected {want_ar}")
+                worst = 0.0
+                for name, ((n, ratio),) in \
+                        run["first_step_update_and_ratio"].items():
+                    wn, wr = want["first_step_update_and_ratio"][name][idx]
+                    if wn:
+                        worst = max(worst, rel(n / ratio, wn / wr))
+                        spread = max(spread, abs(ratio / wr - 1.0))
+                check(worst <= TP_UPDATE_RTOL, f"{lab}: first-step update "
+                      f"norms over their ratios off by {worst} relative")
+                run["first_step_update_over_ratio_rel_err_vs_1x1"] = worst
+                del run["first_step_update_and_ratio"]
+            elif label in ref:
+                worst = 0.0
+                for name, (got,) in run["update_norms"].items():
+                    w = want["update_norms"][name][idx]
+                    if w:
+                        worst = max(worst, rel(got, w))
+                check(worst <= TP_UPDATE_RTOL,
+                      f"{lab}: update norms off by {worst} relative")
+                run["update_norm_rel_err_vs_1x1"] = worst
+            elif "csc" in label:
+                check(all(k < run["num_chunks"]
+                          for k in run["num_selected"])
+                      and len(run["num_selected"]) >= 3
+                      and run["dispatch_counts"] == run["expected_counts"]
+                      and run["dispatch_counts"].get("csc_compact.kernel", 0)
+                      > 0, f"{lab}: {run}")
+                check(run["replicated_leaves"] > 0
+                      and len(run["replica_digests"]) == AQ_CSC_STEPS
+                      and run["replica_digests"]
+                      == first["replica_digests"],
+                      f"{lab}: the replicated leaves differ across ranks")
+            else:
+                from repro_torch.configs.base import GuardConfig
+                init = GuardConfig().init_scale
+                want_trip = [float(t == AQ_FAULT_STEP)
+                             for t in range(len(run["tripped"]))]
+                check(run["tripped"] == want_trip
+                      and run["kept"] == [t == AQ_FAULT_STEP
+                                          for t in range(len(run["kept"]))]
+                      and run["scales"] == first["scales"]
+                      == [init if t < AQ_FAULT_STEP else init / 2
+                          for t in range(len(run["scales"]))]
+                      and run["injected"] == idx,
+                      f"{lab}: tripped {run['tripped']}, kept {run['kept']}, "
+                      f"scales {run['scales']}, injected {run['injected']}")
+            run.pop("update_norms", None)
+    for run in ref.values():
+        run.pop("update_norms", None)
+        run.pop("first_step_update_and_ratio", None)
+    return dict(
+        arch="olmo-1b", mesh=[1, 2], layers=AQ_LAYERS,
+        reduced={"num_layers": [16, AQ_LAYERS]}, tokens=2 * 4096,
+        microbatches=AQ_MICROBATCHES, reference_1x1=ref,
+        reference_seconds=ref_s, ranks=ranks,
+        expected_model_all_reduces_per_step=want_ar,
+        loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
+        lars_ratio_spread_vs_1x1=spread, dispatch_counts_both_ranks=counts,
+        note=note, seconds=ref_s + max(r["seconds"] for r in ranks))
 
 
 # -- (ap) the model axis for the other families ------------------------------
@@ -5673,9 +6048,11 @@ AP_ALL_REDUCES = 1 + 3 * ARCTIC_CUT["num_layers"] + 1 + 3
 # from the same seed, and falcon-mamba-smoke in CSC (the ramp's first
 # sparse stage, then the next: the census and the gather on each rank's
 # local pool). f32 sums in other orders: the losses and each leaf
-# block's update norm within AP_SMOKE_RTOL; CSC's ranks select their
-# chunks on their own pools, so only its first loss (before any update)
-# is held to the (1, 1) run's.
+# block's update norm within AP_SMOKE_RTOL; CSC selects on the model
+# group's summed norms at (1, 2) and on the whole pool's at (1, 1), so
+# only its first loss (before any update) is held to the (1, 1) run's.
+# Every smoke run's replicated leaves the same bits on both ranks after
+# every step.
 AP_SMOKE = ("arctic-480b", "grok-1-314b", "internvl2-26b", "musicgen-large",
             "falcon-mamba-7b", "zamba2-2.7b")
 AP_SMOKE_STEPS = 2
@@ -5688,17 +6065,35 @@ AP_SMOKE_RTOL = 1e-4
 
 
 def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
-             cut=None, timed=True, f32=False):
-    """One process's (ao) or (ap) run (``axis_trainer``) on one repeated
-    batch (the synthetic stream's first; the vlm's from ``make_batch``):
-    weights drawn on the card from the seed (the whole tree, then this
-    rank's blocks), the counts set to 0 before the steps and read after
-    them, the dispatch counts the step plans', step ms, peak memory, the
-    model group's all-reduces a step, the routing of the first step (the
-    MoE), each leaf block's update norm (``update_norms`` over ``blocks``
-    blocks); ``timed``: one more step with the all-reduces timed."""
-    args, cfg, trainer = axis_trainer(train_mod, argv, cut, f32)
+             cut=None, timed=True, f32=False, guard=False, microbatches=1,
+             overlap=None, digests=False, lars_first=False):
+    """One process's (ao), (ap) or (aq) run (``axis_trainer``) on one
+    repeated batch (the synthetic stream's first; the vlm's from
+    ``make_batch``): weights drawn on the card from the seed (the whole
+    tree, then this rank's blocks), the counts set to 0 before the steps
+    and read after them, the dispatch counts the step plans', step ms,
+    peak memory, the model group's all-reduces a step, the routing of the
+    first step (the MoE), each leaf block's update norm (``update_norms``
+    over ``blocks`` blocks); guarded, each step's verdict; ``digests``:
+    the replicated leaves' digest after each step; ``lars_first``: each
+    leaf block's first-step update norm beside the trust ratio its update
+    used; ``timed``: one more step with the all-reduces timed."""
+    args, cfg, trainer = axis_trainer(train_mod, argv, cut, f32, guard,
+                                      microbatches, overlap)
     m = cfg.model
+    first_ratios = {}
+    if lars_first:
+        real_ratios = trainer.lars.ratios_view
+
+        def ratios_view(view, *a, **k):
+            r = real_ratios(view, *a, **k)
+            if not first_ratios.get("done"):
+                for i, x in zip(range(view.leaf_lo, view.leaf_hi),
+                                r.tolist()):
+                    first_ratios[trainer.pool.specs[i].name] = x
+            return r
+
+        trainer.lars.ratios_view = ratios_view
     params = trainer.shard_params(trainer.model.init_params(
         args.seed, trainer.device, on_device=True))
     init = _tree_clone(params)
@@ -5716,6 +6111,7 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     losses, seconds, per_step, routing = [], [], [], None
+    tripped, digest, first = [], [], None
     for t in range(args.steps):
         stage = trainer.gf.stage_for_step(t)
         if stage.index not in steps:
@@ -5736,6 +6132,15 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
         seconds.append(time.perf_counter() - t0)
         if axis is not None:
             per_step.append(dict(axis.stats))
+        if guard:
+            tripped.append(float(metrics["guard_tripped"]))
+        if digests:
+            digest.append(replica_digest(trainer, state.params))
+        if lars_first and t == 0:
+            first_ratios["done"] = True
+            norms0 = update_norms(torch, trainer, init, state.params, blocks)
+            first = {name: [[n, first_ratios[name]] for n in ns]
+                     for name, ns in norms0.items()}
     counts = dict(ops.dispatch_counts)
     peak = torch.cuda.max_memory_allocated()
     want = expected_counts(trainer, args.steps)
@@ -5775,6 +6180,14 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
                model_all_reduces=per_step, timed_step=timed_step)
     if routing is not None:
         out["routing"] = routing
+    if guard:
+        out["tripped"] = tripped
+        out["scale"] = float(state.guard.scale)
+    if digests:
+        out["replica_digests"] = digest
+        out["replicated_leaves"] = len(replicated_names(trainer))
+    if first is not None:
+        out["first_step_update_and_ratio"] = first
     del state, steps, trainer
     torch.cuda.empty_cache()
     return out
@@ -5797,11 +6210,12 @@ def ap_runs(torch, ops, train_mod, synthetic, mesh):
     for arch in AP_SMOKE:
         runs[f"{arch}-smoke lazy"] = axis_run(
             torch, ops, train_mod, synthetic, "(ap)",
-            ap_smoke_argv(arch) + extra, blocks, timed=False, f32=True)
+            ap_smoke_argv(arch) + extra, blocks, timed=False, f32=True,
+            digests=True)
     runs["falcon-mamba-7b-smoke csc"] = axis_run(
         torch, ops, train_mod, synthetic, "(ap)",
         ap_smoke_argv("falcon-mamba-7b", csc=True) + extra, blocks,
-        timed=False, f32=True)
+        timed=False, f32=True, digests=True)
     return runs
 
 
@@ -5881,10 +6295,15 @@ def model_axis_families_phase(torch, ops, train_mod, synthetic) -> dict:
             first = ranks[0]["runs"][label]
             check(run["losses"] == first["losses"],
                   f"{lab}: losses {run['losses']} != rank 0's")
+            # The replicated leaves the same bits on both ranks after
+            # every step (CSC: the summed selection, ROADMAP.md C.1).
+            check(run.get("replica_digests") == first.get("replica_digests"),
+                  f"{lab}: the replicated leaves differ across ranks")
             wide = label == "arctic-480b"
             csc = run["mode"] == "csc"
-            # CSC: the first loss only (each rank's sparse steps select
-            # on its own pool, from the first step on).
+            # CSC: the first loss only (the sparse steps select on the
+            # model group's summed norms at (1, 2), on the whole pool's at
+            # (1, 1): other chunks from the first step on).
             n = 1 if csc else len(want["losses"])
             err = max(rel(a, b) for a, b in zip(run["losses"][:n],
                                                 want["losses"][:n]))
@@ -6143,10 +6562,12 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(soak_and_timeline=soak_run, gpu=name,
                           power_limit=power)), flush=True)
     phase_seconds("timeline and soak (an)")
-    tp = model_axis_phase(torch, ops, train_mod, synthetic)
+    tp, aq = model_axis_phase(torch, ops, train_mod, synthetic)
     print(json.dumps(dict(model_axis=tp, gpu=name, power_limit=power)),
           flush=True)
-    phase_seconds("model axis (ao)")
+    print(json.dumps(dict(model_axis_update_path=aq, gpu=name,
+                          power_limit=power)), flush=True)
+    phase_seconds("model axis (ao) and its update path (aq)")
     ap = model_axis_families_phase(torch, ops, train_mod, synthetic)
     print(json.dumps(dict(model_axis_families=ap, gpu=name,
                           power_limit=power)), flush=True)
@@ -6187,6 +6608,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
         # (ap) both ranks: arctic-480b, the smoke families, CSC.
         e["launches_model_axis_families"] = \
             ap["dispatch_counts_both_ranks"].get(key, 0)
+        # (aq) both ranks: the olmo-1b update path, the AdamW smoke run,
+        # the CSC CLI, the fault.
+        e["launches_model_axis_update_path"] = \
+            aq["dispatch_counts_both_ranks"].get(key, 0)
     check(all(soak_run["lane_launches"].get(k, 0) > 0
               and tp["dispatch_counts_both_ranks"].get(k, 0) > 0
               and ap["dispatch_counts_both_ranks"].get(k, 0) > 0
@@ -6194,6 +6619,9 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
           f"(an)/(ao)/(ap) launches: lane {soak_run['lane_launches']}, "
           f"model axis {tp['dispatch_counts_both_ranks']}, families "
           f"{ap['dispatch_counts_both_ranks']}")
+    check(all(aq["dispatch_counts_both_ranks"].get(k, 0) > 0
+              for k in SOAK_LANE_KERNELS),
+          f"(aq) launches {aq['dispatch_counts_both_ranks']}")
     check(all(e["launches"] > 0 for e in entries),
           f"launches {[(e['name'], e['launches']) for e in entries]}")
     # Which kernels a captured window launched: (q)'s lazy path, (s)'s

@@ -15,6 +15,17 @@ full bandwidth.
   re-injected before the next reduction. The update skips them
   (``optim.sgd``'s mask).
 * **Warm-up**: ``core.schedule`` — k is static per stage.
+* **Under a model axis** (``parallel.model_axis``) each rank's pool is
+  its local pool: its blocks of the sharded leaves and a whole copy of
+  every replicated leaf. The selection reads the model group's sum of
+  the ranks' chunk norms (``selection_basis``: one f32[chunks]
+  all-reduce a sparse step), so every rank of a model group picks the
+  same chunk ids, and the same ids are the same elements because every
+  local pool has the same segment table. The JAX package selects on each
+  rank's own norms, which leaves the replicated copies unequal after a
+  sparse step (ROADMAP.md C.1); the port departs from it there. The
+  state's ``chunk_norms`` stay the rank's own: the low-bit scales and
+  the guard's per-chunk limit read them.
 
 ``csc_reduce`` is the monolithic twin of the overlap engine's staged CSC
 path (``core.engine``): ``GradientFlow.reduce`` runs it for
@@ -68,6 +79,17 @@ def select_chunks(chunk_norms: torch.Tensor, k: int
     mask = torch.zeros(chunk_norms.shape, dtype=torch.bool,
                        device=chunk_norms.device).index_fill_(0, idx, True)
     return idx, mask
+
+
+def selection_basis(chunk_norms: torch.Tensor, model_axis=None
+                    ) -> torch.Tensor:
+    """The norms a sparse step selects on: ``chunk_norms`` itself, or,
+    under a model axis of more than one rank, a new tensor holding their
+    sum over the model group (``ModelAxis.all_reduce_``, counted in its
+    stats)."""
+    if model_axis is None or model_axis.size == 1:
+        return chunk_norms
+    return model_axis.all_reduce_(chunk_norms.clone())
 
 
 def element_mask(chunk_mask: torch.Tensor, chunk_elems: int) -> torch.Tensor:
@@ -146,11 +168,13 @@ def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
                cfg: GradientFlowConfig, *, num_selected: int,
                bucket_boundaries: Sequence[Tuple[int, int]],
                num_data_shards: int, algo=None,
-               residual: Optional[torch.Tensor] = None) -> CSCReduceResult:
+               residual: Optional[torch.Tensor] = None,
+               model_axis=None) -> CSCReduceResult:
     """One CSC reduction (Fig 17 + Algorithm 1's preprocess step):
     re-inject hg, select from the previous norms, all-reduce the
     compacted selection in θ buckets over the wire buffer, then the new
-    hg and the summed census of the post-reduce pool.
+    hg and the summed census of the post-reduce pool. ``model_axis``:
+    select on the model group's sum of the norms (``selection_basis``).
 
     On a low-bit wire (``cfg.wire_format``) the selected chunks carry
     ``residual`` too (error feedback; None: none), are quantized with
@@ -165,7 +189,8 @@ def csc_reduce(pool_grads: torch.Tensor, state: CSCState,
     chunk = cfg.chunk_elems
     spec = wire_mod.resolve(cfg.wire_format)
     g = pool_grads.to(torch.float32) + state.hg
-    idx, chunk_mask = select_chunks(state.chunk_norms, num_selected)
+    idx, chunk_mask = select_chunks(
+        selection_basis(state.chunk_norms, model_axis), num_selected)
     elem_mask = element_mask(chunk_mask, chunk)
     g_send = g if (spec is None or residual is None) else g + residual
     if cfg.use_kernels:

@@ -35,6 +35,13 @@ low-bit wires, the census sum (the clip hides poison from the words),
 and every write of the step behind the device flag ``ok``: the residual
 too.
 
+Under a model axis (``GradientFlow.model_axis``) every path runs on the
+rank's local pool and reduces over its data group; two things read the
+model group: CSC's selection (the group's summed chunk norms,
+``csc.selection_basis``) and the guard's verdict (the group's max of the
+flags, ``guard.group_verdict``), so the ranks of a model group pick the
+same chunks and commit or skip together.
+
 The cross-step pipeline (``pipeline_tail_buckets``): a plan's last
 ``pipeline_tail`` tasks carry ``commit_epoch=1``. Inside a train window
 (``Trainer.build_train_window``) ``run_pipelined`` still reduces them in
@@ -374,9 +381,9 @@ class OverlapEngine:
         from repro_torch.core import guard as guard_mod
 
         means = self._issue_all(plan, gpool)
-        flags = guard_mod.flags_from_words(
-            [guard_mod.health_word(m) for m in means], limit)
-        ok = ~guard_mod.tripped(flags)
+        flags, ok = guard_mod.group_verdict(guard_mod.flags_from_words(
+            [guard_mod.health_word(m) for m in means], limit),
+            self.gf.model_axis)
         outs = []
         for t in plan.tasks:
             mean = means[t.index].div_(scale)
@@ -426,8 +433,9 @@ class OverlapEngine:
         q, err, scales, census_sum = self.gf.quantize(
             gpool, gfstate, census=census, loss_scale=scale,
             out=torch.empty_like(gpool))
-        flags = guard_mod.flags_from_census(census_sum, limit)
-        ok = ~guard_mod.tripped(flags)
+        flags, ok = guard_mod.group_verdict(
+            guard_mod.flags_from_census(census_sum, limit),
+            self.gf.model_axis)
         means = self._issue_all(plan, q)
         dequant = self._dequant(scales)
         outs = [self._update_span((t.start, t.end),
@@ -461,8 +469,8 @@ class OverlapEngine:
         cfg = self.gf.cfg
         chunk = plan.chunk_elems
         g.div_(scale).add_(gfstate.hg)
-        idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
-                                                plan.num_selected)
+        idx, chunk_mask = csc_mod.select_chunks(csc_mod.selection_basis(
+            gfstate.chunk_norms, self.gf.model_axis), plan.num_selected)
         elem_mask = csc_mod.element_mask(chunk_mask, chunk)
         sent = self._csc_exchange(plan, g, idx, gfstate)
         if sent is not None:
@@ -470,8 +478,8 @@ class OverlapEngine:
                                               cfg.guard, limit)
         norms = csc_mod.summed_census(g, chunk, cfg.use_kernels,
                                       sent)
-        flags = guard_mod.flags_from_census(norms, limit)
-        ok = ~guard_mod.tripped(flags)
+        flags, ok = guard_mod.group_verdict(
+            guard_mod.flags_from_census(norms, limit), self.gf.model_axis)
         outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
                                   opt_state, lr, elem_mask[span[0]:span[1]],
                                   ok=ok)
@@ -498,8 +506,8 @@ class OverlapEngine:
         g.div_(scale).add_(gfstate.hg)
         self._issue_all(plan, g, getattr(torch, cfg.wire_dtype), mean_out=g)
         norms = csc_mod.summed_census(g, plan.chunk_elems, cfg.use_kernels)
-        flags = guard_mod.flags_from_census(norms, limit)
-        ok = ~guard_mod.tripped(flags)
+        flags, ok = guard_mod.group_verdict(
+            guard_mod.flags_from_census(norms, limit), self.gf.model_axis)
         outs = [self._update_span(span, g[span[0]:span[1]], master, leaves,
                                   opt_state, lr, ok=ok)
                 for span in plan.update_spans]
@@ -564,8 +572,8 @@ class OverlapEngine:
         cfg = self.gf.cfg
         chunk = plan.chunk_elems
         g.add_(gfstate.hg)
-        idx, chunk_mask = csc_mod.select_chunks(gfstate.chunk_norms,
-                                                plan.num_selected)
+        idx, chunk_mask = csc_mod.select_chunks(csc_mod.selection_basis(
+            gfstate.chunk_norms, self.gf.model_axis), plan.num_selected)
         elem_mask = csc_mod.element_mask(chunk_mask, chunk)
         sent = self._csc_exchange(plan, g, idx, gfstate)
         if sent is not None and cfg.feedback_enabled:

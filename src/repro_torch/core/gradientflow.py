@@ -14,7 +14,10 @@ auto), and ``auto_bucket`` with a topology tunes θ on the cost model.
 ``plan`` compiles the layout for the staged overlap engine
 (``core.engine``); ``reduce`` runs it monolithically, every bucket before
 the update (``overlap='monolithic'``). ``replan`` re-resolves the layout
-for a new topology (an elastic event over the same ranks).
+for a new topology (an elastic event over the same ranks). Under a model
+axis (``model_axis``, a ``parallel.model_axis.ModelAxis``) the pool is
+the rank's local pool and every reduce runs over its data group; CSC
+then selects on the model group's summed norms (``csc.selection_basis``).
 """
 from __future__ import annotations
 
@@ -55,13 +58,14 @@ def wire_dtype_of(cfg: GradientFlowConfig) -> torch.dtype:
 
 class GradientFlow:
     def __init__(self, cfg: GradientFlowConfig, pool: GradientPool,
-                 num_data_shards: int):
+                 num_data_shards: int, model_axis=None):
         if cfg.mode not in ("dense", "lazy", "csc"):
             raise NotImplementedError(f"GradientFlow mode {cfg.mode!r} "
                                       + _NOT_PORTED)
         self.cfg = cfg
         self.pool = pool
         self.num_data_shards = int(num_data_shards)
+        self.model_axis = model_axis
         # Validates wire_format when built (an unknown format raises).
         self.wire_spec = wire_mod.resolve(cfg.wire_format)
         if cfg.csc_enabled or self.wire_spec is not None:
@@ -229,7 +233,8 @@ class GradientFlow:
                 cfg, num_selected=k, bucket_boundaries=bounds,
                 num_data_shards=self.num_data_shards,
                 algo=self._algos_for(bounds),
-                residual=state.residual if feedback else None)
+                residual=state.residual if feedback else None,
+                model_axis=self.model_axis)
             return res.grads, res.elem_mask, GFState(
                 hg=res.state.hg, chunk_norms=res.state.chunk_norms,
                 residual=res.residual if feedback else state.residual)

@@ -14,6 +14,15 @@ about to saturate.
 * CSC: the summed chunk census that selection needs anyway
   (``csc.summed_census``) is inspected directly.
 
+Under a model axis each rank's verdict reads its local pool only, so a
+poison inside one rank's block of a sharded leaf would trip that rank
+alone. ``group_verdict`` takes the flags' max over the model group (one
+small all-reduce a guarded step) before the commit reads them: every
+rank of the group then commits or skips together and their loss
+scalers stay equal. The JAX package takes each shard's verdict from its
+own pool (a departure, ROADMAP.md C); where its shards agree the two
+give the same result.
+
 The commit: the JAX package selects between the new and the old state
 with a ``where`` or a ``lax.cond``. The port updates in place, so a
 tripped step is predication on a device flag instead: the update kernel
@@ -25,7 +34,7 @@ waits on the host for it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -94,6 +103,18 @@ def flags_from_words(words: Sequence[torch.Tensor],
 
 def tripped(flags: HealthFlags) -> torch.Tensor:
     return flags.nonfinite | flags.overflow
+
+
+def group_verdict(flags: HealthFlags, model_axis=None
+                  ) -> Tuple[HealthFlags, torch.Tensor]:
+    """(flags, ok) of a verdict site: ``flags`` as they are, or, under a
+    model axis of more than one rank, each flag the max over the model
+    group (``ModelAxis.max_``, counted in its stats); ``ok`` is the
+    commit predicate ``~tripped(flags)``."""
+    if model_axis is not None and model_axis.size > 1:
+        both = model_axis.max_(torch.stack(flags).to(torch.float32))
+        flags = HealthFlags(nonfinite=both[0] > 0, overflow=both[1] > 0)
+    return flags, ~tripped(flags)
 
 
 def as_metrics(flags: HealthFlags) -> dict:

@@ -35,8 +35,9 @@ of the global batch. ``--mesh DxM``, the JAX CLI's flag, lays the D x M
 ranks out as a ('data', 'model') grid (``launch.mesh.make_mesh``; D x M
 must be the world size, default world x 1): M > 1 trains the model
 sharded over its model axis (``Trainer``'s, each architecture's rule
-table; every family the CLI trains), each data index's M ranks on the
-same batch shard. Under M > 1 the steps run one at a time
+table; every family the CLI trains, with every ``--optimizer`` and
+``--wire-format``), each data index's M ranks on the same batch shard.
+Under M > 1 the steps run one at a time
 (``--window-steps 1``) and without checkpoints (no supervisor, no
 ``--ckpt-dir``): windows and checkpoints under a model axis are
 ROADMAP.md A.23, and asking for them raises.

@@ -83,12 +83,22 @@ vocab-parallel embeddings and heads: ``parallel.model_axis``, over the
 mesh's model group) and keeps a local gradient pool over its own blocks
 (``sharding.localize_specs``), reduced over its data group only; the
 optimizer steps its local pool. ``global_pool`` and
-``num_chunks_global`` are the JAX Trainer's. Dense, lazy and CSC,
-momentum SGD, staged overlap, an f32 or bf16 wire, with or without
-kernels, one eager step at a time: everything else under M > 1 (windows,
-the guard, the low-bit wires, LARS, AdamW, microbatches, monolithic
-overlap, a data topology of more than one level, checkpoints, a replan
-to another model degree, serving) raises, naming ROADMAP.md A.23.
+``num_chunks_global`` are the JAX Trainer's. The update after the data
+reduce is the JAX update region's on each rank's local pool: dense, lazy
+and CSC, staged or monolithic, momentum SGD, LARS (trust ratios over the
+local spans: a sharded leaf's block has its own ratio, as in JAX) or
+AdamW, an f32 or bf16 wire or the int8 and fp8-e4m3 wires with or without
+error feedback (scales from the rank's data-summed census, the residual
+on the local pool), microbatches, with or without the guard and kernels,
+one eager step at a time. Two things read the model group besides the
+model's own sums: CSC selects on the group's summed chunk norms, and the
+guard's verdict is the group's max of the flags, so the ranks of a model
+group select the same chunks and commit or skip together (both depart
+from JAX, which decides each on the rank's own pool; ROADMAP.md C). The
+rest under M > 1 (windows, a float16 wire, the ``pallas_ring``, ``tree``
+and ``two_level`` collectives, a data topology of more than one level,
+checkpoints, a replan to another model degree, serving) raises, naming
+ROADMAP.md A.23.
 """
 from __future__ import annotations
 
@@ -158,13 +168,8 @@ def refuse_model_axis(cfg: TrainConfig, model_size: int,
     over ``model_size`` ranks."""
     gf = cfg.gradientflow
     refused = [
-        (gf.overlap != "staged", f"overlap={gf.overlap!r}"),
-        (gf.quantized, f"the {gf.wire_format} wire"),
         (gf.wire_dtype not in ("float32", "bfloat16"),
          f"a {gf.wire_dtype} wire"),
-        (gf.guarded, "the numeric guard"),
-        (cfg.optimizer.name != "momentum_sgd", cfg.optimizer.name),
-        (cfg.microbatches > 1, "microbatches > 1"),
         (gf.collective_algo not in ("flat", "auto"),
          f"collective_algo={gf.collective_algo!r}"),
     ]
@@ -240,7 +245,10 @@ class Trainer:
             if (gf_cfg.csc_enabled or gf_cfg.quantized) else 1
         self.pool = GradientPool(params_mod.param_shapes(self.local_specs),
                                  pad_to=pad)
-        self.gf = GradientFlow(gf_cfg, self.pool, self.num_data)
+        if self.model_axis is not None:
+            self._check_pool_layout()
+        self.gf = GradientFlow(gf_cfg, self.pool, self.num_data,
+                               model_axis=self.model_axis)
         # The model-sharded totals, as the JAX Trainer keeps them.
         self.global_pool = self.pool.size * self.model_size
         self.num_chunks_global = self.gf.num_chunks * self.model_size
@@ -254,6 +262,26 @@ class Trainer:
         self.engine = OverlapEngine(self.gf, self.opt_name, cfg.optimizer,
                                     lars=self.lars)
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
+
+    def _check_pool_layout(self) -> None:
+        """Under a model axis CSC's ranks select the same chunk ids on
+        their own local pools, which are the same elements only if every
+        rank's pool has the same segment table (``localize_specs``: even
+        blocks, the leaves in one order). Compare the offsets, sizes and
+        padded size across the model group once (two all-reduces, the
+        table's max and its negation's; a group without a process group
+        behind it, as a test's stand-in mesh, has nothing to compare)."""
+        if not torch.distributed.is_initialized():
+            return
+        table = torch.tensor(list(self.pool.offsets) + list(self.pool.sizes)
+                             + [self.pool.size], dtype=torch.int64,
+                             device=self.device)
+        hi = self.model_axis.max_(table.clone())
+        lo = self.model_axis.max_(-table)
+        if not (torch.equal(hi, table) and torch.equal(-lo, table)):
+            raise ValueError("the model ranks' local pools have different "
+                             "segment tables: CSC's shared selection needs "
+                             "them equal")
 
     def _prepare_groups(self, gf_cfg) -> None:
         """The level groups of the config's topology and, when a bucket
@@ -619,8 +647,9 @@ class Trainer:
         (NaN on a tripped step, which the skipped launch never reads) and
         one update behind ``ok``; the state ``reduce`` returned (CSC's
         ``hg`` and census, the residual) is committed with
-        ``commit_where``. Returns (params, opt, gfstate, new scaler state,
-        HealthFlags)."""
+        ``commit_where``. Under a model axis the flags are the model
+        group's max (``guard.group_verdict``). Returns (params, opt,
+        gfstate, new scaler state, HealthFlags)."""
         cfg = self.gf_cfg
         use_k = cfg.use_kernels
         quantized = cfg.quantized
@@ -650,7 +679,7 @@ class Trainer:
             flags = guard_mod.flags_from_words(
                 [guard_mod.health_word(reduced)], limit)
             reduced.div_(scaler.scale)
-        ok = ~guard_mod.tripped(flags)
+        flags, ok = guard_mod.group_verdict(flags, self.model_axis)
         master, _ = self.pool.pack(params, dtype=torch.float32,
                                    use_kernels=use_k)
         scale = ratios = None

@@ -2,44 +2,82 @@
 package's Trainer.
 
 * Four gloo ranks at mesh (2, 2) train olmo-smoke (tied, vocab-parallel
-  embedding and head) in f32 compute on an f32 wire, 4 steps each in
-  dense, lazy and CSC, from the JAX Trainer's initial weights cut with
-  ``convert.shard_params``. Dense and lazy: the losses and the
-  parameters gathered with ``convert.unshard_params`` equal JAX's (1, 1)
-  Trainer within 2e-5 relative (the row-parallel sums and the
-  vocab-parallel log-sum-exp add in another order). CSC selects its
-  chunks per model rank, on each rank's local pool (its two sparse
-  steps), so its reference is JAX's own (2, 2) Trainer, on four
-  placeholder devices in a subprocess, within the same bound.
+  embedding and head) in f32 compute on an f32 wire, from the JAX
+  Trainer's initial weights cut with ``convert.shard_params``:
+  - dense and lazy, 4 steps: the losses and the parameters gathered with
+    ``convert.unshard_params`` equal JAX's (1, 1) Trainer within 2e-5
+    relative (the row-parallel sums and the vocab-parallel log-sum-exp
+    add in another order);
+  - CSC, 2 dense warm-up steps and 3 sparse ones. The port selects on
+    the model group's summed chunk norms (ROADMAP.md C.1), JAX on each
+    rank's own, so JAX's own (2, 2) Trainer, on four placeholder devices
+    in a subprocess, is the reference up to the first sparse update: the
+    parameters after the warm-up, the losses through the first sparse
+    step. Each sparse step is then held to the summed selection itself
+    (``check_csc_steps``): the ranks of a model group pick the same ids,
+    ``repro.core.csc.select_chunks``' on the numpy sum of their norms;
+    each data group's reduce equals ``repro.core.csc.csc_reduce`` given
+    that basis (its psum over a vmapped data axis), to 1e-6;
+  - guarded LARS, lazy, against JAX's (2, 2) Trainer within 2e-5: the
+    trust ratios are per shard in both packages (each rank's local
+    spans), and nothing trips, so the port's group verdict is JAX's;
+  - int8 with error feedback, lazy, against JAX's (2, 2) Trainer: the
+    losses within the wire tests' free-running bound, rtol 1e-5
+    (``tests/test_torch_wire.py``). An element whose scaled gradient lies
+    at a rounding midpoint may round to the neighbouring int8 word in one
+    package, and from there its residual and its next steps differ (1-2.4
+    % of a leaf's elements after 4 steps, measured), so each leaf's update
+    (final minus initial) is held in norm: within 1e-2 of its size (up to
+    3.5e-3 measured on the CPU; a gradient missing its model-group sum is
+    off by order 1);
+  - guarded AdamW, 2 microbatches, monolithic, dense, against JAX's
+    (1, 1) Trainer: the losses within 2e-5; each leaf's update within
+    1e-3 of its size in norm, and every parameter within 2e-5 relative
+    plus 0.1 of a step (the learning rate, 1e-3) absolute. AdamW's update
+    m / (sqrt(v) + eps) has unit size whatever the gradient's size, so
+    where a gradient changes sign between steps and m nearly cancels,
+    the summation order's relative error in the gradients is magnified
+    by |g| / |m| in that element's update: up to 0.057 of a step at 1-4
+    of 32,768 elements a leaf after 4 steps, 1.2e-4 of an update's norm
+    (measured on the CPU).
 * Two gloo ranks at mesh (1, 2) train qwen3-smoke (GQA, 8 query and 2
   KV heads, QK-norm, the replicated-KV rule) lazy in bf16 compute: the
   losses within JAX's own bound for the same comparison, rtol 6e-3
-  (``tests/test_distributed.py``). The same ranks run the train CLI at
-  ``--mesh 1x2`` and check its refusals.
+  (``tests/test_distributed.py``). The same ranks run a guarded int8
+  step with a NaN injected into rank 1's block of a sharded leaf only:
+  both ranks trip, keep their parameters, momentum and residual bit for
+  bit, halve the same scale, and commit the next step. Then the train
+  CLI at ``--mesh 1x2`` (lazy; LARS on the fp8 wire) and its refusals.
 * On every rank the replicated leaves (norm weights, QK-norm scales)
   end bit for bit equal across the model ranks.
 * In one process: every combination the port does not run under a
-  model axis raises, naming ROADMAP.md A.23, for every family; heads
-  that the rules split but that do not split over the model ranks
-  raise.
+  model axis raises, naming ROADMAP.md A.23, for every family; the ones
+  it runs build over the local pool; heads that the rules split but
+  that do not split over the model ranks raise; without a model axis
+  CSC's selection reads the rank's own norms, as before.
 
 The spawns and the JAX subprocess start together (``runs``) and the JAX
-(1, 1) references are computed while they run.
+(1, 1) references are computed while they run. JAX's Trainer runs with
+``check_vma=False`` on its shard_maps (a test-time patch, as in
+``tests/test_torch_accumulate.py``: its ``_accumulate`` fails jax 0.9's
+check; nothing in the JAX package changes).
 """
+import contextlib
 import dataclasses
 import os
 import socket
 import subprocess
 import sys
 import textwrap
+from unittest import mock
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import convert
 from repro_torch.configs import get_smoke
-from repro_torch.configs.base import GradientFlowConfig, GuardConfig
-from repro_torch.configs.base import OptimizerConfig, TrainConfig
+from repro_torch.configs import base as t_base
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch.trainer import Trainer
 from repro_torch.models import build_model
@@ -49,24 +87,51 @@ from repro_torch.parallel.topology import Topology
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 STEPS, B, S = 4, 4, 32
-MODES = ("dense", "lazy", "csc")
 RTOL = 2e-5
+# CSC: a dense warm-up stage for steps 0-1, then three sparse steps.
+CSC_WARMUP, CSC_STEPS = 2, 5
+# mode: (GradientFlowConfig fields, optimizer, microbatches); 'guard'
+# True puts the package's GuardConfig() in.
+RUNS = {
+    "dense": (dict(mode="dense"), "momentum_sgd", 1),
+    "lazy": (dict(mode="lazy"), "momentum_sgd", 1),
+    "csc": (dict(mode="csc"), "momentum_sgd", 1),
+    "lars_guard": (dict(mode="lazy", guard=True), "lars", 1),
+    "int8": (dict(mode="lazy", wire_format="int8"), "momentum_sgd", 1),
+    "adamw_mono": (dict(mode="dense", overlap="monolithic", guard=True),
+                   "adamw", 2),
+}
+MODES = tuple(RUNS)
+# The modes whose reference is JAX's (1, 1) Trainer; the rest JAX's (2, 2).
+AT_1X1 = ("dense", "lazy", "adamw_mono")
 
 
-def _gf(mode):
-    # CSC: a dense warm-up stage for steps 0-1, then the sparse stage.
-    return dict(mode=mode, bucket_elems=4096, chunk_elems=512, sparsity=0.5,
-                warmup_steps=2 if mode == "csc" else 0, warmup_stages=1,
-                wire_dtype="float32")
-
-
-OPT = dict(name="momentum_sgd", learning_rate=0.2, warmup_steps=1,
-           total_steps=20, schedule="constant")
+def _steps(mode):
+    return CSC_STEPS if mode == "csc" else STEPS
 
 
 def _model(arch, f32):
     cfg = get_smoke(arch)[0]
     return dataclasses.replace(cfg, compute_dtype="float32") if f32 else cfg
+
+
+def train_cfg(base, arch, mode, f32, **gf_extra):
+    """The TrainConfig of ``mode`` in either package (``base`` is its
+    ``configs.base``)."""
+    gf, opt, micro = RUNS[mode]
+    gf = dict(gf)
+    if gf.pop("guard", False):
+        gf["guard"] = base.GuardConfig()
+    return base.TrainConfig(
+        model=_model(arch, f32),
+        gradientflow=base.GradientFlowConfig(
+            bucket_elems=4096, chunk_elems=512, sparsity=0.5,
+            warmup_steps=CSC_WARMUP if mode == "csc" else 0,
+            warmup_stages=1, wire_dtype="float32", **gf, **gf_extra),
+        optimizer=base.OptimizerConfig(
+            name=opt, learning_rate=1e-3 if opt == "adamw" else 0.2,
+            warmup_steps=1, total_steps=20, schedule="constant"),
+        seq_len=S, global_batch=B, attn_chunk=0, microbatches=micro)
 
 
 def _flat(tree, prefix=""):
@@ -94,27 +159,37 @@ def _specs(arch):
 # module and load no JAX) ----------------------------------------------------
 
 
-def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS):
-    """(losses, final params as numpy, initial params) of JAX's Trainer
-    (``steps`` 0: only the initial parameters)."""
+@contextlib.contextmanager
+def jax_vma_check_off():
+    """JAX's Trainer with ``check_vma=False`` on its shard_maps."""
+    import repro.launch.trainer as j_trainer_mod
+    real = j_trainer_mod.compat_shard_map
+    with mock.patch.object(j_trainer_mod, "compat_shard_map",
+                           lambda *a, **k: real(*a, **{**k,
+                                                       "check_vma": False})):
+        yield
+
+
+def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS,
+            snap=None):
+    """(losses, params as numpy after ``snap`` steps (default: the last),
+    initial params) of JAX's Trainer (``steps`` 0: only the initial
+    parameters)."""
     import jax
+    from repro.configs import base as j_base
     from repro.configs import get_smoke as j_get_smoke
-    from repro.configs.base import GradientFlowConfig as JGF
-    from repro.configs.base import OptimizerConfig as JOpt
-    from repro.configs.base import TrainConfig as JTrain
     from repro.data.synthetic import SyntheticLM
     from repro.launch.mesh import make_mesh as j_make_mesh
     from repro.launch.trainer import Trainer as JTrainer
     from repro.parallel.collectives import compat_set_mesh
 
-    cfg = JTrain(model=_model(arch, f32), gradientflow=JGF(**_gf(mode)),
-                 optimizer=JOpt(**OPT), seq_len=S, global_batch=B,
-                 attn_chunk=0)
+    cfg = train_cfg(j_base, arch, mode, f32)
     mesh = j_make_mesh(mesh_shape, ("data", "model"))
-    trainer = JTrainer(cfg, mesh, j_get_smoke(arch)[1])
+    snap = steps if snap is None else snap
     data = SyntheticLM(cfg.model.vocab_size, seed=0)
     losses, fns = [], {}
-    with compat_set_mesh(mesh):
+    with compat_set_mesh(mesh), jax_vma_check_off():
+        trainer = JTrainer(cfg, mesh, j_get_smoke(arch)[1])
         state = trainer.init_state(jax.random.PRNGKey(0))
         if params is not None:  # {leaf path: array}
             state = state._replace(params=jax.tree_util.tree_map_with_path(
@@ -122,6 +197,7 @@ def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS):
                     params["/".join(k.key for k in path)], s),
                 trainer.param_shardings))
         init = jax.tree_util.tree_map(np.asarray, state.params)
+        out = init
         for t in range(steps):
             stage = trainer.gf.stage_for_step(t)
             if stage.index not in fns:
@@ -130,26 +206,105 @@ def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS):
             state, m = fns[stage.index](state, jax.device_put(
                 data.batch(t, B, S)))
             losses.append(float(m["loss"]))
-    return losses, jax.tree_util.tree_map(np.asarray, state.params), init
+            if t + 1 == snap:
+                out = jax.tree_util.tree_map(np.asarray, state.params)
+    return losses, out, init
 
 
-def batches(vocab):
+def batches(vocab, steps=CSC_STEPS):
     from repro.data.synthetic import SyntheticLM
     data = SyntheticLM(vocab, seed=0)
-    return {f"{k}{t}": np.asarray(v) for t in range(STEPS)
+    return {f"{k}{t}": np.asarray(v) for t in range(steps)
             for k, v in data.batch(t, B, S).items()}
 
+
+# JAX's own (2, 2) runs: CSC through its first sparse step (the
+# parameters after the warm-up), guarded LARS and int8.
+JAX_22 = {"csc": dict(steps=CSC_WARMUP + 1, snap=CSC_WARMUP),
+          "lars_guard": {}, "int8": {}}
 
 _JAX_22 = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path[:0] = [{tests!r}, {src!r}]
 import numpy as np
-from test_torch_model_axis import jax_run, _flat
+from test_torch_model_axis import jax_run, _flat, JAX_22
 params = dict(np.load({weights!r}))
-losses, final, _ = jax_run("olmo-1b", "csc", True, (2, 2), params)
-np.savez({out!r}, losses=np.asarray(losses), **_flat(final))
+out = {{}}
+for mode, kw in JAX_22.items():
+    losses, final, _ = jax_run("olmo-1b", mode, True, (2, 2), params, **kw)
+    out[mode + "/losses"] = np.asarray(losses)
+    out.update({{mode + "/p/" + k: v for k, v in _flat(final).items()}})
+np.savez({out!r}, **out)
 """
+
+
+def jax_csc_reduce(gs, hgs, basis, k, chunk, bucket_elems, momentum=0.9):
+    """``repro.core.csc.csc_reduce`` on each data rank's pool ``gs[d]``
+    and history ``hgs[d]``, state norms ``basis``, the data axis's psum
+    over a ``vmap``: (grads, hg, chunk norms), one row a data rank."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import GradientFlowConfig as JGF
+    from repro.core import csc as j_csc
+
+    n = len(gs)
+    cfg = JGF(mode="csc", chunk_elems=chunk, bucket_elems=bucket_elems,
+              momentum=momentum, wire_dtype="float32", use_kernels=False)
+    bounds = j_csc.wire_bucket_boundaries(k, chunk, bucket_elems)
+
+    def f(g, hg):
+        res = j_csc.csc_reduce(g, j_csc.CSCState(hg=hg,
+                                                 chunk_norms=jnp.asarray(
+                                                     basis)),
+                               cfg, num_selected=k, bucket_boundaries=bounds,
+                               num_data_shards=n)
+        return res.grads, res.state.hg, res.state.chunk_norms
+
+    out = jax.jit(jax.vmap(f, axis_name="data"))(jnp.asarray(np.stack(gs)),
+                                                 jnp.asarray(np.stack(hgs)))
+    return [np.asarray(x) for x in out]
+
+
+def check_csc_steps(recs, model_groups, data_groups, chunk, sparse):
+    """Hold each sparse step's records (``record_csc``; ``recs[rank]`` the
+    rank's npz) to the summed selection: for each model group the ids
+    equal across its ranks and ``repro.core.csc.select_chunks``' on the
+    numpy sum of their norms (which is the basis each rank selected
+    on); for each data group the reduce ``jax_csc_reduce``'s given that
+    basis, to 1e-6 as ``tests/test_torch_csc.py`` holds one reduction."""
+    import jax.numpy as jnp
+    from repro.core import csc as j_csc
+
+    for s in range(sparse):
+        def rec(r, key):
+            return recs[r][f"csc/s{s}/{key}"]
+        k = int(rec(0, "k"))
+        for group in model_groups:
+            summed = np.sum([rec(r, "norms") for r in group], axis=0,
+                            dtype=np.float32)
+            want = np.asarray(j_csc.select_chunks(jnp.asarray(summed),
+                                                  k)[0])
+            for r in group:
+                np.testing.assert_array_equal(rec(r, "basis"), summed)
+                np.testing.assert_array_equal(rec(r, "idx"), want,
+                                              err_msg=f"step {s} rank {r}")
+        for group in data_groups:
+            grads, hg, norms = jax_csc_reduce(
+                [rec(r, "g") for r in group], [rec(r, "hg") for r in group],
+                rec(group[0], "basis"), k, chunk,
+                int(rec(group[0], "bucket_elems")))
+            for i, r in enumerate(group):
+                g_out = rec(r, "g_out")
+                mask = np.zeros(g_out.size // chunk, bool)
+                mask[rec(r, "idx")] = True
+                got = np.where(np.repeat(mask, chunk), g_out, 0.0)
+                for a, b, what in ((got, grads[i], "grads"),
+                                   (rec(r, "hg_out"), hg[i], "hg"),
+                                   (rec(r, "norms_out"), norms[i], "norms")):
+                    np.testing.assert_allclose(
+                        a, b, rtol=1e-6, atol=1e-6 * np.abs(b).max(),
+                        err_msg=f"step {s} rank {r} {what}")
 
 
 # -- the port's ranks ---------------------------------------------------------
@@ -170,18 +325,145 @@ _WORKER = textwrap.dedent("""
 
 
 def port_trainer(arch, mode, f32, mesh, use_kernels=True):
-    cfg = TrainConfig(model=_model(arch, f32),
-                      gradientflow=GradientFlowConfig(
-                          **_gf(mode), use_kernels=use_kernels),
-                      optimizer=OptimizerConfig(**OPT), seq_len=S,
-                      global_batch=B, attn_chunk=0)
-    return Trainer(cfg, device="cpu", mesh=mesh)
+    return Trainer(train_cfg(t_base, arch, mode, f32,
+                             use_kernels=use_kernels),
+                   device="cpu", mesh=mesh)
+
+
+@contextlib.contextmanager
+def record_csc(records):
+    """Record every sparse CSC step the staged engine runs while entered,
+    as numpy: the selection's basis and ids (``csc.select_chunks``' input
+    and output), the step's staging pool, hg and own chunk norms before
+    it, and after it the post-reduce pool, hg and norms."""
+    from repro_torch.core import csc as csc_mod
+    from repro_torch.core import engine
+
+    real_select = csc_mod.select_chunks
+    real_run = engine.OverlapEngine._run_csc
+    picks = []
+
+    def select(basis, k):
+        idx, mask = real_select(basis, k)
+        picks.append((basis.numpy().copy(), idx.numpy().copy()))
+        return idx, mask
+
+    def run(self, plan, g, master, leaves, opt_state, gfstate, lr):
+        before = dict(g=g.numpy().copy(), hg=gfstate.hg.numpy().copy(),
+                      norms=gfstate.chunk_norms.numpy().copy())
+        outs, gf = real_run(self, plan, g, master, leaves, opt_state,
+                            gfstate, lr)
+        (basis, idx), = picks
+        picks.clear()
+        records.append(dict(before, k=np.asarray(plan.num_selected),
+                            basis=basis, idx=idx, g_out=g.numpy().copy(),
+                            hg_out=gf.hg.numpy().copy(),
+                            norms_out=gf.chunk_norms.numpy().copy(),
+                            bucket_elems=np.asarray(self.gf.bucket_elems)))
+        return outs, gf
+
+    with mock.patch.object(csc_mod, "select_chunks", select), \
+            mock.patch.object(engine.OverlapEngine, "_run_csc", run):
+        yield
+
+
+def replicated_leaves(trainer):
+    """The flat names of the leaves the trainer's rules replicate."""
+    from repro_torch.core.pool import flatten_tree
+    from repro_torch.parallel import sharding
+    return ["/".join(p) for p, s in flatten_tree(trainer.specs)
+            if sharding.model_dim(s, trainer.rules) is None]
+
+
+def train_steps(trainer, state, inputs, rows, steps, saved, prefix,
+                snap=None):
+    """Run ``steps`` steps on the inputs' batches (this rank's ``rows``);
+    save the losses, the guard's trips and scales, the replicated leaves
+    after every step, the parameters after ``snap`` steps (and at the
+    end) under ``prefix``. Returns the state."""
+    fns, losses, trips, scales = {}, [], [], []
+    rep = replicated_leaves(trainer)
+    for t in range(steps):
+        stage = trainer.gf.stage_for_step(t)
+        if stage.index not in fns:
+            fns[stage.index] = trainer.build_train_step(stage)
+        batch = {k: torch.from_numpy(inputs[f"{k}{t}"][rows])
+                 for k in ("tokens", "labels")}
+        state, m = fns[stage.index](state, batch)
+        losses.append(float(m["loss"]))
+        if "guard_tripped" in m:
+            trips.append(float(m["guard_tripped"]))
+            scales.append(float(state.guard.scale))
+        # Copies: the state's tensors are updated in place.
+        flat = {k: v.copy() for k, v in _flat(convert.params_to_numpy(
+            state.params)).items()}
+        for name in rep:
+            saved[f"{prefix}/rep{t}/{name}"] = flat[name]
+        if t + 1 == snap:
+            for name, v in flat.items():
+                saved[f"{prefix}/snap/{name}"] = v
+    saved[f"{prefix}/losses"] = np.asarray(losses)
+    if trips:
+        saved[f"{prefix}/tripped"] = np.asarray(trips)
+        saved[f"{prefix}/scales"] = np.asarray(scales)
+    for name, v in _flat(convert.params_to_numpy(state.params)).items():
+        saved[f"{prefix}/p/{name}"] = v
+    return state
+
+
+def _state_bits(state):
+    """Every tensor a skipped step must keep: parameters, optimizer state,
+    GradientFlow state (the residual among them), as numpy copies."""
+    out = [v.copy() for v in _flat(convert.params_to_numpy(
+        state.params)).values()]
+    for part in (state.opt, state.gf):
+        out += [t.numpy().copy() for t in part
+                if isinstance(t, torch.Tensor)]
+    return out
+
+
+def fault_steps(mesh, inputs, rows, saved):
+    """qwen3-smoke guarded on the int8 wire with error feedback at mesh
+    (1, 2), 3 steps, a NaN in rank 1's block of its first sharded leaf
+    at step 1 (rank 0's pool stays clean): per step the verdict, the
+    scale and whether every tensor kept its bits."""
+    from repro_torch.core.pool import flatten_tree
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime import faults
+
+    trainer = Trainer(train_cfg(t_base, "qwen3-32b", "int8", False,
+                                use_kernels=True,
+                                guard=t_base.GuardConfig()),
+                      device="cpu", mesh=mesh)
+    full = _tree(_specs("qwen3-32b"), {k[2:]: v for k, v in inputs.items()
+                                       if k.startswith("p/")})
+    state = trainer.init_state(params=convert.params_from_numpy(
+        convert.shard_params(full, trainer.rules, 2, mesh.model_index,
+                             specs=trainer.specs), "cpu"))
+    sharded = next(i for i, (_, s) in enumerate(flatten_tree(trainer.specs))
+                   if sharding.model_dim(s, trainer.rules) is not None)
+    events = [faults.FaultEvent(step=1, kind="nan",
+                                offset=trainer.pool.offsets[sharded] + 3,
+                                width=4)] if mesh.model_index == 1 else []
+    step = trainer.build_train_step(fault_hook=faults.make_hook(events))
+    trips, scales, kept = [], [], []
+    for t in range(3):
+        before = _state_bits(state)
+        state, m = step(state, {k: torch.from_numpy(inputs[f"{k}{t}"][rows])
+                                for k in ("tokens", "labels")})
+        trips.append(float(m["guard_tripped"]))
+        scales.append(float(state.guard.scale))
+        kept.append(all(np.array_equal(x, y)
+                        for x, y in zip(before, _state_bits(state))))
+    saved["fault/tripped"] = np.asarray(trips)
+    saved["fault/scales"] = np.asarray(scales)
+    saved["fault/kept"] = np.asarray(kept)
+    saved["fault/injected"] = np.asarray(len(events))
 
 
 def rank_main(rank, world, out):
     """One rank of the (2, 2) olmo run (world 4) or of the (1, 2) qwen3
-    run and CLI check (world 2); saves losses and local parameters."""
-    import torch
+    run, fault and CLI checks (world 2); saves what the tests read."""
     mesh = t_mesh.make_mesh((2, 2) if world == 4 else (1, 2))
     arch, f32, modes = ("olmo-1b", True, MODES) if world == 4 \
         else ("qwen3-32b", False, ("lazy",))
@@ -198,24 +480,18 @@ def rank_main(rank, world, out):
                                      mesh.model_index, specs=trainer.specs)
         state = trainer.init_state(params=convert.params_from_numpy(
             local, "cpu"))
-        steps = {}
-        losses = []
-        for t in range(STEPS):
-            stage = trainer.gf.stage_for_step(t)
-            if stage.index not in steps:
-                steps[stage.index] = trainer.build_train_step(stage)
-            batch = {k: torch.from_numpy(inputs[f"{k}{t}"][rows])
-                     for k in ("tokens", "labels")}
-            state, m = steps[stage.index](state, batch)
-            losses.append(float(m["loss"]))
-        saved[f"{mode}/losses"] = np.asarray(losses)
-        for name, v in _flat(convert.params_to_numpy(state.params)).items():
-            saved[f"{mode}/p/{name}"] = v
+        recs = []
+        with record_csc(recs) if mode == "csc" else contextlib.nullcontext():
+            train_steps(trainer, state, inputs, rows, _steps(mode), saved,
+                        mode, snap=CSC_WARMUP if mode == "csc" else None)
+        for s, r in enumerate(recs):
+            saved.update({f"csc/s{s}/{k}": v for k, v in r.items()})
         saved[f"{mode}/all_reduces"] = np.asarray(
             trainer.model_axis.stats["all_reduces"])
         saved[f"{mode}/pool"] = np.asarray(
             [trainer.pool.size, trainer.global_pool])
     if world == 2:
+        fault_steps(mesh, inputs, rows, saved)
         from repro_torch.launch import train
         args = ["--arch", "qwen3-32b", "--reduced", "--mesh", "1x2",
                 "--steps", "2", "--batch", "2", "--seq-len", "32",
@@ -228,11 +504,12 @@ def rank_main(rank, world, out):
                 raise AssertionError(what)
             except ValueError as e:
                 assert "ROADMAP.md A.23" in str(e), e
-        losses = train.main(args + ["--window-steps", "1"])
-        saved["cli_losses"] = np.asarray(losses)
+        saved["cli_losses"] = np.asarray(
+            train.main(args + ["--window-steps", "1"]))
+        saved["cli_lars_fp8_losses"] = np.asarray(train.main(
+            args + ["--window-steps", "1", "--optimizer", "lars",
+                    "--wire-format", "fp8_e4m3"]))
     np.savez(out, **saved)
-
-
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -258,7 +535,7 @@ def _wait(procs, timeout=600):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Write the JAX Trainer's initial weights and the batches, start the
-    JAX (2, 2) CSC subprocess and both spawns, compute the JAX (1, 1)
+    JAX (2, 2) subprocess and both spawns, compute the JAX (1, 1)
     references meanwhile, then collect everything."""
     tmp = tmp_path_factory.mktemp("model_axis")
     tests = os.path.dirname(os.path.abspath(__file__))
@@ -280,24 +557,27 @@ def runs(tmp_path_factory):
     script = tmp / "worker.py"
     script.write_text(_WORKER.format(tests=tests, src=SRC))
     procs = _spawn(script, 4, tmp) + _spawn(script, 2, tmp)
-    for arch, mode, f32 in (("olmo-1b", "dense", True),
-                            ("olmo-1b", "lazy", True),
-                            ("qwen3-32b", "lazy", False)):
-        ref[(arch, mode)] = jax_run(arch, mode, f32)[:2]
+    for mode in AT_1X1:
+        ref[("olmo-1b", mode)] = jax_run("olmo-1b", mode, True)[:2]
+    ref[("qwen3-32b", "lazy")] = jax_run("qwen3-32b", "lazy", False)[:2]
     _wait(procs)
     _wait([jax22])
     j22 = dict(np.load(tmp / "jax22.npz"))
-    ref[("olmo-1b", "csc")] = (list(j22.pop("losses")),
-                               _tree(_specs("olmo-1b"), j22))
+    for mode in JAX_22:
+        ref[("olmo-1b", mode)] = (
+            list(j22[f"{mode}/losses"]),
+            _tree(_specs("olmo-1b"), {k[len(mode) + 3:]: v
+                                      for k, v in j22.items()
+                                      if k.startswith(f"{mode}/p/")}))
     ranks = {w: [dict(np.load(tmp / f"w{w}_rank{r}.npz")) for r in range(w)]
              for w in (4, 2)}
     return ref, ranks
 
 
-def _gathered(parts, mode, arch):
+def _gathered(parts, prefix, arch):
     specs = _specs(arch)
-    local = [_tree(specs, {k[len(mode) + 3:]: v for k, v in p.items()
-                           if k.startswith(f"{mode}/p/")}) for p in parts]
+    local = [_tree(specs, {k[len(prefix):]: v for k, v in p.items()
+                           if k.startswith(prefix)}) for p in parts]
     return convert.unshard_params(local, get_smoke(arch)[1], specs=specs)
 
 
@@ -309,25 +589,73 @@ def _assert_params(got, want, rtol, atol, what):
                                    err_msg=f"{what} {name}")
 
 
+def assert_updates_close(got, want, init, bound, what):
+    """Each leaf's update (final minus ``init``) against the reference's
+    in norm, within ``bound`` of its size."""
+    g, w = _flat(got), _flat(want)
+    errs = {n: np.linalg.norm((g[n] - init[n]) - (w[n] - init[n]))
+            / np.linalg.norm(w[n] - init[n]) for n in w}
+    assert max(errs.values()) <= bound, (what, errs)
+
+
+def assert_replicas_equal(ranks, groups, prefix):
+    """Every replicated leaf saved after every step under ``prefix``
+    (``train_steps``' ``rep<t>/`` entries) is the same bits on every rank
+    of each model group. Returns how many leaf copies were compared."""
+    keys = [k for k in ranks[groups[0][0]] if k.startswith(f"{prefix}/rep")]
+    for group in groups:
+        for k in keys:
+            for r in group[1:]:
+                np.testing.assert_array_equal(ranks[r][k],
+                                              ranks[group[0]][k], err_msg=k)
+    return len(keys)
+
+
+# Model groups (a data index's ranks) and data groups (a model index's)
+# of the (2, 2) mesh: rank = data index * 2 + model index.
+MODEL_GROUPS_22, DATA_GROUPS_22 = ((0, 1), (2, 3)), ((0, 2), (1, 3))
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_mesh_2x2_matches_jax(runs, mode):
     ref, ranks = runs
     want_losses, want_params = ref[("olmo-1b", mode)]
     r = ranks[4]
+    csc = mode == "csc"
     for p in r:
-        np.testing.assert_allclose(p[f"{mode}/losses"], want_losses,
-                                   rtol=RTOL, err_msg=mode)
+        got = p[f"{mode}/losses"]
+        # CSC: JAX's (2, 2) Trainer through its first sparse step only
+        # (its selection is per rank, the port's the model group's).
+        np.testing.assert_allclose(got[:len(want_losses)], want_losses,
+                                   rtol=1e-5 if mode == "int8" else RTOL,
+                                   err_msg=mode)
+        assert len(got) == _steps(mode) and np.isfinite(got).all()
         assert p[f"{mode}/pool"][1] == 2 * p[f"{mode}/pool"][0]
         assert p[f"{mode}/all_reduces"] > 0
+        if f"{mode}/tripped" in p:
+            assert not p[f"{mode}/tripped"].any(), p[f"{mode}/tripped"]
     # Model ranks (0, 1) and (2, 3) hold the data indices' copies: the
     # data-parallel mean leaves them equal bit for bit.
     for a, b in ((0, 2), (1, 3)):
         for k in r[a]:
-            np.testing.assert_array_equal(r[a][k], r[b][k], err_msg=k)
+            if not k.startswith("csc/s"):  # each data rank's own pool
+                np.testing.assert_array_equal(r[a][k], r[b][k], err_msg=k)
     # Replicated leaves (olmo has no norm weights: its norms are
     # non-parametric) are none here; the gathered tree is JAX's.
-    got = _gathered(r[:2], mode, "olmo-1b")
-    _assert_params(got, want_params, RTOL, 1e-6, mode)
+    got = _gathered(r[:2], f"{mode}/{'snap' if csc else 'p'}/", "olmo-1b")
+    if mode == "int8":
+        assert_updates_close(got, want_params, ref[("olmo-1b", "init")],
+                             1e-2, mode)
+    elif mode == "adamw_mono":
+        assert_updates_close(got, want_params, ref[("olmo-1b", "init")],
+                             1e-3, mode)
+        _assert_params(got, want_params, RTOL, 0.1 * 1e-3, mode)
+    else:
+        _assert_params(got, want_params, RTOL, 1e-6, mode)
+    assert_replicas_equal(r, MODEL_GROUPS_22, mode)
+    if csc:
+        check_csc_steps(r, MODEL_GROUPS_22, DATA_GROUPS_22, 512,
+                        CSC_STEPS - CSC_WARMUP)
 
 
 def test_mesh_1x2_qwen3_bf16_matches_jax(runs):
@@ -339,24 +667,36 @@ def test_mesh_1x2_qwen3_bf16_matches_jax(runs):
                                    rtol=6e-3)
     # The replicated leaves (norm scales, QK-norm) are the same bits on
     # both model ranks: their gradients are all-reduced sums.
-    for name in ("layers/attn/q_norm", "layers/attn/k_norm",
-                 "layers/attn_norm/scale", "final_norm/scale"):
-        np.testing.assert_array_equal(r[0][f"lazy/p/{name}"],
-                                      r[1][f"lazy/p/{name}"])
-    got = _gathered(r, "lazy", "qwen3-32b")
+    # Five replicated leaves: the final, attention and MLP norm scales,
+    # the QK-norm scales.
+    assert assert_replicas_equal(r, [(0, 1)], "lazy") == 5 * STEPS
+    got = _gathered(r, "lazy/p/", "qwen3-32b")
     # The bf16 products and row-parallel sums round in another order, so
     # each leaf's update (final minus initial) is held against JAX's in
     # norm: within 2^-4 of its size (0.016-0.026 measured on the CPU; a
     # gradient missing its model-group sum is off by order 1).
-    g, w, i = _flat(got), _flat(want_params), ref[("qwen3-32b", "init")]
-    errs = {n: np.linalg.norm((g[n] - i[n]) - (w[n] - i[n]))
-            / np.linalg.norm(w[n] - i[n]) for n in w}
-    assert max(errs.values()) <= 2 ** -4, errs
-    assert r[0]["cli_losses"].shape == (2,)
-    np.testing.assert_array_equal(r[0]["cli_losses"], r[1]["cli_losses"])
+    assert_updates_close(got, want_params, ref[("qwen3-32b", "init")],
+                         2 ** -4, "qwen3 bf16")
+    for key in ("cli_losses", "cli_lars_fp8_losses"):
+        assert r[0][key].shape == (2,) and np.isfinite(r[0][key]).all()
+        np.testing.assert_array_equal(r[0][key], r[1][key])
 
 
-# -- refusals under a model axis (one process) --------------------------------
+def test_one_rank_fault_skips_on_every_model_rank(runs):
+    """The NaN lies in rank 1's pool only; the group verdict trips both
+    ranks at step 1, each keeps every tensor's bits (parameters, momentum,
+    the int8 residual), both halve the scale, and step 2 commits."""
+    r = runs[1][2]
+    assert [int(p["fault/injected"]) for p in r] == [0, 1]
+    init = float(t_base.GuardConfig().init_scale)
+    for p in r:
+        np.testing.assert_array_equal(p["fault/tripped"], [0.0, 1.0, 0.0])
+        np.testing.assert_array_equal(p["fault/kept"], [False, True, False])
+        np.testing.assert_array_equal(p["fault/scales"],
+                                      [init, init / 2, init / 2])
+
+
+# -- under a model axis in one process ----------------------------------------
 
 
 def _fake_mesh(m=2):
@@ -368,28 +708,25 @@ def _fake_mesh(m=2):
 def _cfg(arch="olmo-1b", opt="momentum_sgd", micro=1, **gf):
     kw = dict(mode="lazy", wire_dtype="float32")
     kw.update(gf)
-    return TrainConfig(model=get_smoke(arch)[0],
-                       gradientflow=GradientFlowConfig(**kw),
-                       optimizer=OptimizerConfig(name=opt), seq_len=S,
-                       global_batch=B, microbatches=micro)
+    return t_base.TrainConfig(model=get_smoke(arch)[0],
+                              gradientflow=t_base.GradientFlowConfig(**kw),
+                              optimizer=t_base.OptimizerConfig(name=opt),
+                              seq_len=S, global_batch=B, microbatches=micro)
 
 
+_TWO_LEVEL = Topology.from_axis_sizes(("node", "gpu"), (1, 1))
 # The families train under a model axis; what stays refused for the
 # dense family stays refused for each of them.
 REFUSED = {
-    "moe": _cfg("arctic-480b", guard=GuardConfig()),
-    "vlm": _cfg("internvl2-26b", opt="lars"),
-    "audio": _cfg("musicgen-large", micro=2),
-    "ssm": _cfg("falcon-mamba-7b", overlap="monolithic"),
-    "hybrid": _cfg("zamba2-2.7b", wire_format="int8"),
-    "monolithic": _cfg(overlap="monolithic"),
-    "int8": _cfg(wire_format="int8"), "fp8": _cfg(wire_format="fp8_e4m3"),
+    "moe": _cfg("arctic-480b", collective_algo="pallas_ring"),
+    "vlm": _cfg("internvl2-26b", collective_algo="tree"),
+    "audio": _cfg("musicgen-large", topology=_TWO_LEVEL),
+    "ssm": _cfg("falcon-mamba-7b", wire_dtype="float16"),
+    "hybrid": _cfg("zamba2-2.7b", collective_algo="two_level"),
     "float16_wire": _cfg(wire_dtype="float16"),
-    "guard": _cfg(guard=GuardConfig()), "lars": _cfg(opt="lars"),
-    "adamw": _cfg(opt="adamw"), "microbatches": _cfg(micro=2),
     "pallas_ring": _cfg(collective_algo="pallas_ring"),
-    "two_level": _cfg(topology=Topology.from_axis_sizes(("node", "gpu"),
-                                                        (1, 1))),
+    "tree": _cfg(collective_algo="tree"),
+    "two_level": _cfg(topology=_TWO_LEVEL),
 }
 
 
@@ -397,6 +734,89 @@ REFUSED = {
 def test_unported_combinations_raise(name):
     with pytest.raises(ValueError, match="ROADMAP.md A.23"):
         Trainer(REFUSED[name], device="cpu", mesh=_fake_mesh())
+
+
+# The update-path features that train under a model axis: each builds
+# over the rank's local pool.
+FEATURES = {
+    "monolithic": _cfg(overlap="monolithic"),
+    "int8": _cfg(wire_format="int8"), "fp8": _cfg(wire_format="fp8_e4m3"),
+    "guard": _cfg(guard=t_base.GuardConfig()), "lars": _cfg(opt="lars"),
+    "adamw": _cfg(opt="adamw"), "microbatches": _cfg(micro=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FEATURES))
+def test_update_path_features_build_under_a_model_axis(name):
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.scaler import ScalerState
+
+    cfg = FEATURES[name]
+    trainer = Trainer(cfg, device="cpu", mesh=_fake_mesh(2))
+    local = Trainer(cfg, device="cpu").pool  # the whole model, one rank
+    pool, state = trainer.pool, trainer.init_state()
+    assert trainer.global_pool == 2 * pool.size < 2 * local.size
+    assert trainer.gf.model_axis is trainer.model_axis
+    assert trainer.model_axis.size == 2
+    if name == "monolithic":
+        assert trainer.gf_cfg.overlap == "monolithic"
+        assert trainer._pipeline_plan() is None
+    elif name in ("int8", "fp8"):
+        # Per-chunk scales over the local pool, padded to whole chunks;
+        # the error-feedback residual is the local pool's size.
+        assert trainer.gf.wire_spec is not None
+        assert pool.size % trainer.gf_cfg.chunk_elems == 0
+        assert state.gf.residual.shape == (pool.size,)
+        assert trainer._census_chunk == trainer.gf_cfg.chunk_elems
+    elif name == "guard":
+        assert isinstance(state.guard, ScalerState)
+        assert float(state.guard.scale) == cfg.gradientflow.guard.init_scale
+        assert int(state.guard.skipped) == 0
+    elif name == "lars":
+        # One trust ratio a local leaf: a sharded leaf's block has its own.
+        assert trainer.lars.pool is pool
+        master = torch.ones(pool.size)
+        assert trainer.lars.ratios(master, master, cfg.optimizer).shape \
+            == (len(pool.sizes) + bool(pool.padding),)
+    elif name == "adamw":
+        assert isinstance(state.opt, AdamWState)
+        assert state.opt.mu.shape == state.opt.nu.shape == (pool.size,)
+    else:
+        assert trainer.cfg.microbatches == 2
+
+
+def test_selection_without_a_model_axis_is_unchanged():
+    """Without a model axis (or with one rank on it) every sparse step
+    selects on the state's own norms tensor itself: no collective, the
+    ids and bits of the selection before the summed basis."""
+    from repro_torch.core import csc as csc_mod
+    from repro_torch.parallel.model_axis import ModelAxis
+
+    norms = torch.tensor([3.0, 1.0, 3.0, 0.0, 2.0, 2.0])
+    one = ModelAxis(None, 1, 0, {})
+    one.all_reduce_ = None  # any collective would fail
+    for axis in (None, one):
+        assert csc_mod.selection_basis(norms, axis) is norms
+    cfg = dataclasses.replace(_cfg(mode="csc", chunk_elems=512,
+                                   warmup_steps=1, warmup_stages=1),
+                              seq_len=16, global_batch=2)
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.gf.model_axis is None
+    state = trainer.init_state(0)
+    seen, real = [], csc_mod.select_chunks
+    vocab = cfg.model.vocab_size
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (2, 17)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with mock.patch.object(csc_mod, "select_chunks",
+                           lambda b, k: (seen.append(b), real(b, k))[1]):
+        for t in range(3):
+            stage = trainer.gf.stage_for_step(t)
+            norms = state.gf.chunk_norms
+            state, _ = trainer.build_train_step(stage)(state, batch)
+            if stage.num_selected < trainer.gf.num_chunks:
+                assert seen.pop() is norms
+    assert not seen and state.step == 3
 
 
 def test_model_axis_refusals_after_construction():

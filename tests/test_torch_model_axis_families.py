@@ -22,21 +22,25 @@ the same seeded numpy batches. Against JAX's (1, 1):
 * the train CLI at ``--mesh 1x2`` for grok1-, musicgen- and
   falcon-mamba-smoke (both ranks the same finite losses), and its
   refusal of the vlm by name;
-* CSC for arctic-smoke and falcon-mamba-smoke against JAX's Trainer at
-  (1, 2) on two placeholder devices: CSC selects its chunks per model
-  rank, on each rank's local pool, so the reference needs the same model
-  degree; and with the data degree 1 of the port's run, because an MoE
-  layer's capacity counts the tokens of one data shard in both packages.
-  The dense warm-up step and one sparse step: each rank's pool holds its
-  own copy of every replicated leaf, and the ranks' selections differ, so
-  a sparse step leaves the replicas unequal, in both packages; from the
-  next forward on, the JAX program's values depend on which device's
-  copy each replicated product reads (ROADMAP.md C), and the two
-  packages part.
+* CSC for arctic-smoke and falcon-mamba-smoke, a dense warm-up step and
+  three sparse ones. Against JAX's Trainer at (1, 2) on two placeholder
+  devices (the data degree 1 of the port's run, because an MoE layer's
+  capacity counts the tokens of one data shard in both packages) up to
+  the first sparse update: the parameters after the warm-up, the losses
+  through the first sparse step. From there the packages part by design:
+  JAX selects each rank's chunks on its own pool, which holds its own
+  copy of every replicated leaf, so its copies part after a sparse step
+  (ROADMAP.md C.1); the port selects on the model group's summed norms.
+  Each sparse step is held to that selection
+  (``test_torch_model_axis.check_csc_steps``: the ranks' ids equal and
+  ``repro.core.csc.select_chunks``' on the numpy sum of their norms, each
+  rank's reduce ``repro.core.csc.csc_reduce``'s given that basis), and
+  every replicated leaf is the same bits on both ranks after every step.
 
 The JAX references run in two subprocesses (``repro.launch`` meshes need
 their device count fixed at import) started with the ranks.
 """
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -53,12 +57,16 @@ from repro_torch.configs.base import OptimizerConfig, TrainConfig
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch.trainer import Trainer
 from repro_torch.models import build_model
-from test_torch_model_axis import _flat, _free_port, _tree
+from test_torch_model_axis import (_flat, _free_port, _tree,
+                                   assert_replicas_equal, check_csc_steps,
+                                   record_csc, replicated_leaves)
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 TESTS = os.path.dirname(os.path.abspath(__file__))
 B, S = 2, 16
 STEPS = 2
+# CSC: step 0 the dense warm-up, steps 1-3 sparse.
+CSC_STEPS = 4
 RTOL, BF16_RTOL = 2e-5, 6e-3
 KV1 = "stablelm-12b:kv1"  # stablelm-smoke with one KV head
 GROUPS = {"moe": ("arctic-480b", "grok-1-314b"), "vlm": ("internvl2-26b",),
@@ -118,7 +126,7 @@ def _inputs(case):
     out = {f"p/{k}": v for k, v in _flat(convert.params_to_numpy(params))
            .items()}
     rng = np.random.default_rng(0)
-    for t in range(STEPS):
+    for t in range(CSC_STEPS):
         shape = (B, S + 1) + ((cfg.num_codebooks,)
                               if cfg.family == "audio" else ())
         toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
@@ -159,11 +167,12 @@ def _jax_batch(b):
                            else jnp.int32) for k, v in b.items()}
 
 
-def jax_train(case, mode, f32, mesh_shape, inputs, steps):
-    """(losses, final parameters {leaf: array}) of JAX's Trainer from the
-    inputs' weights on their batches. ``init_state`` takes the inputs'
-    weights in place of its initialiser's draw (which compiles a program
-    a leaf shape: ~3-4 s a Trainer on the CPU)."""
+def jax_train(case, mode, f32, mesh_shape, inputs, steps, snap=None):
+    """(losses, parameters {leaf: array} after ``snap`` steps (default:
+    the last)) of JAX's Trainer from the inputs' weights on their
+    batches. ``init_state`` takes the inputs' weights in place of its
+    initialiser's draw (which compiles a program a leaf shape: ~3-4 s a
+    Trainer on the CPU)."""
     from unittest import mock
 
     import jax
@@ -188,7 +197,9 @@ def jax_train(case, mode, f32, mesh_shape, inputs, steps):
             state, m = fns[stage.index](state, jax.device_put(
                 _jax_batch(_batch(inputs, t))))
             losses.append(float(m["loss"]))
-    return losses, _flat(jax.tree_util.tree_map(np.asarray, state.params))
+            if t + 1 == (snap or steps):
+                out = _flat(jax.tree_util.tree_map(np.asarray, state.params))
+    return losses, out
 
 
 def jax_grads(case, inputs):
@@ -217,12 +228,13 @@ def jax_refs(tmp, cases):
             out = dict(loss=np.asarray(loss),
                        **{f"g/{k}": v for k, v in grads.items()})
         else:
-            mode, f32, mesh_shape, steps = {
-                "lazy32": ("lazy", True, (1, 1), STEPS),
-                "lazy16": ("lazy", False, (1, 1), STEPS),
-                "csc": ("csc", True, (1, 2), STEPS)}[what]
+            mode, f32, mesh_shape, steps, snap = {
+                "lazy32": ("lazy", True, (1, 1), STEPS, None),
+                "lazy16": ("lazy", False, (1, 1), STEPS, None),
+                # Through the first sparse step; the warm-up's params.
+                "csc": ("csc", True, (1, 2), 2, 1)}[what]
             losses, final = jax_train(case, mode, f32, mesh_shape, inputs,
-                                      steps)
+                                      steps, snap)
             out = dict(losses=np.asarray(losses),
                        **{f"p/{k}": v for k, v in final.items()})
         np.savez(os.path.join(tmp, f"jax_{_tag(case)}_{what}.npz"), **out)
@@ -290,7 +302,7 @@ def rank_main(rank, group, tmp):
         saved = {}
         runs = [("lazy32", "lazy", True, STEPS)] * (case in TRAINED) + [
             ("lazy16", "lazy", False, STEPS)] * (case in BF16_ARCHS) + [
-            ("csc", "csc", True, STEPS)] * (case in CSC_ARCHS)
+            ("csc", "csc", True, CSC_STEPS)] * (case in CSC_ARCHS)
         for what, mode, f32, steps in [("grad", "lazy", True, 0)] + runs:
             trainer = port_trainer(case, mode, f32, mesh)
             local = convert.params_from_numpy(convert.shard_params(
@@ -307,14 +319,27 @@ def rank_main(rank, group, tmp):
                     saved[f"grad/g/{k}"] = v
                 continue
             state = trainer.init_state(params=local)
-            fns, losses = {}, []
-            for t in range(steps):
-                stage = trainer.gf.stage_for_step(t)
-                if stage.index not in fns:
-                    fns[stage.index] = trainer.build_train_step(stage)
-                state, m = fns[stage.index](state,
-                                            _torch_batch(_batch(inputs, t)))
-                losses.append(float(m["loss"]))
+            fns, losses, recs = {}, [], []
+            rep = replicated_leaves(trainer)
+            with record_csc(recs) if mode == "csc" \
+                    else contextlib.nullcontext():
+                for t in range(steps):
+                    stage = trainer.gf.stage_for_step(t)
+                    if stage.index not in fns:
+                        fns[stage.index] = trainer.build_train_step(stage)
+                    state, m = fns[stage.index](
+                        state, _torch_batch(_batch(inputs, t)))
+                    losses.append(float(m["loss"]))
+                    # Copies: the state's tensors are updated in place.
+                    flat = {k: v.copy() for k, v in _flat(
+                        convert.params_to_numpy(state.params)).items()}
+                    for k in rep:
+                        saved[f"{what}/rep{t}/{k}"] = flat[k]
+                    if mode == "csc" and t == 0:  # the warm-up's
+                        for k, v in flat.items():
+                            saved[f"{what}/snap/{k}"] = v
+            for i, r in enumerate(recs):
+                saved.update({f"csc/s{i}/{k}": v for k, v in r.items()})
             saved[f"{what}/losses"] = np.asarray(losses)
             saved[f"{what}/all_reduces"] = np.asarray(
                 trainer.model_axis.stats["all_reduces"])
@@ -455,12 +480,20 @@ def test_csc_at_1x2_matches_jax_1x2(runs, case):
     ref, ranks = runs[case]
     want = ref["csc"]
     for r in ranks:
-        np.testing.assert_allclose(r["csc/losses"], want["losses"],
+        # JAX's (1, 2) Trainer through the first sparse step.
+        np.testing.assert_allclose(r["csc/losses"][:2], want["losses"],
                                    rtol=RTOL)
-    got = _gathered(case, ranks, "csc/p/")
+        assert r["csc/losses"].shape == (CSC_STEPS,)
+        assert np.isfinite(r["csc/losses"]).all()
+    got = _gathered(case, ranks, "csc/snap/")
     for name, g in got.items():
         np.testing.assert_allclose(g, want[f"p/{name}"], rtol=RTOL,
                                    atol=1e-6, err_msg=name)
+    # Then the summed selection, three sparse steps: the ids, the
+    # reduce, and the replicated leaves equal across the ranks (C.1).
+    check_csc_steps(ranks, [(0, 1)], [(0,), (1,)], 512, CSC_STEPS - 1)
+    assert assert_replicas_equal(ranks, [(0, 1)], "csc") \
+        == CSC_STEPS * len(_replicated(case))
 
 
 @pytest.mark.parametrize("case", CLI_ARCHS)
