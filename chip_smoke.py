@@ -427,6 +427,24 @@
        scale, and commit the next step. ``launches_model_axis_update_path``:
        both ranks' launches; pool_pack, pool_unpack_update, chunk_l1norm
        and csc_compact must each have launched.
+   (ar) the rest of training under the model axis, after (ap), in four
+       processes on this card: olmo-1b at its published widths, 2 of its
+       16 layers, 1 x 4096 tokens a data rank, blockwise attention beyond
+       1024, lazy, bf16 wire, kernels on, 3 steps on one repeated batch
+       at mesh (2, 2) with the flat collective and then with pallas_ring:
+       each model index's data ring launches ring_allreduce once a bucket
+       a step (the count equals the plan's), the flat run none; the two
+       data ranks of a model index see the same losses; the ring's losses
+       within 6e-3 of the flat run's and each leaf block's update norm
+       within 2^-4; step ms and peak memory a rank. Then ranks 0 and 1 in
+       a new group of two at (1, 2), olmo-smoke in CSC on the bf16 wire:
+       a checkpoint at step 2 (JAX's global layout, rank 0 writing)
+       restored in place gives the uninterrupted next step bit for bit;
+       the CLI with --ckpt-dir, a checkpoint every 2 steps and a host fault
+       after step 3 restarts once and gives the fault-free losses; and
+       build_train_window refuses on the card, naming the model group's
+       gloo sums. ``launches_model_axis_collectives``: every rank's
+       launches.
    The kernels' dispatch counts are set to 0 just before each run and
    read just after: every kernel of the run's path must have launched,
    exactly as often as its step plans say, and no plain version may have
@@ -438,7 +456,8 @@ optimizer ops, one for the quantized ring, the MoE layer's card-against-
 CPU line, the Mamba layers' card-against-CPU line, the scan and SSD
 timings' line, the serving line, the timeline and soak line, the model
 axis line, the model axis update path line, the other families' model
-axis line, one per train run (the
+axis line, the rest of training's model axis line (ar), one per train
+run (the
 long sequences' and the families' runs too), the attention line, the windowed GuardLane's, the host seconds of
 each group of phases and of the script in all, the card's nvidia-smi
 line, the kernel summary line (each kernel with ``in_graph``: whether a
@@ -5485,12 +5504,12 @@ TP_UPDATE_RTOL = 2.0 ** -4
 
 
 def axis_trainer(train_mod, argv, cut=None, f32=False, guard=False,
-                 microbatches=1, overlap=None):
+                 microbatches=1, overlap=None, algo=None):
     """An (ao), (ap) or (aq) trainer: ``train.build`` of ``argv`` (its
     ``--mesh``), the ModelConfig fields in ``cut`` replaced (``num_layers``,
     or ``num_experts`` of its MoEConfig), in f32 when ``f32``; with the
-    numeric guard (``GuardConfig()``), ``microbatches`` and ``overlap``
-    set, which the CLI has no flags for."""
+    numeric guard (``GuardConfig()``), ``microbatches``, ``overlap`` and
+    the collective ``algo`` set, which the CLI has no flags for."""
     import dataclasses
     from repro_torch.configs.base import GuardConfig
     from repro_torch.launch.mesh import make_mesh
@@ -5510,10 +5529,12 @@ def axis_trainer(train_mod, argv, cut=None, f32=False, guard=False,
         gf = dataclasses.replace(gf, guard=GuardConfig())
     if overlap:
         gf = dataclasses.replace(gf, overlap=overlap)
+    if algo:
+        gf = dataclasses.replace(gf, collective_algo=algo)
     cfg = cfg.replace(model=m, gradientflow=gf, microbatches=microbatches)
-    d, mm = args.mesh_shape
+    shape = args.mesh_shape
     return args, cfg, Trainer(cfg, device=args.device, mesh=make_mesh(
-        (d, mm)) if mm > 1 else None)
+        shape) if shape[-1] > 1 else None)
 
 
 def update_norms(torch, trainer, init, final, blocks: int) -> dict:
@@ -6363,6 +6384,316 @@ def model_axis_families_phase(torch, ops, train_mod, synthetic) -> dict:
 _PHASE_T = [T_START]
 
 
+# -- (ar) the rest of training under the model axis -------------------------
+
+# (ar-1): olmo-1b at its published widths (d_model 2048, 16 heads, d_ff
+# 8192, vocab 50304), AR_LAYERS of its 16 layers, 1 x 4096 tokens a data
+# rank (a global batch of 2), blockwise attention beyond 1024, lazy, bf16
+# wire, momentum SGD, kernels on, at mesh (2, 2) as four processes on this
+# card: AR_STEPS steps on one repeated batch with the flat collective, then
+# with pallas_ring (each model index's data ring of two ranks: the ring
+# kernel over CUDA IPC workspaces, one a data group). The ring's losses
+# within JAX's own 6e-3 of the flat run's, each leaf block's update norm
+# within 2^-4 (TP_LOSS_RTOL, TP_UPDATE_RTOL).
+AR_LAYERS = 2
+AR_CUT = {"num_layers": AR_LAYERS}
+AR_STEPS = 3
+AR_ARGV = ["--arch", "olmo-1b", "--seq-len", "4096", "--batch", "2",
+           "--attn-chunk", "1024", "--gf-mode", "lazy", "--use-kernels",
+           "--window-steps", "1", "--steps", str(AR_STEPS), "--mesh", "2x2"]
+# (ar-2)-(ar-4): ranks 0 and 1 in a new group of two at mesh (1, 2),
+# olmo-smoke in CSC (one dense warm-up step, then sparse: the census and
+# the gather on the local pool) on the bf16 wire with kernels: (ar-2) a
+# checkpoint at step 2 (hg rows, chunk norms, momentum in JAX's global
+# layout) restored in place, the next step bit for bit the uninterrupted
+# one; (ar-3) the CLI with --ckpt-dir, a checkpoint every 2 steps and a
+# host fault after step 3: one restart, the fault-free run's losses; (ar-4)
+# build_train_window on the card refuses, naming the model group's gloo
+# sums (a CUDA graph cannot hold them).
+AR_SMOKE_ARGV = ["--arch", "olmo-1b", "--reduced", "--seq-len", "128",
+                 "--batch", "2", "--gf-mode", "csc", "--csc-warmup", "1",
+                 "--chunk-elems", "2048", "--use-kernels", "--mesh", "1x2"]
+AR_CLI_ARGV = AR_SMOKE_ARGV + ["--steps", "4", "--window-steps", "1",
+                               "--ckpt-every", "2"]
+AR_FAULT_AFTER = 3
+
+
+def ring_launches(trainer, steps: int) -> int:
+    """The ``ring_allreduce`` launches ``steps`` steps of a dense or lazy
+    plan need: one a pallas_ring bucket and a level of more than one
+    rank."""
+    gf = trainer.gf
+    levels = sum(lv.size > 1 for lv in gf.cfg.topology.levels)
+    return levels * sum(
+        sum(t.algo.name == "pallas_ring" for t in gf.plan(
+            gf.stage_for_step(s)).tasks) for s in range(steps))
+
+
+def ar_run(torch, ops, train_mod, synthetic, algo: str) -> dict:
+    """One (ar-1) rank's run under ``algo``: weights drawn on the card
+    from the seed, this rank's data shard of the first batch repeated,
+    the counts set to 0 before the steps and read after, step ms, peak
+    memory, each leaf block's update norm."""
+    args, cfg, trainer = axis_trainer(train_mod, AR_ARGV, AR_CUT, algo=algo)
+    mesh = trainer.mesh
+    params = trainer.shard_params(trainer.model.init_params(
+        args.seed, trainer.device, on_device=True))
+    init = _tree_clone(params)
+    state = trainer.init_state(params=params)
+    n = trainer.num_data
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch // n, cfg.seq_len, shard=mesh.data_index)
+    step = trainer.build_train_step()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    losses, seconds = [], []
+    for _ in range(args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    counts = dict(ops.dispatch_counts)
+    want = expected_counts(trainer, args.steps)
+    rings = ring_launches(trainer, args.steps)
+    if rings:
+        want["ring_allreduce.kernel"] = rings
+    lab = f"(ar-1) {algo} rank {mesh.rank}"
+    check(counts == want, f"{lab}: dispatch counts {counts}, expected "
+          f"{want}")
+    check(all(math.isfinite(x) for x in losses), f"{lab}: losses {losses}")
+    out = dict(algo=algo, losses=losses,
+               step_ms=[x * 1e3 for x in seconds],
+               steady_step_ms=statistics.median(seconds[1:]) * 1e3,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               dispatch_counts=counts, ring_launches_per_step=rings
+               / args.steps,
+               buckets=len(trainer.engine.plan_for().tasks),
+               algos=sorted({t.algo.name
+                             for t in trainer.engine.plan_for().tasks}),
+               local_pool_elems=trainer.pool.size,
+               global_pool_elems=trainer.global_pool,
+               update_norms=update_norms(torch, trainer, init, state.params,
+                                         1))
+    del state, step, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+class FailOnce(list):
+    """The CLI's window record, raising once after the window that ends
+    at ``step`` (a host fault inside the window's call)."""
+
+    def __init__(self, step):
+        super().__init__()
+        self.step, self.fired = step, False
+
+    def append(self, item):
+        super().append(item)
+        if item["start"] + item["length"] == self.step and not self.fired:
+            self.fired = True
+            raise RuntimeError(f"host fault after step {self.step}")
+
+
+def ar_smoke(torch, ops, train_mod, synthetic, path: str) -> dict:
+    """(ar-2)-(ar-4) on one rank of the (1, 2) group; checkpoints under
+    ``path`` (shared by both ranks)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    out = {}
+    args, cfg, trainer = axis_trainer(train_mod, AR_SMOKE_ARGV)
+    mgr = CheckpointManager(os.path.join(path, "ar2"),
+                            layout=trainer.checkpoint_layout())
+    state = trainer.init_state(args.seed)
+    batch = synthetic.SyntheticLM(cfg.model.vocab_size, seed=args.seed) \
+        .batch(0, cfg.global_batch, cfg.seq_len)
+    steps = {}
+
+    def step(state):
+        stage = trainer.gf.stage_for_step(state.step)
+        if stage.index not in steps:
+            steps[stage.index] = trainer.build_train_step(stage)
+        return steps[stage.index](state, batch)
+
+    ops.reset_counts()
+    for _ in range(2):
+        state, _ = step(state)
+    mgr.save(2, state, blocking=True)
+    state, m = step(state)
+    first = (float(m["loss"]), state_digest(state))
+    restored, state = mgr.restore(state)
+    check(restored == 2 and state.step == 2, f"(ar-2) restored {restored}")
+    state, m = step(state)
+    again = (float(m["loss"]), state_digest(state))
+    out["ckpt"] = dict(step_after=first[0], restored_step_after=again[0],
+                       bit_for_bit=first == again,
+                       global_shapes={
+                           m["name"]: m["shape"] for m in manifest(
+                               os.path.join(path, "ar2"), 2)["leaves"]},
+                       dispatch_counts=dict(ops.dispatch_counts))
+    # (ar-4): the window refuses on the card, naming the gloo model group;
+    # any other failure propagates.
+    try:
+        trainer.build_train_window(2)
+        out["window_refusal"] = None
+    except ValueError as e:
+        out["window_refusal"] = str(e)
+    del state, step, trainer
+    runs = {}
+    for name, record in (("fault", FailOnce(AR_FAULT_AFTER)),
+                         ("clean", [])):
+        args = train_mod.parse_args(AR_CLI_ARGV + [
+            "--ckpt-dir", os.path.join(path, f"ar3_{name}")])
+        ops.reset_counts()
+        _, losses, _, stats = train_mod.train(args, record=record)
+        runs[name] = dict(losses=losses, restarts=stats["restarts"],
+                          restart_causes=stats["restart_causes"],
+                          dispatch_counts=dict(ops.dispatch_counts))
+    out["cli"] = runs
+    return out
+
+
+def ar_worker(rank: int, ports, out: str, path: str) -> None:
+    """One rank of (ar): (ar-1) in the group of four, then on ranks 0 and
+    1 (ar-2)-(ar-4) in a new group of two. Writes its findings to ``out``
+    as JSON."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_reduce
+    from repro_torch.launch import train as train_mod
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{ports[0]}", world_size=4, rank=rank)
+    record = dict(rank=rank)
+    try:
+        record["runs"] = [ar_run(torch, ops, train_mod, synthetic, algo)
+                          for algo in ("flat", "pallas_ring")]
+        ring_reduce.release_workspaces()
+    finally:
+        dist.destroy_process_group()
+    if rank < 2:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                                f"{ports[1]}", world_size=2, rank=rank)
+        try:
+            record["smoke"] = ar_smoke(torch, ops, train_mod, synthetic,
+                                       path)
+        finally:
+            dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def ar_phase() -> dict:
+    """(ar): the four (ar-1) rank processes (two of which go on to
+    (ar-2)-(ar-4)); the checks of each part."""
+    t0 = time.perf_counter()
+    ports = [free_port(), free_port()]
+    path = ckpt_dir("ar")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"ar_rank{r}.json") for r in range(4)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--ar-rank", str(r), "--port",
+                               f"{ports[0]},{ports[1]}", "--out", outs[r],
+                               "--ckpt", path]) for r in range(4)]
+    try:
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        fail("(ar): the ranks did not finish within 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs),
+          f"(ar): rank exit codes {[p.returncode for p in procs]}")
+    ranks = []
+    for o in outs:
+        with open(o) as f:
+            ranks.append(json.load(f))
+    clear_checkpoints()
+    return dict(ar_checks(ranks), seconds=time.perf_counter() - t0)
+
+
+def ar_checks(ranks) -> dict:
+    """(ar)'s checks on the four ranks' records; its line's record."""
+    counts = {}
+    for r in ranks:
+        flat, ring = r["runs"]
+        lab = f"(ar-1) rank {r['rank']}"
+        check(flat["algos"] == ["flat"] and ring["algos"] == ["pallas_ring"]
+              and "ring_allreduce.kernel" not in flat["dispatch_counts"]
+              and ring["ring_launches_per_step"] == ring["buckets"] > 0,
+              f"{lab}: algorithms {flat['algos']} / {ring['algos']}, ring "
+              f"launches a step {ring['ring_launches_per_step']} for "
+              f"{ring['buckets']} buckets")
+        # The two data ranks of a model index see the same losses.
+        mate = ranks[r["rank"] ^ 2]["runs"]
+        check(flat["losses"] == mate[0]["losses"]
+              and ring["losses"] == mate[1]["losses"],
+              f"{lab}: losses differ from its data mate's")
+        err = max(rel(a, b) for a, b in zip(ring["losses"], flat["losses"]))
+        check(err <= TP_LOSS_RTOL, f"{lab}: ring losses {ring['losses']} "
+              f"against flat {flat['losses']}")
+        worst = max(rel(g[0], w[0])
+                    for name, g in ring["update_norms"].items()
+                    for w in [flat["update_norms"][name]] if w[0])
+        check(worst <= TP_UPDATE_RTOL,
+              f"{lab}: update norms off by {worst} relative")
+        ring["loss_rel_err_vs_flat"], ring["update_norm_rel_err_vs_flat"] = \
+            err, worst
+        for run in r["runs"]:
+            del run["update_norms"]
+            for k, v in run["dispatch_counts"].items():
+                counts[k] = counts.get(k, 0) + v
+    for r in ranks[:2]:
+        sm = r["smoke"]
+        lab = f"(ar) rank {r['rank']}"
+        check(sm["ckpt"]["bit_for_bit"], f"{lab} (ar-2): restored step "
+              f"{sm['ckpt']['restored_step_after']} != "
+              f"{sm['ckpt']['step_after']}")
+        msg = sm["window_refusal"]
+        check(msg is not None and "model group's gloo sums" in msg,
+              f"{lab} (ar-4): window on the card: {msg}")
+        cli = sm["cli"]
+        check(cli["fault"]["restarts"] == 1 and cli["clean"]["restarts"] == 0
+              and cli["fault"]["losses"] == cli["clean"]["losses"]
+              and len(cli["clean"]["losses"]) == 4,
+              f"{lab} (ar-3): {cli}")
+        for src in (sm["ckpt"]["dispatch_counts"],
+                    cli["fault"]["dispatch_counts"]):
+            for k, v in src.items():
+                counts[k] = counts.get(k, 0) + v
+    check(all(counts.get(k, 0) > 0 for k in SOAK_LANE_KERNELS
+              + ("ring_allreduce.kernel",))
+          and not any(k.endswith(".plain") for k in counts),
+          f"(ar) launches {counts}")
+    note = ("mesh (2, 2) as four processes on one card: the ranks take "
+            "turns on the device (time-sliced); the model group's sums go "
+            "through pinned host memory and gloo, the flat data sum too; "
+            "pallas_ring's data ring is the CUDA kernel over IPC "
+            "workspaces. A step time is no NVLink's")
+    return dict(arch="olmo-1b", mesh=[2, 2], layers=AR_LAYERS,
+                reduced={"num_layers": [16, AR_LAYERS]}, tokens_per_rank=4096,
+                steps=AR_STEPS, ranks=ranks, loss_rtol=TP_LOSS_RTOL,
+                update_rtol=TP_UPDATE_RTOL, dispatch_counts_all_ranks=counts,
+                note=note)
+
+
 def phase_seconds(label: str) -> None:
     """Print the host seconds since the last such line (a guide to what
     each phase costs of the script's time limit)."""
@@ -6399,6 +6730,13 @@ def main() -> None:
         ap_worker(int(argv[argv.index("--ap-rank") + 1]),
                   int(argv[argv.index("--port") + 1]),
                   argv[argv.index("--out") + 1])
+        return
+    if "--ar-rank" in sys.argv:
+        argv = sys.argv[1:]
+        ar_worker(int(argv[argv.index("--ar-rank") + 1]),
+                  [int(x) for x in argv[argv.index("--port") + 1].split(",")],
+                  argv[argv.index("--out") + 1],
+                  argv[argv.index("--ckpt") + 1])
         return
     if "--cli-train" in sys.argv:
         argv = sys.argv[1:]
@@ -6572,6 +6910,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(model_axis_families=ap, gpu=name,
                           power_limit=power)), flush=True)
     phase_seconds("model axis, the other families (ap)")
+    ar = ar_phase()
+    print(json.dumps(dict(model_axis_collectives=ar, gpu=name,
+                          power_limit=power)), flush=True)
+    phase_seconds("model axis, the rest of training (ar)")
     for e in entries:
         extra = {"pool_pack": olmo_pack,
                  "pool_unpack_update": olmo_update}.get(e["name"], {})
@@ -6612,6 +6954,10 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
         # the CSC CLI, the fault.
         e["launches_model_axis_update_path"] = \
             aq["dispatch_counts_both_ranks"].get(key, 0)
+        # (ar) every rank: (ar-1)'s flat and pallas_ring runs at (2, 2),
+        # (ar-2)'s steps and (ar-3)'s faulted CLI run at (1, 2).
+        e["launches_model_axis_collectives"] = \
+            ar["dispatch_counts_all_ranks"].get(key, 0)
     check(all(soak_run["lane_launches"].get(k, 0) > 0
               and tp["dispatch_counts_both_ranks"].get(k, 0) > 0
               and ap["dispatch_counts_both_ranks"].get(k, 0) > 0

@@ -32,6 +32,22 @@ With ``logical=True`` a single process saves or restores a state that
 holds the row leaves whole, stacked ``[N, pool]`` (a host state of the
 JAX layout: how an elastic relaunch re-splits ``hg``, ``reshard``).
 
+Under a model axis of M ranks (``Trainer.checkpoint_layout``, a
+``ModelLayout``, passed as ``layout``) each rank holds blocks of JAX's
+global arrays, and the checkpoint holds the global arrays:
+
+* a parameter leaf the rules shard is its model ranks' blocks joined
+  along the sharded dimension; a replicated leaf is rank 0's copy;
+* a pool-space leaf (the optimizer state, CSC's chunk norms) is the local
+  pools concatenated in model-rank order (JAX's ``P('model')``);
+* a row leaf is ``[N, M x pool]``: data rank d's row is its model ranks'
+  local rows concatenated (JAX's ``P(data_axes, 'model')``).
+
+The blocks reach rank 0 of the mesh, which writes: a parameter or pool
+leaf over data index 0's model group, a row leaf over the default group.
+``restore`` slices each rank's block back into its live tensors. The
+manifest is the JAX Trainer's for the same state.
+
 * **Async**: ``save`` copies the state to host memory before it returns
   (the next step overwrites the state's tensors in place), device leaves
   into pinned buffers the manager keeps for the next save; a daemon
@@ -49,6 +65,7 @@ JAX layout: how an elastic relaunch re-splits ``hg``, ``reshard``).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -80,6 +97,60 @@ ROW_LEAF_NAMES = ("gf/hg", "gf/residual")
 # numpy has no bfloat16: a bf16 scratch placeholder is the 2-byte void.
 _BF16 = "bfloat16"
 _BF16_DESCR = "<V2"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelLayout:
+    """Where one rank's state sits in the global arrays under a model axis
+    of ``model_size`` > 1 ranks: its model and data indices, the model
+    group's process group, and the model-sharded dimension of each
+    parameter leaf by checkpoint name (None: replicated)."""
+
+    model_size: int
+    model_index: int
+    num_data: int
+    data_index: int
+    model_group: Any
+    param_dims: Dict[str, Optional[int]]
+
+    def kind(self, name: str) -> str:
+        """'row', 'pool', 'param' (model-sharded) or 'replicated'."""
+        if name in ROW_LEAF_NAMES:
+            return "row"
+        if name in self.param_dims:
+            return "replicated" if self.param_dims[name] is None \
+                else "param"
+        if name.startswith("opt/") or name == "gf/chunk_norms":
+            return "pool"
+        return "replicated"
+
+    def dim(self, name: str) -> int:
+        """The dimension the model ranks' blocks join along."""
+        return self.param_dims[name] if self.kind(name) == "param" else 0
+
+    def local(self, name: str, a: np.ndarray, live: torch.Tensor
+              ) -> Tuple[Tuple[int, ...], np.ndarray]:
+        """(the global shape of a leaf shaped like ``live``, this rank's
+        block of ``a`` when ``a`` has that shape)."""
+        kind, n, m = self.kind(name), live.numel(), self.model_index
+        if kind == "replicated":
+            return tuple(live.shape), a
+        if kind == "row":
+            if not n:
+                return (1, 0), a.reshape(0)
+            shape = (self.num_data, n * self.model_size)
+            return shape, a[self.data_index, m * n:(m + 1) * n] \
+                if a.shape == shape else a
+        if not n:
+            return tuple(live.shape), a
+        dim = self.dim(name)
+        shape = list(live.shape)
+        size = shape[dim]
+        shape[dim] *= self.model_size
+        index = [slice(None)] * len(shape)
+        index[dim] = slice(m * size, (m + 1) * size)
+        return tuple(shape), a[tuple(index)] \
+            if a.shape == tuple(shape) else a
 
 
 def is_scratch(name: str) -> bool:
@@ -201,6 +272,30 @@ def _gather_rows(row: torch.Tensor, world: int, rank: int
     return torch.stack(rows) if rank == 0 else None
 
 
+def _gather_global(name: str, t: torch.Tensor, lay: ModelLayout,
+                   world: int, rank: int) -> Optional[torch.Tensor]:
+    """The global array of a leaf of which ``t`` is this rank's block, on
+    rank 0 (None elsewhere): ``ModelLayout``'s layout. Collective: a row
+    leaf over the default group, a parameter or pool leaf over data
+    index 0's model group (the other ranks take no part)."""
+    kind = lay.kind(name)
+    if kind == "row":
+        rows = _gather_rows(t, world, rank)
+        return rows.reshape(lay.num_data, -1) \
+            if rows is not None and rows.numel() else rows
+    if kind == "replicated" or t.numel() == 0:
+        return t
+    if lay.data_index != 0:
+        return None
+    t = t.detach().contiguous()
+    if t.is_cuda and dist.get_backend(lay.model_group) != "nccl":
+        t = t.cpu()
+    parts = [torch.empty_like(t) for _ in range(lay.model_size)] \
+        if rank == 0 else None
+    dist.gather(t, gather_list=parts, dst=0, group=lay.model_group)
+    return torch.cat(parts, lay.dim(name)) if rank == 0 else None
+
+
 def _sha256(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
@@ -224,16 +319,19 @@ class CheckpointManager:
     """``writes`` holds one record a checkpoint this rank wrote: its step,
     the writer's seconds (hash and write) and the bytes of its
     ``arrays.npz``. In a process whose mesh has a model axis
-    (``launch.mesh.make_mesh``) it refuses to be built (ROADMAP.md
-    A.23)."""
+    (``launch.mesh.make_mesh``) it needs that rank's ``layout``
+    (``Trainer.checkpoint_layout()``)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 layout: Optional[ModelLayout] = None):
         from repro_torch.parallel import collectives
-        if collectives.data_group() is not None:
-            raise ValueError("checkpoints under a model axis are not "
-                             "ported yet; see ROADMAP.md A.23")
+        if collectives.data_group() is not None and layout is None:
+            raise ValueError("a checkpoint under a model axis needs the "
+                             "rank's layout: CheckpointManager(..., "
+                             "layout=trainer.checkpoint_layout())")
         self.directory = directory
         self.keep = keep
+        self.layout = layout
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -262,11 +360,12 @@ class CheckpointManager:
     def save(self, step: int, state: Any, blocking: bool = False,
              logical: bool = False) -> None:
         """Save ``state`` as step ``step``. Every rank calls this (with
-        ``logical``, the state's row leaves are whole: see the module
-        docstring)."""
+        ``logical``, the state's leaves are whole, the row leaves too:
+        see the module docstring)."""
         assert_flushed_state(state, what="CheckpointManager.save")
         self.wait()  # at most one in-flight save
         world, rank = _world()
+        lay = None if logical else self.layout
         leaves, streams = [], set()
         for name, x in flatten(state):
             if is_scratch(name):
@@ -277,7 +376,9 @@ class CheckpointManager:
                     True))
                 continue
             t = _leaf_tensor(name, x)
-            if name in ROW_LEAF_NAMES and not logical:
+            if lay is not None:
+                t = _gather_global(name, t, lay, world, rank)
+            elif name in ROW_LEAF_NAMES and not logical:
                 t = _gather_rows(t, world, rank)
             if rank == 0:
                 a = self._host(name, t, streams)
@@ -289,28 +390,7 @@ class CheckpointManager:
 
         def _write():
             try:
-                t0 = time.perf_counter()
-                manifest = {"step": int(step), "leaves": [
-                    {"name": n, "shape": list(a.shape), "dtype": d,
-                     "sha256": _sha256(a), **({"scratch": True} if s
-                                              else {})}
-                    for n, a, d, s in leaves]}
-                tmp = os.path.join(self.directory, f"step_{step}.tmp")
-                final = os.path.join(self.directory, f"step_{step}")
-                if os.path.exists(tmp):
-                    shutil.rmtree(tmp)
-                os.makedirs(tmp)
-                npz = os.path.join(tmp, "arrays.npz")
-                _savez(npz, [(a, d) for _, a, d, _ in leaves])
-                nbytes = os.path.getsize(npz)
-                with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                    json.dump(manifest, f)
-                if os.path.exists(final):
-                    shutil.rmtree(final)
-                os.rename(tmp, final)
-                self._gc()
-                self.writes.append(dict(step=int(step), bytes=nbytes,
-                                        seconds=time.perf_counter() - t0))
+                self.write_leaves(step, leaves)
             except BaseException as e:  # propagated on next wait()
                 self._error = e
 
@@ -320,6 +400,33 @@ class CheckpointManager:
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
+
+    def write_leaves(self, step: int, leaves: List[Tuple[str, np.ndarray,
+                                                         str, bool]]) -> None:
+        """Hash and write (name, host array, dtype name, scratch) leaves as
+        step ``step``: into ``.tmp``, then renamed; older steps past
+        ``keep`` removed; the write recorded in ``writes``."""
+        t0 = time.perf_counter()
+        manifest = {"step": int(step), "leaves": [
+            {"name": n, "shape": list(a.shape), "dtype": d,
+             "sha256": _sha256(a), **({"scratch": True} if s else {})}
+            for n, a, d, s in leaves]}
+        tmp = os.path.join(self.directory, f"step_{step}.tmp")
+        final = os.path.join(self.directory, f"step_{step}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        npz = os.path.join(tmp, "arrays.npz")
+        _savez(npz, [(a, d) for _, a, d, _ in leaves])
+        nbytes = os.path.getsize(npz)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        self._gc()
+        self.writes.append(dict(step=int(step), bytes=nbytes,
+                                seconds=time.perf_counter() - t0))
 
     @property
     def writing(self) -> bool:
@@ -394,7 +501,8 @@ class CheckpointManager:
                 logical: bool = False) -> Tuple[int, Any]:
         """Restore into ``like``: every tensor leaf is overwritten in
         place (``copy_``), each rank taking its own row of the row
-        leaves; scratch leaves keep the live tensor; a Python int leaf
+        leaves (under a ``layout``, its block of each global array);
+        scratch leaves keep the live tensor; a Python int leaf
         becomes the saved value. Returns (step, a state of ``like``'s
         structure sharing its tensors). Shapes and dtypes are strict
         (``ValueError``). Every rank calls this. With ``logical`` the row
@@ -430,6 +538,7 @@ class CheckpointManager:
             raise ValueError(f"checkpoint has {len(leaves)} leaves, state "
                              f"needs {len(want)}")
         world, rank = _world()
+        lay = None if logical else self.layout
         out = []
         for (name, w), a, meta in zip(want, leaves, manifest["leaves"]):
             if meta["name"] != name:
@@ -441,7 +550,10 @@ class CheckpointManager:
             if meta["dtype"] == _BF16:
                 raise ValueError(f"{name}: a bfloat16 leaf needs ml_dtypes "
                                  f"to be restored")
-            if name in ROW_LEAF_NAMES and not logical:
+            if lay is not None and isinstance(w, torch.Tensor):
+                shape, src = lay.local(name, a, w)
+                dtype = _numpy_dtype_name(w)
+            elif name in ROW_LEAF_NAMES and not logical:
                 n = w.numel()
                 shape = (world, n) if n else (1, 0)
                 src = a[rank] if n else a.reshape(0)

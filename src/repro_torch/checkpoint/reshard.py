@@ -15,6 +15,14 @@ In PyTorch a new world size is a relaunch: the new processes restore (into
 a host state of the old layout, when ``hg`` must be re-split), reshard and
 build their Trainer. ``plan`` checks feasibility first, so a supervisor
 can choose between world sizes before moving bytes.
+
+Under a model axis the model degree stays (an elastic event changes only
+the data degree, as in the JAX package) and the checkpoint holds JAX's
+global arrays, which no data degree shapes but the row leaves'
+``[N, M x pool]``. A run without them (dense, lazy) restores at another
+data degree as it is; ``reshard_checkpoint`` rewrites a checkpoint's
+``hg`` rows for a new degree, before the relaunched ranks restore it,
+at any model degree.
 """
 from __future__ import annotations
 
@@ -114,3 +122,24 @@ def reshard_state(state: Any, new_num_data: int) -> Any:
             x = torch.from_numpy(reshard_hg(x.numpy(), new_num_data))
         out.append(x)
     return rebuild(state, out)
+
+
+def reshard_checkpoint(mgr, step: int, new_num_data: int) -> None:
+    """Rewrite checkpoint ``step`` of the manager ``mgr`` in place for
+    ``new_num_data`` data ranks: ``gf/hg``'s rows by ``reshard_hg`` (a
+    global ``[N, M x pool]`` array is re-split column by column, so any
+    model degree takes it); every other leaf as it is. A live
+    error-feedback residual of another row count raises, as in
+    ``reshard_state``. One process calls this before the relaunch."""
+    manifest, arrays = mgr._load_verified(step)
+    leaves = []
+    for meta, a in zip(manifest["leaves"], arrays):
+        name = meta["name"]
+        if name in ROW_LEAF_NAMES and a.size and a.shape[0] != new_num_data:
+            if name != "gf/hg":
+                raise ValueError(
+                    f"{name} of {a.shape[0]} rows has no reshard to "
+                    f"{new_num_data} ranks (only hg is re-split)")
+            a = reshard_hg(a, new_num_data).astype(a.dtype)
+        leaves.append((name, a, meta["dtype"], bool(meta.get("scratch"))))
+    mgr.write_leaves(step, leaves)

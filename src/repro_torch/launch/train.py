@@ -31,16 +31,18 @@ words with per-chunk scales and error feedback, ``core.wire``;
 accumulation has no flag, as in the JAX CLI: set
 ``TrainConfig.microbatches``. Inside an
 initialised ``torch.distributed`` group each rank trains on its own shard
-of the global batch. ``--mesh DxM``, the JAX CLI's flag, lays the D x M
-ranks out as a ('data', 'model') grid (``launch.mesh.make_mesh``; D x M
-must be the world size, default world x 1): M > 1 trains the model
-sharded over its model axis (``Trainer``'s, each architecture's rule
-table; every family the CLI trains, with every ``--optimizer`` and
-``--wire-format``), each data index's M ranks on the same batch shard.
-Under M > 1 the steps run one at a time
-(``--window-steps 1``) and without checkpoints (no supervisor, no
-``--ckpt-dir``): windows and checkpoints under a model axis are
-ROADMAP.md A.23, and asking for them raises.
+of the global batch. ``--mesh DxM`` or ``PxDxM``, the JAX CLI's flag,
+lays the ranks out as a ('data', 'model') or ('pod', 'data', 'model')
+grid (``launch.mesh.make_mesh``; the product must be the world size,
+default world x 1): M > 1 trains the model sharded over its model axis
+(``Trainer``'s, each architecture's rule table; every family the CLI
+trains, with every ``--optimizer`` and ``--wire-format``), each data
+index's M ranks on the same batch shard, the data index counted across
+pod x data; a pod axis makes the data reduce's topology two levels
+('pod' over 'data'). Windows and checkpoints run under the mesh as
+without it (on the card a window whose step sums through gloo, as a
+model group's sums do, is refused when it is built: pass
+``--window-steps 1`` there).
 
 The loop runs under ``runtime.TrainSupervisor.run_windows`` with a
 ``checkpoint.CheckpointManager(keep=3)`` in ``--ckpt-dir`` (default: a
@@ -65,6 +67,7 @@ index, one shard a rank, made in the loop's thread before each window
 from __future__ import annotations
 
 import argparse
+import math
 import signal
 import sys
 import tempfile
@@ -163,32 +166,29 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         raise ValueError(f"--window-steps must be >= 1, got "
                          f"{args.window_steps}")
     args.mesh_shape = mesh_shape(args.mesh)
-    if args.mesh_shape[1] > 1:
-        if args.window_steps != 1:
-            raise ValueError("--mesh with a model axis needs "
-                             "--window-steps 1: windows under a model axis "
-                             "are not ported yet; see ROADMAP.md A.23")
-        if args.ckpt_dir is not None:
-            raise ValueError("--ckpt-dir with a model axis: checkpoints "
-                             "under a model axis are not ported yet; see "
-                             "ROADMAP.md A.23")
     return args
 
 
-def mesh_shape(spec: Optional[str]) -> Tuple[int, int]:
-    """``--mesh DxM`` as (D, M); None: (world size, 1)."""
+def mesh_shape(spec: Optional[str]) -> Tuple[int, ...]:
+    """``--mesh`` as a mesh shape, as the JAX CLI reads it: ``D`` and
+    ``DxM`` as (D, 1) and (D, M), ('data', 'model'); ``PxDxM`` as
+    (P, D, M), ('pod', 'data', 'model'). None: (world size, 1)."""
     world = torch.distributed.get_world_size() \
         if torch.distributed.is_initialized() else 1
     if spec is None:
         return world, 1
     try:
-        d, m = (int(x) for x in spec.lower().split("x"))
+        shape = tuple(int(x) for x in spec.lower().split("x"))
     except ValueError:
-        raise ValueError(f"--mesh takes DxM, got {spec!r}") from None
-    if d * m != world:
-        raise ValueError(f"--mesh {spec}: {d * m} ranks, the world has "
-                         f"{world}")
-    return d, m
+        shape = ()
+    if not 1 <= len(shape) <= 3 or min(shape) < 1:
+        raise ValueError(f"--mesh takes D, DxM or PxDxM, got {spec!r}")
+    if len(shape) == 1:
+        shape += (1,)
+    if math.prod(shape) != world:
+        raise ValueError(f"--mesh {spec}: {math.prod(shape)} ranks, the "
+                         f"world has {world}")
+    return shape
 
 
 def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
@@ -208,19 +208,19 @@ def build(args: argparse.Namespace) -> Tuple[Trainer, TrainConfig]:
                       seq_len=args.seq_len, global_batch=args.batch,
                       attn_chunk=args.attn_chunk, seed=args.seed,
                       window_steps=args.window_steps)
-    d, m = args.mesh_shape
-    mesh = make_mesh((d, m)) if m > 1 else None
+    shape = args.mesh_shape
+    mesh = make_mesh(shape) if shape[-1] > 1 or len(shape) == 3 else None
     return Trainer(cfg, device=args.device, mesh=mesh), cfg
 
 
-def _ckpt_dir(args: argparse.Namespace, n: int) -> str:
+def _ckpt_dir(args: argparse.Namespace, world: int) -> str:
     """``--ckpt-dir``, or a fresh temporary directory (rank 0's, shared
     with the other ranks)."""
     if args.ckpt_dir is not None:
         return args.ckpt_dir
     path = [tempfile.mkdtemp(prefix="repro_torch_ckpt_")
-            if n == 1 or torch.distributed.get_rank() == 0 else None]
-    if n > 1:
+            if world == 1 or torch.distributed.get_rank() == 0 else None]
+    if world > 1:
         torch.distributed.broadcast_object_list(path, src=0)
     return path[0]
 
@@ -252,8 +252,9 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
     if cfg.global_batch % n:
         raise ValueError(f"--batch {cfg.global_batch} does not split over "
                          f"{n} ranks")
-    tp = trainer.model_size > 1
-    rank = trainer.mesh.data_index if tp else \
+    world = torch.distributed.get_world_size() \
+        if torch.distributed.is_initialized() else 1
+    rank = trainer.mesh.data_index if trainer.mesh is not None else \
         (torch.distributed.get_rank() if n > 1 else 0)
     # No prefetch thread: its batch making would take the interpreter
     # lock from the host-bound step (data.pipeline).
@@ -314,13 +315,8 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
                       flush=True)
         return state
 
-    if tp:
-        # One eager step at a time, no checkpoints (see the docstring).
-        for s in range(args.steps):
-            state = window_fn(s, 1, state)
-        return trainer, losses, seconds, dict(
-            restarts=0, restart_causes=[], backoffs_s=[], preempted=None)
-    ckpt = CheckpointManager(_ckpt_dir(args, n), keep=3)
+    ckpt = CheckpointManager(_ckpt_dir(args, world), keep=3,
+                             layout=trainer.checkpoint_layout())
     sup = TrainSupervisor(ckpt, SupervisorConfig(
         checkpoint_every=args.ckpt_every))
     # `is not None`: a checkpoint saved at step 0 is a real checkpoint.
@@ -346,7 +342,7 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
     # edge, then Preempted (one process only: see the module docstring).
     previous = signal.signal(
         signal.SIGTERM, lambda *_: sup.request_preemption()) \
-        if n == 1 else None
+        if world == 1 else None
     pipe.start(first)
     try:
         sup.run_windows(state, first, args.steps, window_fn, K,
@@ -356,7 +352,7 @@ def train(args: argparse.Namespace, record: Optional[List[dict]] = None
         print(f"preempted: checkpoint saved at step {stats['preempted']}",
               flush=True)
     finally:
-        if n == 1:
+        if world == 1:
             signal.signal(signal.SIGTERM, previous
                           if previous is not None else signal.SIG_DFL)
         pipe.stop()

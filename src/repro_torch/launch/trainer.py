@@ -72,8 +72,9 @@ over the same ranks (an elastic event); steps and windows built before it
 refuse to run. A checkpoint restore (``checkpoint``) writes into the
 state's tensors in place, so a captured window replays on it.
 
-``Trainer(cfg, device, mesh)`` with a ('data', 'model') mesh
-(``launch.mesh.make_mesh``) whose model axis has M > 1 ranks trains
+``Trainer(cfg, device, mesh)`` with a ('data', 'model') or ('pod',
+'data', 'model') mesh (``launch.mesh.make_mesh``) whose model axis has
+M > 1 ranks trains
 every family sharded over it, as the JAX Trainer does on such a mesh:
 the architecture's rule table (``configs.rules_for``) shards each weight
 (``parallel.sharding``); each rank holds its blocks, runs the model's
@@ -87,18 +88,22 @@ optimizer steps its local pool. ``global_pool`` and
 reduce is the JAX update region's on each rank's local pool: dense, lazy
 and CSC, staged or monolithic, momentum SGD, LARS (trust ratios over the
 local spans: a sharded leaf's block has its own ratio, as in JAX) or
-AdamW, an f32 or bf16 wire or the int8 and fp8-e4m3 wires with or without
-error feedback (scales from the rank's data-summed census, the residual
-on the local pool), microbatches, with or without the guard and kernels,
-one eager step at a time. Two things read the model group besides the
-model's own sums: CSC selects on the group's summed chunk norms, and the
-guard's verdict is the group's max of the flags, so the ranks of a model
-group select the same chunks and commit or skip together (both depart
-from JAX, which decides each on the rank's own pool; ROADMAP.md C). The
-rest under M > 1 (windows, a float16 wire, the ``pallas_ring``, ``tree``
-and ``two_level`` collectives, a data topology of more than one level,
-checkpoints, a replan to another model degree, serving) raises, naming
-ROADMAP.md A.23.
+AdamW, an f32, bf16 or float16 wire or the int8 and fp8-e4m3 wires with
+or without error feedback (scales from the rank's data-summed census,
+the residual on the local pool), microbatches, with or without the guard
+and kernels, eager steps or windows. The data reduce takes every
+collective algorithm (flat, ``pallas_ring``, ``tree``, ``two_level``,
+``auto``) over the topology of the mesh's data axes (one level, or
+('pod', 'data')'s two), each level group inside the rank's data group
+(``parallel.collectives.level_groups``). ``checkpoint_layout`` tells a
+``checkpoint.CheckpointManager`` how the rank's blocks sit in JAX's
+global arrays. Two things read the model group besides the model's own
+sums: CSC selects on the group's summed chunk norms, and the guard's
+verdict is the group's max of the flags, so the ranks of a model group
+select the same chunks and commit or skip together (both depart from
+JAX, which decides each on the rank's own pool; ROADMAP.md C). A replan
+to another model degree and serving under M > 1 raise, naming ROADMAP.md
+A.23.
 """
 from __future__ import annotations
 
@@ -162,20 +167,8 @@ def assert_flushed(state: TrainState, what: str = "checkpoint") -> None:
 
 def refuse_model_axis(cfg: TrainConfig, model_size: int,
                       rules: Dict[str, Optional[str]]) -> None:
-    """Raise, naming ROADMAP.md A.23, for what the port does not run
-    under a model axis of ``model_size`` > 1 ranks with the rule table
-    ``rules``; and for heads that the rules split but that do not split
-    over ``model_size`` ranks."""
-    gf = cfg.gradientflow
-    refused = [
-        (gf.wire_dtype not in ("float32", "bfloat16"),
-         f"a {gf.wire_dtype} wire"),
-        (gf.collective_algo not in ("flat", "auto"),
-         f"collective_algo={gf.collective_algo!r}"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise ValueError(f"{what} {_A23}")
+    """Raise for heads that the rule table ``rules`` splits but that do
+    not split over ``model_size`` > 1 model ranks."""
     m = cfg.model
 
     def split(axis):
@@ -218,7 +211,7 @@ class Trainer:
         self.specs = self.model.param_specs()
         self.mesh = mesh
         self.model_size = mesh.model_size if mesh is not None else 1
-        self.data_axes = ("data",)
+        self.data_axes = mesh.data_axes if mesh is not None else ("data",)
         self.rules = None
         self.model_axis = None
         self.local_specs = self.specs
@@ -234,10 +227,7 @@ class Trainer:
         self.num_data = mesh.num_data if mesh is not None \
             else collectives.data_world_size()
         gf_cfg = dataclasses.replace(gf_cfg, topology=mesh_topology(
-            self.num_data, gf_cfg.topology))
-        if self.model_size > 1 and len(gf_cfg.topology.levels) > 1:
-            raise ValueError(f"a data topology of more than one level "
-                             f"{_A23}")
+            self.num_data, gf_cfg.topology, self._data_shape()))
         self._prepare_groups(gf_cfg)
         # CSC chunking and the low-bit wires' per-chunk scales both key
         # off whole chunks: pad the pool to a chunk multiple for either.
@@ -283,6 +273,10 @@ class Trainer:
                              "segment tables: CSC's shared selection needs "
                              "them equal")
 
+    def _data_shape(self) -> Optional[Tuple[int, ...]]:
+        """The sizes of the mesh's data axes (None without a mesh)."""
+        return self.mesh.data_shape if self.mesh is not None else None
+
     def _prepare_groups(self, gf_cfg) -> None:
         """The level groups of the config's topology and, when a bucket
         may run the ring, their ring workspaces (collectively: every rank
@@ -305,14 +299,19 @@ class Trainer:
         plan cache cleared). Steps and windows built before hold the old
         plan and refuse to run: release the windows and build new ones.
         A new world size is a relaunch (``checkpoint.reshard``). ``mesh``
-        must keep the model degree: an elastic event changes only the
-        data degree (a new model degree is ROADMAP.md A.23)."""
-        if mesh is not None and mesh.model_size != self.model_size:
-            raise ValueError(f"a replan from model degree "
-                             f"{self.model_size} to {mesh.model_size} "
-                             f"{_A23}")
-        self.num_data = collectives.data_world_size()
-        topo = mesh_topology(self.num_data, topology)
+        (default: the trainer's) must keep the model degree: an elastic
+        event changes only the data degree (a new model degree is
+        ROADMAP.md A.23, and JAX asserts it away too); its data axes give
+        the default topology."""
+        if mesh is not None:
+            if mesh.model_size != self.model_size:
+                raise ValueError(f"a replan from model degree "
+                                 f"{self.model_size} to {mesh.model_size} "
+                                 f"{_A23}")
+            self.mesh, self.data_axes = mesh, mesh.data_axes
+        self.num_data = self.mesh.num_data if self.mesh is not None \
+            else collectives.data_world_size()
+        topo = mesh_topology(self.num_data, topology, self._data_shape())
         self._prepare_groups(dataclasses.replace(self.gf_cfg, topology=topo))
         self.engine.replan(topo, num_data_shards=self.num_data)
         self.gf_cfg = self.gf.cfg
@@ -416,18 +415,35 @@ class Trainer:
         loop); on the CPU they run eagerly. ``fault_hook(gpool, step)``
         gets the step as a 0-dim tensor on the trainer's device. With a
         deferred tail and window_steps > 1 the bodies run the cross-step
-        pipeline. On the card a step that would sum through a gloo group
-        raises here (``launch.window.host_collectives``)."""
+        pipeline, its lane on the local pool under a model axis. On the
+        card a step that would sum through a gloo group (the model group's
+        sums among them) raises here
+        (``launch.window.host_collectives``)."""
         from repro_torch.launch.window import TrainWindow
 
-        if self.model_size > 1:
-            raise ValueError(f"a train window {_A23}")
         if window_steps < 1:
             raise ValueError(f"window_steps must be >= 1, got {window_steps}")
         plan = self._pipeline_plan(stage) if window_steps > 1 else None
         body = self._step_body(stage, fault_hook, pipelined=plan is not None)
         return TrainWindow(self, window_steps, body, plan,
                            self.engine.plan_for(stage))
+
+    def checkpoint_layout(self):
+        """How this rank's state sits in the JAX Trainer's global arrays
+        (``checkpoint.manager.ModelLayout``), for a ``CheckpointManager``
+        under a model axis; None without one (the state is global)."""
+        if self.model_size == 1:
+            return None
+        from repro_torch.checkpoint.manager import ModelLayout
+        from repro_torch.core.pool import flatten_tree
+        dims = {"params/" + "/".join(path): sharding.model_dim(s, self.rules)
+                for path, s in flatten_tree(self.specs)}
+        return ModelLayout(model_size=self.model_size,
+                           model_index=self.mesh.model_index,
+                           num_data=self.num_data,
+                           data_index=self.mesh.data_index,
+                           model_group=self.mesh.model_group.group,
+                           param_dims=dims)
 
     def build_serve_step(self, shape, *, mode: str,
                          split_combine: bool = False):

@@ -25,9 +25,12 @@ at the first call for each L and replayed after it:
   failed capture raises: nothing falls back to the eager loop.
 * A gloo collective runs on the host and cannot be captured: a window
   whose step would sum through a gloo group (any algorithm but
-  ``pallas_ring``, and the CSC and low-bit census sums) refuses to be
+  ``pallas_ring``, the CSC and low-bit census sums, and under a model
+  axis the model group's sums, which are gloo on one card) refuses to be
   built on the card (``host_collectives``); such runs take one eager
-  step at a time (``--window-steps 1``).
+  step at a time (``--window-steps 1``). On the CPU a window under a
+  model axis runs its bodies eagerly, the pipelined lane on the rank's
+  local pool.
 * A restore (``checkpoint.CheckpointManager.restore``) writes into the
   state's own tensors, so the graph replays on the restored values with
   no new capture. A window built before ``Trainer.replan`` holds the old
@@ -60,15 +63,23 @@ def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
 def host_collectives(trainer, plan) -> List[str]:
     """The sums a step of ``plan`` would run through a gloo process group
     (on the host, so a CUDA graph cannot hold them): every bucket whose
-    algorithm is not ``pallas_ring`` (the device ring), and the census
-    sum of CSC and the low-bit wires. Empty without a process group, or
-    when the default group is NCCL."""
-    if not dist.is_initialized() or dist.get_backend() == "nccl":
+    algorithm is not ``pallas_ring`` (the device ring), the census sum of
+    CSC and the low-bit wires, and under a model axis the model group's
+    sums when that group is gloo. Empty without a process group, or
+    when every group is NCCL."""
+    if not dist.is_initialized():
         return []
-    found = [f"the {name} all-reduce of the buckets" for name in sorted(
-        {t.algo.name for t in plan.tasks} - {"pallas_ring"})]
-    if plan.mode == "csc" or trainer.gf.wire_spec is not None:
-        found.append("the census sum")
+    found = []
+    if dist.get_backend() != "nccl":
+        found = [f"the {name} all-reduce of the buckets" for name in sorted(
+            {t.algo.name for t in plan.tasks} - {"pallas_ring"})]
+        if plan.mode == "csc" or trainer.gf.wire_spec is not None:
+            found.append("the census sum")
+    axis = getattr(trainer, "model_axis", None)
+    if axis is not None and axis.size > 1 and \
+            dist.get_backend(axis.group) != "nccl":
+        found.append("the model group's gloo sums (the tensor-parallel "
+                     "all-reduces of the forward and backward)")
     return found
 
 
@@ -140,11 +151,10 @@ class TrainWindow:
             if host:
                 raise ValueError(
                     f"a CUDA-graph window cannot capture a step that runs "
-                    f"{' and '.join(host)} through the "
-                    f"{dist.get_backend()} process group (host "
+                    f"{' and '.join(host)} on the host (gloo "
                     f"collectives): use the device ring (pallas_ring) on "
-                    f"a native dense or lazy wire, or one eager step at a "
-                    f"time (--window-steps 1)")
+                    f"a native dense or lazy wire without a model axis, "
+                    f"or one eager step at a time (--window-steps 1)")
         self.trainer = trainer
         self._replans = trainer.replans
         self.window_steps = window_steps

@@ -9,17 +9,22 @@ group is the caller's to create (``torch.distributed.init_process_group``
 with an explicit address, world size and rank).
 
 A mesh with a model axis (``launch.mesh.make_mesh``) registers its data
-group here (``set_data_group``): the data-parallel reductions then run
-over that group, ``data_world_size`` is its size, and a one-level
-topology's level group is that group (a data topology of more levels
-under a model axis is ROADMAP.md A.23). Without one, the data group is
-the default group, as before.
+group here (``set_data_group``), with the ranks of every model index's
+data group: the data-parallel reductions then run over that group,
+``data_world_size`` is its size, a one-level topology's level group is
+that group, and a topology of more levels (the ('pod', 'data') mesh's
+two) is laid over the data group's ranks in their order. Without one,
+the data group is the default group, as before.
 
 Ranks map onto a topology's levels (slowest first) in row-major order:
-``rank = Σ coord_l · stride_l``. ``level_groups`` creates, once per
-topology shape and on every rank in one order, a group per level and per
-coordinate of the other levels, and a group per innermost coordinate over
-all outer levels (the two-level algorithm's middle phase).
+``index = Σ coord_l · stride_l``, the index a rank's place in the data
+group (its global rank without a model axis). ``level_groups`` creates,
+once per topology shape and on every rank in one order, a group per
+level and per coordinate of the other levels, and a group per innermost
+coordinate over all outer levels (the two-level algorithm's middle
+phase); under a model axis it does so inside each model index's data
+group in turn, so every rank creates every group, its own or not
+(``dist.new_group`` is collective over the world).
 """
 from __future__ import annotations
 
@@ -36,15 +41,22 @@ def _initialized() -> bool:
 
 
 # The data group of a mesh with a model axis (a LevelGroup), or None: the
-# default group.
+# default group; and the global ranks of every model index's data group,
+# in model order (the groups ``level_groups`` lays a topology over).
 _DATA: Optional["LevelGroup"] = None
+_DATA_ALL: Tuple[Tuple[int, ...], ...] = ()
 
 
-def set_data_group(lg: Optional["LevelGroup"]) -> None:
+def set_data_group(lg: Optional["LevelGroup"],
+                   every: Optional[Sequence[Sequence[int]]] = None) -> None:
     """Make ``lg`` the data-parallel group of this process (None: the
-    default group). ``launch.mesh.make_mesh`` calls this."""
-    global _DATA
+    default group). ``every`` lists the ranks of each model index's data
+    group, in model order (default: ``lg``'s alone).
+    ``launch.mesh.make_mesh`` calls this."""
+    global _DATA, _DATA_ALL
     _DATA = lg
+    _DATA_ALL = tuple(tuple(r) for r in every) if every is not None \
+        else ((tuple(lg.ranks),) if lg is not None else ())
 
 
 def data_group() -> Optional["LevelGroup"]:
@@ -134,11 +146,14 @@ def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
     return r
 
 
-def _groups_over(keep: Sequence[int], sizes: Sequence[int], me: int
-                 ) -> LevelGroup:
+def _groups_over(keep: Sequence[int], sizes: Sequence[int], me: int,
+                 ranks_of: Optional[Sequence[int]] = None
+                 ) -> Optional[LevelGroup]:
     """Create one group per coordinate of the levels outside ``keep``
     (row-major order), spanning the levels in ``keep``; return the one
-    that holds ``me``. Every rank calls this in the same order."""
+    that holds ``me`` (None when none does). ``ranks_of`` maps a
+    topology index to its global rank (default: the index itself).
+    Every rank calls this in the same order."""
     others = [l for l in range(len(sizes)) if l not in keep]
     mine = None
     for fixed in itertools.product(*[range(sizes[l]) for l in others]):
@@ -149,7 +164,8 @@ def _groups_over(keep: Sequence[int], sizes: Sequence[int], me: int
                 coords[l] = c
             for l, c in zip(keep, var):
                 coords[l] = c
-            ranks.append(_rank_of(coords, sizes))
+            i = _rank_of(coords, sizes)
+            ranks.append(ranks_of[i] if ranks_of is not None else i)
         group = dist.new_group(ranks) if len(ranks) > 1 else None
         if me in ranks:
             mine = LevelGroup(group=group, ranks=tuple(ranks),
@@ -166,13 +182,7 @@ def level_groups(topo) -> LevelGroups:
     sizes = tuple(lv.size for lv in topo.levels) if topo is not None \
         else (data_world_size(),)
     if _DATA is not None:
-        if sizes != (_DATA.size,):
-            raise ValueError(
-                f"a data topology of {sizes} ranks under a model axis: "
-                f"one level over the mesh's {_DATA.size} data ranks is "
-                f"ported, more levels are ROADMAP.md A.23")
-        solo = _DATA if _DATA.size > 1 else _SOLO
-        return LevelGroups(levels=(solo,), outer=None)
+        return _data_level_groups(sizes)
     if not _initialized():
         assert all(s == 1 for s in sizes), (
             f"a topology of {sizes} ranks needs a process group")
@@ -196,6 +206,36 @@ def level_groups(topo) -> LevelGroups:
                            for l in range(len(sizes)))
             outer = _groups_over(list(range(len(sizes) - 1)), sizes, me)
         found = _GROUPS[sizes] = LevelGroups(levels=levels, outer=outer)
+    return found
+
+
+def _data_level_groups(sizes: Tuple[int, ...]) -> LevelGroups:
+    """``level_groups`` under a model axis: the topology's levels laid
+    over the registered data group's ranks (row-major over its index),
+    the groups of every model index's data group created in model order
+    on every rank."""
+    n = 1
+    for s in sizes:
+        n *= s
+    if n != _DATA.size:
+        raise ValueError(f"a data topology of {sizes} ranks over a data "
+                         f"group of {_DATA.size}")
+    if len(sizes) == 1 or _DATA.size == 1:
+        solo = _DATA if _DATA.size > 1 else _SOLO
+        return LevelGroups(levels=(solo,) * len(sizes),
+                           outer=solo if len(sizes) > 1 else None)
+    key = (sizes, _DATA_ALL)
+    found = _GROUPS.get(key)
+    if found is None:
+        me = dist.get_rank()
+        levels: List[Optional[LevelGroup]] = [None] * len(sizes)
+        outer = None
+        for ranks in _DATA_ALL:
+            for l in range(len(sizes)):
+                levels[l] = _groups_over([l], sizes, me, ranks) or levels[l]
+            outer = _groups_over(list(range(len(sizes) - 1)), sizes, me,
+                                 ranks) or outer
+        found = _GROUPS[key] = LevelGroups(levels=tuple(levels), outer=outer)
     return found
 
 

@@ -24,6 +24,7 @@ level over the whole default group.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -119,13 +120,23 @@ class Topology:
 
 
 def mesh_topology(world_size: int,
-                  topology: Optional[Topology] = None) -> Topology:
-    """The data-parallel topology of a world of ``world_size`` ranks: the
-    given ``topology`` (which must cover exactly that many ranks), else
-    one ``('data', world_size)`` level — what the JAX package's
-    ``launch.mesh.mesh_topology`` derives from a one-axis data mesh."""
+                  topology: Optional[Topology] = None,
+                  data_shape: Optional[Sequence[int]] = None) -> Topology:
+    """The data-parallel topology of ``world_size`` data ranks: the given
+    ``topology`` (which must cover exactly that many ranks), else what
+    the JAX package's ``launch.mesh.mesh_topology`` derives from the
+    mesh's data axes: one ``('data', N)`` level, or with ``data_shape``
+    (P, D), a ('pod', 'data') mesh's, the levels ``('pod', P)`` (the
+    inter-node fabric) and ``('data', D)`` (the intra-node one)."""
     if topology is None:
-        return Topology.from_axis_sizes(("data",), (world_size,))
+        shape = tuple(data_shape) if data_shape else (world_size,)
+        if math.prod(shape) != world_size:
+            raise ValueError(f"data axes of {shape} for {world_size} data "
+                             f"ranks")
+        if len(shape) > 2:
+            raise ValueError(f"at most two data axes, got {shape}")
+        return Topology.from_axis_sizes(("pod", "data")[-len(shape):],
+                                        shape)
     if topology.num_devices != world_size:
         raise ValueError(f"topology {topology.axes} covers "
                          f"{topology.num_devices} ranks, the world has "

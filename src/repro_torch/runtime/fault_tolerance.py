@@ -20,7 +20,9 @@ not a snapshot by itself, as in the JAX package, where arrays are
 immutable: the supervisor copies it to host memory when ``run`` starts
 and, on a fault before any checkpoint exists, copies that back into the
 live tensors. On a multi-rank run every rank runs the same loop, so the
-checkpoint collectives line up.
+checkpoint collectives line up; under a model axis each rank's host copy
+is of its own blocks, and the manager (built with the trainer's
+``checkpoint_layout``) saves and restores the global arrays.
 """
 from __future__ import annotations
 

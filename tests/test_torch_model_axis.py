@@ -30,6 +30,19 @@ package's Trainer.
     (final minus initial) is held in norm: within 1e-2 of its size (up to
     3.5e-3 measured on the CPU; a gradient missing its model-group sum is
     off by order 1);
+  - ``pallas_ring`` (its plain twin over gloo) on CSC's compacted words
+    and on int8 words, against the flat modes within 2e-5;
+  - the float16 wire against JAX's (2, 2) Trainer: losses within 1e-5,
+    parameters within 1e-4 (the half-precision wire bound of
+    ``tests/test_torch_trainer.py``);
+  - ``build_train_window(3)`` with a 2-bucket deferred tail (the lane on
+    each rank's local pool) against JAX's (2, 2) window within 1e-5, and
+    bit for bit its own eager steps;
+  - checkpoints in JAX's global layout: CSC after its warm-up saved at
+    (2, 2) has JAX's manifest (names, shapes, dtypes) and arrays within
+    2e-5; JAX's (2, 2) checkpoint of the same run restored in place gives
+    JAX's next loss; a lazy checkpoint at (2, 2) restored at (1, 2) goes
+    on as the uninterrupted run (JAX's ``test_elastic_reshard_resume``);
   - guarded AdamW, 2 microbatches, monolithic, dense, against JAX's
     (1, 1) Trainer: the losses within 2e-5; each leaf's update within
     1e-3 of its size in norm, and every parameter within 2e-5 relative
@@ -47,28 +60,35 @@ package's Trainer.
   step with a NaN injected into rank 1's block of a sharded leaf only:
   both ranks trip, keep their parameters, momentum and residual bit for
   bit, halve the same scale, and commit the next step. Then the train
-  CLI at ``--mesh 1x2`` (lazy; LARS on the fp8 wire) and its refusals.
+  CLI at ``--mesh 1x2`` (lazy; LARS on the fp8 wire), and with
+  ``--ckpt-dir``, windows of 2 and a host fault after step 4: one restart
+  from the checkpoint at 4, the fault-free losses bit for bit.
 * On every rank the replicated leaves (norm weights, QK-norm scales)
   end bit for bit equal across the model ranks.
-* In one process: every combination the port does not run under a
-  model axis raises, naming ROADMAP.md A.23, for every family; the ones
-  it runs build over the local pool; heads that the rules split but
-  that do not split over the model ranks raise; without a model axis
-  CSC's selection reads the rank's own norms, as before.
+* In one process: the collective algorithms, a two-level topology and
+  the float16 wire build over the local pool for every family; serving
+  and a replan to another model degree raise, naming ROADMAP.md A.23;
+  heads that the rules split but that do not split over the model ranks
+  raise; without a model axis CSC's selection reads the rank's own
+  norms, as before.
 
-The spawns and the JAX subprocess start together (``runs``) and the JAX
-(1, 1) references are computed while they run. JAX's Trainer runs with
+The spawns and the two JAX (2, 2) subprocesses start together (``runs``)
+and the JAX (1, 1) references are computed while they run. The (2, 2)
+ranks wait for JAX's checkpoint file, the (1, 2) ranks for the (2, 2)
+ranks' (``wait_for``). JAX's Trainer runs with
 ``check_vma=False`` on its shard_maps (a test-time patch, as in
 ``tests/test_torch_accumulate.py``: its ``_accumulate`` fails jax 0.9's
 check; nothing in the JAX package changes).
 """
 import contextlib
 import dataclasses
+import json
 import os
 import socket
 import subprocess
 import sys
 import textwrap
+import time
 from unittest import mock
 
 import numpy as np
@@ -104,10 +124,27 @@ RUNS = {
 MODES = tuple(RUNS)
 # The modes whose reference is JAX's (1, 1) Trainer; the rest JAX's (2, 2).
 AT_1X1 = ("dense", "lazy", "adamw_mono")
+# The (2, 2) spawn's further modes: the device ring's plain twin on CSC
+# and on int8 words (against the flat modes), the float16 wire (against
+# JAX's (2, 2) Trainer), and a lazy run with a 2-bucket deferred tail
+# that the window pipelines (its eager steps run unpipelined).
+MORE = {
+    "csc_ring": (dict(mode="csc", collective_algo="pallas_ring"),
+                 "momentum_sgd", 1),
+    "int8_ring": (dict(mode="lazy", wire_format="int8",
+                       collective_algo="pallas_ring"), "momentum_sgd", 1),
+    "f16": (dict(mode="lazy", wire_dtype="float16"), "momentum_sgd", 1),
+    "window": (dict(mode="lazy", pipeline_tail_buckets=2), "momentum_sgd",
+               1),
+}
+RUNS.update(MORE)
+# The window's length; the checkpoints' step (CSC's last warm-up step).
+WINDOW = 3
+CKPT_STEP = CSC_WARMUP
 
 
 def _steps(mode):
-    return CSC_STEPS if mode == "csc" else STEPS
+    return CSC_STEPS if RUNS[mode][0]["mode"] == "csc" else STEPS
 
 
 def _model(arch, f32):
@@ -122,12 +159,13 @@ def train_cfg(base, arch, mode, f32, **gf_extra):
     gf = dict(gf)
     if gf.pop("guard", False):
         gf["guard"] = base.GuardConfig()
+    kw = dict(bucket_elems=4096, chunk_elems=512, sparsity=0.5,
+              warmup_steps=CSC_WARMUP if gf["mode"] == "csc" else 0,
+              warmup_stages=1, wire_dtype="float32")
+    kw.update(gf, **gf_extra)
     return base.TrainConfig(
         model=_model(arch, f32),
-        gradientflow=base.GradientFlowConfig(
-            bucket_elems=4096, chunk_elems=512, sparsity=0.5,
-            warmup_steps=CSC_WARMUP if mode == "csc" else 0,
-            warmup_stages=1, wire_dtype="float32", **gf, **gf_extra),
+        gradientflow=base.GradientFlowConfig(**kw),
         optimizer=base.OptimizerConfig(
             name=opt, learning_rate=1e-3 if opt == "adamw" else 0.2,
             warmup_steps=1, total_steps=20, schedule="constant"),
@@ -171,10 +209,11 @@ def jax_vma_check_off():
 
 
 def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS,
-            snap=None):
+            snap=None, save=None):
     """(losses, params as numpy after ``snap`` steps (default: the last),
     initial params) of JAX's Trainer (``steps`` 0: only the initial
-    parameters)."""
+    parameters). ``save``: a directory JAX's ``CheckpointManager`` saves
+    the state to after ``snap`` steps."""
     import jax
     from repro.configs import base as j_base
     from repro.configs import get_smoke as j_get_smoke
@@ -208,7 +247,39 @@ def jax_run(arch, mode, f32, mesh_shape=(1, 1), params=None, steps=STEPS,
             losses.append(float(m["loss"]))
             if t + 1 == snap:
                 out = jax.tree_util.tree_map(np.asarray, state.params)
+                if save is not None:
+                    from repro.checkpoint.manager import CheckpointManager
+                    CheckpointManager(save).save(snap, state, blocking=True)
     return losses, out, init
+
+
+def jax_window(params, mesh_shape=(2, 2)):
+    """(losses, final params) of JAX's ``build_train_window(WINDOW)`` on
+    the 'window' mode's config (a 2-bucket deferred tail, pipelined)."""
+    import jax
+    from repro.configs import base as j_base
+    from repro.configs import get_smoke as j_get_smoke
+    from repro.data.synthetic import SyntheticLM
+    from repro.launch.mesh import make_mesh as j_make_mesh
+    from repro.launch.trainer import Trainer as JTrainer
+    from repro.parallel.collectives import compat_set_mesh
+
+    cfg = train_cfg(j_base, "olmo-1b", "window", True)
+    mesh = j_make_mesh(mesh_shape, ("data", "model"))
+    data = SyntheticLM(cfg.model.vocab_size, seed=0)
+    stacked = [data.batch(t, B, S) for t in range(WINDOW)]
+    stacked = {k: np.stack([b[k] for b in stacked]) for k in stacked[0]}
+    with compat_set_mesh(mesh), jax_vma_check_off():
+        trainer = JTrainer(cfg, mesh, j_get_smoke("olmo-1b")[1])
+        state = trainer.init_state(jax.random.PRNGKey(0))
+        state = state._replace(params=jax.tree_util.tree_map_with_path(
+            lambda path, s: jax.device_put(
+                params["/".join(k.key for k in path)], s),
+            trainer.param_shardings))
+        state, m = trainer.build_train_window(WINDOW)(
+            state, jax.device_put(stacked))
+        return (np.asarray(m["loss"]),
+                jax.tree_util.tree_map(np.asarray, state.params))
 
 
 def batches(vocab, steps=CSC_STEPS):
@@ -219,20 +290,29 @@ def batches(vocab, steps=CSC_STEPS):
 
 
 # JAX's own (2, 2) runs: CSC through its first sparse step (the
-# parameters after the warm-up), guarded LARS and int8.
-JAX_22 = {"csc": dict(steps=CSC_WARMUP + 1, snap=CSC_WARMUP),
-          "lars_guard": {}, "int8": {}}
+# parameters and, saved to a checkpoint, the state after the warm-up),
+# guarded LARS, int8, the float16 wire and the window ('window'), in two
+# subprocesses (each run compiles its own programs).
+JAX_22 = {"csc": dict(steps=CSC_WARMUP + 1, snap=CSC_WARMUP, save=True),
+          "lars_guard": {}, "int8": {}, "f16": {}, "window": {}}
+JAX_22_SPLIT = (("csc", "lars_guard", "int8"), ("f16", "window"))
 
 _JAX_22 = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 sys.path[:0] = [{tests!r}, {src!r}]
 import numpy as np
-from test_torch_model_axis import jax_run, _flat, JAX_22
+from test_torch_model_axis import jax_run, jax_window, _flat, JAX_22
 params = dict(np.load({weights!r}))
 out = {{}}
-for mode, kw in JAX_22.items():
-    losses, final, _ = jax_run("olmo-1b", mode, True, (2, 2), params, **kw)
+for mode in {modes!r}:
+    kw = JAX_22[mode]
+    kw = dict(kw, save={ckpt!r}) if kw.get("save") else kw
+    if mode == "window":
+        losses, final = jax_window(params)
+    else:
+        losses, final, _ = jax_run("olmo-1b", mode, True, (2, 2), params,
+                                   **kw)
     out[mode + "/losses"] = np.asarray(losses)
     out.update({{mode + "/p/" + k: v for k, v in _flat(final).items()}})
 np.savez({out!r}, **out)
@@ -376,14 +456,15 @@ def replicated_leaves(trainer):
 
 
 def train_steps(trainer, state, inputs, rows, steps, saved, prefix,
-                snap=None):
-    """Run ``steps`` steps on the inputs' batches (this rank's ``rows``);
-    save the losses, the guard's trips and scales, the replicated leaves
-    after every step, the parameters after ``snap`` steps (and at the
-    end) under ``prefix``. Returns the state."""
+                snap=None, first=0, on_step=None):
+    """Run steps ``first`` to ``steps`` - 1 on the inputs' batches (this
+    rank's ``rows``); save the losses, the guard's trips and scales, the
+    replicated leaves after every step, the parameters after ``snap``
+    steps (and at the end) under ``prefix``; ``on_step(t, state)`` after
+    each step. Returns the state."""
     fns, losses, trips, scales = {}, [], [], []
     rep = replicated_leaves(trainer)
-    for t in range(steps):
+    for t in range(first, steps):
         stage = trainer.gf.stage_for_step(t)
         if stage.index not in fns:
             fns[stage.index] = trainer.build_train_step(stage)
@@ -402,6 +483,8 @@ def train_steps(trainer, state, inputs, rows, steps, saved, prefix,
         if t + 1 == snap:
             for name, v in flat.items():
                 saved[f"{prefix}/snap/{name}"] = v
+        if on_step is not None:
+            on_step(t, state)
     saved[f"{prefix}/losses"] = np.asarray(losses)
     if trips:
         saved[f"{prefix}/tripped"] = np.asarray(trips)
@@ -461,19 +544,154 @@ def fault_steps(mesh, inputs, rows, saved):
     saved["fault/injected"] = np.asarray(len(events))
 
 
+def wait_for(path, timeout=500.0):
+    """Wait until ``path`` exists (a checkpoint another process writes:
+    its directory appears by an atomic rename)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+
+
+def manager(trainer, directory):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    return CheckpointManager(str(directory),
+                             layout=trainer.checkpoint_layout())
+
+
+def _batch(inputs, rows, steps):
+    """The stacked [L, b, s] batches of ``steps`` for this rank's rows."""
+    return {k: torch.from_numpy(np.stack([inputs[f"{k}{t}"][rows]
+                                          for t in steps]))
+            for k in ("tokens", "labels")}
+
+
+def window_steps(mesh, full, inputs, rows, saved):
+    """The 'window' mode: ``build_train_window(WINDOW)`` (pipelined, its
+    lane on the local pool) and, from the same weights, WINDOW eager
+    steps of the same trainer (unpipelined)."""
+    from repro_torch.launch.trainer import is_flushed
+
+    trainer = port_trainer("olmo-1b", "window", True, mesh)
+    assert trainer._pipeline_plan() is not None
+    local = convert.shard_params(full, trainer.rules, mesh.model_size,
+                                 mesh.model_index, specs=trainer.specs)
+    init = convert.params_from_numpy(local, "cpu")
+    state = trainer.init_state(params=convert.params_from_numpy(local,
+                                                                "cpu"))
+    state, m = trainer.build_train_window(WINDOW)(
+        state, _batch(inputs, rows, range(WINDOW)))
+    assert is_flushed(state) and state.step == WINDOW
+    saved["window/losses"] = m["loss"].numpy().copy()
+    for name, v in _flat(convert.params_to_numpy(state.params)).items():
+        saved[f"window/p/{name}"] = v
+    state = trainer.init_state(params=init)
+    train_steps(trainer, state, inputs, rows, WINDOW, saved, "eager")
+
+
+def checkpoint_steps(mesh, full, inputs, rows, saved, tmp):
+    """Mesh (2, 2): CSC's warm-up steps saved at CKPT_STEP
+    (``port_csc``); JAX's (2, 2) checkpoint of the same run restored into
+    a fresh state, and its next (first sparse) step; lazy saved at
+    CKPT_STEP (``port_lazy``, which the (1, 2) ranks restore)."""
+    trainer = port_trainer("olmo-1b", "csc", True, mesh)
+    local = convert.shard_params(full, trainer.rules, mesh.model_size,
+                                 mesh.model_index, specs=trainer.specs)
+    mgr = manager(trainer, os.path.join(tmp, "port_csc"))
+    state = trainer.init_state(params=convert.params_from_numpy(local,
+                                                                "cpu"))
+    train_steps(trainer, state, inputs, rows, CKPT_STEP, saved, "ckpt_csc",
+                on_step=lambda t, st: t + 1 == CKPT_STEP and mgr.save(
+                    CKPT_STEP, st, blocking=True))
+    wait_for(os.path.join(tmp, "jax_csc", f"step_{CKPT_STEP}"))
+    fresh = trainer.init_state(seed=1)
+    step, state = manager(trainer, os.path.join(tmp, "jax_csc")).restore(
+        fresh)
+    assert step == CKPT_STEP and state.step == CKPT_STEP
+    from repro_torch.checkpoint.manager import flatten
+    assert all(a is b for (_, a), (_, b) in zip(flatten(state),
+                                                flatten(fresh))
+               if isinstance(b, torch.Tensor))
+    train_steps(trainer, state, inputs, rows, CKPT_STEP + 1, saved,
+                "from_jax", first=CKPT_STEP)
+    trainer = port_trainer("olmo-1b", "lazy", True, mesh)
+    mgr = manager(trainer, os.path.join(tmp, "port_lazy"))
+    state = trainer.init_state(params=convert.params_from_numpy(local,
+                                                                "cpu"))
+    train_steps(trainer, state, inputs, rows, CKPT_STEP, saved, "ckpt_lazy",
+                on_step=lambda t, st: t + 1 == CKPT_STEP and mgr.save(
+                    CKPT_STEP, st))
+    mgr.wait()
+
+
+def elastic_steps(mesh, inputs, saved, tmp):
+    """Mesh (1, 2): the (2, 2) lazy checkpoint restored at another data
+    degree (one data rank, the whole batch) and trained on to STEPS."""
+    full = _tree(_specs("olmo-1b"), {k[2:]: v for k, v in inputs.items()
+                                     if k.startswith("p/")})
+    trainer = port_trainer("olmo-1b", "lazy", True, mesh)
+    local = convert.shard_params(full, trainer.rules, mesh.model_size,
+                                 mesh.model_index, specs=trainer.specs)
+    state = trainer.init_state(params=convert.params_from_numpy(local,
+                                                                "cpu"))
+    wait_for(os.path.join(tmp, "port_lazy", f"step_{CKPT_STEP}"))
+    step, state = manager(trainer, os.path.join(tmp, "port_lazy")).restore(
+        state)
+    assert step == CKPT_STEP
+    train_steps(trainer, state, inputs, slice(0, B), STEPS, saved,
+                "elastic", first=CKPT_STEP)
+
+
+class FailOnce(list):
+    """The CLI's window record, raising once after the window that ends
+    at ``step`` (a host fault inside the window's call), on every rank."""
+
+    def __init__(self, step):
+        super().__init__()
+        self.step, self.fired = step, False
+
+    def append(self, item):
+        super().append(item)
+        if item["start"] + item["length"] == self.step and not self.fired:
+            self.fired = True
+            raise RuntimeError(f"host fault after step {self.step}")
+
+
+def cli_runs(args, tmp, saved):
+    """The CLI at ``--mesh 1x2`` with ``--ckpt-dir``, windows of 2 and a
+    checkpoint every 2 steps, a fault after step 4 and without one."""
+    from repro_torch.launch import train
+
+    for name, record in (("fault", FailOnce(4)), ("clean", None)):
+        argv = args + ["--steps", "6", "--window-steps", "2",
+                       "--ckpt-every", "2", "--ckpt-dir",
+                       os.path.join(tmp, f"cli_{name}")]
+        trainer, losses, _, stats = train.train(train.parse_args(argv),
+                                                record=record)
+        saved[f"cli_{name}/losses"] = np.asarray(losses)
+        saved[f"cli_{name}/stats"] = np.asarray(json.dumps(stats))
+    last = manager(trainer, os.path.join(tmp, "cli_fault"))
+    saved["cli_fault/steps"] = np.asarray(last.available_steps())
+
+
 def rank_main(rank, world, out):
     """One rank of the (2, 2) olmo run (world 4) or of the (1, 2) qwen3
-    run, fault and CLI checks (world 2); saves what the tests read."""
+    run, fault, elastic and CLI checks (world 2); saves what the tests
+    read."""
     mesh = t_mesh.make_mesh((2, 2) if world == 4 else (1, 2))
-    arch, f32, modes = ("olmo-1b", True, MODES) if world == 4 \
-        else ("qwen3-32b", False, ("lazy",))
-    inputs = dict(np.load(os.path.join(os.path.dirname(out),
-                                       f"{arch}_inputs.npz")))
+    arch, f32, modes = ("olmo-1b", True, MODES + ("csc_ring", "int8_ring",
+                                                  "f16")) \
+        if world == 4 else ("qwen3-32b", False, ("lazy",))
+    tmp = os.path.dirname(out)
+    inputs = dict(np.load(os.path.join(tmp, f"{arch}_inputs.npz")))
     full = _tree(_specs(arch), {k[2:]: v for k, v in inputs.items()
                                 if k.startswith("p/")})
     rows = slice(mesh.data_index * B // mesh.num_data,
                  (mesh.data_index + 1) * B // mesh.num_data)
     saved = {}
+    if world == 4:
+        checkpoint_steps(mesh, full, inputs, rows, saved, tmp)
     for mode in modes:
         trainer = port_trainer(arch, mode, f32, mesh)
         local = convert.shard_params(full, trainer.rules, mesh.model_size,
@@ -490,26 +708,29 @@ def rank_main(rank, world, out):
             trainer.model_axis.stats["all_reduces"])
         saved[f"{mode}/pool"] = np.asarray(
             [trainer.pool.size, trainer.global_pool])
+        saved[f"{mode}/algos"] = np.asarray(
+            [t.algo.name for t in trainer.engine.plan_for(
+                trainer.gf.stages[-1]).tasks])
+    if world == 4:
+        window_steps(mesh, full, inputs, rows, saved)
     if world == 2:
         fault_steps(mesh, inputs, rows, saved)
+        olmo = dict(np.load(os.path.join(tmp, "olmo-1b_inputs.npz")))
+        elastic_steps(mesh, olmo, saved, tmp)
         from repro_torch.launch import train
         args = ["--arch", "qwen3-32b", "--reduced", "--mesh", "1x2",
-                "--steps", "2", "--batch", "2", "--seq-len", "32",
-                "--gf-mode", "lazy", "--device", "cpu"]
-        for extra, what in ((["--window-steps", "8"], "window"),
-                            (["--window-steps", "1", "--ckpt-dir", out],
-                             "ckpt-dir")):
-            try:
-                train.parse_args(args + extra)
-                raise AssertionError(what)
-            except ValueError as e:
-                assert "ROADMAP.md A.23" in str(e), e
+                "--batch", "2", "--seq-len", "32", "--gf-mode", "lazy",
+                "--device", "cpu"]
+        cli_runs(args, tmp, saved)
+        args += ["--steps", "2"]
         saved["cli_losses"] = np.asarray(
             train.main(args + ["--window-steps", "1"]))
         saved["cli_lars_fp8_losses"] = np.asarray(train.main(
             args + ["--window-steps", "1", "--optimizer", "lars",
                     "--wire-format", "fp8_e4m3"]))
     np.savez(out, **saved)
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -548,12 +769,14 @@ def runs(tmp_path_factory):
         np.savez(tmp / f"{arch}_inputs.npz",
                  **batches(get_smoke(arch)[0].vocab_size),
                  **{f"p/{k}": v for k, v in init.items()})
-    jax22 = subprocess.Popen(
+    jax22 = [subprocess.Popen(
         [sys.executable, "-c", _JAX_22.format(
             tests=tests, src=SRC, weights=str(tmp / "olmo_init.npz"),
-            out=str(tmp / "jax22.npz"))],
+            out=str(tmp / f"jax22_{i}.npz"), ckpt=str(tmp / "jax_csc"),
+            modes=modes)],
         env=dict(os.environ, JAX_PLATFORMS="cpu"), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
+        for i, modes in enumerate(JAX_22_SPLIT)]
     script = tmp / "worker.py"
     script.write_text(_WORKER.format(tests=tests, src=SRC))
     procs = _spawn(script, 4, tmp) + _spawn(script, 2, tmp)
@@ -561,8 +784,9 @@ def runs(tmp_path_factory):
         ref[("olmo-1b", mode)] = jax_run("olmo-1b", mode, True)[:2]
     ref[("qwen3-32b", "lazy")] = jax_run("qwen3-32b", "lazy", False)[:2]
     _wait(procs)
-    _wait([jax22])
-    j22 = dict(np.load(tmp / "jax22.npz"))
+    _wait(jax22)
+    j22 = {k: v for i in range(len(JAX_22_SPLIT))
+           for k, v in np.load(tmp / f"jax22_{i}.npz").items()}
     for mode in JAX_22:
         ref[("olmo-1b", mode)] = (
             list(j22[f"{mode}/losses"]),
@@ -571,6 +795,7 @@ def runs(tmp_path_factory):
                                       if k.startswith(f"{mode}/p/")}))
     ranks = {w: [dict(np.load(tmp / f"w{w}_rank{r}.npz")) for r in range(w)]
              for w in (4, 2)}
+    ref["tmp"] = tmp
     return ref, ranks
 
 
@@ -696,6 +921,138 @@ def test_one_rank_fault_skips_on_every_model_rank(runs):
                                       [init, init / 2, init / 2])
 
 
+def _params_of(r, prefix):
+    return _gathered(r[:2], prefix, "olmo-1b")
+
+
+@pytest.mark.parametrize("mode,flat", [("csc_ring", "csc"),
+                                       ("int8_ring", "int8")])
+def test_pallas_ring_on_csc_and_int8_words_matches_flat(runs, mode, flat):
+    """Each data group's reduce through the ring's plain twin (the words
+    of CSC's compacted chunks, the int8 words) against the flat gloo sum:
+    two data ranks' values add in either order to the same f32 (and the
+    int8 sums are exact), so within 2e-5 as every f32 sum-order bound
+    here; every bucket took the ring."""
+    r = runs[1][4]
+    for p in r:
+        np.testing.assert_allclose(p[f"{mode}/losses"], p[f"{flat}/losses"],
+                                   rtol=RTOL)
+        assert set(p[f"{mode}/algos"]) == {"pallas_ring"}
+        assert set(p[f"{flat}/algos"]) == {"flat"}
+    _assert_params(_params_of(r, f"{mode}/p/"), _params_of(r, f"{flat}/p/"),
+                   RTOL, 1e-6, mode)
+
+
+def test_float16_wire_matches_jax(runs):
+    """The float16 wire at (2, 2) against JAX's (2, 2) Trainer, at the
+    port's half-precision wire bound without a model axis
+    (``tests/test_torch_trainer.py``): losses within 1e-5, parameters
+    within 1e-4 absolute (a last-bit gradient difference can flip the
+    wire's rounding of a few elements)."""
+    ref, ranks = runs
+    want_losses, want = ref[("olmo-1b", "f16")]
+    for p in ranks[4]:
+        np.testing.assert_allclose(p["f16/losses"], want_losses, rtol=1e-5)
+    _assert_params(_params_of(ranks[4], "f16/p/"), want, 0, 1e-4, "f16")
+
+
+def test_window_matches_jax_and_its_eager_steps(runs):
+    """``build_train_window(3)`` with a 2-bucket deferred tail at (2, 2):
+    its losses and flushed parameters against JAX's (2, 2)
+    ``build_train_window`` within 1e-5 (parameters 2e-5, the f32
+    sum-order bound), and bit for bit the port's own eager steps (the
+    lane on the local pool applies the same updates in the same order)."""
+    ref, ranks = runs
+    want_losses, want = ref[("olmo-1b", "window")]
+    for p in ranks[4]:
+        np.testing.assert_allclose(p["window/losses"], want_losses,
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(p["window/losses"], p["eager/losses"])
+        for k in p:
+            if k.startswith("window/p/"):
+                np.testing.assert_array_equal(
+                    p[k], p["eager/p/" + k[len("window/p/"):]], err_msg=k)
+    _assert_params(_params_of(ranks[4], "window/p/"), want, RTOL, 1e-6,
+                   "window")
+
+
+def _manifest(d):
+    with open(os.path.join(d, f"step_{CKPT_STEP}", "manifest.json")) as f:
+        return json.load(f)
+
+
+def test_checkpoint_is_jaxs_global_layout(runs):
+    """The port's (2, 2) CSC checkpoint after the warm-up and JAX's of the
+    same run: the same leaf names, shapes and dtypes (the parameters
+    whole, the momentum and chunk norms [2 x pool], hg [2, 2 x pool]), and
+    the same arrays within the f32 bound (2e-5; hg is zero after the
+    dense warm-up in both)."""
+    ref, _ = runs
+    tmp = ref["tmp"]
+    got, want = _manifest(tmp / "port_csc"), _manifest(tmp / "jax_csc")
+    assert [(m["name"], m["shape"], m["dtype"], m.get("scratch", False))
+            for m in got["leaves"]] == [
+        (m["name"], m["shape"], m["dtype"], m.get("scratch", False))
+        for m in want["leaves"]]
+    shapes = {m["name"]: m["shape"] for m in got["leaves"]}
+    trainer = Trainer(train_cfg(t_base, "olmo-1b", "csc", True),
+                      device="cpu", mesh=_fake_mesh(2))
+    assert shapes["opt/momentum"] == [trainer.global_pool]
+    assert shapes["gf/hg"] == [2, trainer.global_pool]
+    assert shapes["gf/chunk_norms"] == [trainer.num_chunks_global]
+    a = np.load(tmp / "port_csc" / f"step_{CKPT_STEP}" / "arrays.npz")
+    b = np.load(tmp / "jax_csc" / f"step_{CKPT_STEP}" / "arrays.npz")
+    for i, m in enumerate(got["leaves"]):
+        x, y = a[f"leaf_{i}"], b[f"leaf_{i}"]
+        if m["name"] == "gf/chunk_norms":
+            # Each norm sums a chunk's 512 |values|: relative to the norm.
+            np.testing.assert_allclose(x, y, rtol=RTOL, err_msg=m["name"])
+        else:
+            np.testing.assert_allclose(x, y, rtol=RTOL, atol=1e-6,
+                                       err_msg=m["name"])
+
+
+def test_jax_checkpoint_restores_into_the_port(runs):
+    """JAX's (2, 2) checkpoint restored into the port's (2, 2) ranks, in
+    place: the next step's loss is JAX's (within 1e-5)."""
+    ref, ranks = runs
+    want = ref[("olmo-1b", "csc")][0][CKPT_STEP]
+    for p in ranks[4]:
+        np.testing.assert_allclose(p["from_jax/losses"], [want], rtol=1e-5)
+
+
+def test_checkpoint_restored_at_another_data_degree_continues(runs):
+    """The port's (2, 2) lazy checkpoint restored at (1, 2), as JAX's
+    ``test_elastic_reshard_resume`` does: the losses of the steps after
+    it are the uninterrupted (2, 2) run's, within the f32 sum-order bound
+    (2e-5; JAX's test allows 2e-4)."""
+    _, ranks = runs
+    want = ranks[4][0]["lazy/losses"][CKPT_STEP:]
+    np.testing.assert_array_equal(ranks[4][0]["ckpt_lazy/losses"],
+                                  ranks[4][0]["lazy/losses"][:CKPT_STEP])
+    for p in ranks[2]:
+        np.testing.assert_allclose(p["elastic/losses"], want, rtol=RTOL)
+
+
+def test_cli_restarts_from_a_checkpoint_under_a_model_axis(runs):
+    """The CLI at ``--mesh 1x2`` with ``--ckpt-dir`` and windows of 2: a
+    fault after step 4 restarts both ranks from the checkpoint at 4; the
+    losses are the run's without the fault, bit for bit."""
+    r = runs[1][2]
+    for p in r:
+        fault = json.loads(str(p["cli_fault/stats"]))
+        clean = json.loads(str(p["cli_clean/stats"]))
+        assert fault["restarts"] == 1 and clean["restarts"] == 0, fault
+        assert fault["restart_causes"] == ["RuntimeError: host fault after "
+                                           "step 4"]
+        np.testing.assert_array_equal(p["cli_fault/losses"],
+                                      p["cli_clean/losses"])
+        assert p["cli_fault/losses"].shape == (6,)
+        assert list(p["cli_fault/steps"]) == [2, 4, 6]
+    np.testing.assert_array_equal(r[0]["cli_fault/losses"],
+                                  r[1]["cli_fault/losses"])
+
+
 # -- under a model axis in one process ----------------------------------------
 
 
@@ -715,9 +1072,9 @@ def _cfg(arch="olmo-1b", opt="momentum_sgd", micro=1, **gf):
 
 
 _TWO_LEVEL = Topology.from_axis_sizes(("node", "gpu"), (1, 1))
-# The families train under a model axis; what stays refused for the
-# dense family stays refused for each of them.
-REFUSED = {
+# The collective algorithms, a data topology of two levels and the
+# float16 wire under a model axis, for the dense family and each other.
+COLLECTIVES = {
     "moe": _cfg("arctic-480b", collective_algo="pallas_ring"),
     "vlm": _cfg("internvl2-26b", collective_algo="tree"),
     "audio": _cfg("musicgen-large", topology=_TWO_LEVEL),
@@ -730,10 +1087,22 @@ REFUSED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_combinations_raise(name):
-    with pytest.raises(ValueError, match="ROADMAP.md A.23"):
-        Trainer(REFUSED[name], device="cpu", mesh=_fake_mesh())
+@pytest.mark.parametrize("name", sorted(COLLECTIVES))
+def test_collectives_and_wires_build_under_a_model_axis(name):
+    """Each builds over the local pool: its buckets take the named
+    algorithm over the config's topology (``auto`` keeps the flat ring:
+    on levels of one rank it ties, and a tie goes to flat), on the
+    float16 wire's dtype."""
+    cfg = COLLECTIVES[name]
+    trainer = Trainer(cfg, device="cpu", mesh=_fake_mesh())
+    gf = cfg.gradientflow
+    assert trainer.global_pool == 2 * trainer.pool.size
+    assert trainer.gf_cfg.wire_dtype == gf.wire_dtype
+    levels = [(lv.axis, lv.size) for lv in trainer.gf_cfg.topology.levels]
+    assert levels == ([("node", 1), ("gpu", 1)] if gf.topology is not None
+                      else [("data", 1)])
+    want = gf.collective_algo if gf.collective_algo != "auto" else "flat"
+    assert {t.algo.name for t in trainer.engine.plan_for().tasks} == {want}
 
 
 # The update-path features that train under a model axis: each builds
@@ -819,26 +1188,37 @@ def test_selection_without_a_model_axis_is_unchanged():
     assert not seen and state.step == 3
 
 
-def test_model_axis_refusals_after_construction():
+def test_model_axis_refusals_after_construction(tmp_path):
+    """Serving and a replan to another model degree still raise, naming
+    ROADMAP.md A.23; a window builds; a checkpoint manager in a process
+    whose mesh has a model axis needs the trainer's layout."""
     trainer = Trainer(_cfg(), device="cpu", mesh=_fake_mesh())
     assert trainer.global_pool == 2 * trainer.pool.size
     assert trainer.num_chunks_global == 2 * trainer.gf.num_chunks
-    for call in (lambda: trainer.build_train_window(4),
-                 lambda: trainer.build_serve_step(None, mode="decode"),
+    for call in (lambda: trainer.build_serve_step(None, mode="decode"),
                  lambda: trainer.replan(mesh=_fake_mesh(4))):
         with pytest.raises(ValueError, match="ROADMAP.md A.23"):
             call()
     trainer.replan(mesh=_fake_mesh(2))  # the same model degree
+    trainer.build_train_window(4)
     # Heads that the rules split but that do not split over the model
     # ranks (olmo-smoke shards 'qkv' and 'kv_heads').
     with pytest.raises(ValueError, match="KV heads"):
         Trainer(_cfg(), device="cpu", mesh=_fake_mesh(3))
-    # Checkpoints in a process whose mesh has a model axis.
     from repro_torch.checkpoint.manager import CheckpointManager
+    layout = trainer.checkpoint_layout()
+    assert (layout.model_size, layout.model_index, layout.num_data) == (
+        2, 0, 1)
+    assert layout.kind("opt/momentum") == "pool"
+    assert layout.kind("gf/hg") == "row" and layout.kind("step") == \
+        "replicated"
+    assert Trainer(_cfg(), device="cpu").checkpoint_layout() is None
     collectives.set_data_group(LevelGroup(None, (0,), 0))
     try:
-        with pytest.raises(ValueError, match="ROADMAP.md A.23"):
-            CheckpointManager("unused")
+        with pytest.raises(ValueError, match="layout"):
+            CheckpointManager(str(tmp_path))
+        assert CheckpointManager(str(tmp_path), layout=layout).layout \
+            is layout
     finally:
         collectives.set_data_group(None)
 

@@ -171,8 +171,12 @@ def test_mesh_topology_equals_jax():
             host.model_index) == (1, 1, 0, 0)
     with pytest.raises(ValueError, match="needs 2 ranks"):
         t_mesh.make_mesh((1, 2))
-    with pytest.raises(ValueError, match="grids"):
-        t_mesh.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    # Three axes are JAX's ('pod', 'data', 'model'); other names refuse.
+    pod = t_mesh.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    assert (pod.axis_names, pod.data_axes, pod.num_data) == (
+        ("pod", "data", "model"), ("pod", "data"), 1)
+    with pytest.raises(ValueError, match="has axes"):
+        t_mesh.make_mesh((1, 1), ("pod", "model"))
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
