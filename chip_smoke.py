@@ -5653,12 +5653,13 @@ def tp_expected_all_reduces(layers: int) -> int:
     return 1 + 5 * layers + 1 + 3
 
 
-def tp_worker(rank: int, port: int, out: str) -> None:
-    """One rank of (ao) and (aq) at mesh (1, 2): two processes on this
-    card, the model group over gloo. The olmo-1b run (``axis_run``), then
-    olmo-smoke in CSC through the CLI (``train.train``), then (aq)'s runs
-    (``aq_runs``), each with the counts set to 0 before and read after.
-    Writes its findings to ``out`` as JSON."""
+def tp_worker(rank: int, port: int, out: str, as_dir: str) -> None:
+    """One rank of (ao), (aq) and (as) at mesh (1, 2): two processes on
+    this card, the model group over gloo. The olmo-1b run (``axis_run``),
+    then olmo-smoke in CSC through the CLI (``train.train``), then (aq)'s
+    runs (``aq_runs``), then (as)'s serving (``as_rank_runs``, against
+    the references under ``as_dir``), each with the counts set to 0
+    before and read after. Writes its findings to ``out`` as JSON."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5694,6 +5695,9 @@ def tp_worker(rank: int, port: int, out: str) -> None:
         run["aq"] = dict(runs=aq_runs(torch, ops, train_mod, synthetic,
                                       "1x2"))
         run["aq"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run["as"] = as_rank_runs(torch, ops, as_dir)
+        run["as"]["seconds"] = time.perf_counter() - t0
         with open(out, "w") as f:
             json.dump(run, f)
     finally:
@@ -5701,12 +5705,15 @@ def tp_worker(rank: int, port: int, out: str) -> None:
 
 
 def model_axis_phase(torch, ops, train_mod, synthetic):
-    """(ao) and (aq): the (1, 1) runs in this process, then the two (1, 2)
-    ranks (``tp_worker``) on the same weights. (ao): the losses within
-    TP_LOSS_RTOL of the (1, 1) run's, each leaf block's update norm within
-    TP_UPDATE_RTOL, the model group's all-reduces a step as the Megatron
-    form counts them, the local pool half the (1, 1) pool; (aq): see
-    ``aq_checks``. Returns ((ao)'s record, (aq)'s)."""
+    """(ao), (aq) and (as): the (1, 1) runs in this process, then the two
+    (1, 2) ranks (``tp_worker``) on the same weights. (ao): the losses
+    within TP_LOSS_RTOL of the (1, 1) run's, each leaf block's update
+    norm within TP_UPDATE_RTOL, the model group's all-reduces a step as
+    the Megatron form counts them, the local pool half the (1, 1) pool;
+    (aq): see ``aq_checks``; (as): see ``as_checks``. Returns ((ao)'s
+    record, (aq)'s, (as)'s)."""
+    import shutil
+    import tempfile
     t0 = time.perf_counter()
     ref = axis_run(torch, ops, train_mod, synthetic, "(ao)", TP_ARGV, 2,
                    cut=TP_CUT)
@@ -5715,6 +5722,10 @@ def model_axis_phase(torch, ops, train_mod, synthetic):
     t1 = time.perf_counter()
     aq_ref = aq_runs(torch, ops, train_mod, synthetic, None)
     aq_ref_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    as_dir = tempfile.mkdtemp(prefix="chip_smoke_as_")
+    as_ref = as_reference(torch, ops, as_dir)
+    as_ref["seconds"] = time.perf_counter() - t1
     port = free_port()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -5724,18 +5735,20 @@ def model_axis_phase(torch, ops, train_mod, synthetic):
             os.remove(o)
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                "--tp-rank", str(r), "--port", str(port),
-                               "--out", outs[r]]) for r in range(2)]
+                               "--out", outs[r], "--as-dir", as_dir])
+             for r in range(2)]
     try:
-        deadline = time.monotonic() + 400
+        deadline = time.monotonic() + 460
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
-        fail("(ao)/(aq): the ranks did not finish within 400 s")
+        fail("(ao)/(aq)/(as): the ranks did not finish within 460 s")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        shutil.rmtree(as_dir, ignore_errors=True)
     check(all(p.returncode == 0 for p in procs),
           f"(ao)/(aq): rank exit codes {[p.returncode for p in procs]}")
     ranks = []
@@ -5743,6 +5756,7 @@ def model_axis_phase(torch, ops, train_mod, synthetic):
         with open(o) as f:
             ranks.append(json.load(f))
     aq_ranks = [dict(r.pop("aq"), rank=r["rank"]) for r in ranks]
+    as_ranks = [dict(r.pop("as"), rank=r["rank"]) for r in ranks]
     want_ar = tp_expected_all_reduces(TP_LAYERS)
     for r in ranks:
         lab = f"(ao) rank {r['rank']}"
@@ -5804,7 +5818,10 @@ def model_axis_phase(torch, ops, train_mod, synthetic):
         loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
         dispatch_counts_both_ranks=counts, note=note,
         seconds=time.perf_counter() - t0)
-    return tp, aq_checks(aq_ref, aq_ranks, aq_ref_s, note)
+    aq = aq_checks(aq_ref, aq_ranks, aq_ref_s, note)
+    serving = as_checks(as_ref, as_ranks, note)
+    serving["reference_seconds"] = as_ref["seconds"]
+    return tp, aq, serving
 
 
 # -- (aq) the update path under the model axis -------------------------------
@@ -6043,6 +6060,262 @@ def aq_checks(ref, ranks, ref_s, note) -> dict:
         loss_rtol=TP_LOSS_RTOL, update_rtol=TP_UPDATE_RTOL,
         lars_ratio_spread_vs_1x1=spread, dispatch_counts_both_ranks=counts,
         note=note, seconds=ref_s + max(r["seconds"] for r in ranks))
+
+
+# -- (as) serving under the model axis ---------------------------------------
+
+# (as): serving at mesh (1, 2) as (ao)'s two rank processes, after (aq),
+# against the (1, 1) run in this process on the same bf16 weights (drawn
+# from AS_SEED, ``serve.serve_params``), prompts and teacher-forced decode
+# tokens (the (1, 1) naive run's greedy tokens): (as-1) olmo-1b whole at
+# its published widths (its rules split the KV heads over 'model'), batch
+# 4; (as-2) qwen3-32b at its widths with 2 of its 64 layers (8 KV heads
+# that the rules leave replicated: the cache is split by position, the
+# query heads sharded), batch 2, naive, split_combine and flash_decode's
+# rules. A 512-token prompt and 32 decode steps each, a cache of 544
+# positions in bf16, bf16 compute.
+AS_SEED = 0
+AS_PROMPT, AS_DECODE = 512, 32
+AS_CASES = {
+    "as-1": dict(arch="olmo-1b", cut={}, batch=4,
+                 variants=(("naive", {}),
+                           ("split_combine", {"split_combine": True}))),
+    "as-2": dict(arch="qwen3-32b", cut={"num_layers": 2}, batch=2,
+                 variants=(("naive", {}),
+                           ("split_combine", {"split_combine": True}),
+                           ("flash_decode", {"flash_decode": True}))),
+}
+# Each call's logits against the (1, 1) naive run's, bf16 sums in
+# another order: the largest gap relative to the largest |logit|.
+AS_LOGIT_RTOL = 2.0 ** -4
+
+
+def _cache_tensors(cache):
+    if hasattr(cache, "_fields"):
+        return [t for f in cache for t in _cache_tensors(f)]
+    return [cache]
+
+
+def no_sync_but_model_group(torch, label, axis, fn):
+    """``fn()`` (one decode step) under ``set_sync_debug_mode('error')``,
+    the model group's all-reduces excepted (their gloo transport stages
+    each tensor through host memory, which waits for the stream by
+    design): any other host synchronisation fails the run."""
+    real = axis.all_reduce_
+
+    def staged(x, *a, **k):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(x, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    axis.all_reduce_ = staged
+    try:
+        return no_host_sync(torch, label, fn)
+    finally:
+        del axis.all_reduce_
+
+
+def as_case(torch, dev, label, case, mesh_shape, ref):
+    """One (as) case at ``mesh_shape`` ((1, 2)) or on one device (None):
+    each variant's prefill and AS_DECODE decode steps, teacher-forced by
+    ``ref['tokens']`` (the (1, 1) naive run's greedy tokens; None: its
+    own), timed a call each (host clock, synchronised). Returns the
+    record and, without a reference, the reference (tokens and each
+    call's logits)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.trainer import Trainer
+
+    c = AS_CASES[case]
+    cfg = dataclasses.replace(get_arch(c["arch"])[0], **c["cut"])
+    b, n = c["batch"], AS_PROMPT + AS_DECODE
+    trainer = Trainer(TrainConfig(model=cfg, global_batch=b, seq_len=n),
+                      device=dev,
+                      mesh=make_mesh(mesh_shape) if mesh_shape else None)
+    sc = ShapeConfig(name="serve", seq_len=n, global_batch=b, kind="decode")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = trainer.serve_local(trainer.shard_params(
+        serve_mod.serve_params(trainer.model, AS_SEED, dev)))
+    torch.cuda.empty_cache()
+    prompts = serve_mod.draw_prompts(cfg, b, AS_PROMPT, AS_SEED, dev)
+    out = dict(arch=c["arch"], reduced=c["cut"], batch=b, prompt=AS_PROMPT,
+               decode_steps=AS_DECODE, mesh=list(mesh_shape or (1, 1)),
+               param_bytes=sum(t.numel() * t.element_size() for t in
+                               _tree_tensors(params)), variants={})
+    new_ref = None
+    for name, kw in c["variants"]:
+        prefill, rules = trainer.build_serve_step(sc, mode="prefill")
+        decode, d_rules = trainer.build_serve_step(sc, mode="decode", **kw)
+        cache = trainer.init_serve_cache(sc, rules)
+        axis = decode.model_axis
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, {"tokens": prompts}, cache)
+        first = lg[:, -1].float()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del lg
+        src = ref if ref is not None else new_ref
+        forced = src["tokens"] if src is not None else None
+        own = [torch.argmax(first, dim=-1)]
+        logits, ms, stats = [first], [], []
+        for t in range(AS_DECODE):
+            tok = (forced[:, t] if forced is not None else own[-1]) \
+                .view(b, 1).to(torch.int32)
+            if axis is not None:
+                axis.reset_stats()
+                axis.timing = t == AS_DECODE - 1
+            call = (lambda tok=tok: decode(params, {"tokens": tok}, cache))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == 1:
+                lg, cache = no_host_sync(torch, f"{label} {name}", call) \
+                    if axis is None else no_sync_but_model_group(
+                        torch, f"{label} {name}", axis, call)
+            else:
+                lg, cache = call()
+            row = lg[:, 0].float()
+            own.append(torch.argmax(row, dim=-1))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(row)
+            if axis is not None:
+                stats.append(dict(axis.stats))
+                axis.timing = False
+        rec = dict(prefill_ms=prefill_ms, decode_ms=ms,
+                   decode_median_ms=statistics.median(ms[:-1]),
+                   # k and v (the per-layer index, replicated, apart)
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for t in _cache_tensors(cache)
+                                   if t.dim() > 1),
+                   rules={k: v for k, v in d_rules.items()
+                          if k in ("serve_batch", "kv_seq", "kv_heads",
+                                   "heads", "qkv")},
+                   tokens_finite=all(bool(torch.isfinite(x).all())
+                                     for x in logits))
+        if axis is not None:
+            rec.update(
+                model_all_reduces=[s["all_reduces"] for s in stats],
+                model_all_reduce_bytes=stats[0]["bytes"],
+                model_all_reduce_seconds_timed_step=stats[-1]["seconds"],
+                expected_model_all_reduces=(
+                    trainer.expected_serve_all_reduces("decode", d_rules)),
+                expected_prefill_all_reduces=(
+                    trainer.expected_serve_all_reduces("prefill", rules)))
+        stacked = torch.stack(logits)                     # (1 + D, b, V)
+        tokens = torch.stack(own, dim=1)                  # (b, 1 + D)
+        if ref is None and name == "naive":
+            new_ref = dict(tokens=tokens, logits=stacked)
+        want = ref if ref is not None else new_ref
+        top = want["logits"].abs().amax(dim=-1)           # (1 + D, b)
+        gap = ((stacked - want["logits"]).abs().amax(dim=-1) / top)
+        rec["logit_rel_gap_vs_1x1_naive"] = float(gap.max())
+        parted = (tokens != want["tokens"]).any(dim=0).nonzero()
+        rec["greedy_first_parts_at_step"] = \
+            int(parted[0]) if len(parted) else None
+        rec["logits_digest"] = tensor_digest([stacked])
+        out["variants"][name] = rec
+        del cache, stacked, logits
+        torch.cuda.empty_cache()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+    return out, new_ref
+
+
+def _tree_tensors(tree):
+    return [t for v in tree.values() for t in (
+        _tree_tensors(v) if isinstance(v, dict) else [v])]
+
+
+def as_reference(torch, ops, ref_dir):
+    """The (1, 1) runs of (as) in this process; their references saved
+    under ``ref_dir`` for the ranks. Returns {case: record}."""
+    ops.reset_counts()
+    out = {}
+    for case in AS_CASES:
+        t0 = time.perf_counter()
+        rec, ref = as_case(torch, torch.device("cuda"), f"({case}) 1x1",
+                           case, None, None)
+        torch.save({k: v.cpu() for k, v in ref.items()},
+                   os.path.join(ref_dir, f"{case}.pt"))
+        rec["seconds"] = time.perf_counter() - t0
+        out[case] = rec
+    out["dispatch_counts"] = dict(ops.dispatch_counts)
+    return out
+
+
+def as_rank_runs(torch, ops, ref_dir) -> dict:
+    """One rank's (as) runs at mesh (1, 2), each teacher-forced by the
+    (1, 1) reference, the kernels' counts set to 0 before and read
+    after."""
+    ops.reset_counts()
+    out = {}
+    for case in AS_CASES:
+        t0 = time.perf_counter()
+        dev = torch.device("cuda")
+        ref = {k: v.to(dev) for k, v in torch.load(
+            os.path.join(ref_dir, f"{case}.pt")).items()}
+        out[case], _ = as_case(torch, dev, f"({case})", case, (1, 2), ref)
+        out[case]["seconds"] = time.perf_counter() - t0
+    out["dispatch_counts"] = dict(ops.dispatch_counts)
+    return out
+
+
+def as_checks(ref, ranks, note) -> dict:
+    """(as): per rank and variant, finite logits within AS_LOGIT_RTOL of
+    the (1, 1) naive run's, the ranks' logits the same bits, the model
+    group's all-reduces of every decode step the expected function's,
+    the cache half the (1, 1) cache, no host sync but the model group's
+    (checked in the run), flash_decode's logits the naive's bits, and no
+    pool kernel launched."""
+    counts = {}
+    for r in ranks:
+        for k, v in r["dispatch_counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    check(not any(counts.values()) and not any(
+        ref["dispatch_counts"].values()),
+          f"(as) launched a pool kernel: {counts}")
+    for case in AS_CASES:
+        one = ref[case]
+        for name, want in one["variants"].items():
+            for r in ranks:
+                got = r[case]["variants"][name]
+                lab = f"({case}) {name} rank {r['rank']}"
+                check(got["tokens_finite"] and
+                      got["logit_rel_gap_vs_1x1_naive"] <= AS_LOGIT_RTOL,
+                      f"{lab}: logits {got['logit_rel_gap_vs_1x1_naive']} "
+                      f"from (1, 1)'s (bound {AS_LOGIT_RTOL})")
+                check(got["logits_digest"]
+                      == ranks[0][case]["variants"][name]["logits_digest"],
+                      f"{lab}: logits differ from rank 0's")
+                check(all(x == got["expected_model_all_reduces"]
+                          for x in got["model_all_reduces"]),
+                      f"{lab}: model all-reduces a decode step "
+                      f"{got['model_all_reduces']}, expected "
+                      f"{got['expected_model_all_reduces']}")
+                check(2 * got["cache_bytes"] == want["cache_bytes"],
+                      f"{lab}: cache {got['cache_bytes']} B a rank, (1, 1) "
+                      f"{want['cache_bytes']} B")
+        if "flash_decode" in one["variants"]:
+            for r in ranks:
+                v = r[case]["variants"]
+                check(v["flash_decode"]["logits_digest"]
+                      == v["naive"]["logits_digest"],
+                      f"({case}) rank {r['rank']}: flash_decode's logits "
+                      f"are not the naive step's")
+    return dict(reference_1x1={k: ref[k] for k in AS_CASES},
+                ranks=[{k: r[k] for k in list(AS_CASES) + ["rank",
+                                                            "seconds"]}
+                       for r in ranks],
+                logit_rtol=AS_LOGIT_RTOL, dispatch_counts_both_ranks=counts,
+                note=note)
 
 
 # -- (ap) the model axis for the other families ------------------------------
@@ -6702,6 +6975,33 @@ def phase_seconds(label: str) -> None:
     _PHASE_T.append(now)
 
 
+def print_serving_ranks(rec, name, power) -> None:
+    """(as) a line a case, variant and rank: prefill and decode ms, the
+    model group's all-reduces a decode step (count, bytes, seconds of
+    the timed step) against the expected count, cache bytes, peak
+    memory, the logits' gap to (1, 1) and where the greedy tokens part."""
+    for case in AS_CASES:
+        runs = [("1x1", rec["reference_1x1"][case])] + [
+            (f"rank {r['rank']}", r[case]) for r in rec["ranks"]]
+        for who, run in runs:
+            for var, v in run["variants"].items():
+                print(json.dumps(dict(
+                    serve=f"({case}) {run['arch']}", variant=var, who=who,
+                    mesh=run["mesh"], prefill_ms=v["prefill_ms"],
+                    decode_median_ms=v["decode_median_ms"],
+                    model_all_reduces=v.get("model_all_reduces", [0])[0],
+                    expected=v.get("expected_model_all_reduces", 0),
+                    all_reduce_bytes=v.get("model_all_reduce_bytes", 0),
+                    all_reduce_s=v.get(
+                        "model_all_reduce_seconds_timed_step", 0.0),
+                    cache_bytes=v["cache_bytes"],
+                    peak_mem_gib=run["peak_mem_gib"],
+                    logit_rel_gap=v["logit_rel_gap_vs_1x1_naive"],
+                    greedy_parts_at=v["greedy_first_parts_at_step"],
+                    no_host_sync=True, gpu=name, power_limit=power)),
+                    flush=True)
+
+
 def print_long_runs(runs, name, power) -> None:
     for label, run in runs.items():
         print(json.dumps(dict(train=run["arch"], mode=label, gpu=name,
@@ -6723,7 +7023,8 @@ def main() -> None:
         argv = sys.argv[1:]
         tp_worker(int(argv[argv.index("--tp-rank") + 1]),
                   int(argv[argv.index("--port") + 1]),
-                  argv[argv.index("--out") + 1])
+                  argv[argv.index("--out") + 1],
+                  argv[argv.index("--as-dir") + 1])
         return
     if "--ap-rank" in sys.argv:
         argv = sys.argv[1:]
@@ -6900,12 +7201,15 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     print(json.dumps(dict(soak_and_timeline=soak_run, gpu=name,
                           power_limit=power)), flush=True)
     phase_seconds("timeline and soak (an)")
-    tp, aq = model_axis_phase(torch, ops, train_mod, synthetic)
+    tp, aq, as_rec = model_axis_phase(torch, ops, train_mod, synthetic)
     print(json.dumps(dict(model_axis=tp, gpu=name, power_limit=power)),
           flush=True)
     print(json.dumps(dict(model_axis_update_path=aq, gpu=name,
                           power_limit=power)), flush=True)
-    phase_seconds("model axis (ao) and its update path (aq)")
+    print_serving_ranks(as_rec, name, power)
+    print(json.dumps(dict(model_axis_serving=as_rec, gpu=name,
+                          power_limit=power)), flush=True)
+    phase_seconds("model axis (ao), its update path (aq) and serving (as)")
     ap = model_axis_families_phase(torch, ops, train_mod, synthetic)
     print(json.dumps(dict(model_axis_families=ap, gpu=name,
                           power_limit=power)), flush=True)
@@ -6958,6 +7262,9 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
         # (ar-2)'s steps and (ar-3)'s faulted CLI run at (1, 2).
         e["launches_model_axis_collectives"] = \
             ar["dispatch_counts_all_ranks"].get(key, 0)
+        # (as) both ranks and the (1, 1) runs: serving launches none.
+        e["launches_model_axis_serving"] = \
+            as_rec["dispatch_counts_both_ranks"].get(key, 0)
     check(all(soak_run["lane_launches"].get(k, 0) > 0
               and tp["dispatch_counts_both_ranks"].get(k, 0) > 0
               and ap["dispatch_counts_both_ranks"].get(k, 0) > 0

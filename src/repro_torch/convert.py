@@ -6,10 +6,12 @@ weights, (in, out) matrices, pool-shaped optimizer state fields of the
 same names), so conversion is a key-for-key (field-for-field) copy through
 numpy with no transposes. ``shard_params`` and ``unshard_params`` cut a
 full tree into one model rank's blocks and put the blocks back together
-(``parallel.sharding``).
+(``parallel.sharding``); ``shard_cache`` and ``unshard_cache`` do the same
+for a serving cache under the serve rules, over the data axes too.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
@@ -177,6 +179,69 @@ def unshard_params(parts, rules, *, specs: Dict[str, Any]
     return sharding.unshard_tree(
         [_numpy_tree(p) for p in parts], specs, rules,
         lambda blocks, dim: np.concatenate(blocks, axis=dim))
+
+
+def _mesh(mesh_shape):
+    from repro_torch.launch.mesh import axes_for
+    shape = tuple(int(x) for x in mesh_shape)
+    return shape, dict(zip(axes_for(shape), shape))
+
+
+def _coords(shape, rank: int) -> Dict[str, int]:
+    from repro_torch.launch.mesh import axes_for
+    return dict(zip(axes_for(shape),
+                    (int(i) for i in np.unravel_index(rank, shape))))
+
+
+def shard_cache(cache: Any, axes: Any, rules, mesh_shape, rank: int
+                ) -> Any:
+    """One rank's blocks (numpy) of a whole serving cache (the JAX
+    package's global cache, or ``cache_to_numpy``'s): each field cut
+    along the dimensions that the serve rules ``rules`` put on the mesh
+    of ``mesh_shape`` ((D, M) or (P, D, M); rank = its row-major place,
+    the model index fastest) through its logical axes in ``axes`` (the
+    model's ``cache_logical_axes``), the others whole. The result has
+    the cache's NamedTuple types; carry it to the port with
+    ``cache_from_numpy``."""
+    from repro_torch.parallel import sharding
+    shape, sizes = _mesh(mesh_shape)
+    coords = _coords(shape, rank)
+
+    def cut(ax, x):
+        x = np.asarray(x)
+        return x[sharding.block_slices(x.shape, ax, rules, sizes, coords)]
+    return sharding.map_axes(cut, axes, cache)
+
+
+def unshard_cache(parts, axes: Any, rules, mesh_shape) -> Any:
+    """The whole cache (numpy) from every rank's blocks (``parts`` in
+    rank order: torch caches or numpy): the inverse of ``shard_cache``.
+    A block that several ranks hold (a replicated dimension) must be the
+    same bits on each of them."""
+    from repro_torch.parallel import sharding
+    shape, sizes = _mesh(mesh_shape)
+
+    def join(ax, *blocks):
+        blocks = [_leaf_numpy(b) for b in blocks]
+        whole = tuple(n * math.prod(sizes[m] for m in sharding.mesh_axes(
+            rules.get(a) if a is not None else None))
+            for n, a in zip(blocks[0].shape, ax))
+        out = np.empty(whole, blocks[0].dtype)
+        seen = np.zeros(whole, bool)
+        for r, b in enumerate(blocks):
+            where = sharding.block_slices(whole, ax, rules, sizes,
+                                          _coords(shape, r))
+            if seen[where].any() and out[where].tobytes() != b.tobytes():
+                raise ValueError(f"the ranks' copies of a block of a leaf "
+                                 f"with axes {ax} differ")
+            out[where], seen[where] = b, True
+        return out
+    return sharding.map_axes(join, axes, *parts)
+
+
+def _leaf_numpy(x) -> np.ndarray:
+    return cache_to_numpy(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
 
 
 def _numpy_tree(tree: Dict[str, Any]) -> Dict[str, Any]:

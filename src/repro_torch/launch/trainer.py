@@ -102,8 +102,21 @@ sums: CSC selects on the group's summed chunk norms, and the guard's
 verdict is the group's max of the flags, so the ranks of a model group
 select the same chunks and commit or skip together (both depart from
 JAX, which decides each on the rank's own pool; ROADMAP.md C). A replan
-to another model degree and serving under M > 1 raise, naming ROADMAP.md
-A.23.
+to another model degree raises, naming ROADMAP.md A.23, as the JAX
+Trainer refuses it.
+
+Serving (``build_serve_step``) returns the JAX Trainer's serving rules
+(``serve_rules``: the cache's batch on the data axes, its positions on
+'model' where the rules leave the KV heads replicated) and, under M > 1,
+runs every family sharded as the rules say: each rank serves its data
+rank's rows (``serve_rows``) on its serving weights (``serve_local``,
+made once: no serve step gathers a weight) against its blocks of the
+cache (``abstract_serve_args``, ``init_serve_cache``; the layers'
+``cache_logical_axes``): a rank's KV heads, or every KV head at its
+block of positions with a decode's online-softmax partials combined over
+the model group (no cache is gathered, ``flash_decode`` or not), the
+Mamba states on the rank's channels or heads; the logits come back whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -132,7 +145,8 @@ from repro_torch.parallel import collectives, sharding
 from repro_torch.parallel.model_axis import ModelAxis
 from repro_torch.parallel.topology import mesh_topology
 
-_A23 = "is not ported under a model axis yet; see ROADMAP.md A.23"
+_A23 = ("is refused, as the JAX Trainer refuses it: an elastic event keeps "
+        "the model degree (ROADMAP.md A.23)")
 
 
 class TrainState(NamedTuple):
@@ -300,9 +314,9 @@ class Trainer:
         plan and refuse to run: release the windows and build new ones.
         A new world size is a relaunch (``checkpoint.reshard``). ``mesh``
         (default: the trainer's) must keep the model degree: an elastic
-        event changes only the data degree (a new model degree is
-        ROADMAP.md A.23, and JAX asserts it away too); its data axes give
-        the default topology."""
+        event changes only the data degree (another model degree is
+        refused, as the JAX Trainer asserts it away; ROADMAP.md A.23);
+        its data axes give the default topology."""
         if mesh is not None:
             if mesh.model_size != self.model_size:
                 raise ValueError(f"a replan from model degree "
@@ -445,23 +459,114 @@ class Trainer:
                            model_group=self.mesh.model_group.group,
                            param_dims=dims)
 
+    # -- serving ------------------------------------------------------------
+
+    def _arch_rules(self) -> Dict[str, Optional[str]]:
+        """The architecture's rule table (under no model axis too: JAX's
+        serving returns the rules on any mesh)."""
+        if self.rules is not None:
+            return self.rules
+        from repro_torch.configs import rules_for
+        return rules_for(self.cfg.model)
+
+    def _mesh_sizes(self) -> Dict[str, int]:
+        """Each mesh axis's size: the mesh's, or ('data', 'model') =
+        (the data degree, 1) without one."""
+        if self.mesh is not None:
+            return dict(zip(self.mesh.axis_names, self.mesh.shape))
+        return {"data": self.num_data, "model": 1}
+
+    def serve_rules(self, long_context: bool = False
+                    ) -> Dict[str, Any]:
+        """The serving rules, as the JAX Trainer writes them: the cache's
+        batch ('serve_batch') on the data axes; its positions ('kv_seq')
+        on 'model' when the rules leave the KV heads replicated under a
+        model axis; in long context (a batch below the data degree) the
+        batch not split."""
+        r: Dict[str, Any] = dict(self._arch_rules())
+        r["serve_batch"] = tuple(self.data_axes) if self.data_axes else None
+        if r.get("kv_heads") is None and self.model_size > 1:
+            r["kv_seq"] = "model"
+        if long_context:
+            r["serve_batch"] = None
+        return r
+
+    def serve_step_rules(self, shape, *, mode: str,
+                         kv_seq_shard: Optional[Any] = None,
+                         flash_decode: bool = False) -> Dict[str, Any]:
+        """``build_serve_step``'s rules: ``serve_rules`` (long context when
+        ``shape.global_batch`` is below the data degree), ``kv_seq_shard``
+        in place of the cache's sequence rule, and ``flash_decode``'s
+        replicated 'heads' for a decode against a sequence-split cache
+        (the JAX Trainer's returned rules)."""
+        rules = self.serve_rules(
+            long_context=shape.global_batch < self.num_data)
+        if kv_seq_shard is not None:
+            rules["kv_seq"] = kv_seq_shard
+        if flash_decode and mode == "decode" and \
+                rules.get("kv_seq") == "model":
+            rules["heads"] = None
+        return rules
+
+    def _serve_axis(self, rules: Dict[str, Any]) -> Optional[ModelAxis]:
+        """The model axis a serve step runs under (its rules the serve
+        rules), after refusing rules it has no form for; None without a
+        model axis."""
+        if self.model_size == 1:
+            return None
+        if rules.get("kv_seq") not in (None, "model"):
+            raise ValueError(
+                f"kv_seq={rules['kv_seq']!r}: the port splits a cache's "
+                f"positions over the model axis only (ROADMAP.md C)")
+        axis = ModelAxis(self.mesh.model_group.group, self.model_size,
+                         self.mesh.model_index, rules)
+        fam = self.cfg.model.family
+        if fam != "ssm":
+            from repro_torch.models.layers import attention
+            attention.serve_layout(axis)
+        if fam == "hybrid" and axis.sharded("dinner") \
+                != axis.sharded("heads"):
+            raise ValueError(
+                "the hybrid's Mamba-2 decode runs a rank's heads: its "
+                "rules must shard 'heads' with 'dinner' (flash_decode's "
+                "replicated heads have no Mamba-2 form)")
+        return axis
+
     def build_serve_step(self, shape, *, mode: str,
-                         split_combine: bool = False):
-        """``(step, None)``: ``step(params, batch, cache) -> (logits,
+                         kv_seq_shard: Optional[Any] = None,
+                         split_combine: bool = False,
+                         flash_decode: bool = False):
+        """``(step, rules)``: ``step(params, batch, cache) -> (logits,
         cache)`` runs ``model.serve_step`` in ``mode`` ('prefill' or
         'decode') under ``torch.no_grad`` at the model's compute dtype,
-        the batch moved to the trainer's device. ``params`` are the
-        serving weights (the CLI's are bf16); the cache is consumed: the
-        returned one shares its tensors, updated in place. No training
-        state is allocated. JAX's second value is its serving sharding
-        rules; serving runs on one device (serving under a model axis is
-        ROADMAP.md A.23), so it is None and ``shape``, which picks them
-        in JAX, is unused."""
-        del shape
-        if self.model_size > 1:
-            raise ValueError(f"serving {_A23}")
+        the batch moved to the trainer's device; ``rules`` are the JAX
+        Trainer's serving rules (``serve_step_rules``). ``params`` are
+        the serving weights (the CLI's are bf16); the cache is consumed:
+        the returned one shares its tensors, updated in place. No
+        training state is allocated.
+
+        Under a model axis ``params`` are the rank's ``serve_local``
+        weights, ``batch`` its data rank's rows (``serve_rows``) and
+        ``cache`` its blocks under ``rules`` (``init_serve_cache``,
+        ``convert.shard_cache``); the logits come back whole on every
+        rank. The step gathers no weight and no cache: a cache split by
+        position is read where it lies, each rank's online-softmax
+        partials combined over the model group (``attention``'s 'seq'
+        form), with or without ``flash_decode``, whose rules replicate
+        the heads as JAX's do (JAX's naive GSPMD form all-gathers the
+        cache instead; ROADMAP.md C). ``step.model_axis`` is the axis
+        the step runs under (its ``stats`` count the model group's
+        all-reduces; ``expected_serve_all_reduces`` gives their number),
+        None without one."""
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
+        rules = self.serve_step_rules(shape, mode=mode,
+                                      kv_seq_shard=kv_seq_shard,
+                                      flash_decode=flash_decode)
+        axis = self._serve_axis(rules)
+        # A batch or cache dimension that does not split whole over its
+        # mesh axes is refused here, named by its logical axis.
+        self.abstract_serve_args(shape, rules, mode)
         model, dtype, dev = self.model, self.compute_dtype, self.device
 
         def step(params, batch: Dict[str, torch.Tensor], cache):
@@ -469,9 +574,127 @@ class Trainer:
                      for k, v in batch.items()}
             return model.serve_step(params, batch, cache, mode=mode,
                                     compute_dtype=dtype,
-                                    split_combine=split_combine)
+                                    split_combine=split_combine,
+                                    model_axis=axis)
 
-        return step, None
+        step.model_axis = axis
+        return step, rules
+
+    def serve_local(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The serving weights of this rank from its blocks ``params``
+        (``shard_params``' tree, in the serving dtype): made once, before
+        the steps, so that no serve step gathers a weight (the Mamba
+        blocks' fused projections and conv are gathered here, one
+        all-reduce a stacked leaf; every other leaf is its block). The
+        tree itself under no model axis."""
+        if self.model_size == 1:
+            return params
+        return self.model.serve_local(params, self.model_axis)
+
+    def _serve_max_len(self, shape) -> int:
+        """The cache's positions: the shape's length, and a vlm's vision
+        tokens on top (its prefill writes them first)."""
+        m = self.cfg.model
+        return shape.seq_len + (m.num_vision_tokens
+                                if m.family == "vlm" else 0)
+
+    def abstract_serve_args(self, shape, rules: Dict[str, Any], mode: str,
+                            cache_dtype: torch.dtype = torch.bfloat16
+                            ) -> Tuple[Any, Any, Any]:
+        """(params, batch, cache) as this rank's local (shape, dtype)
+        pairs, each the JAX Trainer's ``NamedSharding.shard_shape`` of
+        the leaf in its ``abstract_serve_args``: the bf16 parameter
+        blocks (the rules' model dimensions split), the batch's rows
+        split over the data degree when it covers it (JAX's
+        ``batch_pspec``), the cache of ``shape.seq_len`` positions (a
+        vlm's vision tokens added) split under ``rules``. A dimension
+        that does not split whole is refused by its logical axis."""
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.models.registry import input_specs
+        b = shape.global_batch
+        m = self.model_size
+        params = params_mod.map_specs(
+            lambda sp: (sp.shape, torch.bfloat16),
+            sharding.localize_specs(self.specs, self._arch_rules(), m))
+        n = self.num_data
+        rows = b // n if b >= n and b % n == 0 else b
+        batch = input_specs(self.cfg.model, ShapeConfig(
+            name=shape.name, seq_len=shape.seq_len, global_batch=b,
+            kind=mode), rows)
+        sizes = self._mesh_sizes()
+        cache = sharding.map_axes(
+            lambda ax, leaf: (sharding.local_shape(leaf[0], ax, rules,
+                                                   sizes), leaf[1]),
+            self.model.cache_logical_axes(),
+            self.model.abstract_cache(b, self._serve_max_len(shape),
+                                      cache_dtype))
+        return params, batch, cache
+
+    def init_serve_cache(self, shape, rules: Dict[str, Any],
+                         dtype: torch.dtype = torch.bfloat16) -> Any:
+        """This rank's empty cache blocks (zeros) under ``rules`` on the
+        trainer's device: ``abstract_serve_args``' cache."""
+        return params_mod.zeros_of(
+            self.abstract_serve_args(shape, rules, "decode", dtype)[2],
+            self.device)
+
+    def serve_rows(self, global_batch: int) -> slice:
+        """The rows of a global serving batch that this rank serves: its
+        data rank's block when the batch covers the data degree, every
+        row in long context (JAX's ``batch_pspec``)."""
+        n = self.num_data
+        if global_batch >= n and global_batch % n == 0 and n > 1:
+            k = global_batch // n
+            i = self.mesh.data_index if self.mesh is not None \
+                else torch.distributed.get_rank()
+            return slice(i * k, (i + 1) * k)
+        return slice(0, global_batch)
+
+    def expected_serve_all_reduces(self, mode: str,
+                                   rules: Dict[str, Any]) -> int:
+        """The model group's all-reduces of one serve step in ``mode``
+        under ``rules``, counted from the code: the vocab-parallel
+        embedding's sum and the logits' gather; a layer's attention by
+        its cache form (``attention.serve_layout``: 'heads' the
+        row-parallel output sum; 'seq' with sharded projections the k
+        and v gather and the output sum in a prefill, the joined q, k
+        and v, the partials' combine and the output sum in a decode;
+        'seq' replicated the combine of a decode), its MLP's output sum
+        or its MoE's combine (one with arctic's residual, or one each
+        when only one of them is split); Mamba-1 the Δ/B/C sum and the
+        output sum; Mamba-2 the gated norm's sum and the output sum,
+        and in a decode the window's join. No weight is gathered."""
+        if self.model_size == 1:
+            return 0
+        from repro_torch.models.layers import attention
+        cfg = self.cfg.model
+        axis = ModelAxis(None, self.model_size, 0, rules)
+        sh = axis.sharded
+        n = 2 if sh("vocab") else 0
+
+        def attn():
+            layout = attention.serve_layout(axis)
+            if layout == "heads":
+                return 1
+            if layout == "seq" and sh("qkv"):
+                return 2 if mode == "prefill" else 3
+            return int(layout == "seq" and mode == "decode")
+
+        def ffn():
+            if cfg.moe is None:
+                return int(sh("mlp"))
+            split = sh("expert") or sh("expert_mlp")
+            res = cfg.moe.dense_residual and sh("mlp")
+            return 1 if split and res else int(split) + int(res)
+
+        if cfg.family == "ssm":
+            return n + cfg.num_layers * (2 if sh("dinner") else 0)
+        if cfg.family == "hybrid":
+            every = cfg.hybrid_attn_every
+            mamba = (2 + (mode == "decode")) if sh("dinner") else 0
+            return n + cfg.num_layers * mamba \
+                + cfg.num_layers // every * (attn() + int(sh("mlp")))
+        return n + cfg.num_layers * (attn() + ffn())
 
     def _pipeline_plan(self, stage: Optional[SparsityStage] = None):
         """The plan a pipelined window runs, or None when the config does

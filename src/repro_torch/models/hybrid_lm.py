@@ -142,23 +142,44 @@ class HybridLM(LanguageModel):
                                                          max_len, dtype),
                                 (self.groups,)))
 
+    def cache_logical_axes(self) -> HybridCache:
+        ma = mamba2.state_logical_axes()
+        aa = attention.cache_logical_axes()
+        return HybridCache(
+            mamba=mamba2.Mamba2State(conv=("layers", None) + ma.conv,
+                                     ssm=("layers", None) + ma.ssm),
+            attn=attention.KVCache(k=("layers",) + aa.k,
+                                   v=("layers",) + aa.v, index=("layers",)))
+
+    def serve_local(self, params: Dict[str, Any], model_axis
+                    ) -> Dict[str, Any]:
+        """The Mamba-2 blocks' serving view (``mamba2.serve_local``, the
+        stacked mixers at once); the other leaves as they are."""
+        p = dict(params)
+        p["mamba_layers"] = dict(
+            params["mamba_layers"], mixer=mamba2.serve_local(
+                params["mamba_layers"]["mixer"], self.cfg, model_axis))
+        return p
+
     @torch.no_grad()
     def serve_step(self, params: Dict[str, Any],
                    batch: Dict[str, torch.Tensor], cache: HybridCache, *,
                    mode: str = "decode",
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   split_combine: bool = False
+                   split_combine: bool = False, model_axis=None
                    ) -> Tuple[torch.Tensor, HybridCache]:
         """Each group's Mamba-2 blocks, then the shared block with the
         group's KV cache. 'prefill': batch['tokens'] (B, S) through the
         training path, the caches written, the Mamba-2 states untouched;
         'decode': one token (B, 1) a row, every state and cache advanced
-        in place. Returns (logits, the cache passed in)."""
+        in place. Under ``model_axis`` ``params`` are ``serve_local``'s
+        and the cache the rank's blocks. Returns (logits, the cache
+        passed in)."""
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
         shared = params["shared_attn"]
         for g, gp in enumerate(unstack(params["mamba_layers"],
                                        self.groups)):
@@ -166,21 +187,26 @@ class HybridLM(LanguageModel):
             for i, lp in enumerate(unstack(gp, self.every)):
                 y = norms.apply(lp["norm"], x, cfg.norm)
                 if mode == "prefill":
-                    y = mamba2.apply_train(lp["mixer"], y, cfg)
+                    y = mamba2.apply_train(lp["mixer"], y, cfg,
+                                           model_axis=model_axis,
+                                           prepared=True)
                 else:
                     y, _ = mamba2.apply_decode(lp["mixer"], y, cfg,
-                                               index_struct(states, i))
+                                               index_struct(states, i),
+                                               model_axis=model_axis)
                 x = x + y
             h = norms.apply(shared["attn_norm"], x, cfg.norm)
             kv = index_struct(cache.attn, g)
             if mode == "prefill":
                 h, _ = attention.apply_prefill(shared["attn"], h, cfg, kv,
-                                               attn_chunk=2048)
+                                               attn_chunk=2048,
+                                               model_axis=model_axis)
             else:
                 h, _ = attention.apply_decode(shared["attn"], h, cfg, kv,
-                                              split_combine=split_combine)
+                                              split_combine=split_combine,
+                                              model_axis=model_axis)
             x = x + h
             h = norms.apply(shared["mlp_norm"], x, cfg.norm)
-            x = x + mlp.apply(shared["mlp"], h, cfg)
+            x = x + mlp.apply(shared["mlp"], h, cfg, model_axis=model_axis)
         x = norms.apply(params["final_norm"], x, cfg.norm)
-        return embedding.logits(self._head_params(params), x, cfg), cache
+        return self._serve_logits(params, x, model_axis), cache

@@ -17,7 +17,12 @@ Serving: a KV cache (``KVCache``), ``apply_prefill`` over the prompt
 and ``apply_decode`` of one token against the whole cache, naive or
 ``split_combine``, as the JAX package writes them. The cache's index is
 a device tensor, and every write lands at a device offset: a decode
-step reads nothing back to the host.
+step reads nothing back to the host. Under a model axis the serve rules
+place the cache (``cache_logical_axes``, ``serve_layout``): a rank holds
+its KV heads at every position ('kv_heads' sharded) or every KV head at
+its block of positions ('kv_seq' sharded), and a decode step against the
+latter combines the ranks' online-softmax partials over the model group
+(``_decode_seq``); no form gathers the cache.
 
 The weights carry the JAX package's logical axes ('embed', 'qkv');
 ``parallel.sharding`` alone maps them to a mesh. When the rules shard
@@ -78,13 +83,22 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     (b, 1) device positions). ``kv_gather`` (a model axis's ``gather``)
     joins the ranks' blocks of the k and v projections first: k and v
     then have every KV head."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if kv_gather is not None:
         k, v = kv_gather(torch.stack([k, v]), -1).unbind(0)
+    return _heads(params, q, k, v, cfg, positions)
+
+
+def _heads(params: Dict[str, torch.Tensor], q: torch.Tensor,
+           k: torch.Tensor, v: torch.Tensor, cfg,
+           positions: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projections (b, s, n * hd) as heads (b, s, n, hd), q and k
+    QK-normed and rotated at ``positions`` (None: 0..s-1)."""
+    b, s, _ = q.shape
+    hd = cfg.resolved_head_dim
     q = q.view(b, s, -1, hd)
     k = k.view(b, s, -1, hd)
     v = v.view(b, s, -1, hd)
@@ -92,9 +106,21 @@ def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         q = norms.rms_head_norm(params["q_norm"], q)
         k = norms.rms_head_norm(params["k_norm"], k)
     if positions is None:
-        positions = torch.arange(s, device=x.device)
+        positions = torch.arange(s, device=q.device)
     cos, sin = rotary.rope_tables(positions, hd, cfg.rope_theta)
     return rotary.apply_rope(q, cos, sin), rotary.apply_rope(k, cos, sin), v
+
+
+def _kv_of_local_heads(k: torch.Tensor, v: torch.Tensor, heads: int, cfg,
+                       model_axis) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every KV head's k and v (b, s, KV, hd) -> the KV head each of this
+    rank's ``heads`` query heads reads (global query head j reads KV
+    head j // (H / KV))."""
+    first = model_axis.index * heads
+    kv_of = torch.div(torch.arange(first, first + heads, device=k.device),
+                      cfg.num_heads // cfg.num_kv_heads,
+                      rounding_mode="floor")
+    return k[:, :, kv_of], v[:, :, kv_of]
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -235,13 +261,7 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, kv_gather=gather)
     if gather is not None:
-        # Global query head j reads KV head j // (H / KV).
-        first = model_axis.index * q.shape[2]
-        kv_of = torch.div(torch.arange(first, first + q.shape[2],
-                                       device=x.device),
-                          cfg.num_heads // cfg.num_kv_heads,
-                          rounding_mode="floor")
-        k, v = k[:, :, kv_of], v[:, :, kv_of]
+        k, v = _kv_of_local_heads(k, v, q.shape[2], cfg, model_axis)
     groups = q.shape[2] // k.shape[2]
     out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
                  causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip)
@@ -269,6 +289,44 @@ def init_cache(cfg, batch: int, max_len: int,
                     resolve_device(device))
 
 
+def cache_logical_axes() -> KVCache:
+    """The cache's logical axes, the JAX package's: the batch on
+    'serve_batch', the positions on 'kv_seq', the KV heads on
+    'kv_heads'."""
+    return KVCache(k=("serve_batch", "kv_seq", "kv_heads", None),
+                   v=("serve_batch", "kv_seq", "kv_heads", None), index=())
+
+
+def serve_layout(model_axis) -> str:
+    """How a rank holds the cache and runs attention under the serve
+    rules of ``model_axis`` (None: one device):
+
+    * 'whole': every KV head at every position, attention whole (one
+      device, or rules that shard neither the projections nor the
+      cache);
+    * 'heads': 'kv_heads' and 'qkv' sharded: the rank's KV heads at
+      every position, attention on its heads, ``wo`` row-parallel;
+    * 'seq': 'kv_seq' sharded: every KV head at the rank's block of
+      ``S_max / M`` positions; the rank's query heads when 'qkv' is
+      sharded, every head when it is not.
+    """
+    if model_axis is None or model_axis.size == 1:
+        return "whole"
+    seq, heads = model_axis.sharded("kv_seq"), model_axis.sharded("kv_heads")
+    qkv = model_axis.sharded("qkv")
+    if seq and not heads:
+        return "seq"
+    if heads and qkv and not seq:
+        return "heads"
+    if not (seq or heads or qkv):
+        return "whole"
+    raise ValueError(
+        f"no serving form for the rules kv_seq={model_axis.rules.get('kv_seq')!r}, "
+        f"kv_heads={model_axis.rules.get('kv_heads')!r}, "
+        f"qkv={model_axis.rules.get('qkv')!r}: one mesh axis shards one "
+        f"cache dimension, and sharded KV heads need sharded projections")
+
+
 def _write(buf: torch.Tensor, new: torch.Tensor, index: torch.Tensor
            ) -> None:
     """Write new (b, s, ...) into buf (b, S, ...) at positions index ..
@@ -281,28 +339,156 @@ def _write(buf: torch.Tensor, new: torch.Tensor, index: torch.Tensor
                     new.to(buf.dtype))
 
 
+def _write_block(buf: torch.Tensor, new: torch.Tensor, index: torch.Tensor,
+                 model_axis) -> None:
+    """``_write`` into a cache whose positions are split over the model
+    ranks: ``buf`` (b, n, ...) holds global positions r n .. r n + n - 1
+    of rank r. The start is clamped as the whole cache's (to [0, M n -
+    s]), and each rank writes the tokens that land in its block: a
+    window of min(s, n) distinct positions, each taking its token where
+    the rank owns it and keeping its value where it does not (a
+    where-select on the device, no host read)."""
+    s, n = new.shape[1], buf.shape[1]
+    start = torch.clamp(index, 0, n * model_axis.size - s).long()
+    w = min(s, n)
+    off = model_axis.index * n
+    pos = torch.clamp(start - off, 0, n - w) \
+        + torch.arange(w, device=buf.device)
+    src = pos + off - start
+    owned = ((src >= 0) & (src < s)).view((1, w) + (1,) * (buf.dim() - 2))
+    vals = new.to(buf.dtype).index_select(1, src.clamp(0, s - 1))
+    buf.index_copy_(1, pos, torch.where(owned, vals,
+                                        buf.index_select(1, pos)))
+
+
+def _write_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+              layout: str, model_axis) -> None:
+    if layout == "seq":
+        _write_block(cache.k, k, cache.index, model_axis)
+        _write_block(cache.v, v, cache.index, model_axis)
+    else:
+        _write(cache.k, k, cache.index)
+        _write(cache.v, v, cache.index)
+
+
 def apply_prefill(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                  cache: KVCache, *, attn_chunk: int = 0
+                  cache: KVCache, *, attn_chunk: int = 0, model_axis=None
                   ) -> Tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt x (b, s, d), at positions 0..s-1
     whatever the cache holds (as in JAX), blockwise with ``causal_skip``
     beyond ``attn_chunk``; its keys and values are written into the
     cache at ``cache.index`` and the index advances by s. Returns (y,
-    the cache passed in, updated in place)."""
+    the cache passed in, updated in place).
+
+    Under ``model_axis`` (its serve rules; ``serve_layout``): 'heads'
+    attends on the rank's heads and writes its KV heads; 'seq' gathers
+    the k and v projections when 'qkv' is sharded (an activation, every
+    KV head), attends on the rank's query heads, and writes each
+    position into the rank that holds it. ``wo`` is row-parallel when
+    'qkv' is sharded, its partial sum all-reduced."""
+    layout = serve_layout(model_axis)
+    tp = layout != "whole" and model_axis.sharded("qkv")
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
-    groups = cfg.num_heads // cfg.num_kv_heads
-    out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+    gather = model_axis.gather if layout == "seq" and tp else None
+    q, k, v = _project_qkv(params, x, cfg, kv_gather=gather)
+    kq, vq = (k, v) if gather is None else \
+        _kv_of_local_heads(k, v, q.shape[2], cfg, model_axis)
+    groups = q.shape[2] // kq.shape[2]
+    out = attend(q, _repeat_kv(kq, groups), _repeat_kv(vq, groups),
                  causal=True, attn_chunk=attn_chunk)
-    _write(cache.k, k, cache.index)
-    _write(cache.v, v, cache.index)
+    _write_kv(cache, k, v, layout, model_axis)
     cache.index.add_(s)
-    return out.reshape(b, s, -1) @ params["wo"], cache
+    y = out.reshape(b, s, -1) @ params["wo"]
+    return (model_axis.reduce_out(y) if tp else y), cache
+
+
+def _partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              valid: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Online-softmax partials of q (b, 1, H, hd) over the cache
+    positions k, v (b, n, KV, hd) where ``valid`` (n,): the f32 max m
+    (b, H), the sum of exponentials l (b, H) and the numerator (b, H,
+    hd), the probabilities meeting v in q's dtype."""
+    groups = q.shape[2] // k.shape[2]
+    s = _scores(q, _repeat_kv(k, groups)).masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                         # (b,H,1,1)
+    p = torch.exp(s - m)
+    num = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype),
+                       _repeat_kv(v, groups)).float()
+    return m[:, :, 0, 0], p.sum(dim=-1)[:, :, 0], num[:, 0]
+
+
+def _combine(model_axis, m: torch.Tensor, l: torch.Tensor,
+             num: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The model group's partials joined: one all-reduce gathers every
+    rank's (m, l, num), then each rank rescales them to the largest max
+    and sums them in rank order, so every rank holds the same (m, l,
+    num) of the whole cache."""
+    b, h, hd = num.shape
+    mine = torch.cat([m, l, num.reshape(b, h * hd)], dim=-1)
+    every = model_axis.gather(mine[None], 0)          # (M, b, H (hd + 2))
+    ms, ls = every[..., :h], every[..., h:2 * h]
+    nums = every[..., 2 * h:].reshape(-1, b, h, hd)
+    top = ms.amax(dim=0)
+    w = torch.exp(ms - top)
+    return top, (w * ls).sum(dim=0), (w[..., None] * nums).sum(dim=0)
+
+
+def _decode_seq(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
+                cache: KVCache, split_combine: bool, model_axis
+                ) -> torch.Tensor:
+    """One decode step against a cache split over the model ranks by
+    position ('seq'). With 'qkv' sharded one all-reduce joins the
+    ranks' q, k and v projections (every query head's q, (b, 1, H, hd),
+    is small); each rank scores every head over its positions and the
+    partials are combined over the group (``_combine``); the rank keeps
+    its heads' output for the row-parallel ``wo``. Naive: the token is
+    written first and scored with the cache; ``split_combine``: the old
+    positions are combined, then merged with the token's own score, as
+    JAX's online-softmax combine, and the token written after."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    tp = model_axis.sharded("qkv")
+    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if tp:
+        nq, nk = q.shape[-1], k.shape[-1]
+        every = model_axis.gather(torch.cat([q, k, v], dim=-1), -1) \
+            .view(b, 1, model_axis.size, nq + 2 * nk)
+        q, k, v = (every[..., a:z].reshape(b, 1, -1) for a, z in (
+            (0, nq), (nq, nq + nk), (nq + nk, nq + 2 * nk)))
+    q, k, v = _heads(params, q, k, v, cfg, cache.index.expand(b, 1))
+    n = cache.k.shape[1]
+    kpos = model_axis.index * n + torch.arange(n, device=x.device)
+    if split_combine:
+        m, l, num = _combine(model_axis, *_partials(
+            q, cache.k, cache.v, kpos < cache.index))
+        groups = q.shape[2] // k.shape[2]
+        s_new = torch.einsum("bqhd,bqhd->bh", q, _repeat_kv(k, groups)) \
+            .float() * hd ** -0.5
+        top = torch.maximum(m, s_new)
+        w_old, w_new = torch.exp(m - top), torch.exp(s_new - top)
+        num = num * w_old[..., None] + w_new[..., None] \
+            * _repeat_kv(v, groups)[:, 0].float()
+        out = num / (l * w_old + w_new)[..., None]
+        _write_kv(cache, k, v, "seq", model_axis)
+    else:
+        _write_kv(cache, k, v, "seq", model_axis)
+        m, l, num = _combine(model_axis, *_partials(
+            q, cache.k, cache.v, kpos <= cache.index))
+        out = num / l[..., None]
+    out = out.to(q.dtype)                                   # (b, H, hd)
+    if tp:
+        h = out.shape[1] // model_axis.size
+        out = out[:, model_axis.index * h:(model_axis.index + 1) * h]
+    cache.index.add_(1)
+    y = out.reshape(b, 1, -1) @ params["wo"]
+    return model_axis.reduce_out(y) if tp else y
 
 
 def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                 cache: KVCache, *, split_combine: bool = False
-                 ) -> Tuple[torch.Tensor, KVCache]:
+                 cache: KVCache, *, split_combine: bool = False,
+                 model_axis=None) -> Tuple[torch.Tensor, KVCache]:
     """One token x (b, 1, d) at position ``cache.index`` against the
     whole cache (every ``S_max`` position scored, those past the index
     masked), the cache repeated to the query heads. Returns (y, the
@@ -313,12 +499,21 @@ def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     ``split_combine``: attend over the old cache and the fresh token
     apart and merge them with an online-softmax combine, then write (in
     JAX the attention then never consumes the updated cache, which keeps
-    a sequence-sharded cache shard-local)."""
+    a sequence-sharded cache shard-local).
+
+    Under ``model_axis`` (its serve rules; ``serve_layout``): 'heads'
+    runs on the rank's heads and its KV heads, ``wo`` row-parallel;
+    'seq' is ``_decode_seq``'s cross-rank combine. No form gathers the
+    cache or a weight."""
+    layout = serve_layout(model_axis)
+    if layout == "seq":
+        return _decode_seq(params, x, cfg, cache, split_combine,
+                           model_axis), cache
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _project_qkv(params, x, cfg,
                            positions=cache.index.expand(b, 1))
-    groups = cfg.num_heads // cfg.num_kv_heads
+    groups = q.shape[2] // k.shape[2]
     kpos = torch.arange(cache.k.shape[1], device=x.device)
     out = None
     if split_combine:
@@ -344,4 +539,5 @@ def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         p = torch.softmax(s, dim=-1).to(q.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     cache.index.add_(1)
-    return out.reshape(b, 1, -1) @ params["wo"], cache
+    y = out.reshape(b, 1, -1) @ params["wo"]
+    return (model_axis.reduce_out(y) if layout == "heads" else y), cache

@@ -32,7 +32,10 @@ row-parallel, its partial sum all-reduced. ``in_proj``'s 2·d_inner
 columns hold x's then z's: a rank's contiguous block of them (the JAX
 package's shard) is not its channels' columns, so the weight is
 gathered (``gather``; backward its gradient summed and the block kept)
-and the rank multiplies by its channels' x and z columns.
+and the rank multiplies by its channels' x and z columns
+(``local_params``). Serving makes that view once (``serve_local``), so
+a prefill or decode step under the model axis gathers no weight; the
+decode state's blocks are the rank's channels (``state_logical_axes``).
 """
 from __future__ import annotations
 
@@ -155,25 +158,51 @@ def _scan_chunk(x_f32: torch.Tensor, delta: torch.Tensor,
     return y, u[:, -1]
 
 
+def local_params(params: Dict[str, torch.Tensor], cfg, model_axis
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's view of a block's weights (one layer's, or a stack's:
+    the channels are the last dimension) for its block of the inner
+    channels: ``in_proj`` gathered (its contiguous block cuts across x
+    and z) and the rank's x and z columns taken; the rest as they are
+    (their blocks are the rank's channels). Serving makes this view once
+    (``serve_local``); training makes it a step, under autograd."""
+    d_inner = dims(cfg)[0]
+    full, mine = model_axis.gather(params["in_proj"], -1), \
+        model_axis.block(d_inner)
+    p = dict(params)
+    p["in_proj"] = torch.cat(
+        [full[..., mine], full[..., d_inner + mine.start:d_inner
+                               + mine.stop]], dim=-1)
+    return p
+
+
+def serve_local(params: Dict[str, torch.Tensor], cfg, model_axis
+                ) -> Dict[str, torch.Tensor]:
+    """The serving weights of a block (or a stack of them) under a
+    model axis that shards 'dinner': ``local_params``, made once, so a
+    serve step gathers no weight; the weights as they are otherwise."""
+    if model_axis is None or not model_axis.sharded("dinner"):
+        return params
+    with torch.no_grad():
+        return local_params(params, cfg, model_axis)
+
+
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
-                scan_chunk: int = SCAN_CHUNK, model_axis=None
-                ) -> torch.Tensor:
+                scan_chunk: int = SCAN_CHUNK, model_axis=None,
+                prepared: bool = False) -> torch.Tensor:
     """x: (B, L, D) -> (B, L, D), in x's dtype; the scan in f32. Under a
     model axis that shards 'dinner', on this rank's block of the inner
-    channels (see the module docstring)."""
+    channels (see the module docstring); ``prepared``: ``params`` are
+    already ``serve_local``'s (a prefill's)."""
     b, n, _ = x.shape
     d_inner, _, d_state, _ = dims(cfg)
     tp = model_axis is not None and model_axis.sharded("dinner")
-    w = params["in_proj"]
     if tp:
         x = model_axis.copy_in(x)
-        # The rank's block of in_proj's 2·d_inner columns is not its
-        # channels' x and z columns: gather the weight, take those.
-        full, mine = model_axis.gather(w, 1), model_axis.block(d_inner)
-        w = torch.cat([full[:, mine],
-                       full[:, d_inner + mine.start:d_inner + mine.stop]],
-                      dim=1)
+        if not prepared:
+            params = local_params(params, cfg, model_axis)
         d_inner //= model_axis.size
+    w = params["in_proj"]
     xs, z = (x @ w).chunk(2, dim=-1)
     q = min(scan_chunk, n)
     assert n % q == 0, (n, q)
@@ -211,6 +240,14 @@ def init_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
     return zeros_of(abstract_state(cfg, batch, dtype), resolve_device(device))
 
 
+def state_logical_axes() -> MambaState:
+    """The state's logical axes, the JAX package's: the conv window and
+    the SSM state on the inner channels ('dinner'), so a rank's blocks
+    are its channels'."""
+    return MambaState(conv=("serve_batch", None, "dinner"),
+                      ssm=("serve_batch", "dinner", "state"))
+
+
 def decode_conv(window: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """The causal conv at one position: window (B, K, C) times w (K, C)
@@ -221,15 +258,21 @@ def decode_conv(window: torch.Tensor, w: torch.Tensor,
 
 
 def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                 state: MambaState) -> Tuple[torch.Tensor, MambaState]:
+                 state: MambaState, model_axis=None
+                 ) -> Tuple[torch.Tensor, MambaState]:
     """One token x (B, 1, D) -> (y (B, 1, D), the state passed in, its
-    window shifted by the token and its SSM state advanced, in
-    place)."""
+    window shifted by the token and its SSM state advanced, in place).
+    Under a model axis that shards 'dinner' ``params`` are
+    ``serve_local``'s and the state the rank's channels': ``x_proj``'s
+    partial product is summed over the group and ``out_proj`` is
+    row-parallel (two all-reduces)."""
     _, _, d_state, _ = dims(cfg)
+    tp = model_axis is not None and model_axis.sharded("dinner")
     xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)         # (B,1,di)
     window = torch.cat([state.conv, xs.to(state.conv.dtype)], dim=1)
     xa = F.silu(decode_conv(window, params["conv_w"], params["conv_b"]))
-    delta, b_mat, c_mat = _ssm_params(params, xa, cfg)
+    delta, b_mat, c_mat = _ssm_params(params, xa, cfg,
+                                      model_axis if tp else None)
     a = -torch.exp(params["A_log"].float())
     a_bar = torch.exp(delta[:, 0, :, None] * a)               # (B,di,ds)
     bx = (delta[:, 0] * xa[:, 0].float())[..., None] * b_mat[:, 0, None, :]
@@ -239,4 +282,5 @@ def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
     y = (y[:, None, :] * F.silu(z).float()).to(x.dtype)
     state.conv.copy_(window[:, 1:])
     state.ssm.copy_(h)
-    return y @ params["out_proj"], state
+    out = y @ params["out_proj"]
+    return (model_axis.reduce_out(out) if tp else out), state

@@ -21,11 +21,18 @@ Each weight carries the JAX package's logical axes ('embed', 'dinner',
 'conv'); only ``parallel.sharding`` maps them to a mesh. Under a model
 axis whose rules shard 'dinner' (``parallel.model_axis``) a rank runs a
 contiguous block of the heads and of the inner channels
-(``_local_params``): B and C, shared by every head, are computed whole
+(``local_params``): B and C, shared by every head, are computed whole
 on every rank (their gradients, partial on each, are summed through the
 gathered weights'); the gated norm's mean of squares is summed over the
 group (``all_sum``), the reduce GSPMD inserts in the JAX package's
-sharded program; ``out_proj`` is row-parallel.
+sharded program; ``out_proj`` is row-parallel. Serving makes the
+rank's view of the weights once (``serve_local``), so a serve step
+gathers no weight. The decode state keeps the JAX package's layout
+(``state_logical_axes``): the SSM state on the rank's heads, the conv
+window split into contiguous blocks of the concatenated [x | B | C]
+channels, which are not the rank's working set; a decode step joins the
+whole window with the token's conv input in one all-reduce
+(``_window``) and keeps its block of the next.
 """
 from __future__ import annotations
 
@@ -84,12 +91,6 @@ def spec(cfg) -> Dict[str, ParamSpec]:
     }
 
 
-def _split_proj(proj: torch.Tensor, cfg):
-    """(z, x, B, C, dt) of the input projection, in that order."""
-    d_inner, h, _, ds, _ = dims(cfg)
-    return torch.split(proj, [d_inner, d_inner, ds, ds, h], dim=-1)
-
-
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-6, model_axis=None) -> torch.Tensor:
     """Mamba-2's gated RMSNorm before out_proj, in f32. On a rank's
@@ -145,45 +146,60 @@ def _ssd_chunks(xh: torch.Tensor, bq: torch.Tensor, cq: torch.Tensor,
                             torch.stack(h_in, dim=1), torch.exp(cum))
 
 
-def _local_params(params: Dict[str, torch.Tensor], cfg, model_axis
-                  ) -> Dict[str, torch.Tensor]:
-    """This rank's view of a block's weights for its block of the heads
-    and inner channels: ``in_proj`` and the conv gathered (their
-    contiguous blocks cut across their fused parts) and the rank's
-    columns of each part taken, B's and C's whole; its heads' entries of
-    the replicated per-head A_log, D and Δ bias, whose gradients are
-    then summed over the group; ``norm_scale`` and ``out_proj`` as they
-    are (their blocks are the rank's channels)."""
+def local_params(params: Dict[str, torch.Tensor], cfg, model_axis
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's view of a block's weights (one layer's, or a stack's:
+    the channels are the last dimension) for its block of the heads and
+    inner channels: ``in_proj`` and the conv gathered (their contiguous
+    blocks cut across their fused parts) and the rank's columns of each
+    part taken, B's and C's whole; its heads' entries of the replicated
+    per-head A_log, D and Δ bias, whose gradients are then summed over
+    the group; ``norm_scale`` and ``out_proj`` as they are (their blocks
+    are the rank's channels). Serving makes this view once
+    (``serve_local``); training makes it a step, under autograd."""
     d_inner, h, _, ds, _ = dims(cfg)
     ch, hs = model_axis.block(d_inner), model_axis.block(h)
-    w = model_axis.gather(params["in_proj"], 1)
+    w = model_axis.gather(params["in_proj"], -1)
     bc = slice(2 * d_inner, 2 * d_inner + 2 * ds)
     p = dict(params)
     p["in_proj"] = torch.cat(
-        [w[:, ch], w[:, d_inner + ch.start:d_inner + ch.stop], w[:, bc],
-         w[:, 2 * d_inner + 2 * ds + hs.start:2 * d_inner + 2 * ds
-           + hs.stop]], dim=1)
-    conv_w = model_axis.gather(params["conv_w"], 1)
-    conv_b = model_axis.gather(params["conv_b"], 0)
-    p["conv_w"] = torch.cat([conv_w[:, ch], conv_w[:, d_inner:]], dim=1)
-    p["conv_b"] = torch.cat([conv_b[ch], conv_b[d_inner:]])
+        [w[..., ch], w[..., d_inner + ch.start:d_inner + ch.stop],
+         w[..., bc], w[..., 2 * d_inner + 2 * ds + hs.start:2 * d_inner
+                       + 2 * ds + hs.stop]], dim=-1)
+    conv_w = model_axis.gather(params["conv_w"], -1)
+    conv_b = model_axis.gather(params["conv_b"], -1)
+    p["conv_w"] = torch.cat([conv_w[..., ch], conv_w[..., d_inner:]], dim=-1)
+    p["conv_b"] = torch.cat([conv_b[..., ch], conv_b[..., d_inner:]], dim=-1)
     for k in ("A_log", "D", "dt_bias"):
-        p[k] = model_axis.copy_in(params[k])[hs]
+        p[k] = model_axis.copy_in(params[k])[..., hs]
     return p
 
 
+def serve_local(params: Dict[str, torch.Tensor], cfg, model_axis
+                ) -> Dict[str, torch.Tensor]:
+    """The serving weights of a block (or a stack of them) under a
+    model axis that shards 'dinner': ``local_params``, made once, so a
+    serve step gathers no weight; the weights as they are otherwise."""
+    if model_axis is None or not model_axis.sharded("dinner"):
+        return params
+    with torch.no_grad():
+        return local_params(params, cfg, model_axis)
+
+
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
-                scan_chunk: int = SCAN_CHUNK, model_axis=None
-                ) -> torch.Tensor:
+                scan_chunk: int = SCAN_CHUNK, model_axis=None,
+                prepared: bool = False) -> torch.Tensor:
     """x: (B, L, D) -> (B, L, D), in x's dtype; the SSD and the gated
     norm in f32. Under a model axis that shards 'dinner', on this rank's
-    block of the heads (see the module docstring)."""
+    block of the heads (see the module docstring); ``prepared``:
+    ``params`` are already ``serve_local``'s (a prefill's)."""
     b, n, _ = x.shape
     d_inner, h, hd, ds, _ = dims(cfg)
     tp = model_axis is not None and model_axis.sharded("dinner")
     if tp:
         x = model_axis.copy_in(x)
-        params = _local_params(params, cfg, model_axis)
+        if not prepared:
+            params = local_params(params, cfg, model_axis)
         d_inner, h = d_inner // model_axis.size, h // model_axis.size
     z, xs, b_raw, c_raw, dt = torch.split(
         x @ params["in_proj"], [d_inner, d_inner, ds, ds, h], dim=-1)
@@ -221,15 +237,64 @@ def init_state(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
     return zeros_of(abstract_state(cfg, batch, dtype), resolve_device(device))
 
 
+def state_logical_axes() -> Mamba2State:
+    """The state's logical axes, the JAX package's: the conv window on
+    'dinner' (over the concatenated [x | B | C] channels), the SSM state
+    on 'heads'."""
+    return Mamba2State(conv=("serve_batch", None, "dinner"),
+                       ssm=("serve_batch", "heads", None, "state"))
+
+
+def _window(state: Mamba2State, conv_in: torch.Tensor, cfg, model_axis
+            ) -> torch.Tensor:
+    """The whole conv window (B, d_conv, d_inner + 2 d_state) of a
+    decode step under a model axis, in one all-reduce: each rank puts
+    its block of the held window (the first d_conv - 1 rows) and its
+    channels of the token's x (the last row; rank 0 adds B and C) into
+    zeros, and the group sums them, each value with zeros only."""
+    d_inner, _, _, ds, dc = dims(cfg)
+    b, c = conv_in.shape[0], state.conv.shape[-1]
+    ch = model_axis.block(d_inner)
+    full = state.conv.new_zeros((b, dc, d_inner + 2 * ds))
+    full[:, :dc - 1, model_axis.index * c:(model_axis.index + 1) * c] = \
+        state.conv
+    last = conv_in[:, 0].to(full.dtype)
+    full[:, dc - 1, ch] = last[:, :ch.stop - ch.start]
+    if model_axis.index == 0:
+        full[:, dc - 1, d_inner:] = last[:, ch.stop - ch.start:]
+    return model_axis.all_reduce_(full)
+
+
 def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                 state: Mamba2State) -> Tuple[torch.Tensor, Mamba2State]:
+                 state: Mamba2State, model_axis=None
+                 ) -> Tuple[torch.Tensor, Mamba2State]:
     """One token x (B, 1, D) -> (y (B, 1, D), the state passed in, its
-    window shifted and its SSM state advanced, in place)."""
+    window shifted and its SSM state advanced, in place). Under a model
+    axis that shards 'dinner' ``params`` are ``serve_local``'s and the
+    state the JAX package's blocks: the whole window is joined
+    (``_window``), the rank convolves its x channels with B and C, runs
+    its heads, sums the gated norm's squares over the group and
+    ``out_proj`` is row-parallel (three all-reduces)."""
     b = x.shape[0]
     d_inner, h, hd, ds, _ = dims(cfg)
-    z, xs, b_raw, c_raw, dt = _split_proj(x @ params["in_proj"], cfg)
-    window = torch.cat([state.conv, torch.cat([xs, b_raw, c_raw], dim=-1)
-                        .to(state.conv.dtype)], dim=1)
+    tp = model_axis is not None and model_axis.sharded("dinner")
+    if tp:
+        d_inner, h = d_inner // model_axis.size, h // model_axis.size
+    z, xs, b_raw, c_raw, dt = torch.split(
+        x @ params["in_proj"], [d_inner, d_inner, ds, ds, h], dim=-1)
+    conv_in = torch.cat([xs, b_raw, c_raw], dim=-1)
+    if tp:
+        full = _window(state, conv_in, cfg, model_axis)
+        ch = model_axis.block(d_inner * model_axis.size)
+        window = torch.cat([full[..., ch],
+                            full[..., d_inner * model_axis.size:]], dim=-1)
+        c = state.conv.shape[-1]
+        state.conv.copy_(full[:, 1:, model_axis.index * c:
+                              (model_axis.index + 1) * c])
+    else:
+        window = torch.cat([state.conv, conv_in.to(state.conv.dtype)],
+                           dim=1)
+        state.conv.copy_(window[:, 1:])
     conv_out = F.silu(decode_conv(window, params["conv_w"],
                                   params["conv_b"]))
     xq = conv_out[:, 0, :d_inner].reshape(b, h, hd).float()
@@ -241,7 +306,8 @@ def apply_decode(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
         + (xq * delta[..., None])[..., None] * bq[:, None, None, :]
     y = torch.einsum("bhpd,bd->bhp", h_new, cq)
     y = (y + params["D"].float()[:, None] * xq).reshape(b, 1, d_inner)
-    y = _gated_norm(y, z, params["norm_scale"]).to(x.dtype)
-    state.conv.copy_(window[:, 1:])
+    y = _gated_norm(y, z, params["norm_scale"],
+                    model_axis=model_axis if tp else None).to(x.dtype)
     state.ssm.copy_(h_new)
-    return y @ params["out_proj"], state
+    out = y @ params["out_proj"]
+    return (model_axis.reduce_out(out) if tp else out), state

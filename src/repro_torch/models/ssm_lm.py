@@ -86,30 +86,48 @@ class MambaLM(LanguageModel):
         return stack_abstract(mamba.abstract_state(self.cfg, batch, dtype),
                               (self.cfg.num_layers,))
 
+    def cache_logical_axes(self) -> mamba.MambaState:
+        ax = mamba.state_logical_axes()
+        return mamba.MambaState(conv=("layers",) + ax.conv,
+                                ssm=("layers",) + ax.ssm)
+
+    def serve_local(self, params: Dict[str, Any], model_axis
+                    ) -> Dict[str, Any]:
+        """The Mamba blocks' serving view (``mamba.serve_local``, the
+        stacked mixers at once); the other leaves as they are."""
+        p = dict(params)
+        p["layers"] = dict(params["layers"], mixer=mamba.serve_local(
+            params["layers"]["mixer"], self.cfg, model_axis))
+        return p
+
     @torch.no_grad()
     def serve_step(self, params: Dict[str, Any],
                    batch: Dict[str, torch.Tensor],
                    cache: mamba.MambaState, *, mode: str = "decode",
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   split_combine: bool = False
+                   split_combine: bool = False, model_axis=None
                    ) -> Tuple[torch.Tensor, mamba.MambaState]:
         """'prefill': the training path over batch['tokens'] (B, S),
         the cache returned untouched; 'decode': one token (B, 1) a row,
         each layer's state advanced in place. ``split_combine`` has no
-        attention to act on. Returns (logits, the cache passed in)."""
+        attention to act on. Under ``model_axis`` ``params`` are
+        ``serve_local``'s and the states the rank's channels'. Returns
+        (logits, the cache passed in)."""
         del split_combine
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
         for i, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
             y = norms.apply(lp["norm"], x, cfg.norm)
             if mode == "prefill":
-                y = mamba.apply_train(lp["mixer"], y, cfg)
+                y = mamba.apply_train(lp["mixer"], y, cfg,
+                                      model_axis=model_axis, prepared=True)
             else:
                 y, _ = mamba.apply_decode(lp["mixer"], y, cfg,
-                                          index_struct(cache, i))
+                                          index_struct(cache, i),
+                                          model_axis=model_axis)
             x = x + y
         x = norms.apply(params["final_norm"], x, cfg.norm)
-        return embedding.logits(self._head_params(params), x, cfg), cache
+        return self._serve_logits(params, x, model_axis), cache

@@ -161,6 +161,18 @@ class LanguageModel:
         nothing allocated."""
         raise NotImplementedError
 
+    def cache_logical_axes(self) -> Any:
+        """The cache's logical axes in its NamedTuples, the JAX
+        package's ('layers' before each layer axis)."""
+        raise NotImplementedError
+
+    def serve_local(self, params: Dict[str, Any], model_axis) -> Dict[str, Any]:
+        """This rank's serving weights from its blocks ``params``, made
+        once before serving, so a serve step gathers no weight: the
+        blocks themselves unless a family's fused weights need the
+        rank's view (the Mamba blocks)."""
+        return params
+
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
                    device: Optional[Union[str, torch.device]] = None
@@ -176,9 +188,13 @@ class LanguageModel:
                    batch: Dict[str, torch.Tensor], cache: Any, *,
                    mode: str = "decode",
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   split_combine: bool = False) -> Tuple[torch.Tensor, Any]:
+                   split_combine: bool = False,
+                   model_axis=None) -> Tuple[torch.Tensor, Any]:
         """(logits, cache): a prefill of batch['tokens'] (B, S) or one
-        decode step of (B, 1); the cache is updated in place."""
+        decode step of (B, 1); the cache is updated in place. Under
+        ``model_axis`` (its rules the serve rules) ``params`` are the
+        rank's ``serve_local`` weights and ``cache`` its blocks; the
+        logits come back whole on every rank."""
         raise NotImplementedError
 
     def param_shapes(self) -> Dict[str, Any]:
@@ -194,6 +210,16 @@ class LanguageModel:
         if self.cfg.tie_embeddings:
             return {"w": params["embed"]["tokens"].T}
         return params["head"]
+
+    def _serve_logits(self, params, x: torch.Tensor, model_axis
+                      ) -> torch.Tensor:
+        """The head's logits, whole on every rank: a vocab-parallel
+        head's blocks are gathered (one all-reduce)."""
+        lg = embedding.logits(self._head_params(params), x, self.cfg,
+                              model_axis=model_axis)
+        if model_axis is not None and model_axis.sharded("vocab"):
+            lg = model_axis.gather(lg, -1)
+        return lg
 
 
 class TransformerLM(LanguageModel):
@@ -251,12 +277,13 @@ class TransformerLM(LanguageModel):
 
     def _embed_inputs(self, params: Dict[str, Any],
                       batch: Dict[str, torch.Tensor],
-                      compute_dtype: torch.dtype) -> torch.Tensor:
+                      compute_dtype: torch.dtype, model_axis=None
+                      ) -> torch.Tensor:
         """Token embeddings; a vlm batch's 'vision_embeds' prepended when
         it has them (a serving batch may be text only)."""
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
-                            compute_dtype)
+                            compute_dtype, model_axis=model_axis)
         if cfg.family == "vlm" and "vision_embeds" in batch:
             x = torch.cat([batch["vision_embeds"].to(compute_dtype), x],
                           dim=1)
@@ -269,25 +296,32 @@ class TransformerLM(LanguageModel):
         return params_mod.stack_abstract(attention.abstract_cache(
             self.cfg, batch, max_len, dtype), (self.cfg.num_layers,))
 
+    def cache_logical_axes(self) -> attention.KVCache:
+        ax = attention.cache_logical_axes()
+        return attention.KVCache(k=("layers",) + ax.k, v=("layers",) + ax.v,
+                                 index=("layers",))
+
     def _serve_block(self, layer_params: Dict[str, Any], x: torch.Tensor,
                      cache_slice: attention.KVCache, mode: str,
-                     split_combine: bool = False
+                     split_combine: bool = False, model_axis=None
                      ) -> Tuple[torch.Tensor, attention.KVCache]:
         cfg = self.cfg
         h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
         if mode == "decode":
             h, cache_slice = attention.apply_decode(
                 layer_params["attn"], h, cfg, cache_slice,
-                split_combine=split_combine)
+                split_combine=split_combine, model_axis=model_axis)
         else:
             h, cache_slice = attention.apply_prefill(
-                layer_params["attn"], h, cfg, cache_slice, attn_chunk=2048)
+                layer_params["attn"], h, cfg, cache_slice, attn_chunk=2048,
+                model_axis=model_axis)
         x = x + h
         h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
         if cfg.moe is not None:
-            h, _ = moe.apply(layer_params["ffn"], h, cfg)  # aux dropped
+            h, _ = moe.apply(layer_params["ffn"], h, cfg,
+                             model_axis=model_axis)  # aux dropped
         else:
-            h = mlp.apply(layer_params["ffn"], h, cfg)
+            h = mlp.apply(layer_params["ffn"], h, cfg, model_axis=model_axis)
         return x + h, cache_slice
 
     @torch.no_grad()
@@ -295,19 +329,23 @@ class TransformerLM(LanguageModel):
                    batch: Dict[str, torch.Tensor],
                    cache: attention.KVCache, *, mode: str = "decode",
                    compute_dtype: torch.dtype = torch.bfloat16,
-                   split_combine: bool = False
+                   split_combine: bool = False, model_axis=None
                    ) -> Tuple[torch.Tensor, attention.KVCache]:
         """mode 'prefill': batch['tokens'] (B, S) (audio (B, S, K); a vlm
         may add 'vision_embeds', which take the first cache positions)
         through every layer, each writing its cache; 'decode': one token
         (B, 1) a row. Returns (logits (B, S, V), or (B, S, K, V) for
-        audio, the cache passed in, updated in place)."""
+        audio, the cache passed in, updated in place). Under
+        ``model_axis``: the vocab-parallel embedding, each layer's
+        attention in the cache's layout (``attention.serve_layout``) and
+        its MLP or MoE in their Megatron forms, the logits gathered."""
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
         cfg = self.cfg
-        x = self._embed_inputs(params, batch, compute_dtype)
+        x = self._embed_inputs(params, batch, compute_dtype, model_axis)
         for i, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
             x, _ = self._serve_block(lp, x, params_mod.index_struct(cache, i),
-                                     mode, split_combine=split_combine)
+                                     mode, split_combine=split_combine,
+                                     model_axis=model_axis)
         x = norms.apply(params["final_norm"], x, cfg.norm)
-        return embedding.logits(self._head_params(params), x, cfg), cache
+        return self._serve_logits(params, x, model_axis), cache

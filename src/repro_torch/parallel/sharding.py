@@ -119,6 +119,87 @@ def unshard_tree(parts: Sequence[Any], specs: Any, rules: Rules,
     return _map(join, specs, *parts)
 
 
+# -- serving caches ----------------------------------------------------------
+
+# A serving cache is a tree of NamedTuples (``attention.KVCache``, the
+# Mamba states, ``hybrid_lm.HybridCache``) whose leaves carry logical axes
+# too (the models' ``cache_logical_axes``). Under the serve rules an axis
+# may go to the model axis ('kv_seq', 'kv_heads', 'dinner', 'heads') or to
+# the data axes ('serve_batch': a tuple of mesh axes, JAX's
+# ``PartitionSpec`` entry), so these helpers take the mesh's axis sizes and
+# a rank's coordinates, not only a model degree. A dimension split over
+# several mesh axes is split in their order, the first the slowest, as a
+# ``NamedSharding`` places it.
+
+
+def is_axes(x: Any) -> bool:
+    """A logical-axes leaf: a plain tuple of axis names (or None)."""
+    return isinstance(x, tuple) and not hasattr(x, "_fields") and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def map_axes(fn: Callable, axes: Any, *trees: Any) -> Any:
+    """``fn(leaf axes, *leaves)`` over a cache's NamedTuples; the result
+    has the first tree's types (the axes tree's without one)."""
+    if is_axes(axes):
+        return fn(axes, *trees)
+    kind = type(trees[0]) if trees else type(axes)
+    return kind(*(map_axes(fn, a, *(t[i] for t in trees))
+                  for i, a in enumerate(axes)))
+
+
+def mesh_axes(entry: Any) -> Tuple[str, ...]:
+    """The mesh axes a rule-table entry names: None none, a name one,
+    a tuple its names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _splits(axes: Sequence[Optional[str]], rules: Rules
+            ) -> List[Tuple[str, ...]]:
+    """The mesh axes of each dimension; one mesh axis on two dimensions
+    is refused, as a ``PartitionSpec`` refuses it."""
+    out = [mesh_axes(rules.get(a)) if a is not None else () for a in axes]
+    used = [m for ms in out for m in ms]
+    if len(used) != len(set(used)):
+        raise ValueError(f"the rules put one mesh axis on two dimensions "
+                         f"of a leaf with logical axes {tuple(axes)}: "
+                         f"{dict(zip(axes, out))}")
+    return out
+
+
+def local_shape(shape: Sequence[int], axes: Sequence[Optional[str]],
+                rules: Rules, sizes: Mapping[str, int]) -> Tuple[int, ...]:
+    """The shape one rank holds of a leaf of ``shape`` whose dimensions
+    carry ``axes`` (``NamedSharding.shard_shape``); ``sizes`` maps each
+    mesh axis to its size. A dimension that does not split whole over
+    its mesh axes is refused, named by its logical axis."""
+    out = []
+    for dim, ax, ms in zip(shape, axes, _splits(axes, rules)):
+        n = math.prod(sizes[m] for m in ms)
+        if dim % n:
+            raise ValueError(f"dimension {ax!r} of size {dim} does not "
+                             f"split over {n} ranks ({'x'.join(ms)})")
+        out.append(dim // n)
+    return tuple(out)
+
+
+def block_slices(shape: Sequence[int], axes: Sequence[Optional[str]],
+                 rules: Rules, sizes: Mapping[str, int],
+                 coords: Mapping[str, int]) -> Tuple[slice, ...]:
+    """Where the block of the rank at mesh coordinates ``coords`` sits in
+    the whole leaf."""
+    local = local_shape(shape, axes, rules, sizes)
+    out = []
+    for n, ms in zip(local, _splits(axes, rules)):
+        i = 0
+        for m in ms:
+            i = i * sizes[m] + coords[m]
+        out.append(slice(i * n, (i + 1) * n))
+    return tuple(out)
+
+
 # -- rule tables -------------------------------------------------------------
 
 # Defaults for dense transformers: Megatron tensor parallelism over 'model'.

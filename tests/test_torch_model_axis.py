@@ -387,6 +387,215 @@ def check_csc_steps(recs, model_groups, data_groups, chunk, sparse):
                         err_msg=f"step {s} rank {r} {what}")
 
 
+# -- serving under the model axis (shared with the families' test) -----------
+
+SERVE_PROMPT, SERVE_STEPS = 8, 4
+# olmo-smoke's serving at mesh (2, 2): the batch over the data axis, and
+# one row (long context: not split).
+SERVE_BATCHES = (4, 1)
+# f32 serving against JAX's build_serve_step: logits and each cache leaf
+# within 2e-5 of the tensor's largest magnitude (the row-parallel sums and
+# the partials' combine add in another order), the index exactly.
+SERVE_RTOL = 2e-5
+# build_serve_step's variants whose returned rules are held to JAX's:
+# (mode, flash_decode, kv_seq_shard).
+RULE_VARIANTS = (("prefill", False, None), ("decode", False, None),
+                 ("decode", True, None), ("decode", False, "model"),
+                 ("decode", True, "model"))
+
+
+def serve_inputs(cfg, batch, seed=7):
+    """{'s/tokens': (B, prompt + steps) int32 ((..., K) for audio), and
+    for a vlm 's/vision': (B, V, D) f32}, from seeded numpy."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, SERVE_PROMPT + SERVE_STEPS) + (
+        (cfg.num_codebooks,) if cfg.family == "audio" else ())
+    out = {"s/tokens": rng.integers(0, cfg.vocab_size, shape)
+           .astype(np.int32)}
+    if cfg.family == "vlm":
+        out["s/vision"] = rng.standard_normal(
+            (batch, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serve_calls(inputs, rows=slice(None)):
+    """The prefill's batch (the prompt, a vlm's vision embeddings) and
+    each decode step's token, of the rows ``rows``."""
+    toks = inputs["s/tokens"][rows]
+    first = {"tokens": toks[:, :SERVE_PROMPT]}
+    if "s/vision" in inputs:
+        first["vision_embeds"] = inputs["s/vision"][rows]
+    return [first] + [{"tokens": toks[:, t:t + 1]} for t in range(
+        SERVE_PROMPT, SERVE_PROMPT + SERVE_STEPS)]
+
+
+def serve_shape(base, batch):
+    return base.ShapeConfig(name="serve",
+                            seq_len=SERVE_PROMPT + SERVE_STEPS,
+                            global_batch=batch, kind="decode")
+
+
+def cache_leaves(cache):
+    """A cache's fields in order, nested NamedTuples flattened."""
+    if hasattr(cache, "_fields"):
+        return [x for f in cache for x in cache_leaves(f)]
+    return [cache]
+
+
+def jax_serve(trainer, params, inputs, batch):
+    """JAX's ``build_serve_step`` under the caller's mesh, f32 cache: a
+    prefill, then the decode steps naive and ``split_combine``, each from
+    the prefill's cache: {'0' | '1': [(logits, [cache leaves]) a call]}
+    (numpy)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import base as j_base
+
+    cfg = trainer.cfg.model
+    sc = serve_shape(j_base, batch)
+    max_len = SERVE_PROMPT + SERVE_STEPS + (
+        cfg.num_vision_tokens if cfg.family == "vlm" else 0)
+    calls = [{k: jnp.asarray(v) for k, v in c.items()}
+             for c in serve_calls(inputs)]
+    prefill, _ = trainer.build_serve_step(sc, mode="prefill")
+    lg, cache = prefill(params, calls[0], trainer.model.init_cache(
+        batch, max_len, dtype=jnp.float32))
+    first = (np.asarray(lg), [np.asarray(x) for x in
+                              jax.tree_util.tree_leaves(tuple(cache))])
+    out = {}
+    for split in (0, 1):
+        decode, _ = trainer.build_serve_step(sc, mode="decode",
+                                             split_combine=bool(split))
+        c, rec = jax.tree_util.tree_map(jnp.array, cache), [first]
+        for b in calls[1:]:
+            lg, c = decode(params, b, c)
+            rec.append((np.asarray(lg), [
+                np.asarray(x) for x in jax.tree_util.tree_leaves(tuple(c))]))
+        out[str(split)] = rec
+    return out
+
+
+def save_jax_serve(out, prefix, saved):
+    for split, rec in out.items():
+        for i, (lg, leaves) in enumerate(rec):
+            saved[f"{prefix}/{split}/lg{i}"] = lg
+            for j, x in enumerate(leaves):
+                saved[f"{prefix}/{split}/c{i}/{j}"] = x
+
+
+def rules_json(rules):
+    return json.dumps(rules, sort_keys=True)
+
+
+def port_serve(trainer, local, inputs, batch, saved, prefix):
+    """The port's serving under ``trainer``'s mesh from this rank's f32
+    blocks ``local``: its ``serve_local`` weights, its data rank's rows,
+    its cache blocks (``init_serve_cache``, f32), a prefill and the
+    decode steps naive and ``split_combine``, each from a fresh cache.
+    Saves each call's logits and cache leaves, the model group's
+    all-reduces against ``expected_serve_all_reduces``, the returned
+    rules, and the rules of each of RULE_VARIANTS with whether
+    ``build_serve_step`` builds it."""
+    sc = serve_shape(t_base, batch)
+    params = trainer.serve_local(local)
+    calls = serve_calls(inputs, trainer.serve_rows(batch))
+    prefill, rules = trainer.build_serve_step(sc, mode="prefill")
+    saved[f"{prefix}/rules"] = np.asarray(rules_json(rules))
+    for split in (0, 1):
+        decode, d_rules = trainer.build_serve_step(
+            sc, mode="decode", split_combine=bool(split))
+        cache = trainer.init_serve_cache(sc, rules, torch.float32)
+        counts = []
+        for i, b in enumerate(calls):
+            step, mode = (prefill, "prefill") if i == 0 \
+                else (decode, "decode")
+            step.model_axis.reset_stats()
+            lg, cache = step(params, {k: torch.from_numpy(v)
+                                      for k, v in b.items()}, cache)
+            counts.append((step.model_axis.stats["all_reduces"],
+                           trainer.expected_serve_all_reduces(
+                               mode, rules if i == 0 else d_rules)))
+            saved[f"{prefix}/{split}/lg{i}"] = lg.numpy().copy()
+            for j, x in enumerate(cache_leaves(cache)):
+                saved[f"{prefix}/{split}/c{i}/{j}"] = \
+                    convert.cache_to_numpy(x).copy()
+        saved[f"{prefix}/{split}/all_reduces"] = np.asarray(counts)
+    for v, (mode, flash, kv) in enumerate(RULE_VARIANTS):
+        saved[f"{prefix}/variant{v}"] = np.asarray(rules_json(
+            trainer.serve_step_rules(sc, mode=mode, kv_seq_shard=kv,
+                                     flash_decode=flash)))
+        try:
+            trainer.build_serve_step(sc, mode=mode, kv_seq_shard=kv,
+                                     flash_decode=flash)
+            saved[f"{prefix}/variant{v}/built"] = np.asarray(True)
+        except ValueError:
+            saved[f"{prefix}/variant{v}/built"] = np.asarray(False)
+
+
+def check_serving(want, ranks, prefix, case_cfg, mesh_shape, batch):
+    """The ranks' serving (``port_serve``) against JAX's (``jax_serve``,
+    one device): every call's logits (each data rank's rows) and the
+    cache joined with ``convert.unshard_cache`` within SERVE_RTOL (and
+    cut back by ``convert.shard_cache`` into each rank's blocks bit for
+    bit), the logits the same bits on every rank of a model group, the
+    model group's all-reduces of every call the expected function's."""
+    model = build_model(case_cfg)
+    axes = model.cache_logical_axes()
+    rules = json.loads(str(ranks[0][f"{prefix}/rules"]))
+    m = mesh_shape[-1]
+    d = len(ranks) // m
+    for split in ("0", "1"):
+        for r in ranks:
+            got = r[f"{prefix}/{split}/all_reduces"]
+            assert (got[:, 0] == got[:, 1]).all(), (prefix, split, got)
+        for i in range(1 + SERVE_STEPS):
+            w = want[f"{prefix}/{split}/lg{i}"]
+            for r, part in enumerate(ranks):
+                g = part[f"{prefix}/{split}/lg{i}"]
+                np.testing.assert_array_equal(
+                    g, ranks[r - r % m][f"{prefix}/{split}/lg{i}"])
+                rows = w if g.shape[0] == batch else w[
+                    (r // m) * g.shape[0]:(r // m + 1) * g.shape[0]]
+                err = np.abs(g - rows).max() / np.abs(rows).max()
+                assert err <= SERVE_RTOL, (prefix, split, i, r, err)
+            n = len([k for k in want if k.startswith(
+                f"{prefix}/{split}/c{i}/")])
+            parts = [type(axes)(*_unflatten(axes, [
+                p[f"{prefix}/{split}/c{i}/{j}"] for j in range(n)]))
+                for p in ranks]
+            joined = convert.unshard_cache(parts, axes, rules, mesh_shape)
+            # shard_cache cuts the joined cache back into each rank's
+            # blocks, bit for bit.
+            for r, part in enumerate(parts):
+                for a, b in zip(cache_leaves(convert.shard_cache(
+                        joined, axes, rules, mesh_shape, r)),
+                        cache_leaves(part)):
+                    assert a.tobytes() == b.tobytes(), (prefix, i, r)
+            whole = cache_leaves(joined)
+            assert len(whole) == n and d * m == len(ranks)
+            for j, g in enumerate(whole):
+                wj = want[f"{prefix}/{split}/c{i}/{j}"]
+                assert g.shape == wj.shape, (prefix, i, j, g.shape, wj.shape)
+                if g.dtype.kind == "i":
+                    np.testing.assert_array_equal(g, wj)
+                    continue
+                top = max(float(np.abs(wj).max()), 1e-30)
+                err = float(np.abs(g.astype(np.float32) - wj).max())
+                assert err <= SERVE_RTOL * top, (prefix, split, i, j, err)
+
+
+def _unflatten(axes, leaves):
+    """``leaves`` (``cache_leaves``' order) in the NamedTuples of
+    ``axes``, field by field."""
+    out, it = [], iter(leaves)
+
+    def build(a):
+        if hasattr(a, "_fields"):
+            return type(a)(*(build(f) for f in a))
+        return next(it)
+    return [build(f) for f in axes]
+
+
 # -- the port's ranks ---------------------------------------------------------
 
 _WORKER = textwrap.dedent("""
@@ -713,6 +922,16 @@ def rank_main(rank, world, out):
                 trainer.gf.stages[-1]).tasks])
     if world == 4:
         window_steps(mesh, full, inputs, rows, saved)
+        # Serving olmo-smoke: 'serve_batch' over the data axis at batch
+        # 4, long context (every data rank the whole batch) at batch 1.
+        trainer = port_trainer(arch, "lazy", True, mesh)
+        local = convert.params_from_numpy(convert.shard_params(
+            full, trainer.rules, mesh.model_size, mesh.model_index,
+            specs=trainer.specs), "cpu")
+        for b in SERVE_BATCHES:
+            port_serve(trainer, local, {k: v[:b] for k, v in inputs.items()
+                                        if k.startswith("s/")},
+                       b, saved, f"serve{b}")
     if world == 2:
         fault_steps(mesh, inputs, rows, saved)
         olmo = dict(np.load(os.path.join(tmp, "olmo-1b_inputs.npz")))
@@ -768,6 +987,7 @@ def runs(tmp_path_factory):
             np.savez(tmp / "olmo_init.npz", **init)
         np.savez(tmp / f"{arch}_inputs.npz",
                  **batches(get_smoke(arch)[0].vocab_size),
+                 **serve_inputs(get_smoke(arch)[0], max(SERVE_BATCHES)),
                  **{f"p/{k}": v for k, v in init.items()})
     jax22 = [subprocess.Popen(
         [sys.executable, "-c", _JAX_22.format(
@@ -783,6 +1003,7 @@ def runs(tmp_path_factory):
     for mode in AT_1X1:
         ref[("olmo-1b", mode)] = jax_run("olmo-1b", mode, True)[:2]
     ref[("qwen3-32b", "lazy")] = jax_run("qwen3-32b", "lazy", False)[:2]
+    ref["serve"] = jax_serve_olmo(ref[("olmo-1b", "init")])
     _wait(procs)
     _wait(jax22)
     j22 = {k: v for i in range(len(JAX_22_SPLIT))
@@ -797,6 +1018,44 @@ def runs(tmp_path_factory):
              for w in (4, 2)}
     ref["tmp"] = tmp
     return ref, ranks
+
+
+def jax_serve_olmo(init):
+    """JAX's (1, 1) serving of olmo-smoke in f32 from the weights
+    ``init`` (flat) at each of SERVE_BATCHES: {key: array} in
+    ``port_serve``'s keys."""
+    from repro.configs import base as j_base
+    from repro.configs import get_smoke as j_get_smoke
+    from repro.launch.mesh import make_host_mesh
+    from repro.launch.trainer import Trainer as JTrainer
+    from repro.parallel.collectives import compat_set_mesh
+
+    inputs = serve_inputs(get_smoke("olmo-1b")[0], max(SERVE_BATCHES))
+    mesh = make_host_mesh()
+    out = {}
+    with compat_set_mesh(mesh):
+        trainer = JTrainer(train_cfg(j_base, "olmo-1b", "lazy", True), mesh,
+                           j_get_smoke("olmo-1b")[1])
+        params = _tree(_specs("olmo-1b"), init)
+        for b in SERVE_BATCHES:
+            save_jax_serve(jax_serve(trainer, params, {
+                k: v[:b] for k, v in inputs.items()}, b), f"serve{b}", out)
+    return out
+
+
+@pytest.mark.parametrize("batch", SERVE_BATCHES)
+def test_serving_at_2x2_matches_jax(runs, batch):
+    """olmo-smoke served by four ranks at mesh (2, 2) (its KV heads split
+    over 'model'), at batch 4 each data rank its two rows, at batch 1
+    (long context) every data rank the row, against JAX's (1, 1)
+    ``build_serve_step``: logits and caches, naive and split_combine,
+    the decode's all-reduces the expected function's."""
+    ref, ranks = runs
+    rules = json.loads(str(ranks[4][0][f"serve{batch}/rules"]))
+    assert rules["serve_batch"] == (["data"] if batch == 4 else None)
+    assert rules["kv_heads"] == "model" and rules["kv_seq"] is None
+    check_serving(ref["serve"], ranks[4], f"serve{batch}",
+                  _model("olmo-1b", True), (2, 2), batch)
 
 
 def _gathered(parts, prefix, arch):
@@ -860,10 +1119,12 @@ def test_mesh_2x2_matches_jax(runs, mode):
         if f"{mode}/tripped" in p:
             assert not p[f"{mode}/tripped"].any(), p[f"{mode}/tripped"]
     # Model ranks (0, 1) and (2, 3) hold the data indices' copies: the
-    # data-parallel mean leaves them equal bit for bit.
+    # data-parallel mean leaves them equal bit for bit (the serving
+    # entries are each data rank's own rows: test_serving_at_2x2_*).
     for a, b in ((0, 2), (1, 3)):
         for k in r[a]:
-            if not k.startswith("csc/s"):  # each data rank's own pool
+            # each data rank's own pool
+            if not k.startswith(("csc/s", "serve")):
                 np.testing.assert_array_equal(r[a][k], r[b][k], err_msg=k)
     # Replicated leaves (olmo has no norm weights: its norms are
     # non-parametric) are none here; the gathered tree is JAX's.
@@ -1189,16 +1450,19 @@ def test_selection_without_a_model_axis_is_unchanged():
 
 
 def test_model_axis_refusals_after_construction(tmp_path):
-    """Serving and a replan to another model degree still raise, naming
-    ROADMAP.md A.23; a window builds; a checkpoint manager in a process
+    """A replan to another model degree still raises, naming ROADMAP.md
+    A.23 (the JAX Trainer refuses it too); serving builds, under the
+    serving rules; a window builds; a checkpoint manager in a process
     whose mesh has a model axis needs the trainer's layout."""
     trainer = Trainer(_cfg(), device="cpu", mesh=_fake_mesh())
     assert trainer.global_pool == 2 * trainer.pool.size
     assert trainer.num_chunks_global == 2 * trainer.gf.num_chunks
-    for call in (lambda: trainer.build_serve_step(None, mode="decode"),
-                 lambda: trainer.replan(mesh=_fake_mesh(4))):
-        with pytest.raises(ValueError, match="ROADMAP.md A.23"):
-            call()
+    step, rules = trainer.build_serve_step(serve_shape(t_base, B),
+                                           mode="decode")
+    assert step.model_axis.size == 2 and rules["serve_batch"] == ("data",)
+    assert rules["kv_heads"] == "model" and rules["kv_seq"] is None
+    with pytest.raises(ValueError, match="ROADMAP.md A.23"):
+        trainer.replan(mesh=_fake_mesh(4))
     trainer.replan(mesh=_fake_mesh(2))  # the same model degree
     trainer.build_train_window(4)
     # Heads that the rules split but that do not split over the model
@@ -1221,6 +1485,32 @@ def test_model_axis_refusals_after_construction(tmp_path):
             is layout
     finally:
         collectives.set_data_group(None)
+
+
+def test_serving_refuses_dimensions_that_do_not_split():
+    """A cache of 13 positions split by position over 2 model ranks
+    (qwen3-smoke's replicated KV heads put 'kv_seq' on 'model'), a batch
+    of 3 over 2 data ranks, and the KV heads on 'model' with the
+    positions forced there too: each refused by the dimension's logical
+    axis when the step is built."""
+    trainer = Trainer(_cfg("qwen3-32b"), device="cpu", mesh=_fake_mesh())
+    odd = t_base.ShapeConfig(name="serve", seq_len=13, global_batch=2,
+                             kind="decode")
+    with pytest.raises(ValueError, match="'kv_seq' of size 13"):
+        trainer.build_serve_step(odd, mode="decode")
+    olmo = Trainer(_cfg(), device="cpu", mesh=_fake_mesh())
+    with pytest.raises(ValueError, match="one mesh axis"):
+        olmo.build_serve_step(serve_shape(t_base, 2), mode="decode",
+                              kv_seq_shard="model")
+    with pytest.raises(ValueError, match="only"):
+        olmo.build_serve_step(serve_shape(t_base, 2), mode="decode",
+                              kv_seq_shard=("data",))
+    with mock.patch.object(Trainer, "_prepare_groups", lambda self, c: None):
+        data2 = Trainer(_cfg(), device="cpu", mesh=t_mesh.Mesh(
+            (2, 2), t_mesh.AXES, 0, LevelGroup(None, (0, 1), 0),
+            LevelGroup(None, (0, 2), 0)))
+    with pytest.raises(ValueError, match="'serve_batch' of size 3"):
+        data2.build_serve_step(serve_shape(t_base, 3), mode="prefill")
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "arctic-480b", "grok-1-314b",

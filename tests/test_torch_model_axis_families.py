@@ -46,6 +46,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -56,10 +57,14 @@ from repro_torch.configs.base import GradientFlowConfig
 from repro_torch.configs.base import OptimizerConfig, TrainConfig
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch.trainer import Trainer
+from repro_torch.parallel.collectives import LevelGroup
 from repro_torch.models import build_model
-from test_torch_model_axis import (_flat, _free_port, _tree,
-                                   assert_replicas_equal, check_csc_steps,
-                                   record_csc, replicated_leaves)
+from test_torch_model_axis import (RULE_VARIANTS, _flat, _free_port, _tree,
+                                   assert_replicas_equal, cache_leaves,
+                                   check_csc_steps,
+                                   check_serving, jax_serve, port_serve,
+                                   record_csc, replicated_leaves, rules_json,
+                                   save_jax_serve, serve_inputs, serve_shape)
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 TESTS = os.path.dirname(os.path.abspath(__file__))
@@ -82,6 +87,11 @@ CSC_ARCHS = ("arctic-480b", "falcon-mamba-7b")
 BF16_ARCHS = ("grok-1-314b", "musicgen-large", "zamba2-2.7b")
 # The train CLI at --mesh 1x2 (the vlm stays refused by name there).
 CLI_ARCHS = ("grok-1-314b", "musicgen-large", "falcon-mamba-7b")
+# The serve CLI at --mesh 1x2 in f32: an attention family whose cache is
+# split by position under sharded heads, and the ssm family.
+SERVE_CLI_ARCHS = ("grok-1-314b", "falcon-mamba-7b")
+SERVE_CLI_ARGV = ["--reduced", "--batch", "2", "--prompt-len", "8", "--gen",
+                  "4", "--seed", "3", "--device", "cpu"]
 ALL = FAMILY_ARCHS + ("smollm-135m", KV1)
 
 
@@ -136,6 +146,7 @@ def _inputs(case):
                                        cfg.d_model)).astype(np.float32)
             out[f"b{t}/vision_embeds"] = torch.from_numpy(vis).to(
                 torch.bfloat16).float().numpy()
+    out.update(serve_inputs(cfg, B))
     return out
 
 
@@ -219,11 +230,47 @@ def jax_grads(case, inputs):
     return float(loss), _flat(jax.tree_util.tree_map(np.asarray, grads))
 
 
+def jax_serve_refs(case, inputs):
+    """JAX's serving of ``case`` in f32: ``build_serve_step``'s values at
+    (1, 1) (``jax_serve``), and at (1, 2) on two placeholder devices the
+    rules of each of RULE_VARIANTS and the shard shape of each cache
+    leaf in ``abstract_serve_args``."""
+    import jax
+    from jax._src.named_sharding import DuplicateSpecError
+    from repro.configs import base as j_base
+    from repro.parallel.collectives import compat_set_mesh
+
+    out = {}
+    trainer = _jax_trainer(case, "lazy", True, (1, 1))
+    params = _tree(trainer.specs, {k[2:]: v for k, v in inputs.items()
+                                   if k.startswith("p/")})
+    with compat_set_mesh(trainer.mesh):
+        save_jax_serve(jax_serve(trainer, params, inputs, B), "serve", out)
+    trainer = _jax_trainer(case, "lazy", True, (1, 2))
+    sc = serve_shape(j_base, B)
+    with compat_set_mesh(trainer.mesh):
+        for v, (mode, flash, kv) in enumerate(RULE_VARIANTS):
+            try:  # 'model' on two cache dimensions: a PartitionSpec error
+                out[f"serve/variant{v}"] = np.asarray(rules_json(
+                    trainer.build_serve_step(sc, mode=mode, kv_seq_shard=kv,
+                                             flash_decode=flash)[1]))
+            except DuplicateSpecError:
+                out[f"serve/variant{v}"] = np.asarray("refused")
+        rules = trainer.build_serve_step(sc, mode="decode")[1]
+        cache = trainer.abstract_serve_args(sc, rules, "decode")[2]
+        for j, leaf in enumerate(jax.tree_util.tree_leaves(tuple(cache))):
+            out[f"serve/shard{j}"] = np.asarray(
+                leaf.sharding.shard_shape(leaf.shape))
+    return out
+
+
 def jax_refs(tmp, cases):
     """Every JAX reference of ``cases`` [(case, what)], one npz each."""
     for case, what in cases:
         inputs = dict(np.load(os.path.join(tmp, f"in_{_tag(case)}.npz")))
-        if what == "grad":
+        if what == "serve":
+            out = jax_serve_refs(case, inputs)
+        elif what == "grad":
             loss, grads = jax_grads(case, inputs)
             out = dict(loss=np.asarray(loss),
                        **{f"g/{k}": v for k, v in grads.items()})
@@ -245,7 +292,8 @@ def _jax_jobs(n=2):
     first (CSC on two devices, then the Trainer runs, then gradients)."""
     jobs = [(c, "csc") for c in CSC_ARCHS] \
         + [(c, "lazy32") for c in TRAINED] \
-        + [(c, "lazy16") for c in BF16_ARCHS] + [(c, "grad") for c in ALL]
+        + [(c, "lazy16") for c in BF16_ARCHS] + [(c, "serve") for c in ALL] \
+        + [(c, "grad") for c in ALL]
     return [jobs[i::n] for i in range(n)]
 
 
@@ -345,6 +393,16 @@ def rank_main(rank, group, tmp):
                 trainer.model_axis.stats["all_reduces"])
             for k, v in _flat(convert.params_to_numpy(state.params)).items():
                 saved[f"{what}/p/{k}"] = v
+        # Serving from the same weights (f32): each call's logits and
+        # cache blocks, the all-reduces, the rules.
+        trainer = port_trainer(case, "lazy", True, mesh)
+        local = convert.params_from_numpy(convert.shard_params(
+            full, trainer.rules, 2, mesh.model_index, specs=trainer.specs),
+            "cpu")
+        port_serve(trainer, local, inputs, B, saved, "serve")
+        if case in SERVE_CLI_ARCHS:
+            saved["serve_cli"] = serve_cli_f32(
+                ["--arch", case, "--mesh", "1x2"] + SERVE_CLI_ARGV).numpy()
         if case in CLI_ARCHS:
             from repro_torch.launch import train
             saved["cli_losses"] = np.asarray(train.main(
@@ -361,6 +419,28 @@ def rank_main(rank, group, tmp):
             except ValueError as e:
                 assert "vision_embeds" in str(e), e
         np.savez(os.path.join(tmp, f"port_{_tag(case)}_{rank}.npz"), **saved)
+
+
+def serve_cli_f32(argv):
+    """``launch.serve.main(argv)`` with the smoke configuration in f32
+    compute, the weights and the cache kept in f32 (the CLI's own are
+    bf16)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    real, cache = serve.get_smoke, Trainer.init_serve_cache
+
+    def f32(arch):
+        cfg, rules = real(arch)
+        return dataclasses.replace(cfg, compute_dtype="float32"), rules
+    with mock.patch.object(serve, "get_smoke", f32), mock.patch.object(
+            serve, "serve_params", lambda model, seed, dev:
+            model.init_params(seed, dev, on_device=True)), \
+            mock.patch.object(Trainer, "init_serve_cache",
+                              lambda self, shape, rules, dtype=None:
+                              cache(self, shape, rules, torch.float32)):
+        return serve.main(argv)
 
 
 @pytest.fixture(scope="module")
@@ -393,7 +473,7 @@ def runs(tmp_path_factory):
     res = {}
     for case in ALL:
         ref = {}
-        for what in ("grad", "lazy32", "lazy16", "csc"):
+        for what in ("grad", "lazy32", "lazy16", "csc", "serve"):
             path = os.path.join(tmp, f"jax_{_tag(case)}_{what}.npz")
             if os.path.exists(path):
                 ref[what] = dict(np.load(path))
@@ -502,3 +582,161 @@ def test_cli_at_mesh_1x2_trains(runs, case):
     losses = ranks[0]["cli_losses"]
     assert losses.shape == (2,) and np.isfinite(losses).all()
     np.testing.assert_array_equal(losses, ranks[1]["cli_losses"])
+
+
+@pytest.mark.parametrize("case", ALL)
+def test_serving_at_1x2_matches_jax(runs, case):
+    """The case served by two ranks at mesh (1, 2), f32, against JAX's
+    (1, 1) ``build_serve_step`` (``check_serving``): a prefill and four
+    decode steps, naive and ``split_combine``; the cache's KV heads split
+    over 'model' (musicgen, zamba2's shared block), its positions
+    ('kv_seq') with the heads sharded (grok1, internvl2, one-KV-head
+    stablelm) or attention replicated (smollm, arctic), the Mamba states
+    on the rank's channels or heads."""
+    ref, ranks = runs[case]
+    check_serving(ref["serve"], ranks, "serve", _model(case, True), (1, 2),
+                  B)
+
+
+@pytest.mark.parametrize("case", ALL)
+def test_serve_rules_and_layouts_at_1x2_match_jax(runs, case):
+    """The rules ``build_serve_step`` returns (prefill; decode with and
+    without ``flash_decode`` and ``kv_seq_shard='model'``) equal JAX's
+    Trainer's at (1, 2); both refuse the variants that put 'model' on two
+    cache dimensions (``kv_seq_shard='model'`` where the KV heads are on
+    it), the rest build; each cache block's shape is JAX's
+    ``shard_shape``."""
+    ref, ranks = runs[case]
+    want = ref["serve"]
+    for r in ranks:
+        for v in range(len(RULE_VARIANTS)):
+            refused = str(want[f"serve/variant{v}"]) == "refused"
+            assert bool(r[f"serve/variant{v}/built"]) == (not refused), v
+            if not refused:
+                got = str(r[f"serve/variant{v}"])
+                assert got == str(want[f"serve/variant{v}"]), (case, v, got)
+        shards = sorted(k for k in want if k.startswith("serve/shard"))
+        for j in range(len(shards)):
+            assert tuple(r[f"serve/0/c0/{j}"].shape) == tuple(
+                want[f"serve/shard{j}"]), (case, j)
+
+
+@pytest.mark.parametrize("case", SERVE_CLI_ARCHS)
+def test_serve_cli_at_mesh_1x2_equals_1x1(runs, case):
+    """``python -m repro_torch.launch.serve --mesh 1x2`` (two gloo ranks,
+    f32): both ranks return the same tokens, the tokens of the one-process
+    run."""
+    ranks = runs[case][1]
+    np.testing.assert_array_equal(ranks[0]["serve_cli"],
+                                  ranks[1]["serve_cli"])
+    want = serve_cli_f32(["--arch", case] + SERVE_CLI_ARGV)
+    np.testing.assert_array_equal(ranks[0]["serve_cli"], want.numpy())
+
+
+# -- the serving layouts against JAX's shard shapes (no process) -------------
+
+LAYOUT_MESHES = ((1, 2), (2, 2), (2, 1))
+
+
+def _axes_fields(axes):
+    """A cache's logical axes, field by field, nested NamedTuples
+    flattened (the axes themselves are tuples of names)."""
+    if hasattr(axes, "_fields"):
+        return [(f,) + x for f, a in zip(axes._fields, axes)
+                for x in _axes_fields(a)]
+    return [(axes,)]
+
+
+def _spec_shapes(tree, prefix=""):
+    """{leaf path: shape} of the port's (shape, dtype) parameter tree."""
+    out = {}
+    for k, v in tree.items():
+        out.update(_spec_shapes(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {f"{prefix}{k}": tuple(v[0])})
+    return out
+
+
+def jax_serve_layout(case, mesh_shape, batch, mode):
+    """(rules, {param path: shard shape}, {batch key: shard shape}, [(cache
+    leaf shard shape, dtype name)]) of JAX's ``Trainer.serve_rules`` /
+    ``build_serve_step`` / ``abstract_serve_args`` on an abstract mesh of
+    ``mesh_shape``: the methods run on a stand-in holding the attributes
+    they read (the Trainer's own constructor needs the devices)."""
+    import types
+
+    import jax
+    from jax.sharding import AbstractMesh
+    from repro.configs.base import ShapeConfig as JShape
+    from repro.configs.base import TrainConfig as JTrain
+    from repro.launch.trainer import Trainer as JTrainer
+    from repro.models import build_model as j_build
+    from repro.parallel import sharding as j_sh
+
+    cfg = JTrain(model=_model(case, True), seq_len=12, global_batch=batch)
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    t = types.SimpleNamespace(
+        cfg=cfg, mesh=mesh, rules=dict(_rules(case)),
+        model=j_build(cfg.model), model_size=mesh_shape[1],
+        data_axes=("data",), num_data=mesh_shape[0])
+    t.specs = t.model.param_specs()
+    t.param_shardings = j_sh.param_shardings(t.specs, mesh, t.rules)
+    t.serve_rules = lambda long_context=False: JTrainer.serve_rules(
+        t, long_context)
+    t.batch_pspec = lambda tree: JTrainer.batch_pspec(t, tree)
+    sc = JShape(name="serve", seq_len=12, global_batch=batch, kind="decode")
+    rules = JTrainer.build_serve_step(t, sc, mode=mode)[1]
+    params, b, cache = JTrainer.abstract_serve_args(t, sc, rules, mode)
+
+    def shard(leaf):
+        return tuple(leaf.sharding.shard_shape(leaf.shape))
+    return (rules,
+            {"/".join(k.key for k in path): shard(leaf) for path, leaf in
+             jax.tree_util.tree_leaves_with_path(params)},
+            {k: shard(v) for k, v in b.items()},
+            [(shard(x), str(x.dtype))
+             for x in jax.tree_util.tree_leaves(tuple(cache))])
+
+
+def _layout_mesh(shape):
+    """A stand-in mesh of ``shape`` at rank 0 (no process group)."""
+    d, m = shape
+    return t_mesh.Mesh(shape, t_mesh.AXES, 0,
+                       LevelGroup(None, tuple(range(m)), 0),
+                       LevelGroup(None, tuple(range(0, d * m, m)), 0))
+
+
+@pytest.mark.parametrize("case", ALL)
+def test_serving_layouts_match_jax_shard_shapes(case):
+    """Every family's ``cache_logical_axes`` equals JAX's, and at meshes
+    (1, 2), (2, 2) and (2, 1), at batch 4 and 1 (long context where the
+    data degree is 2), prefill and decode: ``serve_rules`` as
+    ``build_serve_step`` returns them, and each leaf of
+    ``abstract_serve_args`` (the bf16 parameter blocks, the batch, the
+    cache) JAX's ``NamedSharding.shard_shape``."""
+    from repro.models import build_model as j_build
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg = _model(case, True)
+    assert _axes_fields(build_model(cfg).cache_logical_axes()) == \
+        _axes_fields(j_build(cfg).cache_logical_axes())
+    for shape in LAYOUT_MESHES:
+        # A stand-in mesh has no groups to lay the data topology over.
+        with mock.patch.object(Trainer, "_prepare_groups",
+                               lambda self, gf_cfg: None):
+            trainer = Trainer(TrainConfig(model=cfg, seq_len=12,
+                                          global_batch=4),
+                              device="cpu", mesh=_layout_mesh(shape))
+        for batch in (4, 1):
+            sc = ShapeConfig(name="serve", seq_len=12, global_batch=batch,
+                             kind="decode")
+            for mode in ("prefill", "decode"):
+                rules, params, b, cache = jax_serve_layout(case, shape,
+                                                           batch, mode)
+                got = trainer.serve_step_rules(sc, mode=mode)
+                assert rules_json(got) == rules_json(rules), (shape, batch)
+                p, tb, tc = trainer.abstract_serve_args(sc, got, mode)
+                assert _spec_shapes(p) == params, (shape, batch, mode)
+                assert {k: tuple(v[0]) for k, v in tb.items()} == b
+                assert [(tuple(x[0]), str(x[1]).split(".")[-1])
+                        for x in cache_leaves(tc)] == cache, (
+                    shape, batch, mode)

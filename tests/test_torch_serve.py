@@ -22,7 +22,8 @@ budget; the arithmetic is the same, and f32 holds to 1e-5.
   prompt token by token equals its own prefill's logits (JAX's
   ``test_decode_matches_train_logits``, at its 5e-4).
 * ``Trainer.build_serve_step`` against the JAX Trainer's (jitted, on a
-  one-device mesh) for a dense and a hybrid smoke configuration.
+  one-device mesh) for a dense and a hybrid smoke configuration: the
+  values, the cache and the returned serving rules.
 * The CLI returns (B, gen) or (B, gen, K) tokens equal to a greedy loop
   over the port's own ``serve_step`` from the same weights and prompts.
 * ``cache_to_numpy(cache_from_numpy(x))`` keeps the bits of each cache
@@ -314,7 +315,8 @@ def test_teacher_forced_decode_matches_prefill(split_combine):
 @functools.lru_cache(maxsize=None)
 def _jax_serve_steps(arch):
     """The JAX Trainer's jitted prefill and decode on a one-device mesh,
-    f32: (prefill logits, decode logits of each step, final cache)."""
+    f32: (weights, tokens, [prefill logits, decode logits of each step],
+    final cache, the prefill's and the decode's returned rules)."""
     j_cfg, _ = _configs(arch)
     trainer = JTrainer(JTrainConfig(model=j_cfg, global_batch=B,
                                     seq_len=PROMPT + STEPS),
@@ -324,8 +326,8 @@ def _jax_serve_steps(arch):
     j_params, _ = _params(trainer.model.param_specs())
     toks = _family_inputs(j_cfg, np.random.default_rng(5), PROMPT, STEPS)
     with compat_set_mesh(trainer.mesh):
-        prefill, _ = trainer.build_serve_step(sc, mode="prefill")
-        decode, _ = trainer.build_serve_step(sc, mode="decode")
+        prefill, p_rules = trainer.build_serve_step(sc, mode="prefill")
+        decode, d_rules = trainer.build_serve_step(sc, mode="decode")
         cache = trainer.model.init_cache(B, PROMPT + STEPS,
                                          dtype=jnp.float32)
         lg, cache = prefill(j_params, {"tokens": jnp.asarray(
@@ -336,20 +338,23 @@ def _jax_serve_steps(arch):
                 toks[:, t:t + 1])}, cache)
             outs.append(np.asarray(lg))
         cache = jax.tree_util.tree_map(np.asarray, cache)
-    return j_params, toks, outs, cache
+    return j_params, toks, outs, cache, (p_rules, d_rules)
 
 
 @pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-2.7b"])
 def test_build_serve_step_matches_jax(arch):
-    j_params, toks, want, j_cache = _jax_serve_steps(arch)
+    j_params, toks, want, j_cache, j_rules = _jax_serve_steps(arch)
     _, t_cfg = _configs(arch)
     trainer = Trainer(TrainConfig(model=t_cfg, global_batch=B,
                                   seq_len=PROMPT + STEPS), device="cpu")
     sc = ShapeConfig(name="serve", seq_len=PROMPT + STEPS, global_batch=B,
                      kind="decode")
-    prefill, rules = trainer.build_serve_step(sc, mode="prefill")
-    decode, _ = trainer.build_serve_step(sc, mode="decode")
-    assert rules is None
+    prefill, p_rules = trainer.build_serve_step(sc, mode="prefill")
+    decode, d_rules = trainer.build_serve_step(sc, mode="decode")
+    # The serving rules are the JAX Trainer's (one device: no model axis,
+    # the batch on 'data').
+    assert (p_rules, d_rules) == j_rules
+    assert prefill.model_axis is None
     params = convert.params_from_numpy(j_params, "cpu")
     cache = trainer.model.init_cache(B, PROMPT + STEPS, torch.float32,
                                      "cpu")
