@@ -367,9 +367,9 @@
    (ao) olmo-1b at its published widths and whole depth (16 layers,
        d_model 2048, 16 heads, d_ff 8192, vocab 50304, tied), 1 x 4096
        tokens, blockwise attention beyond 1024, lazy, bf16 wire, momentum
-       SGD, kernels on, 3 steps on one repeated batch and one more with
-       the model group's all-reduces timed: first at (1, 1) in this
-       process, then at mesh (1, 2) as two processes on this card (the
+       SGD, kernels on, 3 steps on one repeated batch and one more timed
+       whole, the model group's all-reduces counted: first at (1, 1) in
+       this process, then at mesh (1, 2) as two processes on this card (the
        model group over gloo, through pinned host memory; the two
        contexts time-sliced), the weights drawn on the card from the
        seed and cut per rank. The losses within 6e-3 relative of the
@@ -387,7 +387,7 @@
    (ap) the other families under the model axis, the same way: arctic-
        480b at (ac)'s cut (its published widths, 1 of 35 layers, 16 of
        128 experts), 1 x 4096 tokens, lazy, bf16 wire, 2 steps on one
-       repeated batch and one with the all-reduces timed, at (1, 1) here
+       repeated batch and one more timed whole, at (1, 1) here
        and at (1, 2) in two processes: its rules shard the experts (8 a
        rank), the vocabulary and the dense residual's hidden units and
        leave attention and the router replicated. (ao)'s bounds on the
@@ -409,7 +409,7 @@
        4096 tokens in 2 microbatches, blockwise attention beyond 1024,
        lazy, staged, kernels on, with the numeric guard (GuardConfig()),
        the int8 wire with error feedback and LARS, 2 steps on one
-       repeated batch and one with the all-reduces timed, at (1, 1) and
+       repeated batch and one more timed whole, at (1, 1) and
        (1, 2). The losses within 6e-3; no step trips; the model group's
        all-reduces a step 2 x (5 x layers + 5) + 1 (each microbatch's
        Megatron sums and the guard's group verdict); LARS's trust ratios
@@ -5482,8 +5482,8 @@ def soak_phase(torch, ops, dev) -> dict:
 
 # (ao): olmo-1b at its published widths and whole depth, 1 x 4096 tokens,
 # blockwise attention beyond 1024, lazy, bf16 wire, momentum SGD, kernels
-# on; TP_STEPS timed steps on one repeated batch, then one step with the
-# model group's all-reduces timed (a device sync on each side of each).
+# on; TP_STEPS timed steps on one repeated batch, then one more timed
+# whole, the model group's all-reduces counted.
 TP_LAYERS = 16
 TP_CUT = {"num_layers": TP_LAYERS}
 TP_STEPS = 3
@@ -5831,7 +5831,7 @@ def model_axis_phase(torch, ops, train_mod, synthetic):
 # AQ_MICROBATCHES microbatches, blockwise attention beyond 1024, lazy,
 # staged, kernels on, with the numeric guard (GuardConfig()), the int8
 # wire with error feedback and LARS: AQ_STEPS steps on one repeated batch
-# and one more with the model group's all-reduces timed, at (1, 1) in
+# and one more timed whole, at (1, 1) in
 # this process and at mesh (1, 2) in (ao)'s two rank processes.
 AQ_LAYERS = 4
 AQ_CUT = {"num_layers": AQ_LAYERS}
@@ -5898,6 +5898,7 @@ def aq_csc_cli(ops, train_mod) -> dict:
     ops.reset_counts()
     args = train_mod.parse_args(AQ_CSC_ARGV)
     digests = []
+    before = model_axis_counts()
     with StepDigests(train_mod, digests):
         trainer, losses, _, _ = train_mod.train(args)
     counts = dict(ops.dispatch_counts)
@@ -5907,7 +5908,16 @@ def aq_csc_cli(ops, train_mod) -> dict:
                               for s in range(args.steps)],
                 num_chunks=trainer.gf.num_chunks, replica_digests=digests,
                 replicated_leaves=len(replicated_names(trainer)),
-                model_all_reduces=trainer.model_axis.stats["all_reduces"])
+                model_all_reduces=model_axis_counts(before)["all_reduces"])
+
+
+def model_axis_counts(before=None) -> dict:
+    """The model group's all-reduces and their bytes
+    (``runtime.trace``'s ``model_axis`` counters), less ``before``'s."""
+    from repro_torch.runtime import trace
+
+    now = dict(trace.counters["model_axis"])
+    return {k: v - before[k] for k, v in now.items()} if before else now
 
 
 def aq_fault_run(torch, ops, train_mod, synthetic) -> dict:
@@ -6168,9 +6178,7 @@ def as_case(torch, dev, label, case, mesh_shape, ref):
         for t in range(AS_DECODE):
             tok = (forced[:, t] if forced is not None else own[-1]) \
                 .view(b, 1).to(torch.int32)
-            if axis is not None:
-                axis.reset_stats()
-                axis.timing = t == AS_DECODE - 1
+            before = model_axis_counts()
             call = (lambda tok=tok: decode(params, {"tokens": tok}, cache))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6186,8 +6194,7 @@ def as_case(torch, dev, label, case, mesh_shape, ref):
             ms.append((time.perf_counter() - t0) * 1e3)
             logits.append(row)
             if axis is not None:
-                stats.append(dict(axis.stats))
-                axis.timing = False
+                stats.append(model_axis_counts(before))
         rec = dict(prefill_ms=prefill_ms, decode_ms=ms,
                    decode_median_ms=statistics.median(ms[:-1]),
                    # k and v (the per-layer index, replicated, apart)
@@ -6203,7 +6210,6 @@ def as_case(torch, dev, label, case, mesh_shape, ref):
             rec.update(
                 model_all_reduces=[s["all_reduces"] for s in stats],
                 model_all_reduce_bytes=stats[0]["bytes"],
-                model_all_reduce_seconds_timed_step=stats[-1]["seconds"],
                 expected_model_all_reduces=(
                     trainer.expected_serve_all_reduces("decode", d_rules)),
                 expected_prefill_all_reduces=(
@@ -6323,8 +6329,8 @@ def as_checks(ref, ranks, note) -> dict:
 # (ap): arctic-480b at (ac)'s cut (its published widths, 1 of 35 layers,
 # 16 of 128 experts: 2,354,451,456 parameters) at 1 x 4096 tokens,
 # blockwise attention beyond 1024, lazy, bf16 wire, momentum SGD, kernels
-# on; AP_STEPS timed steps on one repeated batch and one more with the
-# model group's all-reduces timed, at (1, 1) in this process and at mesh
+# on; AP_STEPS timed steps on one repeated batch and one more timed
+# whole, at (1, 1) in this process and at mesh
 # (1, 2) as two processes on this card. Its rules shard the experts
 # (expert parallelism: each rank holds 8 of the 16) and leave attention
 # replicated. Held to (ao)'s bounds.
@@ -6371,7 +6377,7 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
     over ``blocks`` blocks); guarded, each step's verdict; ``digests``:
     the replicated leaves' digest after each step; ``lars_first``: each
     leaf block's first-step update norm beside the trust ratio its update
-    used; ``timed``: one more step with the all-reduces timed."""
+    used; ``timed``: one more step, timed whole."""
     args, cfg, trainer = axis_trainer(train_mod, argv, cut, f32, guard,
                                       microbatches, overlap)
     m = cfg.model
@@ -6410,8 +6416,7 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
         stage = trainer.gf.stage_for_step(t)
         if stage.index not in steps:
             steps[stage.index] = trainer.build_train_step(stage)
-        if axis is not None:
-            axis.reset_stats()
+        before = model_axis_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if t == 0 and m.moe is not None:
@@ -6425,7 +6430,7 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         if axis is not None:
-            per_step.append(dict(axis.stats))
+            per_step.append(model_axis_counts(before))
         if guard:
             tripped.append(float(metrics["guard_tripped"]))
         if digests:
@@ -6445,16 +6450,15 @@ def axis_run(torch, ops, train_mod, synthetic, label, argv, blocks,
     norms = update_norms(torch, trainer, init, state.params, blocks)
     timed_step = None
     if timed and axis is not None:
-        axis.reset_stats()
-        axis.timing = True
+        before = model_axis_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = steps[trainer.gf.stage_for_step(
             args.steps).index](state, batch)
         float(metrics["loss"])
         torch.cuda.synchronize()
-        timed_step = dict(axis.stats, step_s=time.perf_counter() - t0)
-        axis.timing = False
+        timed_step = dict(model_axis_counts(before),
+                          step_s=time.perf_counter() - t0)
     from repro_torch.configs import rules_for
     from repro_torch.parallel import sharding
     out = dict(arch=args.arch, config="SMOKE" if args.reduced else "CONFIG",
@@ -6992,8 +6996,6 @@ def print_serving_ranks(rec, name, power) -> None:
                     model_all_reduces=v.get("model_all_reduces", [0])[0],
                     expected=v.get("expected_model_all_reduces", 0),
                     all_reduce_bytes=v.get("model_all_reduce_bytes", 0),
-                    all_reduce_s=v.get(
-                        "model_all_reduce_seconds_timed_step", 0.0),
                     cache_bytes=v["cache_bytes"],
                     peak_mem_gib=run["peak_mem_gib"],
                     logit_rel_gap=v["logit_rel_gap_vs_1x1_naive"],

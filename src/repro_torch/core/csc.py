@@ -44,6 +44,7 @@ from repro_torch.core import lazy_allreduce as lazy_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.kernels import ref
 from repro_torch.parallel.collectives import reduce_pool
+from repro_torch.runtime import trace
 
 
 class CSCState(NamedTuple):
@@ -74,10 +75,12 @@ def select_chunks(chunk_norms: torch.Tensor, k: int
     Among equal norms the lower chunk id wins, as in ``jax.lax.top_k``: a
     stable descending sort, then its first k (``torch.topk`` orders ties
     otherwise, and zero-norm chunks make ties real). No host sync."""
-    order = torch.sort(chunk_norms, descending=True, stable=True).indices
-    idx = torch.sort(order[:k]).values
-    mask = torch.zeros(chunk_norms.shape, dtype=torch.bool,
-                       device=chunk_norms.device).index_fill_(0, idx, True)
+    with trace.span("gf.select"):
+        order = torch.sort(chunk_norms, descending=True, stable=True).indices
+        idx = torch.sort(order[:k]).values
+        mask = torch.zeros(chunk_norms.shape, dtype=torch.bool,
+                           device=chunk_norms.device).index_fill_(0, idx,
+                                                                  True)
     return idx, mask
 
 
@@ -85,8 +88,8 @@ def selection_basis(chunk_norms: torch.Tensor, model_axis=None
                     ) -> torch.Tensor:
     """The norms a sparse step selects on: ``chunk_norms`` itself, or,
     under a model axis of more than one rank, a new tensor holding their
-    sum over the model group (``ModelAxis.all_reduce_``, counted in its
-    stats)."""
+    sum over the model group (``ModelAxis.all_reduce_``, counted in
+    ``runtime.trace``'s ``model_axis`` group)."""
     if model_axis is None or model_axis.size == 1:
         return chunk_norms
     return model_axis.all_reduce_(chunk_norms.clone())
@@ -134,10 +137,11 @@ def summed_census(pool: torch.Tensor, chunk_elems: int,
     basis, the same on every rank. ``sent`` = (idx, l1, ...): the
     low-bit wires' pre-quantization census of the selected chunks, which
     replaces theirs before the sum (see ``csc_reduce``)."""
-    l1 = census(pool, chunk_elems, use_kernels)
-    if sent is not None:
-        l1[sent[0]] = sent[1]
-    return reduce_pool(l1)
+    with trace.span("gf.census"):
+        l1 = census(pool, chunk_elems, use_kernels)
+        if sent is not None:
+            l1[sent[0]] = sent[1]
+        return reduce_pool(l1)
 
 
 class CSCReduceResult(NamedTuple):

@@ -62,6 +62,12 @@ The JAX engine fences each update with ``optimization_barrier`` to pin
 XLA's fusion decisions; PyTorch runs eagerly, so there is nothing to
 fence.
 
+The stages run in ``runtime.trace`` spans: CSC's ``gf.gather`` and each
+bucket's ``gf.scatter`` here, each span's ``gf.update`` and
+``gf.apply_inflight``; ``gf.issue`` and ``gf.wait`` in
+``lazy_allreduce``, ``gf.select`` and ``gf.census`` in ``csc``,
+``gf.pack`` in ``pool``.
+
 The analytic twin (``simulate_plan``, ``render_timeline``,
 ``simulate_plan_pipelined``, ``render_cross_step_timeline``) prices a
 plan on a ``Topology`` with the cost model's two-engine timeline: no
@@ -80,6 +86,7 @@ from repro_torch.core import lazy_allreduce as lazy_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.kernels import ref
 from repro_torch.parallel import cost_model
+from repro_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -607,11 +614,12 @@ class OverlapEngine:
         if spec is not None and cfg.feedback_enabled:
             rows.index_add_(0, idx, gfstate.residual.view(-1, chunk)
                             .index_select(0, idx))
-        if cfg.use_kernels:
-            from repro_torch.kernels import ops
-            wire = ops.csc_compact(g, idx, chunk)
-        else:
-            wire = csc_mod.compact_chunks(g, idx, chunk)
+        with trace.span("gf.gather"):
+            if cfg.use_kernels:
+                from repro_torch.kernels import ops
+                wire = ops.csc_compact(g, idx, chunk)
+            else:
+                wire = csc_mod.compact_chunks(g, idx, chunk)
         wire_dtype, dequant, sent = getattr(torch, cfg.wire_dtype), None, None
         if spec is not None:
             wire, err, scales, send_l1 = csc_mod.quantize_selection(
@@ -622,10 +630,11 @@ class OverlapEngine:
 
         def scatter(task, issued):
             mean = issued.wait() / plan.num_data_shards
-            if dequant is not None:
-                mean = dequant(mean, task)
-            ids = idx[task.start // chunk:task.end // chunk]
-            rows.index_copy_(0, ids, mean.view(-1, chunk))
+            with trace.span("gf.scatter"):
+                if dequant is not None:
+                    mean = dequant(mean, task)
+                ids = idx[task.start // chunk:task.end // chunk]
+                rows.index_copy_(0, ids, mean.view(-1, chunk))
 
         pending = None
         for task in plan.tasks:
@@ -685,13 +694,14 @@ class OverlapEngine:
         Returns (params_tree, opt_state)."""
         if not plan.pipeline_tail:
             return params_tree, opt_state
-        leaves = self.pool.flat_leaves(params_tree)
-        for task, mean in zip(plan.tail_tasks, lane.segs):
-            view = self.pool.bucket_view(*task.update_span)
-            self._update_view_seg(view, self._view_master(view, leaves),
-                                  mean, opt_state, lane.lr, None,
-                                  leaves[view.leaf_lo:view.leaf_hi],
-                                  ok=lane.ok)
+        with trace.span("gf.apply_inflight"):
+            leaves = self.pool.flat_leaves(params_tree)
+            for task, mean in zip(plan.tail_tasks, lane.segs):
+                view = self.pool.bucket_view(*task.update_span)
+                self._update_view_seg(view, self._view_master(view, leaves),
+                                      mean, opt_state, lane.lr, None,
+                                      leaves[view.leaf_lo:view.leaf_hi],
+                                      ok=lane.ok)
         return params_tree, opt_state
 
     def _view_master(self, view, leaves) -> torch.Tensor:
@@ -793,22 +803,23 @@ class OverlapEngine:
         from repro_torch import optim
 
         use_k = self.gf.cfg.use_kernels
-        st_seg = opt_state.__class__(*(x[view.start:view.end]
-                                       for x in opt_state))
-        scale = ratios = None
-        if self.lars is not None:
-            ratios = self.lars.ratios_view(view, m_seg, red_seg,
-                                           self.opt_cfg, mask)
-            if not use_k:
-                scale = ref.expand_ratios(ratios, view.sizes, view.size)
-                ratios = None
-        if mask is None:
-            mask = torch.ones((view.size,), dtype=torch.bool,
-                              device=m_seg.device)
-        new_leaves, _ = optim.update_view(
-            self.opt_name, view, m_seg, red_seg, st_seg, mask, self.opt_cfg,
-            lr, scale=scale, ratios=ratios, use_kernels=use_k,
-            out_leaves=out_leaves, ok=ok)
+        with trace.span("gf.update"):
+            st_seg = opt_state.__class__(*(x[view.start:view.end]
+                                           for x in opt_state))
+            scale = ratios = None
+            if self.lars is not None:
+                ratios = self.lars.ratios_view(view, m_seg, red_seg,
+                                               self.opt_cfg, mask)
+                if not use_k:
+                    scale = ref.expand_ratios(ratios, view.sizes, view.size)
+                    ratios = None
+            if mask is None:
+                mask = torch.ones((view.size,), dtype=torch.bool,
+                                  device=m_seg.device)
+            new_leaves, _ = optim.update_view(
+                self.opt_name, view, m_seg, red_seg, st_seg, mask,
+                self.opt_cfg, lr, scale=scale, ratios=ratios,
+                use_kernels=use_k, out_leaves=out_leaves, ok=ok)
         return new_leaves
 
     def _assemble(self, outs):

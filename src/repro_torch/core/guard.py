@@ -109,8 +109,8 @@ def group_verdict(flags: HealthFlags, model_axis=None
                   ) -> Tuple[HealthFlags, torch.Tensor]:
     """(flags, ok) of a verdict site: ``flags`` as they are, or, under a
     model axis of more than one rank, each flag the max over the model
-    group (``ModelAxis.max_``, counted in its stats); ``ok`` is the
-    commit predicate ``~tripped(flags)``."""
+    group (``ModelAxis.max_``, counted as one of its all-reduces); ``ok``
+    is the commit predicate ``~tripped(flags)``."""
     if model_axis is not None and model_axis.size > 1:
         both = model_axis.max_(torch.stack(flags).to(torch.float32))
         flags = HealthFlags(nonfinite=both[0] > 0, overflow=both[1] > 0)

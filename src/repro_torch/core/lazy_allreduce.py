@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.parallel.topology import FLAT
+from repro_torch.runtime import trace
 
 AlgoSpec = Union[None, object, Sequence[object]]
 
@@ -48,10 +49,11 @@ class PendingBucket:
     def wait(self) -> torch.Tensor:
         """Block the stream on the collective; the summed segment in the
         accumulator dtype."""
-        if self._work is not None:
-            self._work.wait()
-            self._work = None
-        return self._seg.to(self._accum)
+        with trace.span("gf.wait"):
+            if self._work is not None:
+                self._work.wait()
+                self._work = None
+            return self._seg.to(self._accum)
 
 
 def issue_bucket(pool: torch.Tensor, start: int, end: int,
@@ -60,13 +62,14 @@ def issue_bucket(pool: torch.Tensor, start: int, end: int,
     """Start ONE bucket's collective: slice [start, end) off the pool,
     cast to the wire dtype (None = the pool is already wire-packed), and
     sum it across the data-parallel group."""
-    seg = pool[start:end]
-    if wire_dtype is not None and seg.dtype != wire_dtype:
-        seg = seg.to(wire_dtype)
-    if (seg.dtype.is_floating_point and seg.element_size() == 1
-            and getattr(algo, "name", "flat") != "pallas_ring"):
-        seg = seg.to(accum_dtype)
-    seg, work = (algo or FLAT).reduce(seg, topo, async_op=True)
+    with trace.span("gf.issue"):
+        seg = pool[start:end]
+        if wire_dtype is not None and seg.dtype != wire_dtype:
+            seg = seg.to(wire_dtype)
+        if (seg.dtype.is_floating_point and seg.element_size() == 1
+                and getattr(algo, "name", "flat") != "pallas_ring"):
+            seg = seg.to(accum_dtype)
+        seg, work = (algo or FLAT).reduce(seg, topo, async_op=True)
     return PendingBucket(seg, work, accum_dtype)
 
 

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.runtime import trace
 
 Tree = Dict[str, Any]
 
@@ -191,12 +192,13 @@ class GradientPool:
             dtype = ref.result_dtype(leaves) if leaves else torch.float32
         if norms_chunk:
             assert self.size % norms_chunk == 0, (self.size, norms_chunk)
-        if use_kernels:
-            from repro_torch.kernels import ops
-            return ops.pool_pack(leaves, self.offsets, self.sizes, self.size,
+        with trace.span("gf.pack"):
+            if use_kernels:
+                from repro_torch.kernels import ops
+                return ops.pool_pack(leaves, self.offsets, self.sizes,
+                                     self.size, norms_chunk, dtype, out=out)
+            return ref.pool_pack(leaves, self.offsets, self.size,
                                  norms_chunk, dtype, out=out)
-        return ref.pool_pack(leaves, self.offsets, self.size, norms_chunk,
-                             dtype, out=out)
 
     def unravel(self, pool: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> Tree:

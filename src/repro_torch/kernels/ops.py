@@ -6,7 +6,8 @@ kernel, which raises if it cannot build or launch — there is no fallback.
 ``"<kernel>.plain"`` (as ``repro/kernels/ops.py`` does), adding one to
 ``.kernel`` exactly where a kernel is launched, so a run can prove which
 path it took. Calling a kernel module's ``launch`` directly (as a
-comparison does) is not counted.
+comparison does) is not counted. ``dispatch_counts`` is the ``dispatch``
+group of ``runtime.trace.counters``.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from repro_torch.kernels import pool_pack as _pp
 from repro_torch.kernels import pool_unpack as _pu
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring_reduce as _rr
+from repro_torch.runtime import trace
 
-dispatch_counts: Dict[str, int] = {}
+dispatch_counts: Dict[str, int] = trace.counters["dispatch"]
 
 
 def _count(name: str, path: str) -> None:

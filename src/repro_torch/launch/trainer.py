@@ -72,6 +72,10 @@ over the same ranks (an elastic event); steps and windows built before it
 refuse to run. A checkpoint restore (``checkpoint``) writes into the
 state's tensors in place, so a captured window replays on it.
 
+A step runs in a ``launch.call`` span and leaves a call record
+(``runtime.trace``); each microbatch's forward and backward run in
+``model.forward`` and ``model.backward``.
+
 ``Trainer(cfg, device, mesh)`` with a ('data', 'model') or ('pod',
 'data', 'model') mesh (``launch.mesh.make_mesh``) whose model axis has
 M > 1 ranks trains
@@ -144,6 +148,7 @@ from repro_torch.optim.lars import LARSScaler
 from repro_torch.parallel import collectives, sharding
 from repro_torch.parallel.model_axis import ModelAxis
 from repro_torch.parallel.topology import mesh_topology
+from repro_torch.runtime import trace
 
 _A23 = ("is refused, as the JAX Trainer refuses it: an elastic event keeps "
         "the model degree (ROADMAP.md A.23)")
@@ -402,15 +407,16 @@ class Trainer:
         replans = self.replans
 
         def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-            self.check_current(replans, "train step")
-            assert_flushed(state, "a train step")
-            batch = {k: v.to(self.device, non_blocking=True)
-                     for k, v in batch.items()}
-            lr = lr_at(self.cfg.optimizer, state.step)
-            if self.device.type == "cuda":
-                lr = lr.pin_memory().to(self.device, non_blocking=True)
-            state, metrics = body(state, batch, lr, state.step)
-            return state, self.reduce_metrics(metrics)
+            with trace.call(1):
+                self.check_current(replans, "train step")
+                assert_flushed(state, "a train step")
+                batch = {k: v.to(self.device, non_blocking=True)
+                         for k, v in batch.items()}
+                lr = lr_at(self.cfg.optimizer, state.step)
+                if self.device.type == "cuda":
+                    lr = lr.pin_memory().to(self.device, non_blocking=True)
+                state, metrics = body(state, batch, lr, state.step)
+                return state, self.reduce_metrics(metrics)
 
         return step
 
@@ -555,8 +561,9 @@ class Trainer:
         form), with or without ``flash_decode``, whose rules replicate
         the heads as JAX's do (JAX's naive GSPMD form all-gathers the
         cache instead; ROADMAP.md C). ``step.model_axis`` is the axis
-        the step runs under (its ``stats`` count the model group's
-        all-reduces; ``expected_serve_all_reduces`` gives their number),
+        the step runs under (``runtime.trace``'s ``model_axis`` group
+        counts the model group's all-reduces;
+        ``expected_serve_all_reduces`` gives their number),
         None without one."""
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
@@ -711,10 +718,11 @@ class Trainer:
         all-reduce each). ``guard_tripped`` is the same on every rank
         already and takes none."""
         if self.num_data > 1:
-            for k, v in metrics.items():
-                if k != "guard_tripped":
-                    collectives.all_reduce_sum(v)
-                    v.div_(self.num_data)
+            with trace.span("launch.reduce_metrics"):
+                for k, v in metrics.items():
+                    if k != "guard_tripped":
+                        collectives.all_reduce_sum(v)
+                        v.div_(self.num_data)
         return metrics
 
     def _step_body(self, stage: Optional[SparsityStage],
@@ -829,16 +837,19 @@ class Trainer:
         cp = _tree_map(lambda p: p.to(self.compute_dtype),
                        self.pool.unflatten(leaves))
         tp = {"model_axis": self.model_axis} if self.model_size > 1 else {}
-        loss, metrics = self.model.loss_fn(
-            cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
-            causal_skip=cfg.causal_skip, compute_dtype=self.compute_dtype,
-            **tp)
-        if scale is not None:
-            loss = loss * scale
+        with trace.span("model.forward"):
+            loss, metrics = self.model.loss_fn(
+                cp, batch, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
+                causal_skip=cfg.causal_skip,
+                compute_dtype=self.compute_dtype, **tp)
+            if scale is not None:
+                loss = loss * scale
         # A leaf the loss does not read (the audio family's unused
         # 'tokens' table) gets zeros, as JAX's gradient gives it.
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        with trace.span("model.backward"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def _monolithic_update(self, stage, gpool, params, opt, gfstate, lr,

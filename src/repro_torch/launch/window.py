@@ -36,9 +36,14 @@ at the first call for each L and replayed after it:
   no new capture. A window built before ``Trainer.replan`` holds the old
   plan and refuses to run.
 
-``kernels.ops`` counts launches on the host, so a graph counts its
-launches once, at capture; ``stats`` keeps the warm-up's and the
-capture's counts and the number of replays apart.
+``runtime.trace``'s counters count host events, ``kernels.ops``'s
+launches among them, so a graph counts its launches once, at capture;
+``stats`` keeps the warm-up's and the capture's counts and the number of
+replays apart. A call runs in a ``launch.call`` span (the fill, the
+replay and the metrics' reduce in theirs; the warm-up and the capture in
+``launch.warmup`` and ``launch.capture``, whose host seconds the
+``launch`` counters keep), and its record takes the capture's counts
+once for each replay (``trace.replayed``).
 
 On the CPU (only when asked, ``device='cpu'``) the same bodies run
 eagerly, the step handed to the fault hook as a 0-dim tensor as in the
@@ -46,18 +51,13 @@ graph.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.optim import lr_at
-
-
-def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
+from repro_torch.runtime import trace
 
 
 def host_collectives(trainer, plan) -> List[str]:
@@ -107,21 +107,22 @@ class _Inputs:
         if set(batches) != set(self.batch):
             raise ValueError(f"batch keys {sorted(batches)}, the window was "
                              f"captured with {sorted(self.batch)}")
-        if self.filled is not None and not self.filled.query():
-            self.filled.synchronize()
-        srcs = dict(batches, lr=lrs, step=steps)
-        dsts = dict(self.batch, lr=self.lr, step=self.step)
-        for k, dst in dsts.items():
-            src = srcs[k]
-            if src.shape != dst.shape:
-                raise ValueError(f"{k} of shape {tuple(src.shape)}, the "
-                                 f"window was captured with "
-                                 f"{tuple(dst.shape)}")
-            if src.device.type == "cpu":
-                src = self.host[k].copy_(src)
-            dst.copy_(src, non_blocking=True)
-        self.filled = torch.cuda.Event()
-        self.filled.record()
+        with trace.span("launch.fill"):
+            if self.filled is not None and not self.filled.query():
+                self.filled.synchronize()
+            srcs = dict(batches, lr=lrs, step=steps)
+            dsts = dict(self.batch, lr=self.lr, step=self.step)
+            for k, dst in dsts.items():
+                src = srcs[k]
+                if src.shape != dst.shape:
+                    raise ValueError(f"{k} of shape {tuple(src.shape)}, the "
+                                     f"window was captured with "
+                                     f"{tuple(dst.shape)}")
+                if src.device.type == "cpu":
+                    src = self.host[k].copy_(src)
+                dst.copy_(src, non_blocking=True)
+            self.filled = torch.cuda.Event()
+            self.filled.record()
 
     def batch_of(self, i: int) -> Dict[str, torch.Tensor]:
         return {k: v[i] for k, v in self.batch.items()}
@@ -131,18 +132,20 @@ class _Graph:
     """One captured window: the graph, what it reads and writes, and the
     host arena its table copies read."""
 
-    def __init__(self, graph, inputs, metrics, arena, ptrs):
+    def __init__(self, graph, inputs, metrics, arena, ptrs, counts):
         self.graph, self.inputs, self.metrics = graph, inputs, metrics
         self.arena, self.ptrs = arena, ptrs
+        self.counts = counts  # what the capture counted: a replay's work
 
 
 class TrainWindow:
     """``window(state, batches) -> (state, metrics)`` (see
     ``Trainer.build_train_window``). ``stats``: ``captures``,
     ``replays``, ``warmup_s`` and ``capture_s`` (host seconds of each
-    capture's warm-up and of the capture itself), ``warmup_counts`` and
-    ``capture_counts`` (the launches ``kernels.ops`` counted in the last
-    warm-up and the last capture)."""
+    capture's warm-up and of the capture itself, as the ``launch``
+    counters took them), ``warmup_counts`` and ``capture_counts`` (the
+    launches ``kernels.ops`` counted in the last warm-up and the last
+    capture)."""
 
     def __init__(self, trainer, window_steps: int, body: Callable, plan,
                  step_plan):
@@ -176,6 +179,10 @@ class TrainWindow:
             raise ValueError(f"stacked batch lengths {sorted(lens)} must "
                              f"agree and lie in [1, {self.window_steps}]")
         length = lens.pop()
+        with trace.call(length):
+            return self._call(state, batches, length)
+
+    def _call(self, state, batches, length: int):
         opt_cfg = self.trainer.cfg.optimizer
         lrs = torch.stack([lr_at(opt_cfg, state.step + i)
                            for i in range(length)])
@@ -237,6 +244,7 @@ class TrainWindow:
             self.release()
             g = None
         if g is None:
+            # The capture's host counts stand for this first replay.
             g = self._graph = self._capture(state, batches, lrs, steps,
                                             length)
         else:
@@ -246,12 +254,14 @@ class TrainWindow:
                                  "other state tensors: pass the state the "
                                  "window returned, or build a new window")
             g.inputs.fill(batches, lrs, steps)
-        g.graph.replay()
+            trace.replayed(g.counts)
+        with trace.span("launch.replay"):
+            g.graph.replay()
         self.stats["replays"] += 1
         return {k: v.clone() for k, v in g.metrics.items()}
 
     def _capture(self, state, batches, lrs, steps, length) -> _Graph:
-        from repro_torch.kernels import build, ops
+        from repro_torch.kernels import build
 
         dev = self.device
         inputs = _Inputs(batches, length, dev)
@@ -260,43 +270,45 @@ class TrainWindow:
                  lambda i: inputs.step[i])
 
         # Warm-up: one body (and the lane's apply) on scratch clones.
-        t0 = time.perf_counter()
-        before = dict(ops.dispatch_counts)
-        scratch = _clone_state(self.trainer, state)
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            self._run_bodies(scratch, *reads, 1)
-        cur.wait_stream(side)
-        torch.cuda.synchronize(dev)
-        del scratch
-        torch.cuda.empty_cache()
-        self.stats["warmup_counts"] = _diff(ops.dispatch_counts, before)
-        t1 = time.perf_counter()
+        with trace.timed("launch.warmup", "launch", "warmup_s") as warm:
+            before = trace.snapshot()
+            scratch = _clone_state(self.trainer, state)
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self._run_bodies(scratch, *reads, 1)
+            cur.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            del scratch
+            torch.cuda.empty_cache()
+            self.stats["warmup_counts"] = trace.delta(
+                trace.snapshot(), before).get("dispatch", {})
 
-        graph = torch.cuda.CUDAGraph()
-        # Each launch copies at most a table of its leaves and an lr.
-        words = 16 * self.trainer.pool.num_tensors * (length + 2) + 1024
-        arena = build.HostArena(8 * words)
-        before = dict(ops.dispatch_counts)
-        try:
-            with build.capture_arena(arena), torch.cuda.graph(graph):
-                out, metrics = self._run_bodies(state, *reads, length)
-                for mine, new in zip(self._state_tensors(state),
-                                     self._state_tensors(out)):
-                    if new.data_ptr() != mine.data_ptr():
-                        mine.copy_(new)
-                del out
-        except Exception as e:
-            raise RuntimeError(f"capturing the {length}-step window as a "
-                               f"CUDA graph failed: {e}") from e
-        self.stats["capture_counts"] = _diff(ops.dispatch_counts, before)
+        with trace.timed("launch.capture", "launch", "capture_s") as cap:
+            graph = torch.cuda.CUDAGraph()
+            # Each launch copies at most a table of its leaves and an lr.
+            words = 16 * self.trainer.pool.num_tensors * (length + 2) + 1024
+            arena = build.HostArena(8 * words)
+            before = trace.snapshot()
+            try:
+                with build.capture_arena(arena), torch.cuda.graph(graph):
+                    out, metrics = self._run_bodies(state, *reads, length)
+                    for mine, new in zip(self._state_tensors(state),
+                                         self._state_tensors(out)):
+                        if new.data_ptr() != mine.data_ptr():
+                            mine.copy_(new)
+                    del out
+            except Exception as e:
+                raise RuntimeError(f"capturing the {length}-step window as "
+                                   f"a CUDA graph failed: {e}") from e
+            counts = trace.delta(trace.snapshot(), before)
+        self.stats["capture_counts"] = counts.get("dispatch", {})
         self.stats["captures"] += 1
-        self.stats["warmup_s"].append(t1 - t0)
-        self.stats["capture_s"].append(time.perf_counter() - t1)
+        self.stats["warmup_s"].append(warm.seconds)
+        self.stats["capture_s"].append(cap.seconds)
         ptrs = tuple(t.data_ptr() for t in self._state_tensors(state))
-        return _Graph(graph, inputs, metrics, arena, ptrs)
+        return _Graph(graph, inputs, metrics, arena, ptrs, counts)
 
 
 def _clone_state(trainer, state):

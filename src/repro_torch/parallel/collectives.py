@@ -25,6 +25,12 @@ coordinate over all outer levels (the two-level algorithm's middle
 phase); under a model axis it does so inside each model index's data
 group in turn, so every rank creates every group, its own or not
 (``dist.new_group`` is collective over the world).
+
+Each collective of the data group runs in a ``comm.all_reduce`` span
+and, when the group has more than one rank, is counted once where it is
+entered (``all_reduce_sum``, ``hierarchical_psum``, ``tree_psum``,
+``topology.PallasRing.reduce``) under ``runtime.trace``'s ``comm`` group
+(``collective``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime import trace
 
 
 def _initialized() -> bool:
@@ -72,6 +80,18 @@ def data_world_size() -> int:
     return dist.get_world_size() if _initialized() else 1
 
 
+def collective(x: torch.Tensor):
+    """One collective of the data group on ``x``: counted when the group
+    has more than one rank (``comm``: a call, and the payload's bytes in
+    the dtype it travels in), and the ``comm.all_reduce`` span to run it
+    in."""
+    if data_world_size() > 1:
+        comm = trace.counters["comm"]
+        comm["calls"] += 1
+        comm["bytes"] += x.numel() * x.element_size()
+    return trace.span("comm.all_reduce")
+
+
 def all_reduce_sum(x: torch.Tensor, *, async_op: bool = False, group=None
                    ) -> Tuple[torch.Tensor, Optional[object]]:
     """Sum ``x`` in place across ``group`` (default: the data group).
@@ -85,8 +105,9 @@ def all_reduce_sum(x: torch.Tensor, *, async_op: bool = False, group=None
         if _DATA.size == 1:
             return x, None
         group = _DATA.group
-    work = dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
-                           async_op=async_op)
+    with collective(x):
+        work = dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group,
+                               async_op=async_op)
     return x, (work if async_op else None)
 
 
@@ -299,14 +320,15 @@ def hierarchical_psum(x: torch.Tensor, topo) -> torch.Tensor:
     |x| / inner size (the paper's NCCL-H, Fig 7b)."""
     groups = level_groups(topo)
     inner = groups.levels[-1]
-    if groups.outer is None:
-        return _sum_over(x, inner)
-    if inner.size == 1:
-        return _sum_over(x, groups.outer)
-    xp = _pad_to_multiple(x, inner.size)
-    shard, own = _reduce_scatter(xp, inner)
-    _sum_over(shard, groups.outer)
-    return _all_gather(shard, own, inner)[:x.shape[0]]
+    with collective(x):
+        if groups.outer is None:
+            return _sum_over(x, inner)
+        if inner.size == 1:
+            return _sum_over(x, groups.outer)
+        xp = _pad_to_multiple(x, inner.size)
+        shard, own = _reduce_scatter(xp, inner)
+        _sum_over(shard, groups.outer)
+        return _all_gather(shard, own, inner)[:x.shape[0]]
 
 
 def tree_psum(x: torch.Tensor, topo) -> torch.Tensor:
@@ -314,7 +336,8 @@ def tree_psum(x: torch.Tensor, topo) -> torch.Tensor:
     outward, all-reduce over the outermost level on a shard shrunk by all
     inner sizes, then all-gather back down. Equals ``hierarchical_psum``
     on two levels."""
-    return _tree(x, list(level_groups(topo).levels))
+    with collective(x):
+        return _tree(x, list(level_groups(topo).levels))
 
 
 def _tree(x: torch.Tensor, levels: List[LevelGroup]) -> torch.Tensor:

@@ -33,16 +33,18 @@ On the card the model group is a gloo group: NCCL refuses two ranks on
 one device, and the mesh's model ranks share the card. A CUDA tensor is
 staged through a pinned host buffer (a device-to-host copy, the stream
 synchronised, gloo's sum on the host, the copy back); that is the
-transport, not a fallback. ``stats`` counts the all-reduces, their bytes
-and, with ``timing`` on, their seconds (a device sync on each side).
+transport, not a fallback. Each all-reduce runs in a ``comm.all_reduce``
+span and is counted in ``runtime.trace``'s ``model_axis`` group
+(``all_reduces``, ``bytes``), over every model group of the process.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime import trace
 
 
 class ModelAxis:
@@ -52,8 +54,6 @@ class ModelAxis:
         self.size = int(size)
         self.index = int(index)
         self.rules = dict(rules)
-        self.timing = False
-        self.stats = {"all_reduces": 0, "bytes": 0, "seconds": 0.0}
         self._host: Dict[Tuple[torch.dtype, int], torch.Tensor] = {}
 
     def sharded(self, axis: str) -> bool:
@@ -61,38 +61,31 @@ class ModelAxis:
         axis (and does the axis have more than one rank)?"""
         return self.size > 1 and self.rules.get(axis) == "model"
 
-    def reset_stats(self) -> None:
-        self.stats = {"all_reduces": 0, "bytes": 0, "seconds": 0.0}
-
     def all_reduce_(self, x: torch.Tensor, op=dist.ReduceOp.SUM
                     ) -> torch.Tensor:
         """Reduce ``x`` (contiguous) in place over the model group."""
         if self.size == 1:
             return x
-        sync = x.is_cuda and self.timing
-        if sync:
-            torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        if x.is_cuda and dist.get_backend(self.group) != "nccl":
-            key = (x.dtype, x.numel())
-            host = self._host.get(key)
-            if host is None:
-                host = self._host[key] = torch.empty(
-                    (x.numel(),), dtype=x.dtype, pin_memory=True)
-            flat = x.view(-1)
-            host.copy_(flat, non_blocking=True)
-            torch.cuda.current_stream(x.device).synchronize()
-            dist.all_reduce(host, op=op, group=self.group)
-            # Ordered on the stream before the next call's copy into
-            # ``host``, which waits for that stream before gloo writes.
-            flat.copy_(host, non_blocking=True)
-        else:
-            dist.all_reduce(x, op=op, group=self.group)
-        if sync:
-            torch.cuda.synchronize(x.device)
-        self.stats["all_reduces"] += 1
-        self.stats["bytes"] += x.numel() * x.element_size()
-        self.stats["seconds"] += time.perf_counter() - t0
+        counts = trace.counters["model_axis"]
+        counts["all_reduces"] += 1
+        counts["bytes"] += x.numel() * x.element_size()
+        with trace.span("comm.all_reduce"):
+            if x.is_cuda and dist.get_backend(self.group) != "nccl":
+                key = (x.dtype, x.numel())
+                host = self._host.get(key)
+                if host is None:
+                    host = self._host[key] = torch.empty(
+                        (x.numel(),), dtype=x.dtype, pin_memory=True)
+                flat = x.view(-1)
+                host.copy_(flat, non_blocking=True)
+                torch.cuda.current_stream(x.device).synchronize()
+                dist.all_reduce(host, op=op, group=self.group)
+                # Ordered on the stream before the next call's copy into
+                # ``host``, which waits for that stream before gloo
+                # writes.
+                flat.copy_(host, non_blocking=True)
+            else:
+                dist.all_reduce(x, op=op, group=self.group)
         return x
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:

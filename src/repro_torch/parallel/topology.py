@@ -246,8 +246,9 @@ class PallasRing(ReduceAlgorithm):
 
     def reduce(self, x, topo=None, *, async_op=False):
         from repro_torch.kernels import ops
-        return ops.ring_allreduce(x, collectives.ring_levels(topo),
-                                  async_op=async_op)
+        with collectives.collective(x):
+            return ops.ring_allreduce(x, collectives.ring_levels(topo),
+                                      async_op=async_op)
 
     def predicted_time(self, msg_bytes, topo):
         return sequential_ring_time(

@@ -740,6 +740,44 @@ def test_cuda_window_graph_matches_eager(dev, mode, tail, guarded, extra):
 
 
 @pytest.mark.cuda
+def test_cuda_replay_record_carries_the_capture_counts(dev):
+    """A K = 4 CSC window: the first call's record holds the warm-up
+    body's and the capture's launches (the device ran the warm-up and one
+    replay); the second call, a replay alone, leaves ``dispatch_counts``
+    as it was (the graph is counted once, at capture) while its record
+    holds the capture's launches, the work the replay ran."""
+    from repro_torch.launch.trainer import Trainer
+    from repro_torch.runtime import trace
+
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 256, (8, 2, 17)))
+    batches = [{"tokens": toks[i:i + 4, :, :-1],
+                "labels": toks[i:i + 4, :, 1:]} for i in (0, 4)]
+    trainer = Trainer(_window_cfg("csc", 0, False), device=dev)
+    state = trainer.init_state(seed=0)
+    window = trainer.build_train_window(4)
+    state, _ = window(state, batches[0])
+    first = trace.records[-1]
+    assert first["steps"] == 4
+    want = dict(window.stats["warmup_counts"])
+    for k, v in window.stats["capture_counts"].items():
+        want[k] = want.get(k, 0) + v
+    assert first["counts"]["dispatch"] == want
+    assert set(first["counts"]["launch"]) == {"warmup_s", "capture_s"}
+    assert all(v > 0 for v in first["counts"]["launch"].values())
+    counts = dict(ops.dispatch_counts)
+    before = trace.snapshot()
+    state, m = window(state, batches[1])
+    m["loss"].tolist()
+    rec = trace.records[-1]
+    assert ops.dispatch_counts == counts
+    assert trace.delta(trace.snapshot(), before) == {}
+    assert rec["steps"] == 4
+    assert rec["counts"] == {"dispatch": window.stats["capture_counts"]}
+    window.release()
+
+
+@pytest.mark.cuda
 def test_cuda_capture_needs_the_arena(dev):
     """A launch whose segment table comes from the host refuses to be
     captured outside ``build.capture_arena`` (a replay would read freed

@@ -104,6 +104,7 @@ from repro_torch.models import build_model
 from repro_torch.parallel import collectives
 from repro_torch.parallel.collectives import LevelGroup
 from repro_torch.parallel.topology import Topology
+from repro_torch.runtime import trace
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 STEPS, B, S = 4, 4, 32
@@ -509,10 +510,11 @@ def port_serve(trainer, local, inputs, batch, saved, prefix):
         for i, b in enumerate(calls):
             step, mode = (prefill, "prefill") if i == 0 \
                 else (decode, "decode")
-            step.model_axis.reset_stats()
+            before = trace.counters["model_axis"]["all_reduces"]
             lg, cache = step(params, {k: torch.from_numpy(v)
                                       for k, v in b.items()}, cache)
-            counts.append((step.model_axis.stats["all_reduces"],
+            counts.append((trace.counters["model_axis"]["all_reduces"]
+                           - before,
                            trainer.expected_serve_all_reduces(
                                mode, rules if i == 0 else d_rules)))
             saved[f"{prefix}/{split}/lg{i}"] = lg.numpy().copy()
@@ -902,6 +904,7 @@ def rank_main(rank, world, out):
     if world == 4:
         checkpoint_steps(mesh, full, inputs, rows, saved, tmp)
     for mode in modes:
+        before = trace.counters["model_axis"]["all_reduces"]
         trainer = port_trainer(arch, mode, f32, mesh)
         local = convert.shard_params(full, trainer.rules, mesh.model_size,
                                      mesh.model_index, specs=trainer.specs)
@@ -914,7 +917,7 @@ def rank_main(rank, world, out):
         for s, r in enumerate(recs):
             saved.update({f"csc/s{s}/{k}": v for k, v in r.items()})
         saved[f"{mode}/all_reduces"] = np.asarray(
-            trainer.model_axis.stats["all_reduces"])
+            trace.counters["model_axis"]["all_reduces"] - before)
         saved[f"{mode}/pool"] = np.asarray(
             [trainer.pool.size, trainer.global_pool])
         saved[f"{mode}/algos"] = np.asarray(

@@ -58,6 +58,7 @@ from repro_torch.configs.base import OptimizerConfig, TrainConfig
 from repro_torch.launch import mesh as t_mesh
 from repro_torch.launch.trainer import Trainer
 from repro_torch.parallel.collectives import LevelGroup
+from repro_torch.runtime import trace
 from repro_torch.models import build_model
 from test_torch_model_axis import (RULE_VARIANTS, _flat, _free_port, _tree,
                                    assert_replicas_equal, cache_leaves,
@@ -352,6 +353,7 @@ def rank_main(rank, group, tmp):
             ("lazy16", "lazy", False, STEPS)] * (case in BF16_ARCHS) + [
             ("csc", "csc", True, CSC_STEPS)] * (case in CSC_ARCHS)
         for what, mode, f32, steps in [("grad", "lazy", True, 0)] + runs:
+            before = trace.counters["model_axis"]["all_reduces"]
             trainer = port_trainer(case, mode, f32, mesh)
             local = convert.params_from_numpy(convert.shard_params(
                 full, trainer.rules, 2, mesh.model_index,
@@ -390,7 +392,7 @@ def rank_main(rank, group, tmp):
                 saved.update({f"csc/s{i}/{k}": v for k, v in r.items()})
             saved[f"{what}/losses"] = np.asarray(losses)
             saved[f"{what}/all_reduces"] = np.asarray(
-                trainer.model_axis.stats["all_reduces"])
+                trace.counters["model_axis"]["all_reduces"] - before)
             for k, v in _flat(convert.params_to_numpy(state.params)).items():
                 saved[f"{what}/p/{k}"] = v
         # Serving from the same weights (f32): each call's logits and
