@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import chunk_l1norm as _cl
 from repro_torch.kernels import csc_compact as _cc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import pool_pack as _pp
 from repro_torch.kernels import pool_unpack as _pu
@@ -123,6 +124,21 @@ def fused_update(master, grads, momentum_buf, mask, *, lr, momentum: float,
         fn = _fu.launch
     return fn(master, grads, momentum_buf, mask, lr=lr, momentum=momentum,
               weight_decay=weight_decay, scale=scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of q, k, v (b, s, h, hd) -> o (b, s, h, hd)
+    through the kernels, differentiable, its backward rebuilding P from
+    the forward's log-sum-exp; counted once a forward launch. Raises on
+    what the kernels do not take, CPU tensors included (``attend`` keeps
+    full and blockwise attention there)."""
+    # Counted before the launch: a remat recompute that stops early
+    # (``torch.utils.checkpoint``) leaves the call once the forward has
+    # launched and saved its tensors.
+    _fa.check(q, k, v)
+    _count("flash_attention", "kernel")
+    return _fa.kernel_attention(q, k, v)
 
 
 class StreamWork:

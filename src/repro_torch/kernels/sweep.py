@@ -15,6 +15,14 @@ the wrapper's parts: ``torch.empty`` of the output, the plan and the
 stream, and the C launch through ctypes. Prints one JSON line a variant
 and one for the host split; exits non-zero without a card or on a wrong
 result.
+
+    PYTHONPATH=src python -m repro_torch.kernels.sweep --attention
+
+instead times the flash-attention kernels' tile variants
+(``ATTN_VARIANTS``: query rows, key rows, warps, stages) at the
+benchmark cells' attention shapes (``ATTN_SHAPES``), bf16: the forward
+alone, and the backward with one kernel's tiles varied and the other's
+at ``TILES``; each variant first checked against the plain version.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import chunk_l1norm as kcl
 from repro_torch.kernels import csc_compact as kcc
+from repro_torch.kernels import flash_attention as kfa
 
 CHUNK, NUM_CHUNKS, KS = 32768, 4106, (616, 3233)
 REPS, WARMUP, B2B = 20, 3, 20
@@ -71,6 +80,58 @@ def host_ms(fn) -> float:
     return statistics.median(times)
 
 
+# olmo-1b's layer at olmo1b-train's 8 x 2048, musicgen-large's at a
+# microbatch of musicgen-train (4 x 1500).
+ATTN_SHAPES = ((8, 2048, 16, 128), (4, 1500, 32, 64))
+ATTN_VARIANTS = {
+    "fwd": [(128, 64, 8, 3), (64, 64, 4, 3), (64, 64, 4, 4),
+            (128, 64, 8, 4), (64, 32, 4, 3), (128, 128, 8, 4),
+            (64, 64, 8, 3)],
+    "dkdv": [(32, 64, 4, 4), (32, 128, 4, 4), (32, 64, 4, 3),
+             (32, 64, 8, 3), (64, 64, 8, 3), (16, 64, 4, 3),
+             (32, 32, 4, 4), (16, 32, 4, 4)],
+    "dq": [(128, 64, 8, 3), (64, 64, 4, 3), (64, 64, 4, 4),
+           (64, 32, 4, 3), (128, 64, 8, 4), (64, 64, 8, 3)]}
+ATTN_TOL = 2.0 ** -6  # of the largest |value|: the card tests' bound
+
+
+def attention_sweep(emit) -> None:
+    """Each tile variant of each flash-attention kernel at ATTN_SHAPES:
+    checked against the plain version, then timed back to back."""
+    for shape in ATTN_SHAPES:
+        gen = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=gen).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+        want_o, lse = kfa.plain(q, k, v)
+        want = kfa.plain_backward(q, k, v, want_o, lse, do)
+        base = kfa.plan_for(shape[3], q.dtype)
+        for kernel, variants in ATTN_VARIANTS.items():
+            for tiles in variants:
+                plan = base._replace(**{kernel: kfa.Tiles(*tiles)})
+                try:
+                    o, lse = kfa.launch(q, k, v, plan)
+                    got = [o] if kernel == "fwd" else \
+                        kfa.launch_backward(q, k, v, o, lse, do, plan)
+                except Exception as e:  # a tile that does not fit
+                    emit(dict(kernel=f"flash_attention.{kernel}",
+                              shape=shape, tiles=tiles,
+                              refused=f"{type(e).__name__}: {e}"[:300]))
+                    continue
+                for g, w in zip(got, [want_o] if kernel == "fwd" else want):
+                    err = (g.float() - w.float()).abs().max().item()
+                    if err > ATTN_TOL * w.float().abs().max().item():
+                        sys.exit(f"flash attention {kernel} {tiles} at "
+                                 f"{shape}: error {err}")
+                if kernel == "fwd":
+                    ms = back_to_back_ms(lambda: kfa.launch(q, k, v, plan))
+                else:
+                    ms = back_to_back_ms(lambda: kfa.launch_backward(
+                        q, k, v, o, lse, do, plan))
+                emit(dict(kernel=f"flash_attention.{kernel}", shape=shape,
+                          tiles=tiles, timed="forward" if kernel == "fwd"
+                          else "backward", back_to_back_ms=ms))
+
+
 def _set(mod, **consts) -> None:
     for name, value in consts.items():
         setattr(mod, name, value)
@@ -81,6 +142,8 @@ def _set(mod, **consts) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON lines here")
+    ap.add_argument("--attention", action="store_true",
+                    help="sweep the flash-attention kernels' tiles instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep: no CUDA device visible", file=sys.stderr)
@@ -89,13 +152,6 @@ def main(argv=None) -> None:
                           "power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip()
-    build.build_all()
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    pool = torch.randn(NUM_CHUNKS * CHUNK, generator=gen, device=dev)
-    rows = pool.view(NUM_CHUNKS, CHUNK)
-    idx = {k: torch.sort(torch.randperm(NUM_CHUNKS, generator=gen,
-                                        device=dev)[:k]).values for k in KS}
     lines = []
 
     def emit(d):
@@ -103,6 +159,25 @@ def main(argv=None) -> None:
         lines.append(json.dumps(d))
         print(lines[-1], flush=True)
 
+    if args.attention:
+        attention_sweep(emit)
+    else:
+        csc_sweep(emit)
+    print(card)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def csc_sweep(emit) -> None:
+    """The CSC kernels' plan variants and a launch's host split."""
+    build.build_all()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pool = torch.randn(NUM_CHUNKS * CHUNK, generator=gen, device=dev)
+    rows = pool.view(NUM_CHUNKS, CHUNK)
+    idx = {k: torch.sort(torch.randperm(NUM_CHUNKS, generator=gen,
+                                        device=dev)[:k]).values for k in KS}
     defaults = dict(compact=dict(STAGES=kcc.STAGES, STAGE_BYTES=kcc.
                                  STAGE_BYTES, CTAS_PER_SM=kcc.CTAS_PER_SM),
                     census=dict(STAGES=kcl.STAGES,
@@ -160,10 +235,6 @@ def main(argv=None) -> None:
         "chunk_l1norm.launch": host_ms(lambda: kcl.launch(pool, CHUNK)),
         "torch.linalg.vector_norm": host_ms(
             lambda: torch.linalg.vector_norm(rows, ord=1, dim=1))}))
-    print(card)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
 
 
 if __name__ == "__main__":

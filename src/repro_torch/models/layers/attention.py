@@ -12,6 +12,12 @@ masked full grid. Under autograd each block keeps its scores and
 probabilities for the backward pass (as JAX's scan does under
 ``jax.checkpoint``), so training memory is not below full attention's.
 
+Those forms run on CPU tensors, where they are the JAX package's bits.
+On CUDA tensors ``attend`` takes the flash-attention kernels
+(``kernels/flash_attention.py``) for every causal self-attention, in
+training and in prefill: the scores and probabilities stay on chip,
+forward and backward, so ``attn_chunk`` has nothing to cut there.
+
 Serving: a KV cache (``KVCache``), ``apply_prefill`` over the prompt
 (causal attention, the prompt's keys and values written into the cache)
 and ``apply_decode`` of one token against the whole cache, naive or
@@ -45,6 +51,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import norms, rotary
 from repro_torch.models.params import (ParamSpec, fan_in_init, ones_init,
                                       zeros_of)
@@ -228,10 +235,22 @@ def _pick_chunk(s: int, target: int, floor: int = 64) -> int:
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, attn_chunk: int = 0,
            causal_skip: bool = True) -> torch.Tensor:
-    """Full attention up to ``attn_chunk`` tokens, blockwise beyond it;
-    full attention again when either length has no divisor >= 64 at or
-    below ``attn_chunk``."""
+    """On CUDA tensors, causal self-attention (``sq == sk``) through the
+    flash-attention kernels (``kernels.ops.flash_attention``), whatever
+    ``attn_chunk``: they never build the score grid it cuts. Anything
+    else on CUDA raises (every caller is causal and square).
+
+    On CPU tensors: full attention up to ``attn_chunk`` tokens, blockwise
+    beyond it; full attention again when either length has no divisor
+    >= 64 at or below ``attn_chunk``."""
     sq, sk = q.shape[1], k.shape[1]
+    if q.is_cuda:
+        if not causal or sq != sk:
+            raise ValueError(f"attention on CUDA takes causal "
+                             f"self-attention (the flash-attention "
+                             f"kernels), got causal={causal}, {sq} queries "
+                             f"and {sk} keys")
+        return ops.flash_attention(q, k, v)
     if attn_chunk and max(sq, sk) > attn_chunk:
         cq = _pick_chunk(sq, attn_chunk)
         ck = _pick_chunk(sk, attn_chunk)

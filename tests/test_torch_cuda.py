@@ -219,7 +219,9 @@ def test_cuda_csc_compact_traps_on_bad_index(dev):
 def test_cuda_csc_trainer_kernels_match_plain(dev):
     """The smoke-size CSC Trainer on the card, dense warm-up then sparse
     stages: with the kernels it launches only kernels and follows the run
-    without them (the census sums in another order: rtol 1e-5)."""
+    without them (the census sums in another order: rtol 1e-5). Attention
+    is the model's, not the pool's: both runs take the flash-attention
+    kernel, each layer's forward and its remat recompute a step."""
     from repro_torch.configs import base, get_smoke
     from repro_torch.launch.trainer import Trainer
 
@@ -251,9 +253,12 @@ def test_cuda_csc_trainer_kernels_match_plain(dev):
                               trainer.pool.flat_leaves(state.params)],
                      dict(ops.dispatch_counts)))
     (k_loss, k_params, k_counts), (p_loss, p_params, p_counts) = runs
+    attn = 2 * model.num_layers * len(batches)
+    assert k_counts.pop("flash_attention.kernel") == attn
     assert set(k_counts) == {"pool_pack.kernel", "pool_unpack_update.kernel",
                              "chunk_l1norm.kernel", "csc_compact.kernel"}
-    assert k_counts["csc_compact.kernel"] == 3 and p_counts == {}
+    assert k_counts["csc_compact.kernel"] == 3 \
+        and p_counts == {"flash_attention.kernel": attn}
     np.testing.assert_allclose(k_loss, p_loss, rtol=1e-5)
     for a, b in zip(k_params, p_params):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
@@ -1015,3 +1020,174 @@ def test_cuda_family_window_matches_eager(dev, arch):
                     eager.pool.flat_leaves(ref.params) + [ref.opt.momentum]):
         assert torch.equal(a, b)
     window.release()
+
+
+# -- flash attention --------------------------------------------------------
+
+# (b, s, h, hd): olmo-1b's heads at its context, musicgen-large's heads
+# at its 1500 frames (a ragged last tile), stablelm-12b's 160-wide heads
+# (padded to 256) at a ragged 333, a smoke configuration's 16-wide heads.
+FLASH_SHAPES = [(2, 2048, 16, 128), (2, 1500, 32, 64), (2, 333, 4, 160),
+                (2, 300, 4, 16)]
+# The kernels against their plain version, both from the same bf16
+# inputs: QK^T is the same exact products summed in f32 in another order,
+# so the f32 log-sum-exp agrees to a few f32 ulps of the row's largest
+# score (bound 2^-14 absolute: scores here reach ~|30|, whose ulp is
+# 2^-19). P is rounded to bf16 from f32 values that differ in their last
+# bits, so a P entry near a rounding boundary lands one bf16 ulp (2^-8
+# relative) apart, and o, dq, dk, dv are rounded to bf16 at the end:
+# every output within 2^-6 of the plain version's largest |value| (two
+# bf16 ulps of it; (z)'s bound for the port's bf16 forms), and within
+# 2^-7 relative RMS over the whole tensor (about one ulp's RMS).
+FLASH_MAX_TOL = 2.0 ** -6
+FLASH_RMS_TOL = 2.0 ** -7
+FLASH_LSE_TOL = 2.0 ** -14
+
+
+def _flash_inputs(dev, shape, dtype=torch.bfloat16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dev, dtype)
+            for _ in range(4)]
+
+
+def _flash_close(got, want, label):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    rms = ((got - want).pow(2).mean().sqrt()
+           / want.pow(2).mean().sqrt()).item()
+    assert err <= FLASH_MAX_TOL * scale, (label, err, scale)
+    assert rms <= FLASH_RMS_TOL, (label, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_cuda_flash_attention_matches_plain(dev, shape):
+    """The forward's o and log-sum-exp and the backward's dq, dk, dv
+    against the plain version's, bf16, at the configurations' head dims
+    and lengths."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, shape)
+    o, lse = fa.launch(q, k, v)
+    want_o, want_lse = fa.plain(q, k, v)
+    grads = fa.launch_backward(q, k, v, o, lse, do)
+    want_grads = fa.plain_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert o.shape == shape and o.is_contiguous() and lse.shape == (
+        shape[0], shape[2], shape[1])
+    assert (lse - want_lse).abs().max().item() <= FLASH_LSE_TOL
+    _flash_close(o, want_o, "o")
+    for label, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert g.shape == shape and g.is_contiguous()
+        _flash_close(g, w, label)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_f32_matches_full_attention(dev):
+    """f32 inputs run the products in full f32: o and the gradients
+    within 1e-5 of full attention's (f32 sums in another order)."""
+    from repro_torch.models.layers import attention
+
+    q, k, v, do = _flash_inputs(dev, (2, 200, 4, 32), torch.float32)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    got = [ops.flash_attention(*leaves)]
+    got += torch.autograd.grad(got[0], leaves, do)
+    want = [attention.full_attention(*leaves, causal=True)]
+    want += torch.autograd.grad(want[0], leaves, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_repeats_bits(dev):
+    """Two runs of the forward and backward give the same bits (no
+    atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(dev, (2, 1500, 8, 64), seed=1)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.launch(q, k, v)
+        runs.append((o, lse) + fa.launch_backward(q, k, v, o, lse, do))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_under_checkpoint(dev):
+    """Under ``torch.utils.checkpoint`` (the layers' remat) the gradients
+    are the same bits as without, and the forward launches twice."""
+    import torch.utils.checkpoint
+
+    q, k, v, do = _flash_inputs(dev, (2, 512, 4, 128), seed=2)
+
+    def grads(remat):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        fn = ops.flash_attention
+        out = torch.utils.checkpoint.checkpoint(
+            fn, *leaves, use_reentrant=False) if remat else fn(*leaves)
+        return torch.autograd.grad(out, leaves, do)
+
+    ops.reset_counts()
+    plain_run = grads(False)
+    assert ops.dispatch_counts == {"flash_attention.kernel": 1}
+    remat_run = grads(True)
+    assert ops.dispatch_counts == {"flash_attention.kernel": 3}
+    assert all(torch.equal(a, b) for a, b in zip(plain_run, remat_run))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_in_cuda_graph(dev):
+    """Forward and backward captured into one CUDA graph (after an eager
+    warm-up that compiles them) and replayed on new inputs copied into
+    the captured ones: the eager bits each time."""
+    shape = (2, 384, 4, 64)
+    q, k, v, do = _flash_inputs(dev, shape, seed=3)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def body():
+        out = ops.flash_attention(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+
+    body()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = body()
+    for seed in (4, 5):
+        fresh = _flash_inputs(dev, shape, seed=seed)
+        with torch.no_grad():
+            for x, y in zip(leaves + [do], fresh):
+                x.copy_(y)
+        g.replay()
+        torch.cuda.synchronize()
+        want = body()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want))
+
+
+@pytest.mark.cuda
+def test_cuda_attend_takes_the_kernel_or_raises(dev):
+    """``attend`` on CUDA tensors runs every causal self-attention through
+    the kernel whatever ``attn_chunk`` (counted a call), and raises,
+    without a fallback, on what the kernel does not take: a head dim
+    above 256, a non-causal or a rectangular call, an unsupported dtype."""
+    from repro_torch.models.layers import attention
+
+    q, k, v, _ = _flash_inputs(dev, (1, 256, 2, 64), seed=6)
+    ops.reset_counts()
+    for chunk in (0, 64):
+        out = attention.attend(q, k, v, causal=True, attn_chunk=chunk)
+        assert torch.equal(out, ops.flash_attention(q, k, v))
+    assert ops.dispatch_counts == {"flash_attention.kernel": 4}
+    wide = torch.zeros((1, 16, 2, 512), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        attention.attend(wide, wide, wide, causal=True)
+    with pytest.raises(ValueError, match="causal"):
+        attention.attend(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="causal"):
+        attention.attend(q, k[:, :128], v[:, :128], causal=True)
+    with pytest.raises(ValueError, match="dtype"):
+        attention.attend(*(x.to(torch.float64) for x in (q, k, v)),
+                         causal=True)
+    assert ops.dispatch_counts == {"flash_attention.kernel": 4}
