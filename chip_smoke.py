@@ -233,6 +233,24 @@
        close to each other; forward and forward + backward ms (CUDA
        events) against the causal FLOPs at 989 TFLOP/s, the memory
        autograd holds after the forward, and each one's peak;
+   (au) the afmoe kernels at the trinity-mini-train cell's shapes (bf16):
+       the grouped GEMM (``grouped_mm``: forward, dX and dW) over the 32
+       held experts of 4 x 8192 tokens routed top-8 by trinity-mini-ep4's
+       sigmoid router (262,144 slots, ~65,000 held), for the gate/up
+       product (2048 -> 1024) and the down one (1024 -> 2048), against
+       the plain version within one bf16 ulp of the largest value
+       (2^-7), the rows past the experts' 0, dW the same bits twice, and
+       a product through the next expert's weights (the control) outside
+       that bound; the windowed flash kernels (4 x 8192, 32 heads of
+       128, window 2048), forward and backward, against the plain version
+       within the card tests' bounds (2^-6 of the largest value, 2^-7
+       relative RMS, the log-sum-exp 2^-14), the causal kernels' output
+       (the control) outside them; each timed (CUDA events) beside the
+       plain version, its bound (the products' FLOPs over the held rows
+       or the kept pairs at 989 TFLOP/s) and a library call the port
+       never calls (``torch._grouped_mm``; F.scaled_dot_product_attention
+       with the window as a mask), and one product and one windowed
+       attention through ``ops`` and autograd, counted once each;
    the pool kernels at olmo-1b's lazy pool (8 leaves, 1,176,764,416
        elements): the bf16 gradient pack, the f32 master pack and the
        8-span update, bit for bit against their plain versions, timed
@@ -2704,6 +2722,25 @@ ATTN_TOL = 2.0 ** -6
 # late query block rescaled by 1 + 2^-4 reads 2^-4 and must fail).
 ATTN_BLOCK_TOL = 2.0 ** -6
 ATTN_CONTROL_SCALE = 1.0 + 2.0 ** -4
+# (au): the afmoe kernels at the trinity-mini-train cell's shapes: its
+# 4 x 8192 tokens routed by trinity-mini-ep4's sigmoid router (weights
+# N(0, 0.02)) onto the 32 experts it holds, each MoE product (K, N); its
+# sliding layers' attention (b, S, heads, head_dim) and window.
+AFMOE_ARCH = "trinity-mini-ep4"
+AFMOE_TOKENS = 4 * 8192
+AFMOE_PRODUCTS = {"gate_up": (2048, 1024), "down": (1024, 2048)}
+AFMOE_ATTN_SHAPE = (4, 8192, 32, 128)
+AFMOE_WINDOW = 2048
+# The kernel and the plain version both sum bf16 products in f32 and
+# round once to bf16: they differ where the two orders of the sum round
+# across a bf16 step, one ulp of a value, 2^-7 of the largest at most. A
+# product through the wrong expert's weights (the control) errs by the
+# values themselves.
+GMM_TOL = 2.0 ** -7
+# The windowed kernels against their plain version: the card tests'
+# bounds (tests/test_torch_cuda.py: the largest error within 2^-6 of the
+# largest value, the relative RMS within 2^-7, the log-sum-exp 2^-14).
+FLASH_MAX_TOL, FLASH_RMS_TOL, FLASH_LSE_TOL = 2.0 ** -6, 2.0 ** -7, 2.0 ** -14
 # (aa): the three smoke configurations through the Trainer, CSC, with
 # attention blockwise (64-token chunks of 256).
 SMOKE_ARCHS = ("olmo-1b", "stablelm-12b", "qwen3-32b")
@@ -3122,6 +3159,223 @@ def attention_case(torch, dev, shape, block):
         f"{n} {o['forward_ms']:.2f} / {o['forward_backward_ms']:.2f} ms"
         for n, o in out.items()), flush=True)
     return summary
+
+
+def events_ms(torch, fn, reps=ATTN_REPS) -> float:
+    """fn's device time, CUDA events around each of ``reps`` runs after
+    one warm-up (median)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rel_max_err(got, want) -> float:
+    """max |got - want| over max |want|, in f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def flash_errs(got, want) -> dict:
+    """got's largest error over max |want| and its relative RMS error."""
+    got, want = got.float(), want.float()
+    return dict(max_err_of_max=rel_max_err(got, want),
+                rel_rms=((got - want).pow(2).mean().sqrt()
+                         / want.pow(2).mean().sqrt()).item())
+
+
+def flash_close(errs) -> bool:
+    return errs["max_err_of_max"] <= FLASH_MAX_TOL \
+        and errs["rel_rms"] <= FLASH_RMS_TOL
+
+
+def afmoe_phase(torch, dev) -> dict:
+    """(au) the afmoe kernels at the trinity-mini-train cell's shapes
+    against their plain versions, timed beside their bound and a library
+    call; the launches ``ops`` counted for one product and one windowed
+    attention through autograd."""
+    from repro_torch.kernels import ops
+    ops.reset_counts()
+    out = {"grouped_mm": gmm_case(torch, dev, ops),
+           "windowed_flash_attention": window_case(torch, dev, ops)}
+    want = {"grouped_mm.kernel": len(AFMOE_PRODUCTS),
+            "flash_attention.kernel": 1}
+    check(dict(ops.dispatch_counts) == want, f"(au) launches "
+          f"{dict(ops.dispatch_counts)}, expected {want}")
+    out["dispatch_counts"] = dict(ops.dispatch_counts)
+    return out
+
+
+def gmm_case(torch, dev, ops) -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import grouped_mm as gm
+    from repro_torch.models.layers import moe
+
+    cfg = get_arch(AFMOE_ARCH)[0]
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(AFMOE_TOKENS, cfg.d_model, generator=gen, device=dev)
+    router = torch.randn(cfg.d_model, m.num_experts, generator=gen,
+                         device=dev) * 0.02
+    _, idx = moe.route_sigmoid(x @ router, m.top_k, m.route_scale)
+    _, counts = moe.sort_slots(idx, m.held)
+    del x, router, idx
+    rows = AFMOE_TOKENS * m.top_k
+    held = int(counts.sum())
+    out = dict(experts=m.held, rows=rows, held_rows=held,
+               rows_an_expert=dict(min=int(counts.min()),
+                                   max=int(counts.max())),
+               tolerance=f"{GMM_TOL} x max|plain|", products={})
+    for name, (k, n) in AFMOE_PRODUCTS.items():
+        a = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(m.held, k, n, generator=gen, device=dev)
+             * 0.02).to(torch.bfloat16)
+        dy = torch.randn(rows, n, generator=gen, device=dev).to(
+            torch.bfloat16)
+        wt = w.transpose(1, 2)
+        calls = {"fwd": (lambda: gm.launch(a, w, counts),
+                         lambda: gm.plain(a, w, counts)),
+                 "dx": (lambda: gm.launch(dy, wt, counts),
+                        lambda: gm.plain(dy, wt, counts)),
+                 "dw": (lambda: gm.launch_dw(a, dy, counts),
+                        lambda: gm.plain_dw(a, dy, counts))}
+        flops = 2 * held * k * n
+        part = dict(k=k, n=n, flops=flops,
+                    bound_ms=flops / BF16_FLOPS * 1e3)
+        for label, (kernel, plain) in calls.items():
+            got = kernel()
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = rel_max_err(got, want)
+            check(err <= GMM_TOL, f"(au) grouped_mm {name} {label}: "
+                  f"{err} of max|plain| against the plain version, bound "
+                  f"{GMM_TOL}")
+            if label != "dw":
+                check(bool((got[held:] == 0).all()), f"(au) grouped_mm "
+                      f"{name} {label}: the rows past the experts' are not 0")
+            ms = events_ms(torch, kernel)
+            part[label] = dict(ms=ms, max_err_of_max=err, plain_ms=plain_s
+                               * 1e3, share_of_bound=part["bound_ms"] / ms,
+                               same_bits_twice=torch.equal(kernel(), got))
+            del got, want
+        check(part["dw"]["same_bits_twice"], f"(au) grouped_mm {name}: dW "
+              f"changed its bits between two launches")
+        # Control: the product through the next expert's weights.
+        control = rel_max_err(gm.launch(a, w.roll(1, 0), counts),
+                              gm.plain(a, w, counts))
+        check(control > GMM_TOL, f"(au) grouped_mm {name}: the wrong "
+              f"expert's weights read {control}, within the bound")
+        part["wrong_expert_control_err_of_max"] = control
+        part["library"] = gmm_library(torch, a, w, dy, counts)
+        # One product through ops and autograd (counted once).
+        leaves = [a.detach().requires_grad_(True),
+                  w.detach().requires_grad_(True)]
+        torch.autograd.grad(ops.grouped_mm(*leaves, counts), leaves, dy)
+        out["products"][name] = part
+        del a, w, wt, dy, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def gmm_library(torch, a, w, dy, counts) -> dict:
+    """torch._grouped_mm at the same products (a yardstick the port never
+    calls): its ms forward, dX and dW, or why it did not run."""
+    # The call takes groups of a multiple of 8 rows (16-byte strides): each
+    # expert's count rounded up, the extra rows the slots after them.
+    ends = torch.cumsum((counts + 7) // 8 * 8, 0, dtype=torch.int32)
+    a, dy = a[:int(ends[-1])], dy[:int(ends[-1])]
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return dict(error="torch._grouped_mm is missing")
+    # The call wants each expert's B with unit stride along K.
+    wk = w.transpose(1, 2).contiguous().transpose(1, 2)
+    wtk = w.contiguous().transpose(1, 2)
+    # dW's operands (K, rows) and (rows, N) with unit stride along the rows.
+    at, dyk = a.t().contiguous(), dy.t().contiguous().t()
+    out = {}
+    for label, call in (("fwd_ms", lambda: fn(a, wk, offs=ends)),
+                        ("dx_ms", lambda: fn(dy, wtk, offs=ends)),
+                        ("dw_ms", lambda: fn(at, dyk, offs=ends))):
+        try:
+            out[label] = events_ms(torch, call)
+        except RuntimeError as exc:
+            out[label] = None
+            out[label.replace("_ms", "_error")] = str(exc)[:300]
+    return out
+
+
+def window_case(torch, dev, ops) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, h, hd = AFMOE_ATTN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, do = [torch.randn(AFMOE_ATTN_SHAPE, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4)]
+    win = AFMOE_WINDOW
+    o, lse = fa.launch(q, k, v, window=win)
+    grads = fa.launch_backward(q, k, v, o, lse, do, window=win)
+    t0 = time.perf_counter()
+    want_o, want_lse = fa.plain(q, k, v, window=win)
+    want = fa.plain_backward(q, k, v, o, lse, do, window=win)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs = {"lse": (lse - want_lse).abs().max().item()}
+    check(errs["lse"] <= FLASH_LSE_TOL, f"(au) windowed attention: the "
+          f"log-sum-exp errs {errs['lse']}, bound {FLASH_LSE_TOL}")
+    for label, got, ref in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                               (want_o, *want)):
+        errs[label] = flash_errs(got, ref)
+        check(flash_close(errs[label]), f"(au) windowed attention "
+              f"{label}: {errs[label]} against the plain version, bounds "
+              f"{FLASH_MAX_TOL} of max|plain|, {FLASH_RMS_TOL} relative RMS")
+    # Control: the causal kernels' output (no window) against the plain
+    # windowed one.
+    control = flash_errs(fa.launch(q, k, v)[0], want_o)
+    check(not flash_close(control), f"(au) windowed attention: the causal "
+          f"output reads {control}, within the bounds")
+    del want_o, want_lse, want, grads
+    # The least time: 2 products forward and 5 backward over the pairs
+    # the window keeps.
+    pairs = sum(min(i + 1, win) for i in range(s))
+    flops = 2 * b * h * pairs * hd
+    fwd_ms = events_ms(torch, lambda: fa.launch(q, k, v, window=win))
+    bwd_ms = events_ms(torch, lambda: fa.launch_backward(
+        q, k, v, o, lse, do, window=win))
+    mask = (torch.arange(s, device=dev)[:, None]
+            - torch.arange(s, device=dev)[None, :])
+    mask = (mask >= 0) & (mask < win)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_fwd = events_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    torch.autograd.grad(ops.flash_attention(*leaves, win), leaves, do)
+    out = dict(shape=dict(batch=b, seq=s, heads=h, head_dim=hd, window=win),
+               errors=errs, causal_control_err_of_max=control,
+               plain_ms=plain_s * 1e3, forward_ms=fwd_ms,
+               backward_ms=bwd_ms, kept_pairs=pairs,
+               bound_forward_ms=2 * flops / BF16_FLOPS * 1e3,
+               bound_backward_ms=5 * flops / BF16_FLOPS * 1e3,
+               library_forward_ms=lib_fwd,
+               library_note="F.scaled_dot_product_attention with the "
+               "window as a boolean mask, forward: a yardstick the port "
+               "never calls")
+    out["share_of_bound"] = dict(
+        forward=out["bound_forward_ms"] / fwd_ms,
+        backward=out["bound_backward_ms"] / bwd_ms)
+    del q, k, v, do, o, lse, mask, leaves
+    torch.cuda.empty_cache()
+    return out
 
 
 def model_run(torch, dist, ops, train_mod, synthetic, label, argv,
@@ -7236,10 +7490,13 @@ def run_all(torch, dist, dev, rate, name, power, smi_line, shapes,
     attn = attention_phase(torch, dev)
     print(json.dumps(dict(attention=attn, gpu=name, power_limit=power)),
           flush=True)
+    afmoe = afmoe_phase(torch, dev)
+    print(json.dumps(dict(afmoe_kernels=afmoe, gpu=name, power_limit=power)),
+          flush=True)
     long_runs, olmo_pack, olmo_update = long_sequence_phase(
         torch, dist, ops, train_mod, synthetic, pool_mod, kpack, kunpack,
         dev, rate)
-    phase_seconds("long sequences (z), (y)-(ab)")
+    phase_seconds("long sequences (z), (au), (y)-(ab)")
     family_runs, moe_layer = families_phase(torch, dist, ops, train_mod,
                                             synthetic, dev)
     phase_seconds("families (ac)-(af)")

@@ -2,7 +2,9 @@
 
 Field for field the same as the JAX package's ``configs/base.py`` (same
 names, same defaults), so a config written for one package reads the same
-in the other. ``GradientFlowConfig.topology`` holds the port's own
+in the other, and after them the fields of the architectures only the
+port runs (``PORT_FIELDS``), whose defaults leave every JAX architecture
+as it was. ``GradientFlowConfig.topology`` holds the port's own
 ``Topology`` (``repro_torch.parallel.topology``).
 """
 from __future__ import annotations
@@ -26,6 +28,21 @@ class MoEConfig:
     aux_loss_weight: float = 0.01
     # Capacity factor for expert token buffers (static shapes).
     capacity_factor: float = 1.25
+    # The port's own (``PORT_FIELDS``). 'sigmoid': afmoe's routing,
+    # dropless (``models.layers.moe.apply_sigmoid``); 'softmax' the JAX
+    # package's capacity-bounded top-k.
+    score_func: str = "softmax"
+    route_scale: float = 1.0    # the sigmoid gates' sum after renorming
+    expert_d_ff: int = 0        # 0 => the model's d_ff
+    shared_d_ff: int = 0        # a shared SwiGLU expert's width; 0: none
+    experts_held: int = 0       # experts 0..held-1 on this chip; 0: all
+
+    PORT_FIELDS = ("score_func", "route_scale", "expert_d_ff",
+                   "shared_d_ff", "experts_held")
+
+    @property
+    def held(self) -> int:
+        return self.experts_held or self.num_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +93,38 @@ class ModelConfig:
     num_codebooks: int = 0
     param_dtype: str = "float32"     # master storage dtype
     compute_dtype: str = "bfloat16"  # fwd/bwd compute dtype
+    # The port's own (``PORT_FIELDS``), for afmoe (Trinity): RMSNorm's
+    # eps; each layer's attention, 'full' or 'sliding' (empty: every
+    # layer full) and the sliding window; RoPE on the full layers (False:
+    # NoPE there); attention's sigmoid output gate; a norm after
+    # attention and after the FFN as well as before; the embedding's
+    # scale; leading layers whose FFN is dense (``d_ff``) in a moe model.
+    norm_eps: float = 1e-6
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    rope_full: bool = True
+    attn_gate: bool = False
+    sandwich_norm: bool = False
+    embed_scale: float = 1.0
+    num_dense_layers: int = 0
+
+    PORT_FIELDS = ("norm_eps", "layer_types", "sliding_window", "rope_full",
+                   "attn_gate", "sandwich_norm", "embed_scale",
+                   "num_dense_layers")
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
+
+    def window(self, layer: int) -> int:
+        """Layer ``layer``'s attention window (0: full causal)."""
+        if self.layer_types and self.layer_types[layer] == "sliding":
+            return self.sliding_window
+        return 0
+
+    def rope(self, layer: int) -> bool:
+        """Whether layer ``layer`` rotates q and k."""
+        return self.rope_full or self.window(layer) > 0
 
     @property
     def supports_long_context(self) -> bool:

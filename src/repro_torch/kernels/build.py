@@ -34,7 +34,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = {"pool_pack": "pool_pack.cu", "pool_unpack": "pool_unpack.cu",
            "chunk_l1norm": "chunk_l1norm.cu", "csc_compact": "csc_compact.cu",
-           "fused_update": "fused_update.cu", "ring_reduce": "ring_reduce.cu"}
+           "fused_update": "fused_update.cu", "ring_reduce": "ring_reduce.cu",
+           "grouped_mm": "grouped_mm.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -29,6 +29,15 @@ S and P in registers:
   log-sum-exp and accumulates dK and dV in f32.
 * ``flash_attn_bwd_dq``: one program a (query tile, batch x head) for dQ.
 
+Sliding windows (``window`` W > 0: query i sees key j when 0 <= i - j <
+W; afmoe's sliding layers): a ``WINDOW`` constexpr, 0 for full causal
+attention, whose kernels are the causal ones unchanged. With a window the
+forward and dQ start their key loop at the window's first tile and mask
+the tiles the window's edge cuts; dK/dV stops its query loop at the last
+query tile that sees the key tile. A window at least the sequence is no
+window (the causal kernels run). ``window_ranges`` is the tile plan the
+kernels compute, in Python, for the tests.
+
 No atomics: every output element is written by one program, so a run
 repeats bit for bit. q, k and v are read through their strides in the
 (b, s, h, hd) layout; a head dim that is not a power of two is padded
@@ -115,6 +124,41 @@ def plan_for(hd: int, dtype: torch.dtype) -> Plan:
     return TILES[(padded_head_dim(hd), torch.finfo(dtype).bits // 8)]
 
 
+def window_ranges(start: int, s: int, window: int, block_m: int,
+                  block_n: int, key_tile: bool = False):
+    """The kernels' loops as (lo, hi, mask) ranges of tile starts, mask
+    'edge' (the window's), 'none' or 'diagonal' (causal, and the window's
+    when there is one): the key tiles of the query tile at ``start``
+    (forward, dQ), or with ``key_tile`` the query tiles of the key tile
+    at ``start`` (dK/dV), whose query tiles are ``block_m`` rows and key
+    tiles ``block_n``."""
+    if key_tile:
+        diag = (start, min(start + block_n, s), "diagonal")
+        if not window:
+            return [diag, (start + block_n, s, "none")]
+        mid = max(start + block_n,
+                  (max(start + window - block_m, 0) // block_m + 1)
+                  * block_m)
+        mid = min(mid, s)
+        hi = min(s, start + block_n + window - 1)
+        return [diag, (start + block_n, mid, "none"), (mid, hi, "edge")]
+    diag = (start, min(start + block_m, s), "diagonal")
+    if not window:
+        return [(0, start, "none"), diag]
+    lo = max(start - window + 1, 0) // block_n * block_n
+    mid = -(-max(start + block_m - window, 0) // block_n) * block_n
+    mid = min(max(mid, lo), start)
+    return [(lo, mid, "edge"), (mid, start, "none"), diag]
+
+
+def kernel_window(window: int, s: int) -> int:
+    """The ``WINDOW`` the kernels take: 0 (full causal) for no window or
+    one that reaches the whole sequence."""
+    if window < 0:
+        raise ValueError(f"a window is at least 1 (0: none), got {window}")
+    return 0 if window >= s else window
+
+
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the kernels take (q, k, v): causal self-attention
     inputs of one shape (b, s, h, hd) and dtype (bf16 or f32), hd
@@ -172,13 +216,15 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           plan: Optional[Plan] = None
+           plan: Optional[Plan] = None, window: int = 0
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on q's device and current stream: (o (b, s, h,
     hd) contiguous in q's dtype, the f32 log-sum-exp (b, h, s) of the
-    scaled scores). ``plan`` overrides ``TILES`` (the sweep's)."""
+    scaled scores). ``plan`` overrides ``TILES`` (the sweep's);
+    ``window`` W > 0: sliding-window attention."""
     check(q, k, v)
     b, s, h, hd = q.shape
+    window = kernel_window(window, s)
     t = (plan or plan_for(hd, q.dtype)).fwd
     o = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -188,14 +234,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, o, lse, *q.stride(), *k.stride(), *v.stride(), h, s,
             hd ** -0.5 * LOG2E, HD=hd, HD_P=padded_head_dim(hd),
             BLOCK_M=t.block_m, BLOCK_N=t.block_n,
-            IEEE=q.dtype == torch.float32, num_warps=t.warps,
+            IEEE=q.dtype == torch.float32, WINDOW=window, num_warps=t.warps,
             num_stages=t.stages)
     return o, lse
 
 
 def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                    plan: Optional[Plan] = None
+                    plan: Optional[Plan] = None, window: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels (D, then dK and dV, then dQ) on q's device
     and current stream: (dq, dk, dv), each (b, s, h, hd) contiguous in
@@ -211,6 +257,7 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(do.shape)} {do.dtype}, {tuple(lse.shape)}")
     p = plan or plan_for(hd, q.dtype)
     hdp, ieee = padded_head_dim(hd), q.dtype == torch.float32
+    window = kernel_window(window, s)
     scale = hd ** -0.5
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
@@ -225,23 +272,24 @@ def launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kern.flash_attn_bwd_dkdv[(_cdiv(s, t.block_n), b * h)](
             q, k, v, do, lse, delta, dk, dv, *strides, h, s,
             scale * LOG2E, scale, HD=hd, HD_P=hdp, BLOCK_M=t.block_m,
-            BLOCK_N=t.block_n, IEEE=ieee, num_warps=t.warps,
+            BLOCK_N=t.block_n, IEEE=ieee, WINDOW=window, num_warps=t.warps,
             num_stages=t.stages)
         t = p.dq
         kern.flash_attn_bwd_dq[(_cdiv(s, t.block_m), b * h)](
             q, k, v, do, lse, delta, dq, *strides, h, s, scale * LOG2E,
             scale, HD=hd, HD_P=hdp, BLOCK_M=t.block_m, BLOCK_N=t.block_n,
-            IEEE=ieee, num_warps=t.warps, num_stages=t.stages)
+            IEEE=ieee, WINDOW=window, num_warps=t.warps, num_stages=t.stages)
     return dq, dk, dv
 
 
 # -- the plain version ------------------------------------------------------
 
 
-def _causal(q0: int, nq: int, k0: int, nk: int,
-            device: torch.device) -> torch.Tensor:
-    return (q0 + torch.arange(nq, device=device))[:, None] \
-        >= (k0 + torch.arange(nk, device=device))[None, :]
+def _causal(q0: int, nq: int, k0: int, nk: int, device: torch.device,
+            window: int = 0) -> torch.Tensor:
+    d = (q0 + torch.arange(nq, device=device))[:, None] \
+        - (k0 + torch.arange(nk, device=device))[None, :]
+    return (d >= 0) & (d < window) if window else d >= 0
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -251,14 +299,17 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          block: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+          block: int = 64, window: int = 0
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward in the kernels' online-softmax form, in PyTorch ops on
     any device: each key block of ``block`` positions in turn, the scores
     (the inputs' product in f32) scaled in f32 and masked causally, the
     running max and sum in f32, P cast to q's dtype to meet V, the f32
-    accumulator divided by the sum at the end. Returns (o (b, s, h, hd)
-    in q's dtype, the f32 log-sum-exp (b, h, s))."""
+    accumulator divided by the sum at the end; with a ``window``, a row
+    that sees no key of a block yet keeps a zero sum. Returns (o (b, s, h,
+    hd) in q's dtype, the f32 log-sum-exp (b, h, s))."""
     b, s, h, hd = q.shape
+    window = kernel_window(window, s)
     scale = hd ** -0.5
     qf, kf, vf = _f32(q), _f32(k), _f32(v)
     m = torch.full((b, h, s), float("-inf"), device=q.device)
@@ -267,11 +318,13 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j in range(0, s, block):
         kj, vj = kf[:, :, j:j + block], vf[:, :, j:j + block]
         sc = (qf @ kj.transpose(-1, -2)) * scale
-        sc = sc.masked_fill(~_causal(0, s, j, kj.shape[2], q.device),
-                            float("-inf"))
+        sc = sc.masked_fill(~_causal(0, s, j, kj.shape[2], q.device,
+                                     window), float("-inf"))
         m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.exp(sc - m_new[..., None])
-        alpha = torch.exp(m - m_new)
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new) \
+            if window else m_new
+        p = torch.exp(sc - m_use[..., None])
+        alpha = torch.exp(m - m_use)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + p.to(q.dtype).float() @ vj
         m = m_new
@@ -281,7 +334,7 @@ def plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                   block: int = 64
+                   block: int = 64, window: int = 0
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward the kernels follow, in PyTorch ops: D = rowsum(dO o)
     in f32; for each key block, P rebuilt from the log-sum-exp, dV = P^T
@@ -291,6 +344,7 @@ def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype."""
     b, s, h, hd = q.shape
     scale = hd ** -0.5
+    window = kernel_window(window, s)
     qf, kf, vf, of, dof = (_f32(x) for x in (q, k, v, o, do))
     d = (dof * of).sum(dim=-1)
     dq = torch.zeros((b, h, s, hd), device=q.device)
@@ -299,7 +353,7 @@ def plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kj, vj = kf[:, :, j:j + block], vf[:, :, j:j + block]
         sc = (qf @ kj.transpose(-1, -2)) * scale
         p = torch.exp(sc - lse[..., None]).masked_fill(
-            ~_causal(0, s, j, kj.shape[2], q.device), 0.0)
+            ~_causal(0, s, j, kj.shape[2], q.device, window), 0.0)
         dv[:, :, j:j + block] = p.to(q.dtype).float().transpose(-1, -2) @ dof
         ds = p * (dof @ vj.transpose(-1, -2) - d[..., None])
         ds = ds.to(q.dtype).float()
@@ -318,28 +372,30 @@ class _Attention(torch.autograd.Function):
     log-sum-exp: the kernels (``kernel`` True) or the plain version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kernel: bool):
-        o, lse = launch(q, k, v) if kernel else plain(q, k, v)
+    def forward(ctx, q, k, v, kernel: bool, window: int):
+        o, lse = launch(q, k, v, window=window) if kernel \
+            else plain(q, k, v, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kernel = kernel
+        ctx.kernel, ctx.window = kernel, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         fn = launch_backward if ctx.kernel else plain_backward
-        return (*fn(q, k, v, o, lse, do), None)
+        return (*fn(q, k, v, o, lse, do, window=ctx.window), None, None)
 
 
-def kernel_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
+def kernel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int = 0) -> torch.Tensor:
     """Causal self-attention of (b, s, h, hd) q, k, v through the kernels,
-    differentiable: o (b, s, h, hd) contiguous in q's dtype."""
-    return _Attention.apply(q, k, v, True)
+    differentiable: o (b, s, h, hd) contiguous in q's dtype. ``window``
+    W > 0: query i sees key j when 0 <= i - j < W."""
+    return _Attention.apply(q, k, v, True, window)
 
 
-def plain_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
     """``kernel_attention``'s function through the plain version, on any
     device."""
-    return _Attention.apply(q, k, v, False)
+    return _Attention.apply(q, k, v, False, window)

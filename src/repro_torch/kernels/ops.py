@@ -19,6 +19,7 @@ from repro_torch.kernels import chunk_l1norm as _cl
 from repro_torch.kernels import csc_compact as _cc
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import grouped_mm as _gm
 from repro_torch.kernels import pool_pack as _pp
 from repro_torch.kernels import pool_unpack as _pu
 from repro_torch.kernels import ref
@@ -126,19 +127,34 @@ def fused_update(master, grads, momentum_buf, mask, *, lr, momentum: float,
               weight_decay=weight_decay, scale=scale)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int = 0) -> torch.Tensor:
     """Causal self-attention of q, k, v (b, s, h, hd) -> o (b, s, h, hd)
     through the kernels, differentiable, its backward rebuilding P from
-    the forward's log-sum-exp; counted once a forward launch. Raises on
-    what the kernels do not take, CPU tensors included (``attend`` keeps
-    full and blockwise attention there)."""
+    the forward's log-sum-exp; counted once a forward launch. ``window``
+    W > 0: sliding-window attention. Raises on what the kernels do not
+    take, CPU tensors included (``attend`` keeps full and blockwise
+    attention there)."""
     # Counted before the launch: a remat recompute that stops early
     # (``torch.utils.checkpoint``) leaves the call once the forward has
     # launched and saved its tensors.
     _fa.check(q, k, v)
     _count("flash_attention", "kernel")
-    return _fa.kernel_attention(q, k, v)
+    return _fa.kernel_attention(q, k, v, window)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """x (R, K), its rows sorted by expert and ``counts`` (E,) of them an
+    expert, times w (E, K, N): (R, N), the rows past the experts' 0;
+    differentiable in x and w. The kernels on CUDA tensors, counted once
+    a forward launch; the plain version on CPU tensors."""
+    if not _on_cuda([x, w, counts]):
+        _count("grouped_mm", "plain")
+        return _gm.plain_grouped_mm(x, w, counts)
+    _gm.check(x, w, counts)
+    _count("grouped_mm", "kernel")
+    return _gm.kernel_grouped_mm(x, w, counts)
 
 
 class StreamWork:

@@ -76,6 +76,8 @@ def spec(cfg) -> Dict[str, ParamSpec]:
          "wk": ParamSpec((d, kv * hd), ("embed", "qkv"), fan_in_init(0)),
          "wv": ParamSpec((d, kv * hd), ("embed", "qkv"), fan_in_init(0)),
          "wo": ParamSpec((h * hd, d), ("qkv", "embed"), fan_in_init(0))}
+    if cfg.attn_gate:
+        p["wg"] = ParamSpec((d, h * hd), ("embed", "qkv"), fan_in_init(0))
     if cfg.qk_norm:
         p["q_norm"] = ParamSpec((hd,), (None,), ones_init)
         p["k_norm"] = ParamSpec((hd,), (None,), ones_init)
@@ -83,35 +85,39 @@ def spec(cfg) -> Dict[str, ParamSpec]:
 
 
 def _project_qkv(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg,
-                 positions: Optional[torch.Tensor] = None, kv_gather=None
+                 positions: Optional[torch.Tensor] = None, kv_gather=None,
+                 rope: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (b, s, h, hd), k and v (b, s, kv, hd); QK-norm before RoPE at
     ``positions`` (None: 0..s-1 for every row; a decode step passes its
-    (b, 1) device positions). ``kv_gather`` (a model axis's ``gather``)
-    joins the ranks' blocks of the k and v projections first: k and v
-    then have every KV head."""
+    (b, 1) device positions; ``rope`` False: no positions, NoPE).
+    ``kv_gather`` (a model axis's ``gather``) joins the ranks' blocks of
+    the k and v projections first: k and v then have every KV head."""
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if kv_gather is not None:
         k, v = kv_gather(torch.stack([k, v]), -1).unbind(0)
-    return _heads(params, q, k, v, cfg, positions)
+    return _heads(params, q, k, v, cfg, positions, rope)
 
 
 def _heads(params: Dict[str, torch.Tensor], q: torch.Tensor,
            k: torch.Tensor, v: torch.Tensor, cfg,
-           positions: Optional[torch.Tensor] = None
+           positions: Optional[torch.Tensor] = None, rope: bool = True
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The projections (b, s, n * hd) as heads (b, s, n, hd), q and k
-    QK-normed and rotated at ``positions`` (None: 0..s-1)."""
+    QK-normed and, with ``rope``, rotated at ``positions`` (None:
+    0..s-1)."""
     b, s, _ = q.shape
     hd = cfg.resolved_head_dim
     q = q.view(b, s, -1, hd)
     k = k.view(b, s, -1, hd)
     v = v.view(b, s, -1, hd)
     if cfg.qk_norm:
-        q = norms.rms_head_norm(params["q_norm"], q)
-        k = norms.rms_head_norm(params["k_norm"], k)
+        q = norms.rms_head_norm(params["q_norm"], q, cfg.norm_eps)
+        k = norms.rms_head_norm(params["k_norm"], k, cfg.norm_eps)
+    if not rope:
+        return q, k, v
     if positions is None:
         positions = torch.arange(s, device=q.device)
     cos, sin = rotary.rope_tables(positions, hd, cfg.rope_theta)
@@ -140,21 +146,25 @@ def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_mask(q0: int, nq: int, k0: int, nk: int,
-                 device: torch.device) -> torch.Tensor:
-    """(nq, nk) bool: query position q0 + r sees key position k0 + c."""
+                 device: torch.device, window: int = 0) -> torch.Tensor:
+    """(nq, nk) bool: query position q0 + r sees key position k0 + c
+    (with a ``window`` W, only the W latest: 0 <= i - j < W)."""
     qpos = q0 + torch.arange(nq, device=device)[:, None]
     kpos = k0 + torch.arange(nk, device=device)[None, :]
+    if window:
+        return (qpos >= kpos) & (qpos - kpos < window)
     return qpos >= kpos
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool) -> torch.Tensor:
+                   causal: bool, window: int = 0) -> torch.Tensor:
     """Attention with materialised scores; softmax in f32.
-    q, k, v: (b, s, h, hd) -> (b, s, h, hd)."""
+    q, k, v: (b, s, h, hd) -> (b, s, h, hd). ``window`` (causal only):
+    sliding-window attention over the ``window`` latest keys."""
     s = _scores(q, k)
     if causal:
         s = s.masked_fill(~_causal_mask(0, q.shape[1], 0, k.shape[1],
-                                        q.device), NEG_INF)
+                                        q.device, window), NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
@@ -180,7 +190,8 @@ def _block_attend(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, chunk_q: int, chunk_k: int,
-                        causal_skip: bool = True) -> torch.Tensor:
+                        causal_skip: bool = True,
+                        window: int = 0) -> torch.Tensor:
     """FlashAttention-style blockwise attention in PyTorch ops, the JAX
     package's recurrence and dtypes. q (b, sq, h, hd), k and v
     (b, sk, h, hd), sq and sk multiples of their chunks.
@@ -188,7 +199,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``causal_skip`` on a causal square grid: only the pairs (i, j <= i),
     in the JAX scan's order (i-major), each query block's accumulator
     kept in f32 and cast to q's dtype around every step. Otherwise the
-    full grid, masked when causal, the accumulator in q's dtype."""
+    full grid, masked when causal, the accumulator in q's dtype. A
+    ``window`` masks every block to the ``window`` latest keys (a block
+    pair with nothing kept still runs; every row keeps its own key)."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     if sq % chunk_q or sk % chunk_k:
@@ -208,7 +221,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
         for j in range(i + 1 if skip else nk):
             mask = _causal_mask(i * chunk_q, chunk_q, j * chunk_k, chunk_k,
-                                q.device) if causal else None
+                                q.device, window) if causal else None
             kj = k[:, j * chunk_k:(j + 1) * chunk_k]
             vj = v[:, j * chunk_k:(j + 1) * chunk_k]
             if skip:
@@ -234,11 +247,12 @@ def _pick_chunk(s: int, target: int, floor: int = 64) -> int:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, attn_chunk: int = 0,
-           causal_skip: bool = True) -> torch.Tensor:
+           causal_skip: bool = True, window: int = 0) -> torch.Tensor:
     """On CUDA tensors, causal self-attention (``sq == sk``) through the
     flash-attention kernels (``kernels.ops.flash_attention``), whatever
     ``attn_chunk``: they never build the score grid it cuts. Anything
-    else on CUDA raises (every caller is causal and square).
+    else on CUDA raises (every caller is causal and square). ``window``
+    W > 0: query i sees key j when 0 <= i - j < W.
 
     On CPU tensors: full attention up to ``attn_chunk`` tokens, blockwise
     beyond it; full attention again when either length has no divisor
@@ -250,21 +264,24 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"self-attention (the flash-attention "
                              f"kernels), got causal={causal}, {sq} queries "
                              f"and {sk} keys")
-        return ops.flash_attention(q, k, v)
+        return ops.flash_attention(q, k, v, window)
     if attn_chunk and max(sq, sk) > attn_chunk:
         cq = _pick_chunk(sq, attn_chunk)
         ck = _pick_chunk(sk, attn_chunk)
         if cq and ck:
             return blockwise_attention(q, k, v, causal=causal, chunk_q=cq,
-                                       chunk_k=ck, causal_skip=causal_skip)
-    return full_attention(q, k, v, causal=causal)
+                                       chunk_k=ck, causal_skip=causal_skip,
+                                       window=window)
+    return full_attention(q, k, v, causal=causal, window=window)
 
 
 def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                 attn_chunk: int = 0, causal_skip: bool = True,
-                model_axis=None) -> torch.Tensor:
+                model_axis=None, layer: int = 0) -> torch.Tensor:
     """Full-sequence causal attention for training; on the local heads
-    under a model axis that shards 'qkv'."""
+    under a model axis that shards 'qkv'. ``layer`` picks the layer's
+    kind (``cfg.window``, ``cfg.rope``); with ``cfg.attn_gate`` the
+    heads' output is gated, ``(o * sigmoid(x W_g)) W_o``."""
     tp = model_axis is not None and model_axis.sharded("qkv")
     gather = None
     if tp:
@@ -278,13 +295,17 @@ def apply_train(params: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
         if cfg.num_kv_heads % model_axis.size:
             gather = model_axis.gather
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, kv_gather=gather)
+    q, k, v = _project_qkv(params, x, cfg, kv_gather=gather,
+                           rope=cfg.rope(layer))
     if gather is not None:
         k, v = _kv_of_local_heads(k, v, q.shape[2], cfg, model_axis)
     groups = q.shape[2] // k.shape[2]
     out = attend(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                 causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip)
-    y = out.reshape(b, s, -1) @ params["wo"]
+                 causal=True, attn_chunk=attn_chunk, causal_skip=causal_skip,
+                 window=cfg.window(layer)).reshape(b, s, -1)
+    if cfg.attn_gate:
+        out = out * torch.sigmoid(x @ params["wg"])
+    y = out @ params["wo"]
     return model_axis.reduce_out(y) if tp else y
 
 

@@ -28,6 +28,20 @@ products column-parallel, ``wo`` row-parallel). Either way its combine
 is a partial sum of the output, all-reduced over the group with a dense
 residual's partial when the rules shard its 'mlp' too; the input's and
 the gates' gradients, each partial on a rank, are all-reduced.
+
+**Sigmoid routing** (``moe.score_func`` 'sigmoid', afmoe/Trinity;
+``apply_sigmoid``): scores s = sigmoid(x W_r), the router's product in
+f32; the top k chosen on s + bias (afmoe's expert bias is held at 0,
+its initial value: its update rule is a training recipe's, left out);
+the gates are the chosen scores over their sum (+1e-20), times
+``route_scale``; a shared SwiGLU expert (``shared_d_ff``) adds its output
+for every token. Dropless, with no aux loss. The layer holds
+``experts_held`` experts (the chip's share under expert parallelism, the
+router keeping every expert's output): it computes only the slots routed
+to them, through ``kernels.ops.grouped_mm`` over the slots sorted by
+expert, and a slot routed elsewhere adds 0 (the absent chips' part of the
+result is left out). Shapes are static and nothing is read back to the
+host, so a CUDA graph captures the layer.
 """
 from __future__ import annotations
 
@@ -36,22 +50,28 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.layers import mlp as mlp_mod
 from repro_torch.models.params import ParamSpec, fan_in_init
+from repro_torch.runtime import trace
 
 
 def spec(cfg) -> Dict[str, Any]:
     assert cfg.moe is not None
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.expert_d_ff or cfg.d_ff, m.num_experts
     p: Dict[str, Any] = {
         "router": ParamSpec((d, e), ("embed", None), fan_in_init(0)),
-        "wi_gate": ParamSpec((e, d, f), ("expert", "embed", "expert_mlp"),
+        "wi_gate": ParamSpec((m.held, d, f),
+                             ("expert", "embed", "expert_mlp"),
                              fan_in_init(1)),
-        "wi_up": ParamSpec((e, d, f), ("expert", "embed", "expert_mlp"),
+        "wi_up": ParamSpec((m.held, d, f), ("expert", "embed", "expert_mlp"),
                            fan_in_init(1)),
-        "wo": ParamSpec((e, f, d), ("expert", "expert_mlp", "embed"),
+        "wo": ParamSpec((m.held, f, d), ("expert", "expert_mlp", "embed"),
                         fan_in_init(1)),
     }
+    if m.shared_d_ff:
+        p["shared"] = mlp_mod.spec(cfg, d_ff=m.shared_d_ff)
     if cfg.moe.dense_residual:
         # Arctic: a small dense MLP runs in parallel with the MoE FFN.
         p["residual"] = mlp_mod.spec(cfg, d_ff=cfg.moe.residual_d_ff
@@ -167,12 +187,104 @@ def combine(out: torch.Tensor, dst: torch.Tensor, kept: torch.Tensor,
     return y
 
 
+def route_sigmoid(logits: torch.Tensor, k: int, scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates (T, k) f32, expert indices (T, k)) of f32 router logits (T,
+    E): the sigmoid scores, the k largest of scores + the expert bias (0)
+    in descending order with ties to the lower index, their scores over
+    their sum (+1e-20), times ``scale``."""
+    scores = torch.sigmoid(logits)
+    idx = torch.sort(scores.detach(), dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    g = torch.gather(scores, -1, idx)
+    return g / (torch.sum(g, dim=-1, keepdim=True) + 1e-20) * scale, idx
+
+
+def sort_slots(idx: torch.Tensor, held: int, first: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, counts) of the T·k slots, token-major: ``order`` lists the
+    slots routed to experts first .. first + held - 1 grouped by expert,
+    each expert's in slot order (a stable sort), then the slots routed
+    elsewhere; ``counts`` (held,) int32, each expert's slots. On the
+    device, nothing read back."""
+    local = idx.reshape(-1) - first
+    key = torch.where((local >= 0) & (local < held), local,
+                      torch.full_like(local, held))
+    keys, order = torch.sort(key, stable=True)
+    ends = torch.searchsorted(keys, torch.arange(1, held + 1,
+                                                 device=keys.device))
+    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    return order, (ends - starts).to(torch.int32)
+
+
+class _CountRows(torch.autograd.Function):
+    """The identity on the layer's output, whose backward (once a step,
+    under layer remat too) adds the held experts' slots to the ``moe``
+    tally ``rows``."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        ctx.rows = rows
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, dy):
+        trace.tally("moe", "rows", ctx.rows)
+        return dy, None
+
+
+def apply_sigmoid(params: Dict[str, Any], x: torch.Tensor, cfg,
+                  first: int = 0, model_axis=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """afmoe's MoE layer (module docstring) on the experts ``params``
+    holds, the global experts ``first`` .. ``first + held - 1``: x (B, S,
+    D) -> (output (B, S, D), a zero aux loss). Each token's gated
+    contributions are added in slot order, then the shared expert's."""
+    if model_axis is not None and model_axis.size > 1:
+        raise NotImplementedError(
+            "the sigmoid-routed MoE layer runs one chip's share of the "
+            "experts: the all-to-all between expert-parallel chips is not "
+            "written")
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k = b * s, m.top_k
+    xt = x.reshape(t, d)
+    held = params["wi_gate"].shape[0]
+    with trace.span("moe.route"):
+        # In f32, so that the compute dtype's rounding of the logits
+        # does not reorder the top k.
+        gates, idx = route_sigmoid(xt.float() @ params["router"].float(),
+                                   k, m.route_scale)
+    with trace.span("moe.permute"):
+        order, counts = sort_slots(idx, held, first)
+        xs = xt[order // k]
+    with trace.span("moe.experts"):
+        h = F.silu(ops.grouped_mm(xs, params["wi_gate"], counts)) \
+            * ops.grouped_mm(xs, params["wi_up"], counts)
+        out = ops.grouped_mm(h, params["wo"], counts)
+    with trace.span("moe.combine"):
+        pos = torch.empty_like(order)
+        pos[order] = torch.arange(t * k, device=order.device)
+        # A slot no held expert takes reads a zero row.
+        weighted = out[pos].view(t, k, d) * gates.to(out.dtype)[..., None]
+        y = weighted[:, 0]
+        for j in range(1, k):
+            y = y + weighted[:, j]
+    if m.shared_d_ff:
+        y = y + mlp_mod.partial(params["shared"], xt, cfg)
+    y = _CountRows.apply(y, counts.sum())
+    return y.reshape(b, s, d), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
+
+
 def apply(params: Dict[str, Any], x: torch.Tensor, cfg, model_axis=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (output (B, S, D), f32 aux loss). Under a model
     axis (see the module docstring) every rank holds the whole x and
     returns the whole output."""
     m = cfg.moe
+    if m.score_func == "sigmoid":
+        return apply_sigmoid(params, x, cfg, model_axis=model_axis)
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, idx, aux = gate(params, xt, cfg)

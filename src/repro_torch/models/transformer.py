@@ -14,6 +14,15 @@ stored (in, out) and used as ``x @ W``, the tied head ``embed.T``. The
 layer loop indexes the stacks (``unbind``) and wraps each layer in
 ``torch.utils.checkpoint`` when ``remat='layer'``.
 
+Layers that differ (the port's afmoe, Trinity): each layer's attention
+kind comes from ``cfg.layer_types`` (sliding-window or full, NoPE on the
+full ones without ``rope_full``), an output gate with ``attn_gate``, a
+norm after attention and after the FFN too with ``sandwich_norm``
+(``attn_post_norm``, ``mlp_post_norm``), the embedding times
+``embed_scale``; a moe model's ``num_dense_layers`` leading layers have a
+dense FFN, stacked apart (``layers/dense_ffn``, then ``layers/ffn`` over
+the MoE layers), the attention and norms stacked over every layer.
+
 Serving (``serve_step``): a prefill of the prompt, then one-token decode
 steps, against a KV cache stacked along the layer axis (one index a
 layer), under ``torch.no_grad``; the cache passed in is updated in
@@ -33,16 +42,37 @@ from repro_torch.models.layers import attention, embedding, mlp, moe, norms
 FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
+def dense_layers(cfg) -> int:
+    """Leading layers whose FFN is dense in a moe model (stacked apart)."""
+    return cfg.num_dense_layers if cfg.moe is not None else 0
+
+
 def block_spec(cfg) -> Dict[str, Any]:
-    return {"attn_norm": norms.spec(cfg), "attn": attention.spec(cfg),
-            "mlp_norm": norms.spec(cfg),
-            "ffn": moe.spec(cfg) if cfg.moe is not None else mlp.spec(cfg)}
+    """One layer's weights; without the FFN when dense layers lead."""
+    p = {"attn_norm": norms.spec(cfg), "attn": attention.spec(cfg),
+         "mlp_norm": norms.spec(cfg)}
+    if cfg.sandwich_norm:
+        p["attn_post_norm"] = norms.spec(cfg)
+        p["mlp_post_norm"] = norms.spec(cfg)
+    if not dense_layers(cfg):
+        p["ffn"] = moe.spec(cfg) if cfg.moe is not None else mlp.spec(cfg)
+    return p
+
+
+def layers_spec(cfg) -> Dict[str, Any]:
+    layers = params_mod.stack_spec(block_spec(cfg), cfg.num_layers)
+    nd = dense_layers(cfg)
+    if nd:
+        layers["dense_ffn"] = params_mod.stack_spec(mlp.spec(cfg), nd)
+        layers["ffn"] = params_mod.stack_spec(moe.spec(cfg),
+                                              cfg.num_layers - nd)
+    return layers
 
 
 def param_specs(cfg) -> Dict[str, Any]:
     p: Dict[str, Any] = {
         "embed": embedding.spec(cfg),
-        "layers": params_mod.stack_spec(block_spec(cfg), cfg.num_layers),
+        "layers": layers_spec(cfg),
         "final_norm": norms.spec(cfg),
     }
     if not cfg.tie_embeddings:
@@ -52,21 +82,28 @@ def param_specs(cfg) -> Dict[str, Any]:
 
 def block_apply(layer_params: Dict[str, Any], x: torch.Tensor, cfg, *,
                 attn_chunk: int = 0, causal_skip: bool = False,
-                model_axis=None
+                model_axis=None, layer: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(x, the MoE block's f32 aux loss, or None for a dense FFN)."""
-    h = norms.apply(layer_params["attn_norm"], x, cfg.norm)
-    x = x + attention.apply_train(layer_params["attn"], h, cfg,
-                                  attn_chunk=attn_chunk,
-                                  causal_skip=causal_skip,
-                                  model_axis=model_axis)
-    h = norms.apply(layer_params["mlp_norm"], x, cfg.norm)
-    if cfg.moe is not None:
+    """(x, the MoE block's f32 aux loss, or None for a dense FFN) of
+    layer ``layer``."""
+    eps = cfg.norm_eps
+    h = norms.apply(layer_params["attn_norm"], x, cfg.norm, eps)
+    h = attention.apply_train(layer_params["attn"], h, cfg,
+                              attn_chunk=attn_chunk, causal_skip=causal_skip,
+                              model_axis=model_axis, layer=layer)
+    if cfg.sandwich_norm:
+        h = norms.apply(layer_params["attn_post_norm"], h, cfg.norm, eps)
+    x = x + h
+    h = norms.apply(layer_params["mlp_norm"], x, cfg.norm, eps)
+    aux = None
+    if cfg.moe is not None and layer >= dense_layers(cfg):
         h, aux = moe.apply(layer_params["ffn"], h, cfg,
                            model_axis=model_axis)
-        return x + h, aux
-    return x + mlp.apply(layer_params["ffn"], h, cfg,
-                         model_axis=model_axis), None
+    else:
+        h = mlp.apply(layer_params["ffn"], h, cfg, model_axis=model_axis)
+    if cfg.sandwich_norm:
+        h = norms.apply(layer_params["mlp_post_norm"], h, cfg.norm, eps)
+    return x + h, aux
 
 
 def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -87,6 +124,19 @@ def unstack(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     return [_layer(per_layer, i) for i in range(n)]
 
 
+def layer_list(layers: Dict[str, Any], cfg) -> List[Dict[str, Any]]:
+    """Each layer's weights, its FFN under 'ffn' (from the dense stack
+    for the leading dense layers)."""
+    nd = dense_layers(cfg)
+    if not nd:
+        return unstack(layers, cfg.num_layers)
+    ffn = unstack(layers["dense_ffn"], nd) \
+        + unstack(layers["ffn"], cfg.num_layers - nd)
+    rest = {k: v for k, v in layers.items() if k not in ("dense_ffn", "ffn")}
+    return [{**lp, "ffn": f}
+            for lp, f in zip(unstack(rest, cfg.num_layers), ffn)]
+
+
 def checkpointed(fn, x: torch.Tensor):
     """``fn(x)`` under a non-reentrant ``torch.utils.checkpoint``: its
     activations are recomputed in the backward pass. The models draw no
@@ -105,15 +155,15 @@ def backbone(params: Dict[str, Any], x: torch.Tensor, cfg, *,
     rank."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device) \
         if cfg.moe is not None else None
-    for lp in unstack(params["layers"], cfg.num_layers):
+    for i, lp in enumerate(layer_list(params["layers"], cfg)):
         if remat == "layer":
-            x, a = checkpointed(lambda h, lp=lp: block_apply(
+            x, a = checkpointed(lambda h, lp=lp, i=i: block_apply(
                 lp, h, cfg, attn_chunk=attn_chunk, causal_skip=causal_skip,
-                model_axis=model_axis), x)
+                model_axis=model_axis, layer=i), x)
         else:
             x, a = block_apply(lp, x, cfg, attn_chunk=attn_chunk,
                                causal_skip=causal_skip,
-                               model_axis=model_axis)
+                               model_axis=model_axis, layer=i)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -252,6 +302,8 @@ class TransformerLM(LanguageModel):
         cfg = self.cfg
         x = embedding.embed(params["embed"], batch["tokens"], cfg,
                             compute_dtype, model_axis=model_axis)
+        if cfg.embed_scale != 1.0:
+            x = x * cfg.embed_scale
         vision = 0
         if cfg.family == "vlm":
             if "vision_embeds" not in batch:
@@ -262,7 +314,7 @@ class TransformerLM(LanguageModel):
             x = torch.cat([vis, x], dim=1)
         x, aux = backbone(params, x, cfg, remat=remat, attn_chunk=attn_chunk,
                           causal_skip=causal_skip, model_axis=model_axis)
-        x = norms.apply(params["final_norm"], x, cfg.norm)
+        x = norms.apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
         if vision:
             x = x[:, vision:, :]
         lg = embedding.logits(self._head_params(params), x, cfg,
@@ -342,6 +394,10 @@ class TransformerLM(LanguageModel):
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown serve mode {mode!r}")
         cfg = self.cfg
+        if cfg.layer_types or dense_layers(cfg) or cfg.sandwich_norm:
+            raise NotImplementedError(
+                f"{cfg.name}: serving layers that differ (windows, dense "
+                f"leading layers, sandwich norms) is not written")
         x = self._embed_inputs(params, batch, compute_dtype, model_axis)
         for i, lp in enumerate(unstack(params["layers"], cfg.num_layers)):
             x, _ = self._serve_block(lp, x, params_mod.index_struct(cache, i),

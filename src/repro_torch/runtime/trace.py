@@ -15,6 +15,8 @@ Names are fixed strings with a layer prefix:
   ``launch.replay``, ``launch.reduce_metrics``, and in a window's set-up
   ``launch.warmup`` and ``launch.capture``;
 * ``model.forward`` and ``model.backward`` (each microbatch);
+* ``moe.route``, ``moe.permute``, ``moe.experts``, ``moe.combine`` (the
+  sigmoid-routed MoE layer's stages, each forward, remat's too);
 * ``gf.pack``, ``gf.census``, ``gf.select``, ``gf.gather``, ``gf.issue``
   (one bucket's collective issued), ``gf.wait``, ``gf.scatter``,
   ``gf.update`` (one span's unpack-update), ``gf.apply_inflight``;
@@ -31,10 +33,16 @@ always on (host integer adds):
   dtype it travels in;
 * ``model_axis``: ``all_reduces`` and ``bytes`` of the model group's;
 * ``launch``: ``warmup_s`` and ``capture_s``, the host seconds of the
-  ``launch.warmup`` and ``launch.capture`` spans (``timed``).
+  ``launch.warmup`` and ``launch.capture`` spans (``timed``);
+* ``moe``: ``rows``, the slots the held experts computed, a device
+  tally (each sigmoid-routed MoE layer's backward adds its own once a
+  step, remat or not).
 
 Counters count host events: a CUDA graph's work is counted once, when it
-is captured.
+is captured. A device tally (``tally``) is a counter kept on the device
+and added to by the program's own kernels, so every replay of a graph
+counts; it is read (a host sync) only at a profiled call's start and
+end, and its change joins that call's record.
 
 **Call records.** ``call(steps)`` opens ``launch.call`` and, for the
 outermost call, leaves a record in ``records`` (the last
@@ -49,8 +57,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import time
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
+import torch
 from torch.autograd import profiler as _profiler
 
 Counts = Dict[str, Dict[str, float]]
@@ -61,6 +70,9 @@ counters: Counts = {
     "model_axis": {"all_reduces": 0, "bytes": 0},
     "launch": {"warmup_s": 0.0, "capture_s": 0.0},
 }
+
+# (group, name) -> {device: int64 0-dim tensor}
+_tallies: Dict[Tuple[str, str], Dict[torch.device, torch.Tensor]] = {}
 
 RECORDS = 64
 records: Deque[Dict] = collections.deque(maxlen=RECORDS)
@@ -105,6 +117,32 @@ class timed:
         return self._span.__exit__(*exc)
 
 
+def tally(group: str, name: str, value: torch.Tensor) -> None:
+    """Add the 0-dim integer tensor ``value`` to the device tally (group,
+    name) on its device, in place: inside a CUDA graph capture the add is
+    a node of the graph, so every replay counts. A tally is made at its
+    first add, which must run outside a capture (a window's warm-up body
+    runs first)."""
+    per = _tallies.setdefault((group, name), {})
+    t = per.get(value.device)
+    if t is None:
+        if value.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the device tally {group}.{name} is first "
+                               f"added to inside a CUDA graph capture")
+        t = per[value.device] = torch.zeros((), dtype=torch.int64,
+                                            device=value.device)
+    t.add_(value)
+
+
+def tallies() -> Counts:
+    """Every device tally, summed over its devices: a host read of each
+    (it waits for the device)."""
+    out: Counts = {}
+    for (group, name), per in _tallies.items():
+        out.setdefault(group, {})[name] = sum(int(t) for t in per.values())
+    return out
+
+
 def snapshot() -> Counts:
     """A copy of every group."""
     return {g: dict(c) for g, c in counters.items()}
@@ -143,6 +181,8 @@ class call:
             self._before = snapshot()
             self.extra: Counts = {}
             self.profiled = recording()
+            if self.profiled:
+                self._tallied = tallies()
         _open.append(self)
         self._span = span("launch.call")
         self._span.__enter__()
@@ -153,6 +193,8 @@ class call:
         _open.pop()
         if self._before is not None and kind is None:
             counts = add(delta(snapshot(), self._before), self.extra)
+            if self.profiled:
+                add(counts, delta(tallies(), self._tallied))
             records.append({"steps": self.steps, "counts": counts,
                             "profiled": self.profiled})
         return False

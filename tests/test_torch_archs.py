@@ -63,9 +63,13 @@ def test_configs_match_jax(arch):
         j_cfg, j_rules = get_j(arch)
         assert rules == dict(j_rules)  # the JAX package's rule table
         got = _fields(t_cfg)
+        port = {k: got.pop(k) for k in ModelConfig.PORT_FIELDS}
         assert got == {k: getattr(j_cfg, k) for k in got}, arch
-        # The port carries every field of the JAX config.
+        # The port carries every field of the JAX config, and its own
+        # fields (the port's architectures') at their defaults.
         assert set(got) == set(_fields(j_cfg)), arch
+        assert port == {k: getattr(ModelConfig(), k)
+                        for k in ModelConfig.PORT_FIELDS}, arch
         assert t_cfg.resolved_head_dim == j_cfg.resolved_head_dim
         assert t_cfg.supports_long_context == j_cfg.supports_long_context
 

@@ -1191,3 +1191,167 @@ def test_cuda_attend_takes_the_kernel_or_raises(dev):
         attention.attend(*(x.to(torch.float64) for x in (q, k, v)),
                          causal=True)
     assert ops.dispatch_counts == {"flash_attention.kernel": 4}
+
+
+# -- sliding windows and the experts' grouped GEMM (afmoe) --------------------
+
+# (b, s, h, hd, window): windows that are no multiple of a tile, lengths
+# that are none either (a ragged last tile), a window of a few keys, and
+# the benchmark cell's head at a quarter of its context.
+WINDOW_SHAPES = [(2, 300, 4, 128, 100), (1, 1000, 3, 128, 129),
+                 (2, 333, 2, 64, 77), (1, 200, 2, 128, 5),
+                 (1, 4096, 4, 128, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", WINDOW_SHAPES, ids=str)
+def test_cuda_windowed_flash_attention_matches_plain(dev, shape):
+    """The windowed kernels against the plain version with the window,
+    forward and backward, to the causal kernels' tolerances."""
+    from repro_torch.kernels import flash_attention as fa
+
+    *dims, window = shape
+    q, k, v, do = _flash_inputs(dev, tuple(dims), seed=window)
+    o, lse = fa.launch(q, k, v, window=window)
+    want_o, want_lse = fa.plain(q, k, v, window=window)
+    grads = fa.launch_backward(q, k, v, o, lse, do, window=window)
+    want_grads = fa.plain_backward(q, k, v, o, lse, do, window=window)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max().item() <= FLASH_LSE_TOL
+    _flash_close(o, want_o, "o")
+    for label, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        _flash_close(g, w, label)
+
+
+@pytest.mark.cuda
+def test_cuda_window_reaching_the_sequence_is_the_causal_kernel(dev):
+    """A window at least the sequence gives the causal kernels' bits (it
+    launches them), forward and backward; ops counts a windowed launch
+    as any other."""
+    q, k, v, do = _flash_inputs(dev, (2, 500, 4, 128), seed=11)
+    ops.reset_counts()
+    outs = []
+    for window in (0, 500, 4096):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        o = ops.flash_attention(*leaves, window)
+        outs.append([o] + list(torch.autograd.grad(o, leaves, do)))
+    assert all(torch.equal(a, b) for out in outs[1:]
+               for a, b in zip(out, outs[0]))
+    assert ops.dispatch_counts == {"flash_attention.kernel": 3}
+
+
+def _gmm_case(dev, counts, d, f, dtype, tail=37, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    rows = sum(counts) + tail
+    x = torch.randn(rows, d, generator=gen).to(dev, dtype)
+    w = (torch.randn(len(counts), d, f, generator=gen) * 0.05).to(dev, dtype)
+    dy = torch.randn(rows, f, generator=gen).to(dev, dtype)
+    return x, w, dy, torch.tensor(counts, device=dev)
+
+
+# The kernels multiply bf16 operands exactly and sum in f32, as the loop
+# of torch.mm in f32 does, in another order; the kernel's output is then
+# rounded to bf16 once (half an ulp, 2^-8 relative): within 2^-7 of the
+# loop's largest |value|.
+GMM_TOL = {torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,d,f,dtype", [
+    ([1061, 235, 0, 3839, 905, 0, 2763, 7], 2048, 1024, torch.bfloat16),
+    ([0, 0, 1000, 0], 128, 64, torch.bfloat16),
+    ([3, 0, 70, 0, 129, 1], 96, 80, torch.bfloat16)], ids=str)
+def test_cuda_grouped_mm_matches_a_loop(dev, counts, d, f, dtype):
+    """The forward, dX (the forward on W transposed) and dW against a
+    per-expert loop of torch.mm in f32: experts without rows, all rows on
+    one expert, rows past the experts' (0 out), K and N that are no
+    multiple of a tile; dW repeats its bits."""
+    from repro_torch.kernels import grouped_mm as gm
+
+    x, w, dy, c = _gmm_case(dev, counts, d, f, dtype)
+    got = [gm.launch(x, w, c), gm.launch(dy, w.transpose(1, 2), c),
+           gm.launch_dw(x, dy, c)]
+    want = [torch.zeros(x.shape[0], f, device=dev),
+            torch.zeros(x.shape[0], d, device=dev),
+            torch.zeros(len(counts), d, f, device=dev)]
+    o = 0
+    for e, n in enumerate(counts):
+        want[0][o:o + n] = x[o:o + n].float() @ w[e].float()
+        want[1][o:o + n] = dy[o:o + n].float() @ w[e].float().T
+        want[2][e] = x[o:o + n].float().T @ dy[o:o + n].float()
+        o += n
+    torch.cuda.synchronize()
+    for label, g, h in zip(("y", "dx", "dw"), got, want):
+        assert g.dtype == dtype and g.is_contiguous()
+        err = (g.float() - h).abs().max().item()
+        assert err <= GMM_TOL[dtype] * h.abs().max().item(), (label, err)
+    assert (got[0][o:] == 0).all() and (got[1][o:] == 0).all()
+    assert torch.equal(gm.launch_dw(x, dy, c), got[2])
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_mm_through_ops_and_autograd(dev):
+    """ops.grouped_mm launches the kernel (counted a forward), and its
+    gradients are the kernels' dX and dW."""
+    from repro_torch.kernels import grouped_mm as gm
+
+    x, w, dy, c = _gmm_case(dev, [40, 0, 300, 9], 256, 128, torch.bfloat16)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    ops.reset_counts()
+    y = ops.grouped_mm(*leaves, c)
+    dx, dw = torch.autograd.grad(y, leaves, dy)
+    assert ops.dispatch_counts == {"grouped_mm.kernel": 1}
+    with pytest.raises(ValueError, match="bf16"):
+        ops.grouped_mm(x.float(), w.float(), c)
+    assert torch.equal(y, gm.launch(x, w, c))
+    assert torch.equal(dx, gm.launch(dy, w.transpose(1, 2), c))
+    assert torch.equal(dw, gm.launch_dw(x, dy, c))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_graph_replays_bit_identically(dev):
+    """One Trinity MoE layer (trinity-mini-ep4's widths, 2 x 1024 tokens)
+    forward and backward, eager then captured in a CUDA graph: every
+    replay gives the eager bits (no host read of the routing)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import params as params_mod
+    from repro_torch.models.layers import moe
+
+    cfg, _ = get_arch("trinity-mini-ep4")
+    p = params_mod.init_params(moe.spec(cfg), 0, dev, on_device=True)
+    leaves = []
+
+    def cast(tree):
+        out = {}
+        for name, t in tree.items():
+            if isinstance(t, dict):
+                out[name] = cast(t)
+            else:
+                out[name] = t.to(torch.bfloat16).requires_grad_(True)
+                leaves.append(out[name])
+        return out
+    p = cast(p)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 1024, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    leaves.append(x)
+
+    def body():
+        for t in leaves:
+            t.grad = None
+        y, _ = moe.apply(p, x, cfg)
+        (y.float() ** 2).mean().backward()
+        return [y] + [t.grad for t in leaves]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [t.clone() for t in body()]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = body()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))

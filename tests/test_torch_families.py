@@ -45,7 +45,8 @@ from repro.models import registry as j_registry
 from repro.parallel.sharding import abstract_params, count_params, init_params
 from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
-from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.configs.base import (ModelConfig, MoEConfig, ShapeConfig,
+                                      TrainConfig)
 from repro_torch.core.pool import (GradientPool, flatten_tree, tree_def,
                                    unflatten_tree)
 from repro_torch.data.synthetic import SyntheticLM
@@ -89,12 +90,18 @@ def test_configs_match_jax(arch):
         j_cfg, j_rules = get_j(arch)
         assert rules == dict(j_rules)  # the JAX package's rule table
         got, want = _fields(t_cfg), _fields(j_cfg)
+        # The port's own fields (its architectures'), at their defaults.
+        assert {k: got.pop(k) for k in ModelConfig.PORT_FIELDS} == \
+            {k: getattr(ModelConfig(), k) for k in ModelConfig.PORT_FIELDS}
         assert set(got) == set(want)
         t_moe, j_moe = got.pop("moe"), want.pop("moe")
         assert got == want, arch
         assert (t_moe is None) == (j_moe is None)
         if t_moe is not None:
-            assert _fields(t_moe) == _fields(j_moe)
+            got_moe = _fields(t_moe)
+            assert {k: got_moe.pop(k) for k in MoEConfig.PORT_FIELDS} == \
+                {k: getattr(MoEConfig(), k) for k in MoEConfig.PORT_FIELDS}
+            assert got_moe == _fields(j_moe)
 
 
 def _batch(cfg, rng, batch=B, seq=S):

@@ -49,6 +49,7 @@ from repro.models.layers import mamba2 as j_mamba2
 from repro.parallel.sharding import abstract_params, count_params, init_params
 from repro_torch import convert
 from repro_torch.configs import ARCH_IDS, get_arch, get_smoke, shapes
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pool import (GradientPool, flatten_tree, tree_def,
                                    unflatten_tree)
 from repro_torch.models import HybridLM, MambaLM, build_model
@@ -93,6 +94,9 @@ def test_configs_match_jax(arch):
         j_cfg, j_rules = get_j(arch)
         assert rules == dict(j_rules)  # the JAX package's rule table
         got, want = _fields(t_cfg), _fields(j_cfg)
+        # The port's own fields (its architectures'), at their defaults.
+        assert {k: got.pop(k) for k in ModelConfig.PORT_FIELDS} == \
+            {k: getattr(ModelConfig(), k) for k in ModelConfig.PORT_FIELDS}
         assert set(got) == set(want)
         t_ssm, j_ssm = got.pop("ssm"), want.pop("ssm")
         assert got == want, arch
